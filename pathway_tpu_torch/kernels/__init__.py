@@ -1,0 +1,59 @@
+"""The port's hand-written CUDA kernels for Hopper (``sm_90a``).
+
+=============  ==========================  =================================
+kernel         source                      replaces (JAX program)
+=============  ==========================  =================================
+K1 attention   ``csrc/attention.cu``       ``models/encoder.py:113-117``
+K2 slab        ``csrc/slab_scatter.cu``    ``parallel/sharded_knn.py:123-176``
+K3 knn_topk    ``csrc/knn_topk.cu``        ``parallel/sharded_knn.py:336-341``
+=============  ==========================  =================================
+
+Each wrapper checks device, dtype, shape and contiguity, launches its
+kernel on PyTorch's current stream for CUDA tensors and counts each
+kernel launch in its ``launches`` attribute (``knn_topk`` launches pass 1
+and its merge passes, one count each); for CPU tensors it runs the plain
+PyTorch version beside it.  Kernels build from ``csrc/`` at first use
+(:mod:`pathway_tpu_torch.kernels._build`).
+"""
+
+from pathway_tpu_torch.kernels.attention import attention, attention_plain
+from pathway_tpu_torch.kernels.knn_topk import MAX_K, knn_topk, knn_topk_plain
+from pathway_tpu_torch.kernels.slab_scatter import (
+    slab_clear,
+    slab_clear_plain,
+    slab_scatter,
+    slab_scatter_plain,
+)
+
+__all__ = [
+    "attention",
+    "attention_plain",
+    "slab_scatter",
+    "slab_scatter_plain",
+    "slab_clear",
+    "slab_clear_plain",
+    "knn_topk",
+    "knn_topk_plain",
+    "MAX_K",
+    "WRAPPERS",
+    "launch_counts",
+    "reset_launch_counts",
+]
+
+#: every kernel wrapper, by the name its launch count is reported under
+WRAPPERS = {
+    "attention": attention,
+    "slab_scatter": slab_scatter,
+    "slab_clear": slab_clear,
+    "knn_topk": knn_topk,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """CUDA kernel launches per wrapper since the last reset."""
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0

@@ -1,0 +1,131 @@
+"""Build the port's CUDA kernels from ``kernels/csrc`` at first use.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface, loaded with ``ctypes``
+(no PyTorch headers, so a build takes seconds, not minutes).  Libraries
+go into ``kernels/_build/`` (git-ignored), named by a hash of their
+source, so an edited source is rebuilt and an unchanged one is reused.
+:func:`build_all` starts one ``nvcc`` per source at once and waits for
+all of them.  A failed build raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["NAMES", "build_all", "library", "ptxas_report"]
+
+NAMES = ("attention", "slab_scatter", "knn_topk")
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD = Path(__file__).resolve().parent / "_build"
+_ARCH = "arch=compute_90a,code=sm_90a"
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+_ptxas: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin and on PATH): the port's "
+        "CUDA kernels are built from kernels/csrc at first use"
+    )
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes() + _ARCH.encode())
+    return _BUILD / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all(names=NAMES) -> None:
+    """Compile every library in ``names`` that is not built yet, one
+    ``nvcc`` per source, all at once; load them."""
+    with _lock:
+        todo = [n for n in names if n not in _libs]
+        if not todo:
+            return
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name in todo:
+            out = _target(name)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [
+                _nvcc(), "-gencode", _ARCH, "-std=c++17", "-O3", "-shared",
+                "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+                "-o", str(tmp), str(_CSRC / f"{name}.cu"),
+            ]
+            procs[name] = (
+                subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                tmp,
+                out,
+            )
+        failed = []
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            _ptxas[name] = log
+            if proc.returncode != 0:
+                failed.append(f"--- {name}.cu (nvcc exit {proc.returncode}) ---\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        for name in todo:
+            _libs[name] = _declare(name, ctypes.CDLL(str(_target(name))))
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all((name,))
+        lib = _libs[name]
+    return lib
+
+
+def ptxas_report(name: str) -> str:
+    """``nvcc -Xptxas -v`` output of this process's build of ``name``
+    (empty when the library was already built)."""
+    return _ptxas.get(name, "")
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+
+_SIGNATURES = {
+    "attention": {"pw_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]},
+    "slab_scatter": {
+        "pw_slab_scatter": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
+        "pw_slab_clear": [_P, _P, _I, _LL, _P],
+    },
+    "knn_topk": {
+        "pw_knn_partial": [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _I, _P],
+        "pw_knn_partial_tiled": [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
+        "pw_knn_merge": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+}
+
+
+def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    for fn, argtypes in _SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return lib

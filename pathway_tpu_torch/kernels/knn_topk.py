@@ -1,0 +1,127 @@
+"""K3: fused retrieval scores + valid mask + top-k (``csrc/knn_topk.cu``).
+
+Replaces ``_search_jit`` -> ``run``, ``pathway_tpu/parallel/sharded_knn.py:
+336-341``.  ``queries [nq, d]`` f32 (already normalized for ``cos``) are
+scored against ``slab [capacity, d]`` (f32 or bf16): the inner product
+for ``dot``, the negated clamped squared distance for ``l2sq``.  Slots
+with ``valid == 0`` score ``NEG_INF``.  Returns ``(values [nq, k] f32,
+slots [nq, k] int32)``, best first; where fewer than k slots are valid
+the rest come back as ``NEG_INF`` sentinels.
+
+As in the JAX program, queries are rounded to the slab's type before
+scoring (a bf16 slab scores bf16 queries, in f32).  For CUDA tensors the
+wrapper launches the kernels (k <= :data:`MAX_K`, d <= 1024) and raises
+on anything else; for CPU tensors it runs :func:`knn_topk_plain`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pathway_tpu_torch.kernels import _build
+from pathway_tpu_torch.kernels._launch import check_cuda, launch
+from pathway_tpu_torch.ops.distances import dot_scores, l2sq_distances
+from pathway_tpu_torch.ops.topk import masked_top_k
+
+__all__ = ["knn_topk", "knn_topk_plain", "MAX_K", "METRICS"]
+
+#: largest k the kernel takes (pass 1 keeps k of every 256-row tile)
+MAX_K = 128
+METRICS = ("dot", "l2sq")
+_ROWS = 256  # slab rows per pass-1 block (csrc/knn_topk.cu kRows)
+_GROUP = 32  # queries per pass-1 block (kMaxGroup)
+_SEGMENT = 1024  # candidates per pass-2 block
+#: from this many queries on, pass 1 scores tiles of 256 rows x 32 queries
+#: as a register-blocked product; below it, each warp streams rows.  On an
+#: H100 the row-streaming pass is faster up to nq=8 and slower from 16 on
+#: (chip_smoke.py's table of both paths by nq, recorded in PERF.md)
+TILED_MIN_QUERIES = 16
+
+
+def knn_topk_plain(
+    queries: torch.Tensor, slab: torch.Tensor, valid: torch.Tensor, k: int, metric: str
+) -> tuple[torch.Tensor, torch.Tensor]:
+    q = queries.to(slab.dtype)
+    scores = -l2sq_distances(q, slab) if metric == "l2sq" else dot_scores(q, slab)
+    vals, idx = masked_top_k(scores, valid, k)
+    return vals, idx.to(torch.int32)
+
+
+def knn_topk(
+    queries: torch.Tensor, slab: torch.Tensor, valid: torch.Tensor, k: int, metric: str
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k slots per query over the valid rows of ``slab``."""
+    if metric not in METRICS:
+        raise ValueError(f"knn_topk: metric {metric!r} not in {METRICS}")
+    cap, d = slab.shape
+    if not 1 <= k <= cap:
+        raise ValueError(f"knn_topk: k={k} outside 1..{cap} (slab rows)")
+    if queries.device.type == "cpu":
+        return knn_topk_plain(queries, slab, valid, k, metric)
+    device = check_cuda("knn_topk", queries=queries, slab=slab, valid=valid)
+    if k > MAX_K:
+        raise ValueError(
+            f"knn_topk: k={k} > {MAX_K}, the largest k the CUDA kernel takes"
+        )
+    if slab.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"knn_topk: slab must be f32 or bf16, got {slab.dtype}")
+    vec = 4 if slab.dtype == torch.float32 else 8
+    if d % vec or d > 1024:
+        raise ValueError(f"knn_topk: dim {d} must divide by {vec} and be <= 1024")
+    if queries.dtype != torch.float32 or queries.dim() != 2 or queries.shape[1] != d:
+        raise ValueError(f"knn_topk: queries must be f32 [nq, {d}]")
+    if valid.dtype != torch.float32 or valid.shape != (cap,):
+        raise ValueError("knn_topk: valid must be f32 [capacity]")
+    nq = queries.shape[0]
+    if nq == 0:
+        return (torch.empty((0, k), device=device), torch.empty((0, k), dtype=torch.int32, device=device))
+    q = queries.to(slab.dtype).float() if slab.dtype != torch.float32 else queries
+    return _launch(q, slab, valid, k, metric, tiled=nq >= TILED_MIN_QUERIES)
+
+
+def _launch(
+    q: torch.Tensor, slab: torch.Tensor, valid: torch.Tensor, k: int, metric: str, tiled: bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pass 1 (row-streaming or tiled) and the merge passes, on checked
+    inputs; each kernel launched adds one to ``knn_topk.launches``.
+    ``tiled`` is chosen by :func:`knn_topk`; timing both passes on the card
+    (``chip_smoke.py``) is what set :data:`TILED_MIN_QUERIES`."""
+    cap, d = slab.shape
+    nq = q.shape[0]
+    device = q.device
+    lib = _build.library("knn_topk")
+    bf16 = int(slab.dtype == torch.bfloat16)
+    l2sq = int(metric == "l2sq")
+
+    tiles = -(-cap // _ROWS)
+    kk = min(k, _ROWS)
+    vals = torch.empty((nq, tiles * kk), device=device)
+    idx = torch.empty((nq, tiles * kk), dtype=torch.int32, device=device)
+    ptrs = (q.data_ptr(), slab.data_ptr(), valid.data_ptr(), vals.data_ptr(), idx.data_ptr())
+    if tiled:
+        launch("knn_topk", lib.pw_knn_partial_tiled, device, *ptrs, nq, d, cap, bf16, kk, l2sq)
+    else:
+        launch(
+            "knn_topk", lib.pw_knn_partial, device,
+            *ptrs, nq, d, cap, bf16, min(nq, _GROUP), kk, l2sq,
+        )
+    knn_topk.launches += 1
+    n_in = tiles * kk
+    while n_in > k:
+        seg = min(_SEGMENT, 1 << (n_in - 1).bit_length())
+        segs = -(-n_in // seg)
+        out_vals = torch.empty((nq, segs * k), device=device)
+        out_idx = torch.empty((nq, segs * k), dtype=torch.int32, device=device)
+        launch(
+            "knn_topk", lib.pw_knn_merge, device,
+            vals.data_ptr(), idx.data_ptr(), out_vals.data_ptr(), out_idx.data_ptr(),
+            nq, n_in, seg, k,
+        )
+        knn_topk.launches += 1
+        vals, idx, n_in = out_vals, out_idx, segs * k
+    return vals, idx
+
+
+#: CUDA kernels launched in this process: pass 1 and each merge pass
+#: count one each (three per call over a 1,048,576-row slab at k=10)
+knn_topk.launches = 0

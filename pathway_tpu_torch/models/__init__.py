@@ -1,0 +1,29 @@
+"""The port's text encoders (counterpart of ``pathway_tpu/models``):
+the BERT-family :class:`TextEncoderModel`, its presets, the hash
+tokenizer and the flax -> torch weight bridge."""
+
+from pathway_tpu_torch.models.convert import state_dict_from_flax
+from pathway_tpu_torch.models.encoder import (
+    BGE_BASE,
+    BGE_LARGE,
+    BGE_SMALL,
+    E5_BASE,
+    MINILM_L6,
+    EncoderConfig,
+    TextEncoderModel,
+)
+from pathway_tpu_torch.models.tokenizer import HashTokenizer, Tokenizer, get_tokenizer
+
+__all__ = [
+    "EncoderConfig",
+    "TextEncoderModel",
+    "MINILM_L6",
+    "BGE_SMALL",
+    "BGE_BASE",
+    "BGE_LARGE",
+    "E5_BASE",
+    "Tokenizer",
+    "HashTokenizer",
+    "get_tokenizer",
+    "state_dict_from_flax",
+]

@@ -1,0 +1,164 @@
+"""Batched encoder executor: :class:`TorchEncoder`, the port's counterpart
+of ``pathway_tpu.parallel.JittedEncoder``.
+
+A whole epoch's rows are tokenized into bucketed batches (power-of-two
+rows, padded rows given one valid token) and pushed through one
+:class:`~pathway_tpu_torch.models.TextEncoderModel` forward per chunk on
+the card.  Token ids upload as int16 (mask and type ids as uint8) when
+the vocabulary fits, a third of the int32 bytes.  Up to
+``pipeline_depth`` chunks are enqueued before the oldest result is read
+back, so tokenizing one chunk overlaps the device work of the previous
+ones; :meth:`TorchEncoder.encode_into` keeps the embeddings on the
+device and upserts them straight into a
+:class:`~pathway_tpu_torch.parallel.ShardedKnnIndex`.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+from pathway_tpu_torch._device import finish_readback, resolve_device, start_readback, upload
+from pathway_tpu_torch.internals import device_counters as _devctr
+from pathway_tpu_torch.models.convert import state_dict_from_flax
+from pathway_tpu_torch.models.encoder import EncoderConfig, TextEncoderModel
+from pathway_tpu_torch.models.tokenizer import Tokenizer, get_tokenizer
+from pathway_tpu_torch.ops.bucketing import bucket_size
+
+__all__ = ["TorchEncoder"]
+
+
+class TorchEncoder:
+    """Holds the encoder on ``device`` and runs it over bucketed batches.
+
+    ``encode(texts) -> [n, hidden] float32`` embeddings.  ``params`` takes
+    a flax parameter tree of the JAX package's ``TextEncoderModel`` (see
+    :func:`~pathway_tpu_torch.models.state_dict_from_flax`); without it the
+    weights are a seeded random init.
+
+    ``mesh``, ``sequence_axis``, ``cross=True`` and ``checkpoint_dir`` are
+    the JAX executor's and raise ``NotImplementedError`` here until the
+    ROADMAP items that bring them land.
+    """
+
+    def __init__(
+        self,
+        config: EncoderConfig | None,
+        *,
+        cross: bool = False,
+        tokenizer: Tokenizer | None = None,
+        model_name: str | None = None,
+        mesh: Any = None,
+        max_batch: int = 1024,
+        max_len: int | None = None,
+        seed: int = 0,
+        params: Any = None,
+        checkpoint_dir: str | None = None,
+        pipeline_depth: int = 2,
+        sequence_axis: str | None = None,
+        device: str | torch.device = "cuda",
+    ):
+        if cross:
+            raise NotImplementedError(
+                "cross-encoder scoring comes with CrossEncoderModel (ROADMAP A3, queue B8)"
+            )
+        if mesh is not None or sequence_axis is not None:
+            raise NotImplementedError(
+                "data/tensor/sequence parallelism comes with the multi-GPU slice (ROADMAP A9)"
+            )
+        if checkpoint_dir is not None:
+            raise NotImplementedError(
+                "HF checkpoint loading waits until a checkpoint is in the repository (ROADMAP A3)"
+            )
+        if config is None:
+            raise ValueError("config is required")
+        self.device = resolve_device(device)
+        self.config = config
+        self.max_batch = max_batch
+        self.max_len = max_len or config.max_len
+        self.pipeline_depth = max(1, pipeline_depth)
+        self.tokenizer = tokenizer or get_tokenizer(model_name, config.vocab_size)
+        self.model = TextEncoderModel(config, device=self.device, seed=seed)
+        if params is not None:
+            self.model.load_state_dict(state_dict_from_flax(params, config))
+        self.model.eval()
+        # ids upload as int16 when the vocab permits (mask/type as uint8)
+        self._narrow_ids = config.vocab_size < 2**15
+
+    # ------------------------------------------------------------------
+    def _pad_batch(self, ids: np.ndarray, mask: np.ndarray, tps: np.ndarray):
+        """Round the batch up to a power-of-two bucket of rows."""
+        n = ids.shape[0]
+        b = bucket_size(n, min_bucket=8)
+        if b > n:
+            pad = ((0, b - n), (0, 0))
+            ids = np.pad(ids, pad)
+            mask = np.pad(mask, pad)
+            tps = np.pad(tps, pad)
+        # padded rows must still be valid encoder input: one non-masked token
+        mask[n:, 0] = 1
+        return ids, mask, tps, n
+
+    def _dispatch(self, ids: np.ndarray, mask: np.ndarray, tps: np.ndarray):
+        """Upload one padded chunk and enqueue its forward; returns
+        (device output [b, hidden] f32, n real rows) without waiting."""
+        ids, mask, tps, n = self._pad_batch(ids, mask, tps)
+        if self._narrow_ids:
+            ids = ids.astype(np.int16, copy=False)
+            mask = mask.astype(np.uint8, copy=False)
+            tps = tps.astype(np.uint8, copy=False)
+        _devctr.record_h2d(ids.nbytes + mask.nbytes + tps.nbytes)
+        args = [upload(a, self.device) for a in (ids, mask, tps)]
+        with torch.inference_mode():
+            out = self.model(*args)
+        return out, n
+
+    def _chunks(self, texts: Sequence[str]):
+        for i in range(0, len(texts), self.max_batch):
+            yield texts[i : i + self.max_batch]
+
+    def _tokenize(self, chunk: Sequence[str]):
+        return self.tokenizer.encode_batch(chunk, max_len=self.max_len)
+
+    # ------------------------------------------------------------------
+    def encode(self, texts: Sequence[str]) -> np.ndarray:
+        """Embed a list of texts -> [n, hidden] float32."""
+        texts = list(texts)
+        if not texts:
+            return np.zeros((0, self.config.hidden), np.float32)
+        outs: list[np.ndarray] = []
+        inflight: deque = deque()
+
+        def collect() -> None:
+            handle, n = inflight.popleft()
+            (host,) = finish_readback(handle)
+            _devctr.record_d2h(host.nbytes)
+            outs.append(host[:n])
+
+        for chunk in self._chunks(texts):
+            out, n = self._dispatch(*self._tokenize(chunk))
+            inflight.append((start_readback(out), n))
+            if len(inflight) >= self.pipeline_depth:
+                collect()
+        while inflight:
+            collect()
+        return np.concatenate(outs, axis=0)
+
+    def encode_into(self, index: Any, keys: Sequence[Any], texts: Sequence[str]) -> int:
+        """Embed ``texts`` and upsert the embeddings into ``index``
+        (``ShardedKnnIndex.add_batch_device``) on the device: token ids go
+        up, no embedding comes down.  Returns the number of rows indexed."""
+        texts = list(texts)
+        keys = list(keys)
+        if len(keys) != len(texts):
+            raise ValueError("keys and texts must align")
+        pos = 0
+        for chunk in self._chunks(texts):
+            out, n = self._dispatch(*self._tokenize(chunk))
+            # the upsert is enqueued behind the forward on the same stream
+            index.add_batch_device(keys[pos : pos + n], out, n_valid=n)
+            pos += n
+        return pos

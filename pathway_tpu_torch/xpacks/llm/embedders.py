@@ -1,0 +1,86 @@
+"""Embedders: text -> vector (counterpart of
+``pathway_tpu/xpacks/llm/embedders.py``).
+
+:class:`TorchEncoderEmbedder`, and its reference-named alias
+:class:`SentenceTransformerEmbedder`, runs a BERT-family encoder on the
+card through :class:`~pathway_tpu_torch.parallel.TorchEncoder`, one
+batched call per engine epoch.  It is a plain class for now: the JAX
+package's embedders derive from the host plane's ``UDF`` base class,
+which the port gains with the host-plane slices (ROADMAP queue A).  The
+API embedders (OpenAI, LiteLLM, Gemini) are host plane too and come
+with it.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from pathway_tpu_torch.models import encoder as _enc
+from pathway_tpu_torch.parallel.executor import TorchEncoder
+
+__all__ = ["TorchEncoderEmbedder", "SentenceTransformerEmbedder"]
+
+_PRESETS = {
+    "all-minilm-l6-v2": "MINILM_L6",
+    "sentence-transformers/all-minilm-l6-v2": "MINILM_L6",
+    "baai/bge-small-en-v1.5": "BGE_SMALL",
+    "bge-small": "BGE_SMALL",
+    "baai/bge-base-en-v1.5": "BGE_BASE",
+    "bge-base": "BGE_BASE",
+    "baai/bge-large-en-v1.5": "BGE_LARGE",
+    "bge-large": "BGE_LARGE",
+    "intfloat/e5-base-v2": "E5_BASE",
+    "e5-base": "E5_BASE",
+}
+
+
+def _resolve_config(model: str) -> _enc.EncoderConfig:
+    return getattr(_enc, _PRESETS.get(model.lower(), "MINILM_L6"))
+
+
+class TorchEncoderEmbedder:
+    """Sentence encoder on the card; one batched call per epoch.
+
+    ``model`` picks an architecture preset (MiniLM/BGE/E5 family); the
+    weights are a seeded random init unless ``params`` (a flax parameter
+    tree of the JAX package's encoder) is passed.
+    """
+
+    def __init__(
+        self,
+        model: str = "all-MiniLM-L6-v2",
+        *,
+        max_batch_size: int | None = 1024,
+        params: Any = None,
+        config: _enc.EncoderConfig | None = None,
+        seed: int = 0,
+        device: str | torch.device = "cuda",
+    ):
+        self.model = model
+        self.encoder = TorchEncoder(
+            config if config is not None else _resolve_config(model),
+            model_name=model, params=params, max_batch=max_batch_size or 1024,
+            seed=seed, device=device,
+        )
+
+    def get_embedding_dimension(self, **kwargs: Any) -> int:
+        """Probe: embed a short string, report its width."""
+        return int(np.asarray(self._embed_batch(["."])[0]).reshape(-1).shape[0])
+
+    def _embed_batch(self, texts: list[str]) -> list:
+        emb = self.encoder.encode([t if t else "." for t in texts])
+        return [row for row in emb]
+
+    def __batch__(self, texts: list[str]) -> list:
+        return self._embed_batch([str(t) for t in texts])
+
+    def __wrapped__(self, text: str) -> Any:
+        return self._embed_batch([str(text)])[0]
+
+
+#: reference-compatible name: in the reference this wraps torch
+#: SentenceTransformers; here it is the port's encoder on the card
+SentenceTransformerEmbedder = TorchEncoderEmbedder
