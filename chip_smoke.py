@@ -8,26 +8,36 @@ Phases, each fatal on failure:
 1. environment: the card's name and power limit, torch/CUDA versions,
    and the build of every kernel from ``pathway_tpu_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once);
-2. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes, with the tolerance stated beside each check, and timed
-   beside the plain version and the one PyTorch call that computes the
-   same function;
-3. the live-RAG main path at BGE-base full width (768 hidden, 12 layers,
-   12 heads, MLP 3072, bf16, seeded random weights): a 1,048,576-slot
-   cosine index bulk-filled with seeded random vectors, ~8k synthetic
-   documents embedded and indexed on the device, a few deleted, and
-   queries answered at nq=1 and nq=32; indexed documents re-embedded in
-   the same batch must come back as their own top-1 with cosine >= 0.999,
-   and the top-k must match a plain matmul + top-k over the same slab.
-   Every kernel's launch count must rise during this phase.
+2. each kernel against its plain PyTorch version on the card, at the
+   shapes of both paths below, with the tolerance stated beside each
+   check, and timed beside the plain version and the one PyTorch call
+   that computes the same function, where there is one;
+3. the live-RAG embed path at BGE-base full width (768 hidden, 12
+   layers, 12 heads, MLP 3072, bf16, seeded random weights): a
+   1,048,576-slot cosine index bulk-filled with seeded random vectors,
+   ~8k synthetic documents embedded and indexed on the device, a few
+   deleted, and queries answered at nq=1 and nq=32; indexed documents
+   re-embedded in the same batch must come back as their own top-1 with
+   cosine >= 0.999, and the top-k must match a plain matmul + top-k over
+   the same slab.  Every kernel of the path must launch during it;
+4. the retrieve -> rerank path at BGE-reranker-base full width (the same
+   shape, seeded random weights) over phase 3's index: 32 synthetic
+   questions retrieve 32 candidates each and the 1,024 pairs are scored
+   in chunks of 256 and filtered to 5 per question; then 20 single
+   questions, each retrieved and reranked alone.  Every score must be
+   finite and within a stated tolerance of the same model run through
+   the kernels' plain versions only, the kept five must match the plain
+   ranking wherever its 5th/6th margin exceeds that tolerance, and the
+   path's kernels must launch during it.
 
 The second-to-last line of output is a JSON object with one entry per
-kernel; the last is ``{"ok": true, "device": {...}}``.  Without a CUDA
-device the script exits 1 and prints no result.
+kernel wrapper; the last is ``{"ok": true, "device": {...}}``.  Without a
+CUDA device the script exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -41,12 +51,32 @@ N_DOCS = 8192
 DOC_BATCH = 256  # encoder rows per chunk on the main path
 N_REMOVED = 16
 K = 10
+RERANK_BATCH = 256  # pairs per cross-encoder chunk
+RERANK_K = 32  # candidates retrieved per question
+RERANK_KEEP = 5
+N_QUESTIONS = 32  # the batched round
+N_SINGLE = 20  # single-question rounds
 
 # stated tolerances
 ATTN_ATOL = ATTN_RTOL = 2e-2  # bf16 output (8 mantissa bits); plain rounds logits to bf16, K1 keeps f32
 SCATTER_ATOL = 1e-6  # f32 norm summed in another order: ~1 ulp of a unit-norm row
 TOPK_ATOL = 1e-5  # f32 dot of unit rows over 768 dims, summed in another order
 SELF_COS = 0.999
+# K4-K7: two bf16 ulps of the value; kernel and plain version round at the
+# same steps, but LayerNorm statistics and pooling sums are taken in
+# another order, so a rounded output may land one ulp apart
+BF16_RTOL = 2.0**-6
+FUSED_ATOL = 1e-5
+# rerank scores against the plain-only forward: the bf16 encoder tolerance
+# of the CPU tests.  With seeded random weights the 12 layers amplify any
+# bf16 ulp flip: the kernel path and the plain path each lie up to ~9e-3
+# (mean ~2e-3) from the same forward in f32, as this phase reports
+# ("vs_f32"; NVIDIA H100 80GB HBM3, 700 W), so this is about twice that
+# noise floor
+SCORE_ATOL = 2e-2
+# ... and the kernel path no further from the f32 forward, on average, than
+# this many times the plain bf16 path is
+F32_RATIO = 1.5
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, bf16 and f32 FLOP/s
 PEAK_BYTES = 3.35e12
@@ -144,20 +174,25 @@ def phase_kernels(torch, dev) -> dict:
     bf16 = torch.bfloat16
     out: dict = {}
 
-    # ---- K1 attention.  The main path's shape: chunks of DOC_BATCH documents
-    # of 64-256 tokens, padded to the batch's power-of-two width (256).
-    # Also B=32 at L in {128, 512}, the other main-path widths, and short/narrow shapes.
-    def attn_inputs(B, L, H, D, min_len=1):
+    # ---- K1 attention.  The embed path's shape: chunks of DOC_BATCH documents
+    # of 64-256 tokens, padded to the batch's power-of-two width (256).  The
+    # rerank path's: chunks of RERANK_BATCH pairs of 75-283 tokens in the
+    # 128/256/512 buckets, and 32 pairs of one question.  Questions embed at
+    # widths 16 and 32 in batches of 8 and 32 rows.  Also short/narrow shapes.
+    def attn_inputs(B, L, H, D, min_len=1, max_len=None):
+        max_len = max_len or L
         q, k, v = (torch.randn((B, L, H, D), generator=g, device=dev).to(bf16) for _ in range(3))
-        lens = torch.randint(min_len, L + 1, (B,), generator=g, device=dev)
-        lens[0] = L
+        lens = torch.randint(min_len, max_len + 1, (B,), generator=g, device=dev)
+        lens[0] = max_len
         mask = (torch.arange(L, device=dev)[None] < lens[:, None]).to(torch.uint8)
         return q, k, v, mask
 
     attn_err = 0.0
+    widths = set()
     for B, L, H, D in (
         (DOC_BATCH, 256, 12, 64), (DOC_BATCH, 128, 12, 64), (DOC_BATCH, 64, 12, 64),
-        (32, 128, 12, 64), (32, 512, 12, 64), (4, 16, 12, 64), (4, 100, 12, 32),
+        (RERANK_BATCH, 512, 12, 64), (32, 512, 12, 64), (32, 256, 12, 64), (32, 128, 12, 64),
+        (32, 32, 12, 64), (8, 32, 12, 64), (8, 16, 12, 64), (4, 16, 12, 64), (4, 100, 12, 32),
     ):
         q, k, v, mask = attn_inputs(B, L, H, D)
         got = attention(q, k, v, mask).float()
@@ -167,13 +202,15 @@ def phase_kernels(torch, dev) -> dict:
         if not torch.isfinite(got).all() or (err > ATTN_ATOL + ATTN_RTOL * ref.abs()).any():
             fail(f"attention B={B} L={L} D={D}: max err {err.max().item()}")
         attn_err = max(attn_err, err.max().item())
+        if D == 64:
+            widths.add(L)
         log(f"K1 attention B={B} L={L} H={H} D={D}: max_abs_err {err.max().item():.3e}")
         del q, k, v, mask, got, ref, err
 
-    def attn_timing(B, L, H, D, min_len):
+    def attn_timing(B, L, H, D, min_len, max_len=None):
         """Times at one shape; the bound counts the keys the masks keep:
         every query row attends over its batch row's present keys only."""
-        q, k, v, mask = attn_inputs(B, L, H, D, min_len)
+        q, k, v, mask = attn_inputs(B, L, H, D, min_len, max_len)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa_mask = mask.bool()[:, None, None, :]
         keys = int(mask.sum())
@@ -192,7 +229,10 @@ def phase_kernels(torch, dev) -> dict:
 
     out["attention"] = {**attn_timing(DOC_BATCH, 256, 12, 64, 64), "max_abs_err": attn_err}
     out["_attention_b32_l512"] = attn_timing(32, 512, 12, 64, 1)
-    log(f"K1 attention timings: {json.dumps(out['attention'])} {json.dumps(out['_attention_b32_l512'])}")
+    out["_attention_rerank"] = attn_timing(RERANK_BATCH, 512, 12, 64, 75, 283)
+    out["_attention_widths"] = widths
+    log(f"K1 attention timings: {json.dumps(out['attention'])} {json.dumps(out['_attention_b32_l512'])}"
+        f" {json.dumps(out['_attention_rerank'])}")
 
     # ---- K2 slab scatter / clear: 256 rows (200 live + 56 pads) into [1M, 768] f32
     slab = torch.randn((CAPACITY, HIDDEN), generator=g, device=dev)
@@ -338,6 +378,217 @@ def phase_kernels(torch, dev) -> dict:
     return out
 
 
+def check_bf16(name: str, got, ref) -> float:
+    """``got`` within two bf16 ulps of ``ref`` everywhere (BF16_RTOL, plus
+    FUSED_ATOL near zero); returns the largest absolute difference."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    bad = ~(err <= BF16_RTOL * ref.abs() + FUSED_ATOL)  # NaN counts as bad
+    if bool(bad.any()) or not bool(got.isfinite().all()):
+        fail(f"{name}: {int(bad.sum())} values off, max abs err {err.max().item()}")
+    return err.max().item()
+
+
+def phase_fused(torch, dev) -> dict:
+    """Phase 2, continued: K4-K7 against their plain versions at the shapes
+    of the embed path (M = DOC_BATCH x 256 rows) and the rerank path
+    (M = RERANK_BATCH x 512 rows, the pooler at M = RERANK_BATCH)."""
+    from pathway_tpu_torch.kernels import (
+        add_layer_norm,
+        add_layer_norm_plain,
+        bias_act,
+        bias_act_plain,
+        embed_ln,
+        embed_ln_plain,
+        pool_normalize,
+        pool_normalize_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    bf16 = torch.bfloat16
+    rows_embed, rows_rerank = DOC_BATCH * 256, RERANK_BATCH * 512
+    out: dict = {}
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    # ---- K4 bias_act: y is a bf16 product, updated in place
+    flops_per = {"none": 1, "gelu_tanh": 9, "gelu_erf": 8, "tanh": 2}
+    k4 = {}
+    for label, M, N, act in (
+        ("embed q/k/v/out/mlp_down", rows_embed, HIDDEN, "none"),
+        ("embed mlp_up", rows_embed, 4 * HIDDEN, "gelu_tanh"),
+        ("rerank q/k/v/out/mlp_down", rows_rerank, HIDDEN, "none"),
+        ("rerank mlp_up", rows_rerank, 4 * HIDDEN, "gelu_tanh"),
+        ("gelu_erf", 4096, 4 * HIDDEN, "gelu_erf"),
+        ("rerank pooler", RERANK_BATCH, HIDDEN, "tanh"),
+    ):
+        y = randn(M, N).to(bf16)
+        bias = randn(N, scale=0.5)
+        got = bias_act(y.clone(), bias, act)
+        ref = bias_act_plain(y.clone(), bias, act)
+        torch.cuda.synchronize()
+        row = {"shape": f"M={M} N={N} act={act} bf16 ({label})",
+               "max_abs_err": check_bf16(f"bias_act {label}", got, ref)}
+        del got, ref
+        b_ms, b_by = bound(2 * M * N * 2 + N * 4, flops_per[act] * M * N, PEAK_F32)
+        row.update(
+            ms=time_ms(torch, lambda: bias_act(y, bias, act), 20),
+            plain_ms=time_ms(torch, lambda: bias_act_plain(y, bias, act), 5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        )
+        if act == "none":  # one call computes it: the add of the bf16 bias (cast once, untimed)
+            b16 = bias.to(bf16)
+            row["library_ms"] = time_ms(torch, lambda: torch.add(y, b16, out=y), 20)
+        if M * N < 1 << 20:  # launch-bound: the profiler's device time too
+            row["device_ms"] = {
+                "kernel": device_ms(torch, lambda: bias_act(y, bias, act)),
+                "plain": device_ms(torch, lambda: bias_act_plain(y, bias, act)),
+            }
+        k4[label] = row
+        log(f"K4 bias_act: {json.dumps(row)}")
+        del y
+    out["bias_act"] = {**k4["embed q/k/v/out/mlp_down"],
+                       "max_abs_err": max(r["max_abs_err"] for r in k4.values())}
+    out["_bias_act_shapes"] = k4
+
+    # ---- K5 add_layer_norm
+    k5 = {}
+    for label, M in (("embed", rows_embed), ("rerank", rows_rerank)):
+        x, r = randn(M, HIDDEN).to(bf16), randn(M, HIDDEN).to(bf16)
+        scale, bias = 1.0 + randn(HIDDEN, scale=0.1), randn(HIDDEN, scale=0.1)
+        got = add_layer_norm(x, r, scale, bias, 1e-12)
+        ref = add_layer_norm_plain(x, r, scale, bias, 1e-12)
+        torch.cuda.synchronize()
+        row = {"shape": f"M={M} H={HIDDEN} bf16 ({label})",
+               "max_abs_err": check_bf16(f"add_layer_norm {label}", got, ref)}
+        del got, ref
+        b_ms, b_by = bound(3 * M * HIDDEN * 2 + 2 * HIDDEN * 4, 10 * M * HIDDEN, PEAK_F32)
+        row.update(
+            ms=time_ms(torch, lambda: add_layer_norm(x, r, scale, bias, 1e-12), 20),
+            plain_ms=time_ms(torch, lambda: add_layer_norm_plain(x, r, scale, bias, 1e-12), 5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,  # no single torch call adds and normalises
+        )
+        k5[label] = row
+        log(f"K5 add_layer_norm: {json.dumps(row)}")
+        del x, r
+    out["add_layer_norm"] = {**k5["embed"], "max_abs_err": max(r["max_abs_err"] for r in k5.values())}
+    out["_add_layer_norm_shapes"] = k5
+
+    # ---- K6 embed_ln: BGE-base's tables, ids as the executor uploads them
+    vocab, n_pos = 30522, 512
+    word, position, types = randn(vocab, HIDDEN, scale=0.02), randn(n_pos, HIDDEN, scale=0.02), randn(2, HIDDEN, scale=0.02)
+    scale, bias = 1.0 + randn(HIDDEN, scale=0.1), randn(HIDDEN, scale=0.1)
+    k6 = {}
+    for label, B, L in (("embed", DOC_BATCH, 256), ("embed", DOC_BATCH, 128), ("embed", DOC_BATCH, 64),
+                        ("rerank", RERANK_BATCH, 512), ("question", 8, 16)):
+        ids = torch.randint(1000, vocab, (B, L), generator=g, device=dev).to(torch.int16)
+        tids = (torch.arange(L, device=dev)[None] >= L // 3).expand(B, L).to(torch.uint8).contiguous()
+        args = (ids, tids, word, position, types, scale, bias, 1e-12)
+        got = embed_ln(*args)
+        ref = embed_ln_plain(*args, bf16)
+        torch.cuda.synchronize()
+        err = check_bf16(f"embed_ln B={B} L={L}", got, ref)
+        del got, ref
+        if (B, L) not in ((DOC_BATCH, 256), (RERANK_BATCH, 512)):
+            continue
+        # bytes the data needs: each distinct word row, the L position rows
+        # and both type rows once, the ids and type ids, the output
+        distinct = int(torch.unique(ids).numel())
+        nbytes = (distinct + L + 2) * HIDDEN * 4 + B * L * 3 + B * L * HIDDEN * 2
+        b_ms, b_by = bound(nbytes, 14 * B * L * HIDDEN, PEAK_F32)
+        row = {
+            "shape": f"B={B} L={L} H={HIDDEN} int16 ids ({distinct} distinct), uint8 types -> bf16 ({label})",
+            "max_abs_err": err,
+            "ms": time_ms(torch, lambda: embed_ln(*args), 20),
+            "plain_ms": time_ms(torch, lambda: embed_ln_plain(*args, bf16), 5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,  # no single torch call gathers, sums and normalises
+        }
+        k6[label] = row
+        log(f"K6 embed_ln: {json.dumps(row)}")
+    out["embed_ln"] = {**k6["embed"], "max_abs_err": max(r["max_abs_err"] for r in k6.values())}
+    out["_embed_ln_shapes"] = k6
+
+    # ---- K7 pool_normalize: CLS + normalise is BGE-base's tail; mean + normalise
+    # is MiniLM's/E5's, timed for the record
+    x = randn(DOC_BATCH, 256, HIDDEN).to(bf16)
+    lens = torch.randint(64, 257, (DOC_BATCH,), generator=g, device=dev)
+    mask = (torch.arange(256, device=dev)[None] < lens[:, None]).to(torch.uint8)
+    k7 = {}
+    for pool in ("cls", "mean"):
+        got = pool_normalize(x, mask, pool, True)
+        ref = pool_normalize_plain(x, mask, pool, True)
+        torch.cuda.synchronize()
+        err = check_bf16(f"pool_normalize {pool}", got, ref)
+        rows = DOC_BATCH if pool == "cls" else int(mask.sum())
+        nbytes = rows * HIDDEN * 2 + (0 if pool == "cls" else DOC_BATCH * 256) + DOC_BATCH * HIDDEN * 4
+        b_ms, b_by = bound(nbytes, (2 * rows + 4 * DOC_BATCH) * HIDDEN, PEAK_F32)
+        row = {
+            "shape": f"B={DOC_BATCH} L=256 H={HIDDEN} bf16, {pool} + normalise, {rows} rows read",
+            "max_abs_err": err,
+            "ms": time_ms(torch, lambda: pool_normalize(x, mask, pool, True), 50),
+            "plain_ms": time_ms(torch, lambda: pool_normalize_plain(x, mask, pool, True), 20),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,  # no single torch call pools and normalises
+        }
+        if pool == "cls":
+            row["device_ms"] = {
+                "kernel": device_ms(torch, lambda: pool_normalize(x, mask, pool, True)),
+                "plain": device_ms(torch, lambda: pool_normalize_plain(x, mask, pool, True)),
+            }
+        k7[pool] = row
+        log(f"K7 pool_normalize: {json.dumps(row)}")
+    out["pool_normalize"] = {**k7["cls"], "max_abs_err": max(r["max_abs_err"] for r in k7.values())}
+    out["_pool_normalize_shapes"] = k7
+    return out
+
+
+def plain_forward(model, ids, mask, type_ids=None):
+    """``model``'s forward (a ``TextEncoderModel`` or ``CrossEncoderModel``)
+    through the kernels' plain versions only, on whatever device its
+    parameters are: the reference phase 4 holds the rerank path to.
+    Nothing on either path calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch.kernels import (
+        add_layer_norm_plain,
+        attention_plain,
+        bias_act_plain,
+        embed_ln_plain,
+        pool_normalize_plain,
+    )
+
+    cfg = model.cfg
+    mask = mask.to(torch.uint8)
+    emb = model.embeddings
+    types = None if emb.token_type is None else emb.token_type.weight
+    x = embed_ln_plain(ids, type_ids, emb.word.weight, emb.position.weight, types,
+                       emb.ln.weight, emb.ln.bias, emb.ln.eps, cfg.dtype)
+
+    def dense(h, layer, act="none"):
+        return bias_act_plain(F.linear(h, layer.weight.to(h.dtype)), layer.bias, act)
+
+    def add_ln(a, b, ln):
+        return add_layer_norm_plain(a, b, ln.weight, ln.bias, ln.eps)
+
+    B, L, _ = x.shape
+    heads = (B, L, cfg.heads, cfg.head_dim)
+    for block in model.blocks():
+        att = block.attention
+        q, k, v = (dense(x, lin).view(heads) for lin in (att.query, att.key, att.value))
+        a = dense(attention_plain(q, k, v, mask).reshape(B, L, cfg.hidden), att.out)
+        x = add_ln(x, a, block.attention_ln)
+        h = dense(x, block.mlp_up, "gelu_tanh" if cfg.gelu_approx else "gelu_erf")
+        x = add_ln(x, dense(h, block.mlp_down), block.mlp_ln)
+    if not hasattr(model, "classifier"):
+        return pool_normalize_plain(x, mask, cfg.pool, cfg.normalize)
+    h = dense(x[:, 0], model.pooler, "tanh")
+    logits = F.linear(h.float(), model.classifier.weight.float(), model.classifier.bias.float())
+    return logits[:, 0] if logits.shape[1] == 1 else logits
+
+
 def synthetic_docs(np, n: int, seed: int) -> list[str]:
     """``n`` documents of 64-256 tokens (with [CLS]/[SEP]) over a 50k-word
     synthetic vocabulary, from ``seed``."""
@@ -351,39 +602,40 @@ def synthetic_docs(np, n: int, seed: int) -> list[str]:
     return docs
 
 
-def profile_encode(torch, embedder, index, keys, docs) -> dict:
-    """Device time by kernel over one ``encode_into`` call, and the share of
-    the call's wall time the device was busy (one stream, so kernels do
-    not overlap)."""
+def profile_call(torch, fn, rows: int) -> dict:
+    """Device time by kernel over one call of ``fn`` (``rows`` inputs), and
+    the share of the call's wall time the device was busy (one stream, so
+    kernels do not overlap)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
         t0 = time.perf_counter()
-        embedder.encoder.encode_into(index, keys, docs)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
+    rows_by_kernel = []
     for e in prof.key_averages():
         # kernel rows only: operator rows carry their kernels' time too
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             dev_us = getattr(e, "self_device_time_total", None)
             if dev_us is None:
                 dev_us = e.self_cuda_time_total
-            rows.append((dev_us, e.key, e.count))
-    rows.sort(reverse=True)
-    busy_us = sum(r[0] for r in rows)
+            rows_by_kernel.append((dev_us, e.key, e.count))
+    rows_by_kernel.sort(reverse=True)
+    busy_us = sum(r[0] for r in rows_by_kernel)
     return {
-        "docs": len(docs),
+        "rows": rows,
         "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
-        "top": [{"name": k[:80], "ms": us / 1e3, "calls": n} for us, k, n in rows[:15]],
+        "top": [{"name": k[:80], "ms": us / 1e3, "calls": n} for us, k, n in rows_by_kernel[:15]],
     }
 
 
-def phase_slice(torch, dev) -> dict:
-    """Phase 3: the main path at BGE-base full width."""
+def phase_slice(torch, dev, compared_widths: set) -> tuple[dict, dict]:
+    """Phase 3: the embed path at BGE-base full width; returns its
+    measurements and what phase 4 reuses (index, embedder, documents)."""
     import numpy as np
 
     from pathway_tpu_torch import ShardedKnnIndex, TorchEncoderEmbedder, kernels
@@ -485,13 +737,173 @@ def phase_slice(torch, dev) -> dict:
         widths.add(ids.shape[1])
     res["tokenize_tokens_per_s"] = n_tok / (time.perf_counter() - t0)
     res["attention_widths"] = sorted(widths)
-    if not widths <= {64, 128, 256}:
+    if not widths <= compared_widths:
         fail(f"encoder chunk widths {sorted(widths)} outside the shapes phase 2 compared")
-    res["profile"] = profile_encode(torch, embedder, index, keys[:1024], docs[:1024])
+    res["profile"] = profile_call(
+        torch, lambda: embedder.encoder.encode_into(index, keys[:1024], docs[:1024]), 1024
+    )
 
     zero = [name for name, n in res["launches"].items() if n == 0]
     if zero:
-        fail(f"kernels not launched on the main path: {zero}")
+        fail(f"kernels not launched on the embed path: {zero}")
+    return res, {"index": index, "embedder": embedder, "docs": docs, "keys": keys}
+
+
+def synthetic_questions(np, docs: list[str], n: int, seed: int) -> list[str]:
+    """``n`` questions of 8-24 words, each drawn from one document's words."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in rng.integers(0, len(docs), n):
+        words = docs[i].split()
+        out.append(" ".join(rng.choice(words, int(rng.integers(8, 25)), replace=False)))
+    return out
+
+
+def phase_rerank(torch, dev, ctx: dict, compared_widths: set) -> dict:
+    """Phase 4: retrieve -> rerank at BGE-reranker-base full width over
+    phase 3's index."""
+    import numpy as np
+
+    from pathway_tpu_torch import CrossEncoderModel, CrossEncoderReranker, kernels, rerank_topk_filter
+
+    index, embedder = ctx["index"], ctx["embedder"]
+    text_of = dict(zip(ctx["keys"], ctx["docs"]))
+    reranker = CrossEncoderReranker(max_batch_size=RERANK_BATCH, seed=SEED, device=dev)
+    cross = reranker.encoder
+    if (cross.config.hidden, cross.config.layers, cross.config.mlp_dim) != (HIDDEN, 12, 4 * HIDDEN):
+        fail(f"reranker config {cross.config} is not BGE-reranker-base")
+    tok = cross.tokenizer
+    res: dict = {}
+    widths: set = set()
+
+    def candidates(question_rows):
+        """(doc dicts, question per pair) for every retrieved key; each must
+        be an indexed document."""
+        docs, qs = [], []
+        for q, row in question_rows:
+            if len(row) != RERANK_K:
+                fail(f"rerank: {len(row)} candidates retrieved, expected {RERANK_K}")
+            for key, _ in row:
+                if key not in text_of:
+                    fail(f"rerank: candidate {key!r} is not an indexed document")
+                docs.append({"text": text_of[key], "key": key})
+                qs.append(q)
+        return docs, qs
+
+    def note_widths(texts, pair=None, batch=RERANK_BATCH):
+        for i in range(0, len(texts), batch):
+            ids = tok.encode_batch(texts[i : i + batch], pair=None if pair is None else pair[i : i + batch],
+                                   max_len=cross.max_len)[0]
+            widths.add(ids.shape[1])
+
+    # questions from the documents still indexed (phase 3 removed the last few)
+    questions = synthetic_questions(np, ctx["docs"][: N_DOCS - N_REMOVED], N_QUESTIONS + N_SINGLE, SEED + 2)
+    batched, singles = questions[:N_QUESTIONS], questions[N_QUESTIONS:]
+    reranker.__batch__([{"text": "warm up"}], ["warm up"])  # first-call set-up, untimed
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    # (a) the batched round
+    t0 = time.perf_counter()
+    hits = index.search(embedder.encoder.encode(batched), RERANK_K)
+    pair_docs, pair_qs = candidates(zip(batched, hits))
+    t1 = time.perf_counter()
+    scores = reranker.__batch__(pair_docs, pair_qs)
+    t2 = time.perf_counter()
+    kept = [rerank_topk_filter(pair_docs[i : i + RERANK_K], scores[i : i + RERANK_K], RERANK_KEEP)
+            for i in range(0, len(scores), RERANK_K)]
+    t3 = time.perf_counter()
+    res["batched"] = {
+        "questions": N_QUESTIONS, "pairs": len(scores),
+        "pairs_per_s": len(scores) / (t2 - t1),
+        "embed_search_ms": (t1 - t0) * 1e3, "score_ms": (t2 - t1) * 1e3,
+        "round_ms": (t3 - t0) * 1e3,
+    }
+    # (b) single questions: what one user waits for
+    single_ms, search_rerank_ms = [], []
+    for q in singles:
+        s0 = time.perf_counter()
+        q_emb = embedder.encoder.encode([q])
+        s1 = time.perf_counter()
+        docs_q, qs_q = candidates(zip([q], index.search(q_emb, RERANK_K)))
+        rerank_topk_filter(docs_q, reranker.__batch__(docs_q, qs_q), RERANK_KEEP)
+        s2 = time.perf_counter()
+        single_ms.append((s2 - s0) * 1e3)
+        search_rerank_ms.append((s2 - s1) * 1e3)
+        note_widths(qs_q, [d["text"] for d in docs_q])
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    res["launches"] = launches
+    res["single"] = {
+        "questions": N_SINGLE, "candidates": RERANK_K,
+        "p50_ms": float(np.percentile(single_ms, 50)), "p99_ms": float(np.percentile(single_ms, 99)),
+        "search_rerank_p50_ms": float(np.percentile(search_rerank_ms, 50)),
+        "search_rerank_p99_ms": float(np.percentile(search_rerank_ms, 99)),
+    }
+    log(f"rerank batched: {json.dumps(res['batched'])}")
+    log(f"rerank single: {json.dumps(res['single'])}")
+    missing = [n for n in ("attention", "bias_act", "add_layer_norm", "embed_ln", "knn_topk") if launches[n] == 0]
+    if missing:
+        fail(f"kernels not launched on the rerank path: {missing}")
+
+    # gates: finite scores; the plain-only forward of the same model, and
+    # the same forward in f32 as the yardstick of bf16 noise
+    scores = np.asarray(scores, np.float32)
+    if not np.isfinite(scores).all():
+        fail("rerank: non-finite scores")
+    model32 = CrossEncoderModel(dataclasses.replace(cross.config, dtype=torch.float32), device=dev)
+    model32.load_state_dict(cross.model.state_dict())
+    plain, plain32 = [], []
+    for i in range(0, len(pair_qs), RERANK_BATCH):
+        batch = tok.encode_batch(pair_qs[i : i + RERANK_BATCH],
+                                 pair=[d["text"] for d in pair_docs[i : i + RERANK_BATCH]],
+                                 max_len=cross.max_len)
+        widths.add(batch[0].shape[1])
+        args, n = cross._upload(*batch)
+        with torch.inference_mode():
+            plain.append(plain_forward(cross.model, *args)[:n].float().cpu().numpy())
+            plain32.append(plain_forward(model32, *args)[:n].float().cpu().numpy())
+    del model32
+    plain, plain32 = np.concatenate(plain), np.concatenate(plain32)
+    err = np.abs(scores - plain)
+    res["max_abs_err_vs_plain"] = float(err.max())
+    res["mean_abs_err_vs_plain"] = float(err.mean())
+    res["vs_f32"] = {"kernel_mean": float(np.abs(scores - plain32).mean()),
+                     "kernel_max": float(np.abs(scores - plain32).max()),
+                     "plain_mean": float(np.abs(plain - plain32).mean()),
+                     "plain_max": float(np.abs(plain - plain32).max())}
+    res["score_spread"] = {"min": float(scores.min()), "max": float(scores.max()), "std": float(scores.std())}
+    if not err.max() <= SCORE_ATOL:
+        fail(f"rerank scores differ from the plain-only forward by {err.max()} > {SCORE_ATOL}")
+    if not res["vs_f32"]["kernel_mean"] <= F32_RATIO * res["vs_f32"]["plain_mean"]:
+        fail(f"rerank scores further from the f32 forward than the plain path: {res['vs_f32']}")
+    decided, overlap = 0, 0
+    for qi in range(N_QUESTIONS):
+        sl = slice(qi * RERANK_K, (qi + 1) * RERANK_K)
+        want = {d["key"] for d in rerank_topk_filter(pair_docs[sl], plain[sl].tolist(), RERANK_KEEP)[0]}
+        got = {d["key"] for d in kept[qi][0]}
+        overlap += len(got & want)
+        ranked = np.sort(plain[sl])[::-1]
+        if ranked[RERANK_KEEP - 1] - ranked[RERANK_KEEP] <= SCORE_ATOL:
+            continue  # a near tie at the cut: either five is right
+        decided += 1
+        if got != want:
+            fail(f"rerank question {qi}: kept five differ from the plain ranking")
+    res["questions_decided"] = decided
+    res["kept_overlap_with_plain"] = overlap / (N_QUESTIONS * RERANK_KEEP)
+    note_widths(pair_qs, [d["text"] for d in pair_docs])
+    note_widths(batched, batch=embedder.encoder.max_batch)
+    for q in singles:
+        note_widths([q])
+    res["attention_widths"] = sorted(widths)
+    if not widths <= compared_widths:
+        fail(f"rerank path widths {sorted(widths)} outside the shapes phase 2 compared")
+    log(f"rerank gates: max_abs_err {err.max():.3e} (tol {SCORE_ATOL}), vs f32 {json.dumps(res['vs_f32'])}, "
+        f"{decided}/{N_QUESTIONS} questions decided, kept-five overlap {res['kept_overlap_with_plain']:.3f}, "
+        f"widths {sorted(widths)}")
+    res["profile"] = profile_call(
+        torch, lambda: reranker.__batch__(pair_docs[:RERANK_BATCH], pair_qs[:RERANK_BATCH]), RERANK_BATCH
+    )
     return res
 
 
@@ -527,21 +939,36 @@ def main() -> int:
     paths = k_out.pop("_knn_paths")
     k128 = k_out.pop("_knn_k128")
     attn_l512 = k_out.pop("_attention_b32_l512")
+    attn_rerank = k_out.pop("_attention_rerank")
+    compared_widths = k_out.pop("_attention_widths")
     torch.cuda.empty_cache()
-    s_out = phase_slice(torch, dev)
+    f_out = phase_fused(torch, dev)
+    fused_shapes = {name: f_out.pop(f"_{name}_shapes")
+                    for name in ("bias_act", "add_layer_norm", "embed_ln", "pool_normalize")}
+    k_out.update(f_out)
+    torch.cuda.empty_cache()
+    s_out, ctx = phase_slice(torch, dev, compared_widths)
+    r_out = phase_rerank(torch, dev, ctx, compared_widths)
 
+    csrc = "pathway_tpu_torch/kernels/csrc/"
     sources = {
-        "attention": ("pathway_tpu_torch/kernels/csrc/attention.cu", "pathway_tpu/models/encoder.py:113"),
-        "slab_scatter": ("pathway_tpu_torch/kernels/csrc/slab_scatter.cu", "pathway_tpu/parallel/sharded_knn.py:166"),
-        "slab_clear": ("pathway_tpu_torch/kernels/csrc/slab_scatter.cu", "pathway_tpu/parallel/sharded_knn.py:133"),
-        "knn_topk": ("pathway_tpu_torch/kernels/csrc/knn_topk.cu", "pathway_tpu/parallel/sharded_knn.py:336"),
+        "attention": ("attention.cu", "pathway_tpu/models/encoder.py:113"),
+        "slab_scatter": ("slab_scatter.cu", "pathway_tpu/parallel/sharded_knn.py:166"),
+        "slab_clear": ("slab_scatter.cu", "pathway_tpu/parallel/sharded_knn.py:133"),
+        "knn_topk": ("knn_topk.cu", "pathway_tpu/parallel/sharded_knn.py:336"),
+        "bias_act": ("bias_act.cu", "pathway_tpu/models/encoder.py:139"),
+        "add_layer_norm": ("add_layer_norm.cu", "pathway_tpu/models/encoder.py:135"),
+        "embed_ln": ("embed_ln.cu", "pathway_tpu/models/encoder.py:156"),
+        "pool_normalize": ("pool_normalize.cu", "pathway_tpu/models/encoder.py:196"),
     }
     entries = []
     for name, (src, replaces) in sources.items():
         m = k_out[name]
+        by_path = {"embed": s_out["launches"][name], "rerank": r_out["launches"][name]}
         entries.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": s_out["launches"][name], "max_abs_err": m["max_abs_err"],
+            "name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"], "shape": m["shape"],
             **({"device_ms": m["device_ms"]} if "device_ms" in m else {}),
@@ -558,9 +985,12 @@ def main() -> int:
         "knn_pass1_paths": paths,
         "knn_topk_k128_ms": k128,
         "attention_b32_l512": attn_l512,
+        "attention_rerank_b256_l512": attn_rerank,
+        "fused_shapes": fused_shapes,
         "attention_widths": s_out["attention_widths"],
         "tokenize_tokens_per_s": s_out["tokenize_tokens_per_s"],
         "profile": s_out["profile"],
+        "rerank": r_out,
     }
     log("summary: " + json.dumps(summary))
     print(json.dumps({"kernels": entries}))

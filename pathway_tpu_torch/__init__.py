@@ -1,10 +1,13 @@
 """``pathway_tpu_torch``: the PyTorch/CUDA port of ``pathway_tpu``'s
 device plane, for one NVIDIA H100 (``sm_90a``).
 
-This slice carries the live-RAG main path: text -> hash tokenizer ->
-BERT-family encoder (:mod:`~pathway_tpu_torch.models`) -> device-resident
-KNN index (:mod:`~pathway_tpu_torch.parallel`), with hand-written CUDA
-kernels for the attention core, the slab scatter and the fused score +
+It carries the live-RAG paths: text -> hash tokenizer -> BERT-family
+encoder (:mod:`~pathway_tpu_torch.models`) -> device-resident KNN index
+(:mod:`~pathway_tpu_torch.parallel`), and retrieve -> cross-encoder
+rerank (:mod:`~pathway_tpu_torch.xpacks.llm.rerankers`), with
+hand-written CUDA kernels for the attention core, the dense layers'
+bias/activation epilogue, residual + LayerNorm, the embedding gather +
+LayerNorm, pooling + normalize, the slab scatter and the fused score +
 top-k (:mod:`~pathway_tpu_torch.kernels`).  The package imports torch
 and numpy, never jax or ``pathway_tpu``.  Entry points run on
 ``device="cuda"`` unless the caller passes another device, and raise
@@ -12,11 +15,22 @@ when no card is present.
 """
 
 from pathway_tpu_torch import kernels, models, ops, parallel
-from pathway_tpu_torch.models import BGE_BASE, EncoderConfig, TextEncoderModel
+from pathway_tpu_torch.models import (
+    BGE_BASE,
+    BGE_RERANKER_BASE,
+    CrossEncoderModel,
+    EncoderConfig,
+    TextEncoderModel,
+)
 from pathway_tpu_torch.parallel import ShardedKnnIndex, TorchEncoder
 from pathway_tpu_torch.xpacks.llm.embedders import (
     SentenceTransformerEmbedder,
     TorchEncoderEmbedder,
+)
+from pathway_tpu_torch.xpacks.llm.rerankers import (
+    CrossEncoderReranker,
+    EncoderReranker,
+    rerank_topk_filter,
 )
 
 __all__ = [
@@ -26,9 +40,14 @@ __all__ = [
     "parallel",
     "EncoderConfig",
     "TextEncoderModel",
+    "CrossEncoderModel",
     "BGE_BASE",
+    "BGE_RERANKER_BASE",
     "TorchEncoder",
     "ShardedKnnIndex",
     "TorchEncoderEmbedder",
     "SentenceTransformerEmbedder",
+    "CrossEncoderReranker",
+    "EncoderReranker",
+    "rerank_topk_filter",
 ]

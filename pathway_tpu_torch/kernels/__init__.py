@@ -1,12 +1,16 @@
 """The port's hand-written CUDA kernels for Hopper (``sm_90a``).
 
-=============  ==========================  =================================
-kernel         source                      replaces (JAX program)
-=============  ==========================  =================================
-K1 attention   ``csrc/attention.cu``       ``models/encoder.py:113-117``
-K2 slab        ``csrc/slab_scatter.cu``    ``parallel/sharded_knn.py:123-176``
-K3 knn_topk    ``csrc/knn_topk.cu``        ``parallel/sharded_knn.py:336-341``
-=============  ==========================  =================================
+=================  ============================  =================================
+kernel             source                        replaces (JAX program)
+=================  ============================  =================================
+K1 attention       ``csrc/attention.cu``         ``models/encoder.py:113-117``
+K2 slab            ``csrc/slab_scatter.cu``      ``parallel/sharded_knn.py:123-176``
+K3 knn_topk        ``csrc/knn_topk.cu``          ``parallel/sharded_knn.py:336-341``
+K4 bias_act        ``csrc/bias_act.cu``          ``models/encoder.py:88-150,222-224``
+K5 add_layer_norm  ``csrc/add_layer_norm.cu``    ``models/encoder.py:128-150``
+K6 embed_ln        ``csrc/embed_ln.cu``          ``models/encoder.py:152-176``
+K7 pool_normalize  ``csrc/pool_normalize.cu``    ``models/encoder.py:196-202``
+=================  ============================  =================================
 
 Each wrapper checks device, dtype, shape and contiguity, launches its
 kernel on PyTorch's current stream for CUDA tensors and counts each
@@ -16,8 +20,12 @@ PyTorch version beside it.  Kernels build from ``csrc/`` at first use
 (:mod:`pathway_tpu_torch.kernels._build`).
 """
 
+from pathway_tpu_torch.kernels.add_layer_norm import add_layer_norm, add_layer_norm_plain
 from pathway_tpu_torch.kernels.attention import attention, attention_plain
+from pathway_tpu_torch.kernels.bias_act import bias_act, bias_act_plain
+from pathway_tpu_torch.kernels.embed_ln import embed_ln, embed_ln_plain
 from pathway_tpu_torch.kernels.knn_topk import MAX_K, knn_topk, knn_topk_plain
+from pathway_tpu_torch.kernels.pool_normalize import pool_normalize, pool_normalize_plain
 from pathway_tpu_torch.kernels.slab_scatter import (
     slab_clear,
     slab_clear_plain,
@@ -35,6 +43,14 @@ __all__ = [
     "knn_topk",
     "knn_topk_plain",
     "MAX_K",
+    "bias_act",
+    "bias_act_plain",
+    "add_layer_norm",
+    "add_layer_norm_plain",
+    "embed_ln",
+    "embed_ln_plain",
+    "pool_normalize",
+    "pool_normalize_plain",
     "WRAPPERS",
     "launch_counts",
     "reset_launch_counts",
@@ -46,6 +62,10 @@ WRAPPERS = {
     "slab_scatter": slab_scatter,
     "slab_clear": slab_clear,
     "knn_topk": knn_topk,
+    "bias_act": bias_act,
+    "add_layer_norm": add_layer_norm,
+    "embed_ln": embed_ln,
+    "pool_normalize": pool_normalize,
 }
 
 

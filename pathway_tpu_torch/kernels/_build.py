@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds, not minutes).  Libraries
 go into ``kernels/_build/`` (git-ignored), named by a hash of their
-source, so an edited source is rebuilt and an unchanged one is reused.
+source and of the shared headers (``csrc/*.cuh``), so an edited source
+is rebuilt and an unchanged one is reused.
 :func:`build_all` starts one ``nvcc`` per source at once and waits for
 all of them.  A failed build raises with the compiler's output.
 """
@@ -21,7 +22,10 @@ from pathlib import Path
 
 __all__ = ["NAMES", "build_all", "library", "ptxas_report"]
 
-NAMES = ("attention", "slab_scatter", "knn_topk")
+NAMES = (
+    "attention", "slab_scatter", "knn_topk",
+    "bias_act", "add_layer_norm", "embed_ln", "pool_normalize",
+)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
@@ -47,6 +51,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes() + _ARCH.encode())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return _BUILD / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -120,6 +126,12 @@ _SIGNATURES = {
         "pw_knn_partial_tiled": [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
         "pw_knn_merge": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "bias_act": {"pw_bias_act": [_P, _P, _LL, _I, _I, _P]},
+    "add_layer_norm": {"pw_add_layer_norm": [_P, _P, _P, _P, _P, _I, _I, _F, _P]},
+    "embed_ln": {
+        "pw_embed_ln": [_P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P],
+    },
+    "pool_normalize": {"pw_pool_normalize": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
 }
 
 

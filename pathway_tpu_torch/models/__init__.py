@@ -1,14 +1,16 @@
 """The port's text encoders (counterpart of ``pathway_tpu/models``):
-the BERT-family :class:`TextEncoderModel`, its presets, the hash
-tokenizer and the flax -> torch weight bridge."""
+the BERT-family :class:`TextEncoderModel` and :class:`CrossEncoderModel`,
+their presets, the hash tokenizer and the flax -> torch weight bridge."""
 
 from pathway_tpu_torch.models.convert import state_dict_from_flax
 from pathway_tpu_torch.models.encoder import (
     BGE_BASE,
     BGE_LARGE,
+    BGE_RERANKER_BASE,
     BGE_SMALL,
     E5_BASE,
     MINILM_L6,
+    CrossEncoderModel,
     EncoderConfig,
     TextEncoderModel,
 )
@@ -17,11 +19,13 @@ from pathway_tpu_torch.models.tokenizer import HashTokenizer, Tokenizer, get_tok
 __all__ = [
     "EncoderConfig",
     "TextEncoderModel",
+    "CrossEncoderModel",
     "MINILM_L6",
     "BGE_SMALL",
     "BGE_BASE",
     "BGE_LARGE",
     "E5_BASE",
+    "BGE_RERANKER_BASE",
     "Tokenizer",
     "HashTokenizer",
     "get_tokenizer",

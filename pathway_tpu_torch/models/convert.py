@@ -1,9 +1,10 @@
 """Weight bridge: flax encoder parameters -> the port's ``state_dict``.
 
-Maps the parameter tree of ``pathway_tpu.models.TextEncoderModel`` (nested
-dicts of arrays, as ``model.init`` returns them or as
-``pathway_tpu/models/convert.py`` builds them from an HF checkpoint) onto
-:class:`pathway_tpu_torch.models.TextEncoderModel`, so both packages run
+Maps the parameter tree of ``pathway_tpu.models.TextEncoderModel`` or
+``CrossEncoderModel`` (nested dicts of arrays, as ``model.init`` returns
+them or as ``pathway_tpu/models/convert.py`` builds them from an HF
+checkpoint) onto :class:`pathway_tpu_torch.models.TextEncoderModel` or
+:class:`~pathway_tpu_torch.models.CrossEncoderModel`, so both packages run
 the same weights.  Layouts (``pathway_tpu/models/convert.py:11-33``):
 
 ==========================================  ================================
@@ -18,6 +19,8 @@ flax leaf                                   torch parameter
 ``attention/out/kernel``                    ``.weight`` = kernel
   ``[heads, head_dim, hidden]``               ``.reshape(-1, hidden).T``
 ``mlp_up|mlp_down/kernel`` ``[in, out]``    ``.weight`` = kernel ``.T``
+``pooler|classifier/kernel`` ``[in, out]``  ``.weight`` = kernel ``.T``
+  (cross-encoder only, top level)             ``.bias`` = bias
 ==========================================  ================================
 
 The loader of HF checkpoint directories waits until a checkpoint is in
@@ -36,9 +39,16 @@ from pathway_tpu_torch.models.encoder import EncoderConfig
 __all__ = ["state_dict_from_flax"]
 
 
-def state_dict_from_flax(params: Mapping[str, Any], cfg: EncoderConfig) -> dict[str, torch.Tensor]:
-    """``state_dict`` for ``TextEncoderModel(cfg)`` from a flax parameter
-    tree (with or without the outer ``{"params": ...}``)."""
+def state_dict_from_flax(
+    params: Mapping[str, Any], cfg: EncoderConfig, *, cross: bool | None = None
+) -> dict[str, torch.Tensor]:
+    """``state_dict`` for ``TextEncoderModel(cfg)``, or for
+    ``CrossEncoderModel(cfg)`` when ``cross`` is set (by default when
+    ``cfg.num_labels > 0``), from a flax parameter tree (with or without
+    the outer ``{"params": ...}``).  The bi-encoder's tree needs no
+    ``pooler``/``classifier``; the cross-encoder's must have both."""
+    if cross is None:
+        cross = cfg.num_labels > 0
     p = params.get("params", params)
     out: dict[str, torch.Tensor] = {}
 
@@ -73,4 +83,7 @@ def state_dict_from_flax(params: Mapping[str, Any], cfg: EncoderConfig) -> dict[
         dense(f"{pre}.mlp_up", layer["mlp_up"])
         dense(f"{pre}.mlp_down", layer["mlp_down"])
         ln(f"{pre}.mlp_ln", layer["mlp_ln"])
+    if cross:
+        dense("pooler", p["pooler"])
+        dense("classifier", p["classifier"])
     return out

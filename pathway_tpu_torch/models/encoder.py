@@ -1,22 +1,28 @@
-"""BERT-family text encoders in PyTorch (counterpart of
-``pathway_tpu/models/encoder.py``).
+"""BERT-family text encoders and cross-encoders in PyTorch (counterpart
+of ``pathway_tpu/models/encoder.py``).
 
 Same configuration, presets, parameter names and numerics as the flax
 modules, so the same weights (``models/convert.py``) give the same
-embeddings:
+outputs:
 
 - f32 parameters, activations in ``cfg.dtype`` (bf16 for the presets);
-  every dense layer casts its parameters to the activation type per call
-  and adds its bias after the product, as flax ``Dense(dtype=...)`` does;
+  every dense layer casts its weight to the activation type per call,
+  rounds the product to it and adds its bias after the product, as flax
+  ``Dense(dtype=...)`` does;
 - the word + position (+ type) embedding sum in the activation type, in
   flax's order;
 - post-LN blocks, LayerNorm statistics in f32 with ``ln_eps`` (1e-12);
 - tanh GELU unless ``gelu_approx=False``;
 - pooled embedding L2-normalized in f32 with eps 1e-12.
 
-The attention core runs through kernel K1 (``kernels/attention.py``).
-The sequence-parallel ring-attention branch and ``CrossEncoderModel``
-wait for later slices (ROADMAP queue A).
+Everything but the dense products runs through the port's kernels:
+K6 ``embed_ln`` (embeddings), K1 ``attention``, K4 ``bias_act`` (every
+dense layer's bias, the GELU and the cross-encoder pooler's tanh), K5
+``add_layer_norm`` (both residual LayerNorms of a block) and K7
+``pool_normalize`` (the sentence encoder's tail).  The products are
+``F.linear`` without bias (cuBLAS), as the JAX package leaves them to
+XLA.  The sequence-parallel ring-attention branch waits for the
+multi-GPU slice (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -28,8 +34,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from pathway_tpu_torch._device import resolve_device
+from pathway_tpu_torch.kernels.add_layer_norm import add_layer_norm
 from pathway_tpu_torch.kernels.attention import attention
-from pathway_tpu_torch.ops.pooling import cls_pool, masked_mean_pool
+from pathway_tpu_torch.kernels.bias_act import bias_act
+from pathway_tpu_torch.kernels.embed_ln import embed_ln
+from pathway_tpu_torch.kernels.pool_normalize import pool_normalize
 
 __all__ = [
     "EncoderConfig",
@@ -37,11 +46,13 @@ __all__ = [
     "SelfAttention",
     "EncoderBlock",
     "TextEncoderModel",
+    "CrossEncoderModel",
     "MINILM_L6",
     "BGE_SMALL",
     "BGE_BASE",
     "BGE_LARGE",
     "E5_BASE",
+    "BGE_RERANKER_BASE",
 ]
 
 
@@ -58,6 +69,7 @@ class EncoderConfig:
     type_vocab: int = 2
     pool: str = "mean"  # mean | cls
     normalize: bool = True  # L2-normalize sentence embedding
+    num_labels: int = 0  # >0 => cross-encoder classification head
     dtype: torch.dtype = torch.bfloat16  # activation dtype
     param_dtype: torch.dtype = torch.float32
     ln_eps: float = 1e-12
@@ -74,21 +86,22 @@ BGE_SMALL = EncoderConfig(hidden=384, layers=12, heads=12, mlp_dim=1536, pool="c
 BGE_BASE = EncoderConfig(hidden=768, layers=12, heads=12, mlp_dim=3072, pool="cls")
 BGE_LARGE = EncoderConfig(hidden=1024, layers=24, heads=16, mlp_dim=4096, pool="cls")
 E5_BASE = EncoderConfig(hidden=768, layers=12, heads=12, mlp_dim=3072, pool="mean")
+BGE_RERANKER_BASE = dataclasses.replace(BGE_BASE, num_labels=1, pool="cls", normalize=False)
 
 #: std of the seeded random init (BERT's initializer_range)
 _INIT_STD = 0.02
 
 
-def _dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-    """flax ``Dense(dtype=x.dtype)``: params cast to the activation type,
-    product rounded to it, then the bias added."""
-    return F.linear(x, layer.weight.to(x.dtype)) + layer.bias.to(x.dtype)
+def _dense(x: torch.Tensor, layer: nn.Linear, act: str = "none") -> torch.Tensor:
+    """flax ``Dense(dtype=x.dtype)`` (+ activation): the weight cast to the
+    activation type, the product rounded to it, then K4 adds the bias and
+    applies ``act`` in place."""
+    return bias_act(F.linear(x, layer.weight.to(x.dtype)), layer.bias, act)
 
 
-def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
-    """flax ``LayerNorm(dtype=x.dtype)``: f32 statistics, result cast back."""
-    y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(), ln.bias.float(), ln.eps)
-    return y.to(x.dtype)
+def _add_layer_norm(x: torch.Tensor, r: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """flax ``LayerNorm(dtype=x.dtype)(x + r)`` through K5."""
+    return add_layer_norm(x, r, ln.weight, ln.bias, ln.eps)
 
 
 class SelfAttention(nn.Module):
@@ -124,11 +137,10 @@ class EncoderBlock(nn.Module):
         self.mlp_ln = nn.LayerNorm(cfg.hidden, eps=cfg.ln_eps, **kw)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = _layer_norm(x + self.attention(x, mask), self.attention_ln)
-        h = _dense(x, self.mlp_up)
-        h = F.gelu(h, approximate="tanh" if self.cfg.gelu_approx else "none")
+        x = _add_layer_norm(x, self.attention(x, mask), self.attention_ln)
+        h = _dense(x, self.mlp_up, "gelu_tanh" if self.cfg.gelu_approx else "gelu_erf")
         h = _dense(h, self.mlp_down)
-        return _layer_norm(x + h, self.mlp_ln)
+        return _add_layer_norm(x, h, self.mlp_ln)
 
 
 class Embeddings(nn.Module):
@@ -142,20 +154,16 @@ class Embeddings(nn.Module):
         self.ln = nn.LayerNorm(cfg.hidden, eps=cfg.ln_eps, **kw)
 
     def forward(self, ids: torch.Tensor, type_ids: torch.Tensor | None) -> torch.Tensor:
-        dt = self.cfg.dtype
-        # ids may arrive narrowed (int16): F.embedding takes int64
-        ids = ids.long()
-        emb = F.embedding(ids, self.word.weight).to(dt)
-        emb = emb + self.position.weight[: ids.shape[1]].to(dt)[None]
-        if self.token_type is not None:
-            t = torch.zeros_like(ids) if type_ids is None else type_ids.long()
-            emb = emb + F.embedding(t, self.token_type.weight).to(dt)
-        return _layer_norm(emb, self.ln)
+        """K6: ids may arrive narrowed (int16) and type ids as uint8."""
+        types = None if self.token_type is None else self.token_type.weight
+        return embed_ln(
+            ids, type_ids, self.word.weight, self.position.weight, types,
+            self.ln.weight, self.ln.bias, self.ln.eps, self.cfg.dtype,
+        )
 
 
-class TextEncoderModel(nn.Module):
-    """Sentence encoder: token ids [B, L] + mask [B, L] -> pooled
-    (optionally normalized) f32 embedding [B, hidden].
+class _EncoderStack(nn.Module):
+    """Embeddings + the post-LN blocks, shared by both model heads.
 
     Parameters are made on ``device`` (default ``"cuda"``; raises when no
     card is present) with a seeded random init drawn from a
@@ -169,7 +177,11 @@ class TextEncoderModel(nn.Module):
         self.embeddings = Embeddings(cfg, dev)
         for i in range(cfg.layers):
             self.add_module(f"layer_{i}", EncoderBlock(cfg, dev))
+        self._add_head(cfg, dev)
         self.init_weights(seed)
+
+    def _add_head(self, cfg: EncoderConfig, device: torch.device) -> None:
+        """Make the head's parameters (before the seeded init draws them)."""
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
@@ -190,17 +202,50 @@ class TextEncoderModel(nn.Module):
     def blocks(self) -> list[EncoderBlock]:
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.layers)]
 
-    def forward(
-        self, ids: torch.Tensor, mask: torch.Tensor, type_ids: torch.Tensor | None = None
+    def hidden_states(
+        self, ids: torch.Tensor, mask: torch.Tensor, type_ids: torch.Tensor | None
     ) -> torch.Tensor:
-        cfg = self.cfg
-        mask = mask.to(torch.uint8)
+        """The last block's output ``[B, L, hidden]`` in ``cfg.dtype``;
+        ``mask`` as uint8."""
         x = self.embeddings(ids, type_ids)
         for block in self.blocks():
             x = block(x, mask)
-        pooled = cls_pool(x) if cfg.pool == "cls" else masked_mean_pool(x, mask)
-        pooled = pooled.float()
-        if cfg.normalize:
-            norm = torch.sqrt(torch.sum(pooled**2, dim=-1, keepdim=True))
-            pooled = pooled / torch.clamp(norm, min=1e-12)
-        return pooled
+        return x
+
+
+class TextEncoderModel(_EncoderStack):
+    """Sentence encoder: token ids [B, L] + mask [B, L] -> pooled
+    (optionally normalized) f32 embedding [B, hidden]; the tail is K7."""
+
+    def forward(
+        self, ids: torch.Tensor, mask: torch.Tensor, type_ids: torch.Tensor | None = None
+    ) -> torch.Tensor:
+        mask = mask.to(torch.uint8)
+        x = self.hidden_states(ids, mask, type_ids)
+        return pool_normalize(x, mask, self.cfg.pool, self.cfg.normalize)
+
+
+class CrossEncoderModel(_EncoderStack):
+    """(query, doc) pair scorer: encoder + classification head -> [B]
+    logits when ``num_labels <= 1``, else [B, num_labels] (the JAX
+    package's ``CrossEncoderModel``, ``encoder.py:205-231``).
+
+    The CLS row goes through the ``pooler`` Dense + tanh (a bf16 product,
+    then K4 with ``act="tanh"``) and the ``classifier`` Dense in f32.  The
+    classifier is a ``[B, hidden] x [hidden, labels]`` f32 product that
+    the JAX package computes outside any fused program; it stays
+    ``F.linear`` in f32, bias included.
+    """
+
+    def _add_head(self, cfg: EncoderConfig, device: torch.device) -> None:
+        kw = {"device": device, "dtype": cfg.param_dtype}
+        self.pooler = nn.Linear(cfg.hidden, cfg.hidden, **kw)
+        self.classifier = nn.Linear(cfg.hidden, max(cfg.num_labels, 1), **kw)
+
+    def forward(
+        self, ids: torch.Tensor, mask: torch.Tensor, type_ids: torch.Tensor | None = None
+    ) -> torch.Tensor:
+        x = self.hidden_states(ids, mask.to(torch.uint8), type_ids)
+        h = _dense(x[:, 0], self.pooler, "tanh")
+        logits = F.linear(h.float(), self.classifier.weight.float(), self.classifier.bias.float())
+        return logits[:, 0] if logits.shape[1] == 1 else logits

@@ -3,14 +3,17 @@ of ``pathway_tpu.parallel.JittedEncoder``.
 
 A whole epoch's rows are tokenized into bucketed batches (power-of-two
 rows, padded rows given one valid token) and pushed through one
-:class:`~pathway_tpu_torch.models.TextEncoderModel` forward per chunk on
-the card.  Token ids upload as int16 (mask and type ids as uint8) when
-the vocabulary fits, a third of the int32 bytes.  Up to
+:class:`~pathway_tpu_torch.models.TextEncoderModel` (or, with
+``cross=True``, :class:`~pathway_tpu_torch.models.CrossEncoderModel`)
+forward per chunk on the card.  Token ids upload as int16 (mask and
+type ids as uint8) when the vocabulary fits, a third of the int32 bytes.  Up to
 ``pipeline_depth`` chunks are enqueued before the oldest result is read
 back, so tokenizing one chunk overlaps the device work of the previous
 ones; :meth:`TorchEncoder.encode_into` keeps the embeddings on the
 device and upserts them straight into a
-:class:`~pathway_tpu_torch.parallel.ShardedKnnIndex`.
+:class:`~pathway_tpu_torch.parallel.ShardedKnnIndex`, and
+:meth:`TorchEncoder.score_pairs` scores (query, doc) pairs with the
+cross-encoder.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 from pathway_tpu_torch._device import finish_readback, resolve_device, start_readback, upload
 from pathway_tpu_torch.internals import device_counters as _devctr
 from pathway_tpu_torch.models.convert import state_dict_from_flax
-from pathway_tpu_torch.models.encoder import EncoderConfig, TextEncoderModel
+from pathway_tpu_torch.models.encoder import CrossEncoderModel, EncoderConfig, TextEncoderModel
 from pathway_tpu_torch.models.tokenizer import Tokenizer, get_tokenizer
 from pathway_tpu_torch.ops.bucketing import bucket_size
 
@@ -34,14 +37,16 @@ __all__ = ["TorchEncoder"]
 class TorchEncoder:
     """Holds the encoder on ``device`` and runs it over bucketed batches.
 
-    ``encode(texts) -> [n, hidden] float32`` embeddings.  ``params`` takes
-    a flax parameter tree of the JAX package's ``TextEncoderModel`` (see
+    cross=False: ``encode(texts) -> [n, hidden] float32`` embeddings.
+    cross=True:  ``score_pairs(queries, docs) -> [n] float32`` logits.
+    ``params`` takes a flax parameter tree of the JAX package's
+    ``TextEncoderModel`` or ``CrossEncoderModel`` (see
     :func:`~pathway_tpu_torch.models.state_dict_from_flax`); without it the
     weights are a seeded random init.
 
-    ``mesh``, ``sequence_axis``, ``cross=True`` and ``checkpoint_dir`` are
-    the JAX executor's and raise ``NotImplementedError`` here until the
-    ROADMAP items that bring them land.
+    ``mesh``, ``sequence_axis`` and ``checkpoint_dir`` are the JAX
+    executor's and raise ``NotImplementedError`` here until the ROADMAP
+    items that bring them land.
     """
 
     def __init__(
@@ -61,10 +66,6 @@ class TorchEncoder:
         sequence_axis: str | None = None,
         device: str | torch.device = "cuda",
     ):
-        if cross:
-            raise NotImplementedError(
-                "cross-encoder scoring comes with CrossEncoderModel (ROADMAP A3, queue B8)"
-            )
         if mesh is not None or sequence_axis is not None:
             raise NotImplementedError(
                 "data/tensor/sequence parallelism comes with the multi-GPU slice (ROADMAP A9)"
@@ -77,13 +78,15 @@ class TorchEncoder:
             raise ValueError("config is required")
         self.device = resolve_device(device)
         self.config = config
+        self.cross = cross
         self.max_batch = max_batch
         self.max_len = max_len or config.max_len
         self.pipeline_depth = max(1, pipeline_depth)
         self.tokenizer = tokenizer or get_tokenizer(model_name, config.vocab_size)
-        self.model = TextEncoderModel(config, device=self.device, seed=seed)
+        model_cls = CrossEncoderModel if cross else TextEncoderModel
+        self.model = model_cls(config, device=self.device, seed=seed)
         if params is not None:
-            self.model.load_state_dict(state_dict_from_flax(params, config))
+            self.model.load_state_dict(state_dict_from_flax(params, config, cross=cross))
         self.model.eval()
         # ids upload as int16 when the vocab permits (mask/type as uint8)
         self._narrow_ids = config.vocab_size < 2**15
@@ -102,33 +105,39 @@ class TorchEncoder:
         mask[n:, 0] = 1
         return ids, mask, tps, n
 
-    def _dispatch(self, ids: np.ndarray, mask: np.ndarray, tps: np.ndarray):
-        """Upload one padded chunk and enqueue its forward; returns
-        (device output [b, hidden] f32, n real rows) without waiting."""
+    def _upload(self, ids: np.ndarray, mask: np.ndarray, tps: np.ndarray):
+        """Pad one tokenized chunk, narrow it and start its upload; returns
+        ([ids, mask, type_ids] on the device, n real rows)."""
         ids, mask, tps, n = self._pad_batch(ids, mask, tps)
         if self._narrow_ids:
             ids = ids.astype(np.int16, copy=False)
             mask = mask.astype(np.uint8, copy=False)
             tps = tps.astype(np.uint8, copy=False)
         _devctr.record_h2d(ids.nbytes + mask.nbytes + tps.nbytes)
-        args = [upload(a, self.device) for a in (ids, mask, tps)]
+        return [upload(a, self.device) for a in (ids, mask, tps)], n
+
+    def _dispatch(self, ids: np.ndarray, mask: np.ndarray, tps: np.ndarray):
+        """Upload one padded chunk and enqueue its forward; returns
+        (device output, [b, hidden] or [b] f32, n real rows) without
+        waiting."""
+        args, n = self._upload(ids, mask, tps)
         with torch.inference_mode():
             out = self.model(*args)
         return out, n
 
-    def _chunks(self, texts: Sequence[str]):
+    def _chunks(self, texts: Sequence[str], pair: Sequence[str] | None = None):
+        """Chunks of ``max_batch`` rows, each tokenized (with its ``pair``
+        texts second, when given)."""
         for i in range(0, len(texts), self.max_batch):
-            yield texts[i : i + self.max_batch]
+            sl = slice(i, i + self.max_batch)
+            yield self.tokenizer.encode_batch(
+                texts[sl], pair=None if pair is None else pair[sl], max_len=self.max_len
+            )
 
-    def _tokenize(self, chunk: Sequence[str]):
-        return self.tokenizer.encode_batch(chunk, max_len=self.max_len)
-
-    # ------------------------------------------------------------------
-    def encode(self, texts: Sequence[str]) -> np.ndarray:
-        """Embed a list of texts -> [n, hidden] float32."""
-        texts = list(texts)
-        if not texts:
-            return np.zeros((0, self.config.hidden), np.float32)
+    def _run_pipelined(self, texts: list, pair: list | None) -> np.ndarray:
+        """Dispatch up to ``pipeline_depth`` chunks before reading back the
+        oldest, so tokenizing one chunk overlaps the device work and the
+        readback of the ones before it; the real rows, concatenated."""
         outs: list[np.ndarray] = []
         inflight: deque = deque()
 
@@ -138,8 +147,8 @@ class TorchEncoder:
             _devctr.record_d2h(host.nbytes)
             outs.append(host[:n])
 
-        for chunk in self._chunks(texts):
-            out, n = self._dispatch(*self._tokenize(chunk))
+        for batch in self._chunks(texts, pair):
+            out, n = self._dispatch(*batch)
             inflight.append((start_readback(out), n))
             if len(inflight) >= self.pipeline_depth:
                 collect()
@@ -147,18 +156,42 @@ class TorchEncoder:
             collect()
         return np.concatenate(outs, axis=0)
 
+    # ------------------------------------------------------------------
+    def encode(self, texts: Sequence[str]) -> np.ndarray:
+        """Embed a list of texts -> [n, hidden] float32."""
+        if self.cross:
+            raise TypeError("cross-encoder executor: use score_pairs()")
+        texts = list(texts)
+        if not texts:
+            return np.zeros((0, self.config.hidden), np.float32)
+        return self._run_pipelined(texts, None)
+
     def encode_into(self, index: Any, keys: Sequence[Any], texts: Sequence[str]) -> int:
         """Embed ``texts`` and upsert the embeddings into ``index``
         (``ShardedKnnIndex.add_batch_device``) on the device: token ids go
         up, no embedding comes down.  Returns the number of rows indexed."""
+        if self.cross:
+            raise TypeError("cross-encoder executor: use score_pairs()")
         texts = list(texts)
         keys = list(keys)
         if len(keys) != len(texts):
             raise ValueError("keys and texts must align")
         pos = 0
-        for chunk in self._chunks(texts):
-            out, n = self._dispatch(*self._tokenize(chunk))
+        for batch in self._chunks(texts):
+            out, n = self._dispatch(*batch)
             # the upsert is enqueued behind the forward on the same stream
             index.add_batch_device(keys[pos : pos + n], out, n_valid=n)
             pos += n
         return pos
+
+    def score_pairs(self, queries: Sequence[str], docs: Sequence[str]) -> np.ndarray:
+        """Cross-encoder scores for aligned (query, doc) pairs -> [n]
+        float32; each query is the first text of its pair, as the JAX
+        executor tokenizes them."""
+        if not self.cross:
+            raise TypeError("bi-encoder executor: use encode()")
+        if len(queries) != len(docs):
+            raise ValueError("queries and docs must align")
+        if not len(queries):
+            return np.zeros((0,), np.float32)
+        return self._run_pipelined(list(queries), list(docs))

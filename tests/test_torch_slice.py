@@ -131,7 +131,7 @@ def test_embedder_presets_and_alias():
 
 @pytest.mark.parametrize(
     "kwargs,item",
-    [({"cross": True}, "A3"), ({"mesh": object()}, "A9"),
+    [({"cross": True, "checkpoint_dir": "/nonexistent"}, "A3"), ({"mesh": object()}, "A9"),
      ({"sequence_axis": "data"}, "A9"), ({"checkpoint_dir": "/nonexistent"}, "A3")],
 )
 def test_unported_executor_options_name_their_roadmap_item(kwargs, item):
@@ -142,7 +142,8 @@ def test_unported_executor_options_name_their_roadmap_item(kwargs, item):
 
 def test_import_pulls_in_no_jax():
     code = (
-        "import sys, pathway_tpu_torch, pathway_tpu_torch.kernels._build;"
+        "import sys, pathway_tpu_torch, pathway_tpu_torch.kernels._build,"
+        " pathway_tpu_torch.xpacks.llm.rerankers;"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'pathway_tpu'));"
         "print(bad); sys.exit(1 if bad else 0)"
     )
