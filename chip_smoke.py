@@ -28,7 +28,20 @@ Phases, each fatal on failure:
    finite and within a stated tolerance of the same model run through
    the kernels' plain versions only, the kept five must match the plain
    ranking wherever its 5th/6th margin exceeds that tolerance, and the
-   path's kernels must launch during it.
+   path's kernels must launch during it;
+5. the image path through ``DualEncoderModel(SIGLIP_BASE, BGE_BASE)`` at
+   full width (224-pixel images in 16-pixel patches, 196 patches, 768
+   hidden, 12 layers, 12 heads, MLP 3072, bf16, seeded random weights;
+   the text tower BGE-base's shape): a 262,144-slot cosine index
+   bulk-filled with seeded random unit rows, 4,096 seeded structured
+   images uploaded from pinned memory, embedded in chunks of 256 and
+   upserted on the device, 256 of them re-embedded (each whose nearest
+   other image lies further than the tolerance must come back as its own
+   top-1 with cosine >= 0.999), 32 captions searched (top-k equal to a
+   plain matmul + top-k over the slab; p50/p99 at nq=1 and nq=32), the
+   256 x 256 image x caption logits, and the embeddings held against the
+   tower run through the plain versions only and against its f32
+   forward.  Every kernel of the path must launch during it.
 
 The second-to-last line of output is a JSON object with one entry per
 kernel wrapper; the last is ``{"ok": true, "device": {...}}``.  Without a
@@ -56,6 +69,13 @@ RERANK_K = 32  # candidates retrieved per question
 RERANK_KEEP = 5
 N_QUESTIONS = 32  # the batched round
 N_SINGLE = 20  # single-question rounds
+IMAGE_SIZE, PATCH = 224, 16  # SigLIP-base's image tower
+N_PATCH = (IMAGE_SIZE // PATCH) ** 2  # 196 = 3 * 64 + 4: K1's last key tile is partial
+IMAGE_BATCH = 256  # images per chunk on the image path
+N_IMAGES = 4096
+IMAGE_CAPACITY = 1 << 18  # slots of the image index (805 MB of f32 rows)
+N_PROBE = 256  # indexed images re-embedded for self-retrieval
+N_CAPTIONS = 256  # captions: the first 32 query the index, all 256 make the logits
 
 # stated tolerances
 ATTN_ATOL = ATTN_RTOL = 2e-2  # bf16 output (8 mantissa bits); plain rounds logits to bf16, K1 keeps f32
@@ -77,6 +97,17 @@ SCORE_ATOL = 2e-2
 # ... and the kernel path no further from the f32 forward, on average, than
 # this many times the plain bf16 path is
 F32_RATIO = 1.5
+# K9: f32 sums of 196 rows and of 768 products taken in another order
+HEAD_ATOL = 1e-5
+# K10: f32 dots of unit rows over 768 dims in another order, times e^s (< 10)
+LOGIT_ATOL = 1e-5
+# image embeddings against the plain-only forward: the bf16 encoder
+# tolerance of the CPU tests (cosine per row, and absolute)
+EMBED_COS = 0.999
+EMBED_ATOL = 2e-2
+# self-retrieval decides only images whose cosine to their nearest other
+# indexed image is below their own by more than this
+SELF_MARGIN = 1.0 - SELF_COS
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, bf16 and f32 FLOP/s
 PEAK_BYTES = 3.35e12
@@ -206,6 +237,18 @@ def phase_kernels(torch, dev) -> dict:
             widths.add(L)
         log(f"K1 attention B={B} L={L} H={H} D={D}: max_abs_err {err.max().item():.3e}")
         del q, k, v, mask, got, ref, err
+    # the image path: every one of N_PATCH patches present, a partial last key tile
+    q, k, v, mask = attn_inputs(IMAGE_BATCH, N_PATCH, 12, 64, min_len=N_PATCH)
+    got = attention(q, k, v, mask).float()
+    ref = attention_plain(q, k, v, mask).float()
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    if not bool(mask.all()) or not torch.isfinite(got).all() or (err > ATTN_ATOL + ATTN_RTOL * ref.abs()).any():
+        fail(f"attention B={IMAGE_BATCH} L={N_PATCH} (all keys present): max err {err.max().item()}")
+    attn_err = max(attn_err, err.max().item())
+    widths.add(N_PATCH)
+    log(f"K1 attention B={IMAGE_BATCH} L={N_PATCH} H=12 D=64, all keys: max_abs_err {err.max().item():.3e}")
+    del q, k, v, mask, got, ref, err
 
     def attn_timing(B, L, H, D, min_len, max_len=None):
         """Times at one shape; the bound counts the keys the masks keep:
@@ -230,9 +273,10 @@ def phase_kernels(torch, dev) -> dict:
     out["attention"] = {**attn_timing(DOC_BATCH, 256, 12, 64, 64), "max_abs_err": attn_err}
     out["_attention_b32_l512"] = attn_timing(32, 512, 12, 64, 1)
     out["_attention_rerank"] = attn_timing(RERANK_BATCH, 512, 12, 64, 75, 283)
+    out["_attention_image"] = attn_timing(IMAGE_BATCH, N_PATCH, 12, 64, N_PATCH)
     out["_attention_widths"] = widths
     log(f"K1 attention timings: {json.dumps(out['attention'])} {json.dumps(out['_attention_b32_l512'])}"
-        f" {json.dumps(out['_attention_rerank'])}")
+        f" {json.dumps(out['_attention_rerank'])} {json.dumps(out['_attention_image'])}")
 
     # ---- K2 slab scatter / clear: 256 rows (200 live + 56 pads) into [1M, 768] f32
     slab = torch.randn((CAPACITY, HIDDEN), generator=g, device=dev)
@@ -406,7 +450,7 @@ def phase_fused(torch, dev) -> dict:
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     bf16 = torch.bfloat16
-    rows_embed, rows_rerank = DOC_BATCH * 256, RERANK_BATCH * 512
+    rows_embed, rows_rerank, rows_image = DOC_BATCH * 256, RERANK_BATCH * 512, IMAGE_BATCH * N_PATCH
     out: dict = {}
 
     def randn(*shape, scale=1.0):
@@ -420,6 +464,8 @@ def phase_fused(torch, dev) -> dict:
         ("embed mlp_up", rows_embed, 4 * HIDDEN, "gelu_tanh"),
         ("rerank q/k/v/out/mlp_down", rows_rerank, HIDDEN, "none"),
         ("rerank mlp_up", rows_rerank, 4 * HIDDEN, "gelu_tanh"),
+        ("image q/k/v/out/mlp_down", rows_image, HIDDEN, "none"),
+        ("image mlp_up", rows_image, 4 * HIDDEN, "gelu_tanh"),
         ("gelu_erf", 4096, 4 * HIDDEN, "gelu_erf"),
         ("rerank pooler", RERANK_BATCH, HIDDEN, "tanh"),
     ):
@@ -454,7 +500,7 @@ def phase_fused(torch, dev) -> dict:
 
     # ---- K5 add_layer_norm
     k5 = {}
-    for label, M in (("embed", rows_embed), ("rerank", rows_rerank)):
+    for label, M in (("embed", rows_embed), ("rerank", rows_rerank), ("image", rows_image)):
         x, r = randn(M, HIDDEN).to(bf16), randn(M, HIDDEN).to(bf16)
         scale, bias = 1.0 + randn(HIDDEN, scale=0.1), randn(HIDDEN, scale=0.1)
         got = add_layer_norm(x, r, scale, bias, 1e-12)
@@ -507,6 +553,32 @@ def phase_fused(torch, dev) -> dict:
         }
         k6[label] = row
         log(f"K6 embed_ln: {json.dumps(row)}")
+    # ids out of range, as flax's nn.Embed takes them: >= vocab or < -vocab
+    # give a NaN row, [-vocab, 0) wraps; type ids likewise
+    bad_ids = [vocab, vocab + 5, -1, -vocab, -vocab - 1, -17, 2 * vocab // 3]
+    for id_dtype in (torch.int16, torch.int32, torch.int64):
+        ids = torch.randint(1000, vocab, (8, 16), generator=g, device=dev)
+        ids[0, : len(bad_ids)] = torch.tensor(bad_ids, device=dev)
+        tids = torch.zeros((8, 16), dtype=torch.int64, device=dev)
+        tids[1, :4] = torch.tensor([1, 2, -1, -3], device=dev)
+        args = (ids.to(id_dtype), tids.to(id_dtype), word, position, types, scale, bias, 1e-12)
+        got = embed_ln(*args)
+        ref = embed_ln_plain(*args, bf16)
+        torch.cuda.synchronize()
+        want_nan = (ids >= vocab) | (ids < -vocab) | (tids >= 2) | (tids < -2)
+        nan_got, nan_ref = got.isnan().all(-1), ref.isnan().all(-1)
+        if not (torch.equal(nan_got, want_nan) and torch.equal(nan_ref, want_nan)):
+            fail(f"embed_ln {id_dtype}: NaN rows {nan_got.nonzero().tolist()}, plain "
+                 f"{nan_ref.nonzero().tolist()}, flax {want_nan.nonzero().tolist()}")
+        wrapped = embed_ln_plain(torch.where(ids < 0, ids + vocab, ids).clamp(max=vocab - 1),
+                                 torch.where(tids < 0, tids + 2, tids).clamp(max=1), *args[2:], bf16)
+        live = ~want_nan
+        err = check_bf16(f"embed_ln {id_dtype} out-of-range ids", got[live], ref[live])
+        if not torch.equal(ref[live], wrapped[live]):
+            fail(f"embed_ln_plain {id_dtype}: negative ids do not wrap as flax's do")
+        k6["embed"]["max_abs_err"] = max(k6["embed"]["max_abs_err"], err)
+    log(f"K6 embed_ln out-of-range ids: NaN rows {int(want_nan.sum())} of {want_nan.numel()} as flax, "
+        "negative ids wrapped, for int16/int32/int64 ids")
     out["embed_ln"] = {**k6["embed"], "max_abs_err": max(r["max_abs_err"] for r in k6.values())}
     out["_embed_ln_shapes"] = k6
 
@@ -544,6 +616,167 @@ def phase_fused(torch, dev) -> dict:
     return out
 
 
+def phase_vision_kernels(torch, dev) -> dict:
+    """Phase 2, continued: K8, K4 with the position addend, K9 and K10
+    against their plain versions at the image path's shapes (a chunk of
+    IMAGE_BATCH 224-pixel images: M = IMAGE_BATCH x N_PATCH patch rows)."""
+    from pathway_tpu_torch.kernels import (
+        bias_act,
+        bias_act_plain,
+        dual_logits,
+        dual_logits_plain,
+        patch_grid,
+        patchify,
+        patchify_plain,
+        vision_head,
+        vision_head_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    bf16 = torch.bfloat16
+    B, rows, cols = IMAGE_BATCH, IMAGE_BATCH * N_PATCH, PATCH * PATCH * 3
+    out: dict = {}
+
+    # ---- K8 patchify: uint8 images (the image path's upload) and f32 (the
+    # JAX model's contract); exact, both sides cast the same values
+    k8 = {}
+    shape = (B, IMAGE_SIZE, IMAGE_SIZE, 3)
+    for label, imgs in (
+        ("uint8", torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)),
+        ("f32", torch.rand(shape, generator=g, device=dev) * 255.0),
+    ):
+        if not torch.equal(patchify(imgs, PATCH), patchify_plain(imgs, PATCH, bf16)):
+            fail(f"patchify ({label}) differs from its plain version")
+        b_ms, b_by = bound(imgs.numel() * imgs.element_size() + rows * cols * 2, rows * cols, PEAK_F32)
+        k8[label] = {
+            "shape": f"B={B} {IMAGE_SIZE}x{IMAGE_SIZE}x3 {label} -> [{rows},{cols}] bf16",
+            "max_abs_err": 0.0,
+            "ms": time_ms(torch, lambda: patchify(imgs, PATCH), 20),
+            "plain_ms": time_ms(torch, lambda: patchify_plain(imgs, PATCH, bf16), 5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,  # no single torch call cuts NHWC images into (kh, kw, c) rows
+        }
+        log(f"K8 patchify: {json.dumps(k8[label])}")
+        del imgs
+    # "SAME" padding (off the path): value by value at the edges and where
+    # a patch row's start is not 16-byte aligned
+    for h, w, p, dt in ((200, 210, 16, torch.float32), (30, 27, 8, torch.uint8)):
+        imgs = (torch.rand((3, h, w, 3), generator=g, device=dev) * 255.0).to(dt)
+        got = patchify(imgs, p)
+        gh, gw, _, _ = patch_grid(h, w, p)
+        if got.shape != (3 * gh * gw, p * p * 3) or not torch.equal(got, patchify_plain(imgs, p, bf16)):
+            fail(f"patchify {h}x{w} patch {p} {dt} differs from its plain version")
+    out["patchify"] = k8["uint8"]
+    out["_patchify_shapes"] = k8
+
+    # ---- K4 with the position addend: the patch embed's bias + pos
+    y = torch.randn((rows, HIDDEN), generator=g, device=dev).to(bf16)
+    bias = torch.randn((HIDDEN,), generator=g, device=dev) * 0.5
+    pos = torch.randn((N_PATCH, HIDDEN), generator=g, device=dev) * 0.3
+    got = bias_act(y.clone(), bias, "none", pos)
+    ref = bias_act_plain(y.clone(), bias, "none", pos)
+    torch.cuda.synchronize()
+    err = check_bf16("bias_act pos", got, ref)
+    del got, ref
+    b_ms, b_by = bound(2 * rows * HIDDEN * 2 + HIDDEN * 4 + N_PATCH * HIDDEN * 4, 2 * rows * HIDDEN, PEAK_F32)
+    out["bias_act_pos"] = {
+        "shape": f"M={rows} N={HIDDEN} bf16 + pos [{N_PATCH},{HIDDEN}] f32 (image patch embed)",
+        "max_abs_err": err,
+        "ms": time_ms(torch, lambda: bias_act(y, bias, "none", pos), 20),
+        "plain_ms": time_ms(torch, lambda: bias_act_plain(y, bias, "none", pos), 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,  # no single torch call adds both
+    }
+    log(f"K4 bias_act pos: {json.dumps(out['bias_act_pos'])}")
+    del y
+
+    # ---- K9 vision_head: LayerNorm-scale rows, a 0.02-scale projection
+    x = torch.randn((B, N_PATCH, HIDDEN), generator=g, device=dev).to(bf16)
+    weight = torch.randn((HIDDEN, HIDDEN), generator=g, device=dev) * 0.02
+    hbias = torch.randn((HIDDEN,), generator=g, device=dev) * 0.1
+    got = vision_head(x, weight, hbias)
+    ref = vision_head_plain(x, weight, hbias)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    if not err <= HEAD_ATOL or not bool(got.isfinite().all()):
+        fail(f"vision_head: max err {err} > {HEAD_ATOL}")
+    nbytes = rows * HIDDEN * 2 + HIDDEN * HIDDEN * 4 + HIDDEN * 4 + B * HIDDEN * 4
+    b_ms, b_by = bound(nbytes, rows * HIDDEN + 2 * B * HIDDEN * HIDDEN + 3 * B * HIDDEN, PEAK_F32)
+    out["vision_head"] = {
+        "shape": f"B={B} P={N_PATCH} H={HIDDEN} bf16, projection [{HIDDEN},{HIDDEN}] f32 -> [{B},{HIDDEN}] f32",
+        "max_abs_err": err,
+        "ms": time_ms(torch, lambda: vision_head(x, weight, hbias), 20),
+        "plain_ms": time_ms(torch, lambda: vision_head_plain(x, weight, hbias), 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,  # no single torch call pools, projects and normalises
+        "device_ms": {"kernel": device_ms(torch, lambda: vision_head(x, weight, hbias)),
+                      "plain": device_ms(torch, lambda: vision_head_plain(x, weight, hbias))},
+    }
+    log(f"K9 vision_head: {json.dumps(out['vision_head'])}")
+    del x
+
+    # ---- K10 dual_logits: unit rows, a logit scale and bias off their init
+    def unit(n):
+        v = torch.randn((n, HIDDEN), generator=g, device=dev)
+        return v / v.norm(dim=1, keepdim=True)
+
+    img, txt = unit(B), unit(B)
+    scale, lbias = torch.tensor(2.3, device=dev), torch.tensor(-0.5, device=dev)
+    err = 0.0
+    for a, b in ((img, txt), (img[:100], txt[:37]), (img[:1], txt)):
+        got = dual_logits(a, b, scale, lbias)
+        ref = dual_logits_plain(a, b, scale, lbias)
+        torch.cuda.synchronize()
+        e = (got - ref).abs().max().item()
+        if not e <= LOGIT_ATOL or got.shape != (a.shape[0], b.shape[0]):
+            fail(f"dual_logits {tuple(got.shape)}: max err {e} > {LOGIT_ATOL}")
+        err = max(err, e)
+    es = torch.exp(scale)  # the library call's multiplier, computed once (untimed)
+    b_ms, b_by = bound(2 * B * HIDDEN * 4 + 8 + B * B * 4, 2 * B * B * HIDDEN + 2 * B * B, PEAK_F32)
+    kern = lambda: dual_logits(img, txt, scale, lbias)  # noqa: E731
+    plain = lambda: dual_logits_plain(img, txt, scale, lbias)  # noqa: E731
+    lib = lambda: torch.matmul(img, txt.T).mul_(es).add_(lbias)  # noqa: E731
+    out["dual_logits"] = {
+        "shape": f"[{B},{HIDDEN}] x [{B},{HIDDEN}]^T f32, * e^s + b",
+        "max_abs_err": err,
+        "ms": time_ms(torch, kern, 50), "plain_ms": time_ms(torch, plain, 50),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(torch, lib, 50),  # matmul, then the multiply and add in place
+        "device_ms": {"kernel": device_ms(torch, kern), "plain": device_ms(torch, plain),
+                      "library": device_ms(torch, lib)},
+    }
+    log(f"K10 dual_logits: {json.dumps(out['dual_logits'])}")
+    return out
+
+
+def _plain_dense(h, layer, act="none"):
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch.kernels import bias_act_plain
+
+    return bias_act_plain(F.linear(h, layer.weight.to(h.dtype)), layer.bias, act)
+
+
+def _plain_blocks(blocks, x, mask):
+    """The post-LN ``blocks`` (``EncoderBlock``s) over ``x`` through the
+    plain versions of K1, K4 and K5."""
+    from pathway_tpu_torch.kernels import add_layer_norm_plain, attention_plain
+
+    def add_ln(a, b, ln):
+        return add_layer_norm_plain(a, b, ln.weight, ln.bias, ln.eps)
+
+    B, L, _ = x.shape
+    for block in blocks:
+        cfg, att = block.cfg, block.attention
+        heads = (B, L, cfg.heads, cfg.head_dim)
+        q, k, v = (_plain_dense(x, lin).view(heads) for lin in (att.query, att.key, att.value))
+        a = _plain_dense(attention_plain(q, k, v, mask).reshape(B, L, cfg.hidden), att.out)
+        x = add_ln(x, a, block.attention_ln)
+        h = _plain_dense(x, block.mlp_up, "gelu_tanh" if cfg.gelu_approx else "gelu_erf")
+        x = add_ln(x, _plain_dense(h, block.mlp_down), block.mlp_ln)
+    return x
+
+
 def plain_forward(model, ids, mask, type_ids=None):
     """``model``'s forward (a ``TextEncoderModel`` or ``CrossEncoderModel``)
     through the kernels' plain versions only, on whatever device its
@@ -552,13 +785,7 @@ def plain_forward(model, ids, mask, type_ids=None):
     import torch
     import torch.nn.functional as F
 
-    from pathway_tpu_torch.kernels import (
-        add_layer_norm_plain,
-        attention_plain,
-        bias_act_plain,
-        embed_ln_plain,
-        pool_normalize_plain,
-    )
+    from pathway_tpu_torch.kernels import embed_ln_plain, pool_normalize_plain
 
     cfg = model.cfg
     mask = mask.to(torch.uint8)
@@ -566,27 +793,67 @@ def plain_forward(model, ids, mask, type_ids=None):
     types = None if emb.token_type is None else emb.token_type.weight
     x = embed_ln_plain(ids, type_ids, emb.word.weight, emb.position.weight, types,
                        emb.ln.weight, emb.ln.bias, emb.ln.eps, cfg.dtype)
-
-    def dense(h, layer, act="none"):
-        return bias_act_plain(F.linear(h, layer.weight.to(h.dtype)), layer.bias, act)
-
-    def add_ln(a, b, ln):
-        return add_layer_norm_plain(a, b, ln.weight, ln.bias, ln.eps)
-
-    B, L, _ = x.shape
-    heads = (B, L, cfg.heads, cfg.head_dim)
-    for block in model.blocks():
-        att = block.attention
-        q, k, v = (dense(x, lin).view(heads) for lin in (att.query, att.key, att.value))
-        a = dense(attention_plain(q, k, v, mask).reshape(B, L, cfg.hidden), att.out)
-        x = add_ln(x, a, block.attention_ln)
-        h = dense(x, block.mlp_up, "gelu_tanh" if cfg.gelu_approx else "gelu_erf")
-        x = add_ln(x, dense(h, block.mlp_down), block.mlp_ln)
+    x = _plain_blocks(model.blocks(), x, mask)
     if not hasattr(model, "classifier"):
         return pool_normalize_plain(x, mask, cfg.pool, cfg.normalize)
-    h = dense(x[:, 0], model.pooler, "tanh")
+    h = _plain_dense(x[:, 0], model.pooler, "tanh")
     logits = F.linear(h.float(), model.classifier.weight.float(), model.classifier.bias.float())
     return logits[:, 0] if logits.shape[1] == 1 else logits
+
+
+def plain_vision_forward(model, images):
+    """A ``VisionEncoderModel``'s forward through the kernels' plain
+    versions only (K8, K4 with the position addend, K1, K4, K5, K9), on
+    whatever device its parameters are: the reference phase 5 holds the
+    image path to.  Nothing on the path calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch.kernels import bias_act_plain, patchify_plain, vision_head_plain
+
+    cfg = model.cfg
+    B = images.shape[0]
+    x = F.linear(patchify_plain(images, cfg.patch, cfg.dtype), model.patch_embed.weight.to(cfg.dtype))
+    x = bias_act_plain(x, model.patch_embed.bias, "none", model.pos_embed[0])
+    x = x.view(B, cfg.n_patches, cfg.hidden)
+    mask = torch.ones((B, cfg.n_patches), dtype=torch.uint8, device=x.device)
+    x = _plain_blocks(model.blocks(), x, mask)
+    return vision_head_plain(x, model.projection.weight, model.projection.bias)
+
+
+def synthetic_images(np, torch, n: int, size: int, seed: int, device):
+    """``n`` seeded ``[size, size, 3]`` uint8 images with structure, not
+    noise, as a tensor on ``device``: a two-colour gradient along a random
+    direction under a grid of colour blocks at a random scale (2 to 14
+    cells a side), about half of the cells filled.  The random draws are
+    numpy's; the pixels are laid out with torch on ``device``."""
+    rng = np.random.default_rng(seed)
+    angle = rng.uniform(0.0, 2.0 * np.pi, n)
+    c0, c1 = (rng.uniform(0, 255, (n, 1, 1, 3)) for _ in range(2))
+    cells = rng.choice(np.array([2, 3, 4, 7, 14]), n)
+    colours = rng.uniform(0, 255, (n, 14, 14, 3))
+    filled = rng.random((n, 14, 14)) < 0.5
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    pos = torch.arange(size, device=device, dtype=torch.float32) / size
+    out = torch.empty((n, size, size, 3), dtype=torch.uint8, device=device)
+    for lo in range(0, n, 256):
+        sl = slice(lo, min(lo + 256, n))
+        ang = dev(angle[sl])
+        t = torch.cos(ang)[:, None, None] * pos[None, None, :] + torch.sin(ang)[:, None, None] * pos[None, :, None]
+        t = t - t.amin(dim=(1, 2), keepdim=True)
+        t = t / t.amax(dim=(1, 2), keepdim=True).clamp(min=1e-6)
+        lo0, hi0 = dev(c0[sl]), dev(c1[sl])
+        img = lo0 + t[..., None] * (hi0 - lo0)
+        cell = (torch.arange(size, device=device)[None, :] * torch.from_numpy(cells[sl]).to(device)[:, None]) // size
+        b = torch.arange(img.shape[0], device=device)[:, None, None]
+        cy, cx = cell[:, :, None], cell[:, None, :]
+        on = torch.from_numpy(filled[sl]).to(device)[b, cy, cx]
+        img = torch.where(on[..., None], dev(colours[sl])[b, cy, cx], img)
+        out[sl] = img.to(torch.uint8)
+    return out
 
 
 def synthetic_docs(np, n: int, seed: int) -> list[str]:
@@ -633,6 +900,28 @@ def profile_call(torch, fn, rows: int) -> dict:
     }
 
 
+def check_search_against_plain(torch, index, qs) -> None:
+    """The index's answers to the queries ``qs`` (host rows) against a
+    plain matmul + top-k over its own slab: the same scores within
+    TOPK_ATOL, and every key the plain version ranks clear of its k-th
+    score in the index's answer."""
+    from pathway_tpu_torch.kernels import knn_topk_plain
+    from pathway_tpu_torch.ops.distances import normalize
+
+    rows = index.search(qs, K)
+    q = normalize(torch.from_numpy(qs).to(index.device))
+    pv, pi = knn_topk_plain(q, index._vectors, index._valid, K, "dot")
+    for r, row in enumerate(rows):
+        got = [s for s, _ in row]
+        sure = [index._key_of[int(s)] for s, v in zip(pi[r].tolist(), pv[r].tolist())
+                if v > pv[r, -1].item() + TOPK_ATOL]
+        if any(key not in got for key in sure):
+            fail(f"search row {r} disagrees with the plain top-k over the slab")
+        err = max(abs(a - b) for (_, a), b in zip(row, pv[r].tolist()))
+        if err > TOPK_ATOL:
+            fail(f"search row {r}: scores differ from plain by {err}")
+
+
 def phase_slice(torch, dev, compared_widths: set) -> tuple[dict, dict]:
     """Phase 3: the embed path at BGE-base full width; returns its
     measurements and what phase 4 reuses (index, embedder, documents)."""
@@ -640,7 +929,6 @@ def phase_slice(torch, dev, compared_widths: set) -> tuple[dict, dict]:
 
     from pathway_tpu_torch import ShardedKnnIndex, TorchEncoderEmbedder, kernels
     from pathway_tpu_torch.internals import device_counters
-    from pathway_tpu_torch.ops.distances import normalize
 
     res: dict = {}
     kernels.reset_launch_counts()
@@ -709,22 +997,7 @@ def phase_slice(torch, dev, compared_widths: set) -> tuple[dict, dict]:
     res["transfers"] = device_counters.snapshot()
     res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
-    # the index's answers against a plain matmul + top-k over its own slab
-    from pathway_tpu_torch.kernels import knn_topk_plain
-
-    qs = q_all[:32]
-    rows = index.search(qs, K)
-    q = normalize(torch.from_numpy(qs).to(dev))
-    pv, pi = knn_topk_plain(q, index._vectors, index._valid, K, "dot")
-    for r, row in enumerate(rows):
-        got = [s for s, _ in row]
-        sure = [index._key_of[int(s)] for s, v in zip(pi[r].tolist(), pv[r].tolist())
-                if v > pv[r, -1].item() + TOPK_ATOL]
-        if any(key not in got for key in sure):
-            fail(f"search row {r} disagrees with the plain top-k over the slab")
-        err = max(abs(a - b) for (_, a), b in zip(row, pv[r].tolist()))
-        if err > TOPK_ATOL:
-            fail(f"search row {r}: scores differ from plain by {err}")
+    check_search_against_plain(torch, index, q_all[:32])
 
     # host tokenizer alone, and a device profile of one more pass over
     # the first 1024 documents (upserts of the same keys)
@@ -743,7 +1016,9 @@ def phase_slice(torch, dev, compared_widths: set) -> tuple[dict, dict]:
         torch, lambda: embedder.encoder.encode_into(index, keys[:1024], docs[:1024]), 1024
     )
 
-    zero = [name for name, n in res["launches"].items() if n == 0]
+    embed_path = ("attention", "slab_scatter", "slab_clear", "knn_topk", "bias_act", "add_layer_norm",
+                  "embed_ln", "pool_normalize")
+    zero = [name for name in embed_path if res["launches"][name] == 0]
     if zero:
         fail(f"kernels not launched on the embed path: {zero}")
     return res, {"index": index, "embedder": embedder, "docs": docs, "keys": keys}
@@ -907,6 +1182,213 @@ def phase_rerank(torch, dev, ctx: dict, compared_widths: set) -> dict:
     return res
 
 
+def synthetic_captions(np, n: int, seed: int) -> list[str]:
+    """``n`` short captions of the kind a user types to find an image."""
+    rng = np.random.default_rng(seed)
+    colours = ["red", "orange", "yellow", "green", "teal", "blue", "purple", "pink", "brown",
+               "grey", "black", "white"]
+    shapes = ["blocks", "squares", "tiles", "patches", "cells"]
+    sizes = ["large", "small", "tiny", "wide", "many"]
+    return [
+        f"{rng.choice(sizes)} {rng.choice(colours)} {rng.choice(shapes)} over a "
+        f"{rng.choice(colours)} to {rng.choice(colours)} gradient"
+        for _ in range(n)
+    ]
+
+
+def phase_image(torch, dev, compared_widths: set) -> dict:
+    """Phase 5: images -> embed -> index -> text-to-image retrieve through
+    ``DualEncoderModel(SIGLIP_BASE, BGE_BASE)`` at full width."""
+    import numpy as np
+
+    from pathway_tpu_torch import BGE_BASE, SIGLIP_BASE, DualEncoderModel, ShardedKnnIndex, kernels
+    from pathway_tpu_torch._device import upload
+    from pathway_tpu_torch.kernels import dual_logits_plain
+    from pathway_tpu_torch.models import HashTokenizer, VisionEncoderModel
+    from pathway_tpu_torch.ops.distances import normalize
+
+    res: dict = {}
+    wall: dict = {}
+    t_phase = t0 = time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal t0
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        wall[name] = now - t0
+        t0 = now
+
+    model = DualEncoderModel(SIGLIP_BASE, BGE_BASE, device=dev, seed=SEED)
+    vcfg = model.vision_cfg
+    widths_cfg = (vcfg.image_size, vcfg.patch, vcfg.hidden, vcfg.layers, vcfg.heads, vcfg.mlp_dim, vcfg.embed_dim)
+    if widths_cfg != (IMAGE_SIZE, PATCH, HIDDEN, 12, 12, 4 * HIDDEN, HIDDEN) or vcfg.n_patches != N_PATCH:
+        fail(f"vision config {vcfg} is not SigLIP-base")
+    tok = HashTokenizer(BGE_BASE.vocab_size)
+    widths = {N_PATCH}
+
+    def upload_captions(texts):
+        ids, mask, _ = tok.encode_batch(texts)
+        widths.add(ids.shape[1])
+        return upload(ids, dev), upload(mask.astype(np.uint8), dev)
+
+    # set-up: the index bulk-filled on the device with seeded random unit
+    # rows, the images made from the seed and staged in pinned memory
+    index = ShardedKnnIndex(HIDDEN, metric="cos", capacity=IMAGE_CAPACITY, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    n_bulk = IMAGE_CAPACITY - N_IMAGES
+    for lo in range(0, n_bulk, 65536):
+        n = min(65536, n_bulk - lo)
+        index.add_batch_device(range(lo, lo + n), torch.randn((n, HIDDEN), generator=g, device=dev))
+    host = synthetic_images(np, torch, N_IMAGES, IMAGE_SIZE, SEED, dev).cpu().pin_memory()
+    keys = [f"img-{i}" for i in range(N_IMAGES)]
+    captions = synthetic_captions(np, N_CAPTIONS, SEED + 6)
+    lap("setup_s")
+
+    with torch.inference_mode():
+        model.embed_image(host[:8].to(dev))  # first-call set-up (cuBLAS handles), untimed
+        model.embed_text(*upload_captions(captions[:8]))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+
+        # (1) ingest: upload a chunk, embed it, upsert on the device (K2)
+        for lo in range(0, N_IMAGES, IMAGE_BATCH):
+            x = host[lo : lo + IMAGE_BATCH].to(dev, non_blocking=True)
+            index.add_batch_device(keys[lo : lo + IMAGE_BATCH], model.embed_image(x))
+        lap("ingest_s")
+        res["ingest_images_per_s"] = N_IMAGES / wall["ingest_s"]
+        chunks = N_IMAGES // IMAGE_BATCH
+        ingest = kernels.launch_counts()
+        res["ingest_launches"] = ingest
+        # per chunk: K8 once, K4 once with the position addend and 6 times a
+        # layer without, K9 once, K2 once
+        want = {"patchify": chunks, "bias_act": chunks * (1 + 6 * vcfg.layers), "vision_head": chunks,
+                "slab_scatter": chunks}
+        if any(ingest[name] != n for name, n in want.items()):
+            fail(f"image ingest launches {ingest}, expected {want}")
+        if len(index) != n_bulk + N_IMAGES:
+            fail(f"image index holds {len(index)} keys, expected {n_bulk + N_IMAGES}")
+        log(f"image ingest: {N_IMAGES} images in {wall['ingest_s']:.3f} s = "
+            f"{res['ingest_images_per_s']:.1f} images/s")
+
+        # (2) self-retrieval: N_PROBE indexed images from every chunk, re-embedded
+        probe = torch.arange(0, N_IMAGES, N_IMAGES // N_PROBE)
+        q = model.embed_image(host[probe].to(dev))
+        rows = index.search(q.cpu().numpy(), K)
+        slots = torch.tensor([index._slot_of[key] for key in keys], device=dev)
+        sims = normalize(q) @ index._vectors[slots].T  # [N_PROBE, N_IMAGES]
+        at = torch.arange(N_PROBE, device=dev)
+        self_cos = sims[at, probe.to(dev)].clone()
+        sims[at, probe.to(dev)] = -2.0
+        nearest = sims.max(dim=1).values
+        decided = (self_cos - nearest) > SELF_MARGIN
+        for i, row in enumerate(rows):
+            if len(row) != K:
+                fail(f"image search: {len(row)} results, expected {K}")
+            if bool(decided[i]) and (row[0][0] != keys[int(probe[i])] or row[0][1] < SELF_COS):
+                fail(f"image {keys[int(probe[i])]} came back as {row[0]} (nearest other {nearest[i].item()})")
+        near = nearest.cpu().numpy()
+        res["self_retrieval"] = {
+            "probed": N_PROBE, "decided": int(decided.sum()),
+            "min_self_cos": float(self_cos.min()),
+            "nearest_other_cos": {"min": float(near.min()), "p50": float(np.median(near)), "max": float(near.max())},
+        }
+        log(f"image self-retrieval: {json.dumps(res['self_retrieval'])}")
+        log("image nearest-other cosines: " + " ".join(f"{v:.4f}" for v in near))
+        lap("self_retrieval_s")
+
+        # (3) text -> image queries: tokenize, embed (K6 ... K7), search (K3)
+        lat: dict = {}
+        for nq, reps in ((1, 50), (32, 20)):
+            total, search = [], []
+            for r in range(reps):
+                lo = (r * nq) % (32 - nq + 1)
+                s0 = time.perf_counter()
+                qs = model.embed_text(*upload_captions(captions[lo : lo + nq])).cpu().numpy()
+                s1 = time.perf_counter()
+                hits = index.search(qs, K)
+                s2 = time.perf_counter()
+                total.append((s2 - s0) * 1e3)
+                search.append((s2 - s1) * 1e3)
+                if any(len(h) != K for h in hits):
+                    fail(f"text -> image search nq={nq}: short result")
+            lat[nq] = {"p50_ms": float(np.percentile(total, 50)), "p99_ms": float(np.percentile(total, 99)),
+                       "search_p50_ms": float(np.percentile(search, 50)),
+                       "search_p99_ms": float(np.percentile(search, 99))}
+            log(f"text -> image nq={nq}: {json.dumps(lat[nq])}")
+        res["query"] = lat
+        qs = model.embed_text(*upload_captions(captions[:32])).cpu().numpy()
+        check_search_against_plain(torch, index, qs)
+        hits = index.search(qs, K)
+        res["caption_top1_images"] = sum(str(h[0][0]).startswith("img-") for h in hits)
+        lap("query_s")
+
+        # (4) the image x caption logits through K10
+        x = host[:IMAGE_BATCH].to(dev)
+        cap_ids, cap_mask = upload_captions(captions)
+        logits = model(x, cap_ids, cap_mask)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        res["launches"] = launches
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        img, txt = model.embed_image(x), model.embed_text(cap_ids, cap_mask)
+        ref = dual_logits_plain(img, txt, model.logit_scale, model.logit_bias)
+        err = (logits - ref).abs().max().item()
+        if logits.shape != (IMAGE_BATCH, N_CAPTIONS) or not bool(logits.isfinite().all()) or not err <= LOGIT_ATOL:
+            fail(f"image x caption logits {tuple(logits.shape)}: max err {err} vs plain")
+        res["logits"] = {"shape": list(logits.shape), "max_abs_err_vs_plain": err,
+                         "min": float(logits.min()), "max": float(logits.max())}
+        lap("logits_s")
+        path = ("patchify", "bias_act", "attention", "add_layer_norm", "vision_head", "embed_ln",
+                "pool_normalize", "slab_scatter", "knn_topk", "dual_logits")
+        zero = [name for name in path if launches[name] == 0]
+        if zero:
+            fail(f"kernels not launched on the image path: {zero}")
+        res["attention_widths"] = sorted(widths)
+        if not widths <= compared_widths:
+            fail(f"image path widths {sorted(widths)} outside the shapes phase 2 compared")
+
+        # (5) the embeddings against the same tower through the plain versions
+        # only, and both against the same forward in f32
+        model32 = VisionEncoderModel(dataclasses.replace(vcfg, dtype=torch.float32), device=dev)
+        model32.load_state_dict(model.vision.state_dict())
+        plain = plain_vision_forward(model.vision, x)
+        plain32 = plain_vision_forward(model32, x)
+        del model32
+        diff = (img - plain).abs()
+        cos = (img * plain).sum(1) / (img.norm(dim=1) * plain.norm(dim=1))
+        res["vs_plain"] = {"max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
+                           "min_cos": cos.min().item()}
+        res["vs_f32"] = {"kernel_mean": (img - plain32).abs().mean().item(),
+                         "kernel_max": (img - plain32).abs().max().item(),
+                         "plain_mean": (plain - plain32).abs().mean().item(),
+                         "plain_max": (plain - plain32).abs().max().item()}
+        log(f"image embeddings vs plain {json.dumps(res['vs_plain'])}, vs f32 {json.dumps(res['vs_f32'])}")
+        if not (res["vs_plain"]["min_cos"] >= EMBED_COS and res["vs_plain"]["max_abs_err"] <= EMBED_ATOL):
+            fail(f"image embeddings differ from the plain-only forward: {res['vs_plain']}")
+        if not res["vs_f32"]["kernel_mean"] <= F32_RATIO * res["vs_f32"]["plain_mean"]:
+            fail(f"image embeddings further from the f32 forward than the plain path: {res['vs_f32']}")
+        lap("reference_s")
+
+        # (6) where the time goes: one chunk's embed + upsert, and one
+        # single-caption query (tokenize, embed, read back, search)
+        res["profile"] = profile_call(
+            torch, lambda: index.add_batch_device(keys[:IMAGE_BATCH], model.embed_image(
+                host[:IMAGE_BATCH].to(dev, non_blocking=True))), IMAGE_BATCH,
+        )
+        log(f"image chunk profile: {json.dumps(res['profile'])}")
+        res["query_profile"] = profile_call(
+            torch, lambda: index.search(model.embed_text(*upload_captions(captions[:1])).cpu().numpy(), K), 1,
+        )
+        log(f"text -> image query profile (nq=1): {json.dumps(res['query_profile'])}")
+        lap("profile_s")
+    wall["total_s"] = time.perf_counter() - t_phase
+    res["wall_s"] = wall
+    log(f"image phase wall times: {json.dumps(wall)}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -940,6 +1422,7 @@ def main() -> int:
     k128 = k_out.pop("_knn_k128")
     attn_l512 = k_out.pop("_attention_b32_l512")
     attn_rerank = k_out.pop("_attention_rerank")
+    attn_image = k_out.pop("_attention_image")
     compared_widths = k_out.pop("_attention_widths")
     torch.cuda.empty_cache()
     f_out = phase_fused(torch, dev)
@@ -947,8 +1430,21 @@ def main() -> int:
                     for name in ("bias_act", "add_layer_norm", "embed_ln", "pool_normalize")}
     k_out.update(f_out)
     torch.cuda.empty_cache()
+    v_out = phase_vision_kernels(torch, dev)
+    fused_shapes["patchify"] = v_out.pop("_patchify_shapes")
+    fused_shapes["bias_act_pos"] = v_out.pop("bias_act_pos")
+    k_out.update(v_out)
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
     s_out, ctx = phase_slice(torch, dev, compared_widths)
+    wall = {"embed_s": time.perf_counter() - t_phase}
+    t_phase = time.perf_counter()
     r_out = phase_rerank(torch, dev, ctx, compared_widths)
+    wall["rerank_s"] = time.perf_counter() - t_phase
+    del ctx
+    torch.cuda.empty_cache()
+    i_out = phase_image(torch, dev, compared_widths)
+    wall["image_s"] = i_out["wall_s"]["total_s"]
 
     csrc = "pathway_tpu_torch/kernels/csrc/"
     sources = {
@@ -960,11 +1456,15 @@ def main() -> int:
         "add_layer_norm": ("add_layer_norm.cu", "pathway_tpu/models/encoder.py:135"),
         "embed_ln": ("embed_ln.cu", "pathway_tpu/models/encoder.py:156"),
         "pool_normalize": ("pool_normalize.cu", "pathway_tpu/models/encoder.py:196"),
+        "patchify": ("patchify.cu", "pathway_tpu/models/vision.py:60"),
+        "vision_head": ("vision_head.cu", "pathway_tpu/models/vision.py:81"),
+        "dual_logits": ("dual_logits.cu", "pathway_tpu/models/vision.py:120"),
     }
     entries = []
     for name, (src, replaces) in sources.items():
         m = k_out[name]
-        by_path = {"embed": s_out["launches"][name], "rerank": r_out["launches"][name]}
+        by_path = {"embed": s_out["launches"][name], "rerank": r_out["launches"][name],
+                   "image": i_out["launches"][name]}
         entries.append({
             "name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -986,11 +1486,14 @@ def main() -> int:
         "knn_topk_k128_ms": k128,
         "attention_b32_l512": attn_l512,
         "attention_rerank_b256_l512": attn_rerank,
+        "attention_image_b256_l196": attn_image,
         "fused_shapes": fused_shapes,
         "attention_widths": s_out["attention_widths"],
         "tokenize_tokens_per_s": s_out["tokenize_tokens_per_s"],
         "profile": s_out["profile"],
         "rerank": r_out,
+        "image": i_out,
+        "phase_wall_s": wall,
     }
     log("summary: " + json.dumps(summary))
     print(json.dumps({"kernels": entries}))

@@ -3,11 +3,13 @@ device plane, for one NVIDIA H100 (``sm_90a``).
 
 It carries the live-RAG paths: text -> hash tokenizer -> BERT-family
 encoder (:mod:`~pathway_tpu_torch.models`) -> device-resident KNN index
-(:mod:`~pathway_tpu_torch.parallel`), and retrieve -> cross-encoder
-rerank (:mod:`~pathway_tpu_torch.xpacks.llm.rerankers`), with
-hand-written CUDA kernels for the attention core, the dense layers'
-bias/activation epilogue, residual + LayerNorm, the embedding gather +
-LayerNorm, pooling + normalize, the slab scatter and the fused score +
+(:mod:`~pathway_tpu_torch.parallel`), retrieve -> cross-encoder rerank
+(:mod:`~pathway_tpu_torch.xpacks.llm.rerankers`), and images -> SigLIP-class
+dual encoder -> index -> text-to-image retrieve, with hand-written CUDA
+kernels for the attention core, the dense layers' bias/activation
+epilogue (and the patch embed's position add), residual + LayerNorm, the
+embedding gather + LayerNorm, pooling + normalize, the patchify, the
+vision tail, the pairwise logits, the slab scatter and the fused score +
 top-k (:mod:`~pathway_tpu_torch.kernels`).  The package imports torch
 and numpy, never jax or ``pathway_tpu``.  Entry points run on
 ``device="cuda"`` unless the caller passes another device, and raise
@@ -18,9 +20,13 @@ from pathway_tpu_torch import kernels, models, ops, parallel
 from pathway_tpu_torch.models import (
     BGE_BASE,
     BGE_RERANKER_BASE,
+    SIGLIP_BASE,
     CrossEncoderModel,
+    DualEncoderModel,
     EncoderConfig,
     TextEncoderModel,
+    VisionConfig,
+    VisionEncoderModel,
 )
 from pathway_tpu_torch.parallel import ShardedKnnIndex, TorchEncoder
 from pathway_tpu_torch.xpacks.llm.embedders import (
@@ -41,8 +47,12 @@ __all__ = [
     "EncoderConfig",
     "TextEncoderModel",
     "CrossEncoderModel",
+    "VisionConfig",
+    "VisionEncoderModel",
+    "DualEncoderModel",
     "BGE_BASE",
     "BGE_RERANKER_BASE",
+    "SIGLIP_BASE",
     "TorchEncoder",
     "ShardedKnnIndex",
     "TorchEncoderEmbedder",

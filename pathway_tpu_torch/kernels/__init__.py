@@ -6,10 +6,14 @@ kernel             source                        replaces (JAX program)
 K1 attention       ``csrc/attention.cu``         ``models/encoder.py:113-117``
 K2 slab            ``csrc/slab_scatter.cu``      ``parallel/sharded_knn.py:123-176``
 K3 knn_topk        ``csrc/knn_topk.cu``          ``parallel/sharded_knn.py:336-341``
-K4 bias_act        ``csrc/bias_act.cu``          ``models/encoder.py:88-150,222-224``
+K4 bias_act        ``csrc/bias_act.cu``          ``models/encoder.py:88-150,222-224``,
+                                                 ``models/vision.py:60-76``
 K5 add_layer_norm  ``csrc/add_layer_norm.cu``    ``models/encoder.py:128-150``
 K6 embed_ln        ``csrc/embed_ln.cu``          ``models/encoder.py:152-176``
 K7 pool_normalize  ``csrc/pool_normalize.cu``    ``models/encoder.py:196-202``
+K8 patchify        ``csrc/patchify.cu``          ``models/vision.py:60-69``
+K9 vision_head     ``csrc/vision_head.cu``       ``models/vision.py:81-87``
+K10 dual_logits    ``csrc/dual_logits.cu``       ``models/vision.py:120``
 =================  ============================  =================================
 
 Each wrapper checks device, dtype, shape and contiguity, launches its
@@ -23,8 +27,10 @@ PyTorch version beside it.  Kernels build from ``csrc/`` at first use
 from pathway_tpu_torch.kernels.add_layer_norm import add_layer_norm, add_layer_norm_plain
 from pathway_tpu_torch.kernels.attention import attention, attention_plain
 from pathway_tpu_torch.kernels.bias_act import bias_act, bias_act_plain
+from pathway_tpu_torch.kernels.dual_logits import dual_logits, dual_logits_plain
 from pathway_tpu_torch.kernels.embed_ln import embed_ln, embed_ln_plain
 from pathway_tpu_torch.kernels.knn_topk import MAX_K, knn_topk, knn_topk_plain
+from pathway_tpu_torch.kernels.patchify import patch_grid, patchify, patchify_plain
 from pathway_tpu_torch.kernels.pool_normalize import pool_normalize, pool_normalize_plain
 from pathway_tpu_torch.kernels.slab_scatter import (
     slab_clear,
@@ -32,6 +38,7 @@ from pathway_tpu_torch.kernels.slab_scatter import (
     slab_scatter,
     slab_scatter_plain,
 )
+from pathway_tpu_torch.kernels.vision_head import vision_head, vision_head_plain
 
 __all__ = [
     "attention",
@@ -51,6 +58,13 @@ __all__ = [
     "embed_ln_plain",
     "pool_normalize",
     "pool_normalize_plain",
+    "patchify",
+    "patchify_plain",
+    "patch_grid",
+    "vision_head",
+    "vision_head_plain",
+    "dual_logits",
+    "dual_logits_plain",
     "WRAPPERS",
     "launch_counts",
     "reset_launch_counts",
@@ -66,6 +80,9 @@ WRAPPERS = {
     "add_layer_norm": add_layer_norm,
     "embed_ln": embed_ln,
     "pool_normalize": pool_normalize,
+    "patchify": patchify,
+    "vision_head": vision_head,
+    "dual_logits": dual_logits,
 }
 
 

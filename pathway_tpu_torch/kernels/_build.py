@@ -25,6 +25,7 @@ __all__ = ["NAMES", "build_all", "library", "ptxas_report"]
 NAMES = (
     "attention", "slab_scatter", "knn_topk",
     "bias_act", "add_layer_norm", "embed_ln", "pool_normalize",
+    "patchify", "vision_head", "dual_logits",
 )
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -126,12 +127,15 @@ _SIGNATURES = {
         "pw_knn_partial_tiled": [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
         "pw_knn_merge": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
-    "bias_act": {"pw_bias_act": [_P, _P, _LL, _I, _I, _P]},
+    "bias_act": {"pw_bias_act": [_P, _P, _P, _I, _LL, _I, _I, _P]},
     "add_layer_norm": {"pw_add_layer_norm": [_P, _P, _P, _P, _P, _I, _I, _F, _P]},
     "embed_ln": {
         "pw_embed_ln": [_P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P],
     },
     "pool_normalize": {"pw_pool_normalize": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "patchify": {"pw_patchify": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
+    "vision_head": {"pw_vision_head": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]},
+    "dual_logits": {"pw_dual_logits": [_P, _P, _P, _P, _P, _I, _I, _I, _P]},
 }
 
 

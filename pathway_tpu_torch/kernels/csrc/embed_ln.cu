@@ -17,9 +17,11 @@
 // reads its id (int16, int32 or int64, as uploaded: no widening copy) and
 // type id, gathers its 16-byte vectors of the three rows straight from
 // the f32 tables with 32-byte loads, rounds as flax does, and normalises
-// in registers (row_ln.cuh); the row is written once.  Ids outside the
-// table are clamped into it (the plain version raises instead); the
-// executor never uploads one.
+// in registers (row_ln.cuh); the row is written once.  Word and type ids
+// out of range follow flax nn.Embed (jnp.take with mode="fill"): an id
+// in [-n, 0) wraps to n + id, and an id >= n or < -n gives a NaN row,
+// which LayerNorm turns into a NaN output row.  Position ids are always
+// in range.
 
 #include "row_ln.cuh"
 
@@ -36,8 +38,10 @@ __device__ __forceinline__ int64_t load_index(const void* p, int kind, size_t i)
   }
 }
 
-__device__ __forceinline__ int64_t clamp_index(int64_t i, int n) {
-  return i < 0 ? 0 : (i >= n ? n - 1 : i);
+// The table row of id i, or -1 where flax's gather fills NaN.
+__device__ __forceinline__ int64_t wrap_index(int64_t i, int n) {
+  if (i < 0) i += n;
+  return (i < 0 || i >= n) ? -1 : i;
 }
 
 template <int VPT>
@@ -51,11 +55,16 @@ embed_ln_kernel(const void* __restrict__ ids, int ids_kind, const void* __restri
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
   const int nvec = h / 8;
-  const float* w = word + clamp_index(load_index(ids, ids_kind, row), vocab) * h;
+  const int64_t wi = wrap_index(load_index(ids, ids_kind, row), vocab);
+  bool nan_row = wi < 0;
+  const float* w = word + (nan_row ? 0 : wi) * h;
   const float* p = position + (size_t)(row % seq_len) * h;
   const float* t = nullptr;
-  if (type_table != nullptr)
-    t = type_table + clamp_index(load_index(types, types_kind, row), n_types) * h;
+  if (type_table != nullptr) {
+    const int64_t ti = wrap_index(load_index(types, types_kind, row), n_types);
+    nan_row |= ti < 0;
+    t = type_table + (ti < 0 ? 0 : ti) * h;
+  }
   float v[VPT][8];
 #pragma unroll
   for (int j = 0; j < VPT; ++j) {
@@ -76,6 +85,12 @@ embed_ln_kernel(const void* __restrict__ ids, int ids_kind, const void* __restri
 #pragma unroll
       for (int k = 0; k < 8; ++k) v[j][k] = 0.0f;
     }
+  }
+  if (nan_row) {  // warp-uniform: one row per warp
+#pragma unroll
+    for (int j = 0; j < VPT; ++j)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[j][k] = __int_as_float(0x7fc00000);  // quiet NaN
   }
   pw::warp_layer_norm<VPT>(v, lane, nvec, h, scale, bias, eps, out + (size_t)row * h);
 }

@@ -4,7 +4,10 @@ Replaces ``Embeddings.__call__``, ``pathway_tpu/models/encoder.py:152-176``,
 in flax's order: every table is cast to the activation type before its
 gather, ``e = word[id] + position[l]`` and then ``e + type[t]`` (when the
 config has a type vocabulary) are each rounded to it, and the sum goes
-through LayerNorm as in K5.
+through LayerNorm as in K5.  Word and type ids out of range give flax
+``nn.Embed``'s result (``jnp.take`` with ``mode="fill"``): an id in
+``[-n, 0)`` wraps to ``n + id``; an id ``>= n`` or ``< -n`` gives a NaN
+embedding row, so a NaN output row.
 
 :func:`embed_ln` returns ``[B, L, H]`` in ``dtype``.  For CUDA tensors it
 launches the kernel (bf16 output; ids as int16, int32 or int64 and type
@@ -29,6 +32,15 @@ __all__ = ["embed_ln", "embed_ln_plain"]
 _INDEX_KINDS = {torch.uint8: 1, torch.int16: 2, torch.int32: 3, torch.int64: 4}
 
 
+def _gather(table: torch.Tensor, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``table.astype(dtype)[ids]`` as flax's ``nn.Embed`` takes it."""
+    n = table.shape[0]
+    ids = torch.where(ids < 0, ids + n, ids)
+    outside = (ids < 0) | (ids >= n)
+    rows = F.embedding(ids.clamp(0, n - 1), table).to(dtype)
+    return rows.masked_fill(outside[..., None], float("nan"))
+
+
 def embed_ln_plain(
     ids: torch.Tensor, type_ids: torch.Tensor | None, word: torch.Tensor,
     position: torch.Tensor, type_table: torch.Tensor | None, scale: torch.Tensor,
@@ -36,11 +48,11 @@ def embed_ln_plain(
 ) -> torch.Tensor:
     # ids may arrive narrowed (int16): F.embedding takes int64
     ids = ids.long()
-    emb = F.embedding(ids, word).to(dtype)
+    emb = _gather(word, ids, dtype)
     emb = emb + position[: ids.shape[1]].to(dtype)[None]
     if type_table is not None:
         t = torch.zeros_like(ids) if type_ids is None else type_ids.long()
-        emb = emb + F.embedding(t, type_table).to(dtype)
+        emb = emb + _gather(type_table, t, dtype)
     return layer_norm_plain(emb, scale, bias, eps)
 
 

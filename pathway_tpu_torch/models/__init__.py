@@ -1,8 +1,13 @@
-"""The port's text encoders (counterpart of ``pathway_tpu/models``):
-the BERT-family :class:`TextEncoderModel` and :class:`CrossEncoderModel`,
+"""The port's encoders (counterpart of ``pathway_tpu/models``): the
+BERT-family :class:`TextEncoderModel` and :class:`CrossEncoderModel`, the
+SigLIP-class :class:`VisionEncoderModel` / :class:`DualEncoderModel`,
 their presets, the hash tokenizer and the flax -> torch weight bridge."""
 
-from pathway_tpu_torch.models.convert import state_dict_from_flax
+from pathway_tpu_torch.models.convert import (
+    dual_state_dict_from_flax,
+    state_dict_from_flax,
+    vision_state_dict_from_flax,
+)
 from pathway_tpu_torch.models.encoder import (
     BGE_BASE,
     BGE_LARGE,
@@ -15,19 +20,31 @@ from pathway_tpu_torch.models.encoder import (
     TextEncoderModel,
 )
 from pathway_tpu_torch.models.tokenizer import HashTokenizer, Tokenizer, get_tokenizer
+from pathway_tpu_torch.models.vision import (
+    SIGLIP_BASE,
+    DualEncoderModel,
+    VisionConfig,
+    VisionEncoderModel,
+)
 
 __all__ = [
     "EncoderConfig",
     "TextEncoderModel",
     "CrossEncoderModel",
+    "VisionConfig",
+    "VisionEncoderModel",
+    "DualEncoderModel",
     "MINILM_L6",
     "BGE_SMALL",
     "BGE_BASE",
     "BGE_LARGE",
     "E5_BASE",
     "BGE_RERANKER_BASE",
+    "SIGLIP_BASE",
     "Tokenizer",
     "HashTokenizer",
     "get_tokenizer",
     "state_dict_from_flax",
+    "vision_state_dict_from_flax",
+    "dual_state_dict_from_flax",
 ]

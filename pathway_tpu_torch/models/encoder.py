@@ -92,6 +92,29 @@ BGE_RERANKER_BASE = dataclasses.replace(BGE_BASE, num_labels=1, pool="cls", norm
 _INIT_STD = 0.02
 
 
+@torch.no_grad()
+def init_weights(model: nn.Module, seed: int, extra: tuple[nn.Parameter, ...] = ()) -> None:
+    """BERT-style random init of ``model`` from ``seed``: normal(0, 0.02)
+    matrices, embeddings and the ``extra`` parameters, zero biases, unit
+    LayerNorm scales.  Drawn on the CPU so a seed gives the same weights on
+    every device."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(w: torch.Tensor) -> None:
+        w.copy_(torch.randn(w.shape, generator=gen, dtype=torch.float32) * _INIT_STD)
+
+    for m in model.modules():
+        if isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, (nn.Linear, nn.Embedding)):
+            draw(m.weight)
+            if isinstance(m, nn.Linear):
+                m.bias.zero_()
+    for w in extra:
+        draw(w)
+
+
 def _dense(x: torch.Tensor, layer: nn.Linear, act: str = "none") -> torch.Tensor:
     """flax ``Dense(dtype=x.dtype)`` (+ activation): the weight cast to the
     activation type, the product rounded to it, then K4 adds the bias and
@@ -178,26 +201,10 @@ class _EncoderStack(nn.Module):
         for i in range(cfg.layers):
             self.add_module(f"layer_{i}", EncoderBlock(cfg, dev))
         self._add_head(cfg, dev)
-        self.init_weights(seed)
+        init_weights(self, seed)
 
     def _add_head(self, cfg: EncoderConfig, device: torch.device) -> None:
         """Make the head's parameters (before the seeded init draws them)."""
-
-    @torch.no_grad()
-    def init_weights(self, seed: int) -> None:
-        """BERT-style random init from ``seed``: normal(0, 0.02) matrices
-        and embeddings, zero biases, unit LayerNorm scales.  Drawn on the
-        CPU so a seed gives the same weights on every device."""
-        gen = torch.Generator().manual_seed(seed)
-        for m in self.modules():
-            if isinstance(m, nn.LayerNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-            elif isinstance(m, (nn.Linear, nn.Embedding)):
-                w = torch.randn(m.weight.shape, generator=gen, dtype=torch.float32)
-                m.weight.copy_(w * _INIT_STD)
-                if isinstance(m, nn.Linear):
-                    m.bias.zero_()
 
     def blocks(self) -> list[EncoderBlock]:
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.layers)]
