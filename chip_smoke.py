@@ -41,7 +41,23 @@ Phases, each fatal on failure:
    plain matmul + top-k over the slab; p50/p99 at nq=1 and nq=32), the
    256 x 256 image x caption logits, and the embeddings held against the
    tower run through the plain versions only and against its f32
-   forward.  Every kernel of the path must launch during it.
+   forward.  Every kernel of the path must launch during it;
+6. the IVF path (embed -> train -> approximate index -> retrieve) through
+   ``IvfKnnIndex(768, metric="cos", capacity=1,048,576)``: the JAX
+   package's defaults at that capacity (1,024 cells of 4,096 bf16 slots,
+   128 probed, k-means on a 50,000-row sample).  8,192 synthetic
+   documents embedded at BGE-base width and 1,040,384 rows of
+   ``tests/test_ivf.py``'s mixture at d=768 are added in chunks of
+   65,536, the documents with the first chunk, whose 73,728 buffered rows
+   train the index; then 1,024 documents re-embedded and upserted, 256
+   rows removed and re-added, and queries answered at nq=1 and nq=32.
+   Gates: K11 and K12 against their plain versions on the path's data;
+   the search against its plain search (K3's and K12's plain versions
+   over the same tensors) at nq in {1, 8, 32}; recall@10 >= 0.95 for 256
+   mixture queries against exact f32 brute force; self-retrieval of the
+   documents that have a margin; the grow scenario of
+   ``tests/test_ivf.py`` at d=768; the card's limits on nprobe and k.
+   Every kernel of the path must launch during it.
 
 The second-to-last line of output is a JSON object with one entry per
 kernel wrapper; the last is ``{"ok": true, "device": {...}}``.  Without a
@@ -108,6 +124,21 @@ EMBED_ATOL = 2e-2
 # self-retrieval decides only images whose cosine to their nearest other
 # indexed image is below their own by more than this
 SELF_MARGIN = 1.0 - SELF_COS
+# phase 6, the IVF path: IvfKnnIndex(768, capacity=IVF_CAPACITY) gives the
+# JAX package's defaults nlist=1,024, nprobe=128, cell_cap=4,096 (bf16)
+IVF_CAPACITY = 1 << 20
+IVF_NLIST, IVF_NPROBE, IVF_CELL_CAP = 1024, 128, 4096
+IVF_BULK = IVF_CAPACITY - N_DOCS  # mixture rows beside the documents
+IVF_CHUNK = 65536  # rows per add_batch, as a stream adds them
+IVF_UPSERT = 1024  # documents re-embedded and upserted
+IVF_READD = 256  # bulk rows removed and re-added
+IVF_QUERIES = 256  # mixture queries (seed 1): recall and latency
+IVF_CHECKED = 64  # of them, held against the plain search
+IVF_SELF = 256  # documents queried for self-retrieval
+IVF_RECALL = 0.95  # the JAX package's recall@10 contract (tests/test_ivf.py)
+# K11 decides a row where its top-2 scores differ by more than this (f32
+# dots of unit rows over 768 dims summed in another order)
+ASSIGN_ATOL = 1e-5
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, bf16 and f32 FLOP/s
 PEAK_BYTES = 3.35e12
@@ -872,31 +903,49 @@ def synthetic_docs(np, n: int, seed: int) -> list[str]:
 def profile_call(torch, fn, rows: int) -> dict:
     """Device time by kernel over one call of ``fn`` (``rows`` inputs), and
     the share of the call's wall time the device was busy (one stream, so
-    kernels do not overlap)."""
-    from torch.profiler import ProfilerActivity, profile
+    kernels do not overlap).  Once earlier windows have run in the process,
+    a window's trace can lack its first device events (on an H100 it lost
+    an image chunk's upload and first kernel, an ingest chunk's upload and
+    K11, and a search's probe and scan), so 32 small kernels run first
+    inside the window, and only device events that start during the call
+    count; ``warmup_seen`` says how many of the 32 the trace kept."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    scratch = torch.zeros((1,), device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        t0 = time.perf_counter()
-        fn()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(32):
+            scratch.add_(1.0)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows_by_kernel = []
-    for e in prof.key_averages():
-        # kernel rows only: operator rows carry their kernels' time too
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            dev_us = getattr(e, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = e.self_cuda_time_total
-            rows_by_kernel.append((dev_us, e.key, e.count))
-    rows_by_kernel.sort(reverse=True)
-    busy_us = sum(r[0] for r in rows_by_kernel)
+        with record_function("profile_call"):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    def on_device(e) -> bool:
+        return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+    events = prof.events()
+    call = next(e for e in events if e.name == "profile_call" and not on_device(e))
+    by_kernel: dict = {}
+    warmup_seen = 0
+    for e in events:
+        if not on_device(e) or e.name == "profile_call":  # the annotation's device span
+            continue
+        if e.time_range.start < call.time_range.start:
+            warmup_seen += 1
+            continue
+        us, n = by_kernel.get(e.name, (0.0, 0))
+        by_kernel[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    ranked = sorted(((us, name, n) for name, (us, n) in by_kernel.items()), reverse=True)
+    busy_us = sum(r[0] for r in ranked)
     return {
         "rows": rows,
         "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
-        "top": [{"name": k[:80], "ms": us / 1e3, "calls": n} for us, k, n in rows_by_kernel[:15]],
+        "warmup_seen": warmup_seen,
+        "top": [{"name": k[:80], "ms": us / 1e3, "calls": n} for us, k, n in ranked[:15]],
     }
 
 
@@ -1389,6 +1438,374 @@ def phase_image(torch, dev, compared_widths: set) -> dict:
     return res
 
 
+def mixture(np, n: int, d: int, seed: int, chunk: int, n_clusters: int = 64) -> list:
+    """``tests/test_ivf.py``'s clustered data (``n_clusters`` centres x 3.0
+    plus unit noise) from ``seed``, in f32 chunks of ``chunk`` rows: one
+    generator, normals drawn in f32 (1M x 768 in float64 would take 6.4 GB)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(n_clusters, d)).astype(np.float32) * 3.0
+    out = []
+    for lo in range(0, n, chunk):
+        m = min(chunk, n - lo)
+        assign = rng.integers(0, n_clusters, size=m)
+        x = rng.standard_normal((m, d), dtype=np.float32)
+        x += centers[assign]
+        out.append(x)
+    return out
+
+
+def check_assign(torch, x, c, half_norm: bool) -> float:
+    """K11 against its plain version: the same centroid on every row whose
+    top-2 scores differ by more than ASSIGN_ATOL, elsewhere a centroid
+    within ASSIGN_ATOL of the best.  Returns the largest score shortfall."""
+    from pathway_tpu_torch.kernels import ivf_assign, ivf_assign_plain
+
+    got = ivf_assign(x, c, half_norm).long()
+    want = ivf_assign_plain(x, c, half_norm).long()
+    scores = x @ c.T
+    if half_norm:
+        scores -= 0.5 * (c * c).sum(1)
+    top2 = scores.topk(2, dim=1).values
+    decided = (top2[:, 0] - top2[:, 1]) > ASSIGN_ATOL
+    if not bool((got[decided] == want[decided]).all()):
+        fail(f"ivf_assign (half_norm={half_norm}): {int((got != want)[decided].sum())} decided rows differ")
+    short = (top2[:, 0] - scores.gather(1, got[:, None])[:, 0]).max().item()
+    if not short <= ASSIGN_ATOL:
+        fail(f"ivf_assign (half_norm={half_norm}): a row's centroid scores {short} below the best")
+    log(f"K11 ivf_assign n={x.shape[0]} half_norm={half_norm}: {int(decided.sum())} rows decided, "
+        f"{int((got != want).sum())} near-tie rows differ, max shortfall {short:.3e}")
+    return short
+
+
+def plain_ivf_search(torch, index, qs):
+    """The index's search through K3's and K12's plain versions over its own
+    tensors: (scores [nq, K], keys per query, and how many queries' probes
+    differ from the kernel's by a near-tie, where the plain scan then takes
+    the kernel's probe: both are right).  Nothing on the path calls it."""
+    from pathway_tpu_torch.kernels import ivf_scan_plain, knn_topk, knn_topk_plain
+
+    q = torch.from_numpy(index._normalize(qs)).to(index.device)
+    ones = torch.ones((index.nlist,), device=index.device)
+    pv, pi = knn_topk_plain(q, index._centroids, ones, index.nprobe, "dot")
+    kv, ki = knn_topk(q, index._centroids, ones, index.nprobe, "dot")
+    compare_topk(kv, ki, pv, pi, TOPK_ATOL)
+    same = torch.tensor([set(a) == set(b) for a, b in zip(pi.tolist(), ki.tolist())], device=q.device)
+    probe = torch.where(same[:, None], pi, ki)
+    vals, flat = ivf_scan_plain(q, probe, index._cells, index._valid, K, query_block=1)
+    keys = [[index._key_of[divmod(f, index.cell_cap)] for f in row] for row in flat.tolist()]
+    return vals.cpu().numpy(), keys, int((~same).sum())
+
+
+def phase_ivf(torch, dev) -> dict:
+    """Phase 6: embed -> train -> approximate index -> retrieve through
+    ``IvfKnnIndex`` at 1M rows, BGE-base width.  The documents are phase 3's,
+    so their encoder widths are the ones phase 3 checked."""
+    import numpy as np
+
+    from pathway_tpu_torch import BGE_BASE, IvfKnnIndex, TorchEncoder, kernels
+    from pathway_tpu_torch.internals import device_counters
+    from pathway_tpu_torch.kernels import (
+        ivf_assign, ivf_assign_plain, ivf_scan, ivf_scan_plain, knn_topk, slab_scatter, slab_scatter_plain,
+    )
+    from pathway_tpu_torch.ops.topk import NEG_INF
+    from pathway_tpu_torch.parallel import ivf_knn
+
+    res: dict = {}
+    wall: dict = {}
+    t_phase = t0 = time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal t0
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        wall[name] = now - t0
+        t0 = now
+
+    # set-up: the encoder, the documents, the bulk corpus (host chunks) and
+    # the queries, all from the seed
+    encoder = TorchEncoder(BGE_BASE, max_batch=DOC_BATCH, seed=SEED, device=dev)
+    dim = encoder.config.hidden
+    if dim != HIDDEN:
+        fail(f"encoder width {dim} is not {HIDDEN}")
+    index = IvfKnnIndex(dim, metric="cos", capacity=IVF_CAPACITY, device=dev)
+    shape = (index.nlist, index.nprobe, index.cell_cap, index.dtype, index.train_size)
+    if shape != (IVF_NLIST, IVF_NPROBE, IVF_CELL_CAP, torch.bfloat16, 50_000):
+        fail(f"IVF configuration {shape} is not the JAX package's default at {IVF_CAPACITY}")
+    docs = synthetic_docs(np, N_DOCS, SEED)
+    doc_keys = [f"doc-{i}" for i in range(N_DOCS)]
+    chunks = mixture(np, IVF_BULK, dim, SEED, IVF_CHUNK)
+    starts = np.cumsum([0] + [len(c) for c in chunks])
+    queries = mixture(np, IVF_QUERIES, dim, SEED + 1, IVF_QUERIES)[0]
+    encoder.encode(docs[:8])  # first-call set-up, untimed
+    kmeans = ivf_knn._kmeans
+
+    def timed_kmeans(*args, **kwargs):
+        k0 = time.perf_counter()
+        out = kmeans(*args, **kwargs)
+        wall["kmeans_s"] = time.perf_counter() - k0
+        return out
+
+    lap("setup_s")
+
+    kernels.reset_launch_counts()
+    device_counters.reset_for_tests()
+    torch.cuda.reset_peak_memory_stats()
+    # (1) embed the documents; the JAX IVF takes host rows, so they come back
+    doc_emb = encoder.encode(docs)
+    lap("embed_s")
+    if doc_emb.shape != (N_DOCS, dim) or not np.isfinite(doc_emb).all():
+        fail(f"document embeddings: shape {doc_emb.shape} or non-finite values")
+    # (2) the first add: the documents and the first chunk buffer, pass
+    # max(nlist * 8, 1024) rows and train the index (k-means through K11),
+    # which then adds them
+    ivf_knn._kmeans = timed_kmeans
+    try:
+        index.add_batch(doc_keys + list(range(starts[1])), np.concatenate([doc_emb, chunks[0]]))
+    finally:
+        ivf_knn._kmeans = kmeans
+    lap("first_add_s")
+    if not index.trained or len(index) != N_DOCS + starts[1]:
+        fail(f"first add: trained={index.trained}, {len(index)} keys")
+    # (3) the rest of the bulk, a chunk at a time
+    for i in range(1, len(chunks)):
+        index.add_batch(range(starts[i], starts[i + 1]), chunks[i])
+    lap("bulk_s")
+    res["bulk_rows_per_s"] = (IVF_BULK - starts[1]) / wall["bulk_s"]
+    res["ingest_rows_per_s"] = (IVF_BULK + N_DOCS) / (wall["first_add_s"] + wall["bulk_s"])
+    if len(index) != IVF_BULK + N_DOCS:
+        fail(f"IVF index holds {len(index)} keys, expected {IVF_BULK + N_DOCS}")
+    # (4) documents edited: re-embedded and upserted (remove + add); rows
+    # removed and re-added
+    emb2 = encoder.encode(docs[:IVF_UPSERT])
+    index.add_batch(doc_keys[:IVF_UPSERT], emb2)
+    lap("upsert_s")
+    res["upsert_docs_per_s"] = IVF_UPSERT / wall["upsert_s"]
+    gone = list(range(starts[1], starts[1] + IVF_READD))
+    index.remove(gone)
+    if any(key in index for key in gone):
+        fail("removed keys still in the index")
+    index.add_batch(gone, chunks[1][:IVF_READD])
+    lap("readd_s")
+    # (5) queries: nq=1 and nq=32, k=10
+    lat: dict = {}
+    for nq, reps in ((1, 50), (32, 20)):
+        times = []
+        for r in range(reps):
+            lo = (r * nq) % (IVF_QUERIES - nq + 1)
+            s0 = time.perf_counter()
+            rows = index.search(queries[lo : lo + nq], K)
+            times.append((time.perf_counter() - s0) * 1e3)
+            if any(len(row) != K for row in rows):
+                fail(f"IVF search nq={nq}: short result")
+        lat[nq] = {"p50_ms": float(np.percentile(times, 50)), "p99_ms": float(np.percentile(times, 99))}
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    res["launches"] = launches
+    res["transfers"] = device_counters.snapshot()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["cell_cap"] = index.cell_cap
+    fill = index._valid.sum(1)
+    res["cell_rows"] = {"min": int(fill.min()), "max": int(fill.max()), "mean": float(fill.mean())}
+    lap("query_s")
+    log(f"IVF ingest: {json.dumps(res)} wall {json.dumps(wall)}")
+    path = ("ivf_assign", "ivf_scan", "knn_topk", "slab_scatter", "slab_clear",
+            "attention", "bias_act", "add_layer_norm", "embed_ln", "pool_normalize")
+    zero = [name for name in path if launches[name] == 0]
+    if zero:
+        fail(f"kernels not launched on the IVF path: {zero}")
+
+    # gates.  The rows as indexed, normalised on the host as the index does,
+    # in an f32 slab for the exact truth and K3's brute-force times
+    final_emb = doc_emb.copy()
+    final_emb[:IVF_UPSERT] = emb2
+    keys_of_row = doc_keys + list(range(IVF_BULK))
+    slab = torch.empty((len(keys_of_row), dim), device=dev)
+    slab[:N_DOCS] = torch.from_numpy(index._normalize(final_emb)).to(dev)
+    for i, chunk in enumerate(chunks):
+        slab[N_DOCS + starts[i] : N_DOCS + starts[i + 1]] = torch.from_numpy(index._normalize(chunk)).to(dev)
+    ones = torch.ones((slab.shape[0],), device=dev)
+    qn = torch.from_numpy(index._normalize(queries)).to(dev)
+
+    # (a) recall@10 against exact f32 brute force (K3 over the flat slab)
+    got = [row for lo in range(0, IVF_QUERIES, 32) for row in index.search(queries[lo : lo + 32], K)]
+    hits = 0
+    for lo in range(0, IVF_QUERIES, 32):
+        _, ti = knn_topk(qn[lo : lo + 32], slab, ones, K, "dot")
+        for row, truth in zip(got[lo : lo + 32], ti.tolist()):
+            want = {keys_of_row[s] for s in truth}
+            hits += sum(1 for key, _ in row if key in want)
+    res["recall_at_10"] = hits / (IVF_QUERIES * K)
+    log(f"IVF recall@{K} over {IVF_QUERIES} mixture queries: {res['recall_at_10']:.4f}")
+    if not res["recall_at_10"] >= IVF_RECALL:
+        fail(f"IVF recall@{K} {res['recall_at_10']:.4f} < {IVF_RECALL}")
+    lap("recall_s")
+
+    # (b) the search against its plain search over the same tensors
+    pv, pkeys, probe_ties = plain_ivf_search(torch, index, queries[:IVF_CHECKED])
+    search_err = 0.0
+    for nq in (1, 8, 32):
+        for lo in range(0, IVF_CHECKED, nq):
+            for r, row in enumerate(index.search(queries[lo : lo + nq], K)):
+                want_v, want_k = pv[lo + r], pkeys[lo + r]
+                if len(row) != K:
+                    fail(f"IVF search nq={nq} query {lo + r}: {len(row)} results")
+                err = float(np.abs(np.array([s for _, s in row]) - want_v).max())
+                sure = {key for key, v in zip(want_k, want_v) if v > want_v[-1] + TOPK_ATOL}
+                if not err <= TOPK_ATOL or not sure <= {key for key, _ in row}:
+                    fail(f"IVF search nq={nq} query {lo + r}: differs from the plain search (err {err})")
+                search_err = max(search_err, err)
+    res["vs_plain"] = {"max_abs_err": search_err, "probe_near_ties": probe_ties}
+    log(f"IVF search vs plain at nq 1/8/32: {json.dumps(res['vs_plain'])}")
+
+    # (c) self-retrieval of the documents whose nearest other lies clear below
+    probe_docs = np.arange(0, N_DOCS, N_DOCS // IVF_SELF)
+    docs_n = slab[:N_DOCS]
+    sims = docs_n[probe_docs] @ docs_n.T
+    at = torch.arange(len(probe_docs), device=dev)
+    self_cos = sims[at, torch.from_numpy(probe_docs).to(dev)].clone()
+    sims[at, torch.from_numpy(probe_docs).to(dev)] = -2.0
+    nearest = sims.max(dim=1).values
+    decided = ((self_cos - nearest) > SELF_MARGIN).tolist()
+    rows = index.search(final_emb[probe_docs], K)
+    for i, row in enumerate(rows):
+        if decided[i] and (row[0][0] != doc_keys[probe_docs[i]] or row[0][1] < SELF_COS):
+            fail(f"{doc_keys[probe_docs[i]]} came back as {row[0]} (nearest other {nearest[i].item()})")
+    near = nearest.cpu().numpy()
+    res["self_retrieval"] = {
+        "probed": len(probe_docs), "decided": int(sum(decided)),
+        "nearest_other_cos": {"min": float(near.min()), "p50": float(np.median(near)), "max": float(near.max())},
+    }
+    log(f"IVF self-retrieval: {json.dumps(res['self_retrieval'])}")
+    lap("gates_s")
+
+    # (d) K11 against its plain version at the path's shapes: an ingest chunk
+    # against the trained centroids, and 50,000 rows with the Lloyd term
+    cents = index._centroids
+    # the first chunk's rows as the index holds them: buffered before the
+    # training, they were normalised when added and again when flushed
+    x = torch.from_numpy(index._normalize(index._normalize(chunks[0]))).to(dev)
+    assign_err = max(check_assign(torch, x, cents, False), check_assign(torch, x[:50_000], cents, True))
+    nb = x.shape[0] * dim * 4 + cents.numel() * 4 + x.shape[0] * 4
+    b_ms, b_by = bound(nb, 2 * x.shape[0] * index.nlist * dim, PEAK_F32)
+    assign_row = {
+        "shape": f"n={x.shape[0]} x [{index.nlist},{dim}] f32 -> argmax (ingest chunk)",
+        "max_abs_err": assign_err,
+        "ms": time_ms(torch, lambda: ivf_assign(x, cents, False), 10),
+        "plain_ms": time_ms(torch, lambda: ivf_assign_plain(x, cents, False), 5),
+        "library_ms": time_ms(torch, lambda: torch.argmax(torch.matmul(x, cents.T), dim=1), 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "lloyd_ms": time_ms(torch, lambda: ivf_assign(x[:50_000], cents, True), 10),
+    }
+    log(f"K11 ivf_assign: {json.dumps(assign_row)}")
+
+    # (d2) B11 on K2 over the flat cell view at an ingest chunk's shape: the
+    # first chunk's rows written again into their own slots (the same values)
+    cells_flat, valid_flat = index._cells.view(-1, dim), index._valid.view(-1)
+    flat = torch.tensor([c * index.cell_cap + s for c, s in (index._slot_of[k] for k in range(starts[1]))],
+                        dtype=torch.int32, device=dev)
+    flat_long, n = flat.long(), x.shape[0]
+    slab_scatter(cells_flat, valid_flat, flat, x, normalize=False)
+    if not torch.equal(cells_flat[flat_long], x.to(index.dtype)) or not bool(valid_flat[flat_long].all()):
+        fail("slab_scatter on the flat cell view: rows or flags differ from the bf16 cast of the chunk")
+    b_ms, b_by = bound(n * dim * 4 + n * 4 + n * (dim * 2 + 4), n * dim, PEAK_F32)
+    scatter_row = {
+        "shape": f"n={n} f32 rows into [{index.nlist * index.cell_cap},{dim}] bf16 (the flat cell view)",
+        "ms": time_ms(torch, lambda: slab_scatter(cells_flat, valid_flat, flat, x, normalize=False), 10),
+        "plain_ms": time_ms(torch, lambda: slab_scatter_plain(cells_flat, valid_flat, flat, x, False), 5),
+        "library_ms": time_ms(torch, lambda: cells_flat.index_copy_(0, flat_long, x.to(index.dtype)), 10),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    log(f"K2 slab_scatter on the flat cell view: {json.dumps(scatter_row)}")
+    del x, flat, flat_long
+
+    # (e) K12 against its plain version on the index's cells, and its times
+    # at nq=1 and nq=32 beside K3's brute force over the same rows (f32)
+    ones_c = torch.ones((index.nlist,), device=dev)
+    scan_err, scan_rows = 0.0, {}
+    for nq in (1, 32):
+        q = qn[:nq].contiguous()
+        probe = knn_topk(q, cents, ones_c, index.nprobe, "dot")[1]
+        kv, ki = ivf_scan(q, probe, index._cells, index._valid, K)
+        pv_, pi_ = ivf_scan_plain(q, probe, index._cells, index._valid, K, query_block=1)
+        scan_err = max(scan_err, compare_topk(kv, ki, pv_, pi_, TOPK_ATOL))
+        cells_used = torch.unique(probe.long())
+        live_union = int(index._valid[cells_used].sum())
+        live_per_q = int(index._valid[probe.long()].sum())
+        nb = (live_union * dim * 2 + cells_used.numel() * index.cell_cap * 4 + q.numel() * 4
+              + probe.numel() * 4 + nq * K * 8)
+        b_ms, b_by = bound(nb, 2 * live_per_q * dim, PEAK_F32)
+        sub_q = q[0].to(index.dtype)
+        p0 = probe[0].long()
+
+        def library(p0=p0, sub_q=sub_q):  # gather + einsum + masked top-k, one query
+            s = torch.einsum("pcd,d->pc", index._cells[p0], sub_q)
+            return torch.topk(torch.where(index._valid[p0].bool(), s.float(), NEG_INF).view(-1), K)
+
+        scan_rows[nq] = {
+            "shape": f"nq={nq} k={K}, {index.nprobe} of {index.nlist} cells of {index.cell_cap} bf16 slots, "
+                     f"{live_union} live rows in the probed cells ({live_per_q} over the queries)",
+            "ms": time_ms(torch, lambda: ivf_scan(q, probe, index._cells, index._valid, K), 10),
+            "plain_ms": time_ms(torch, lambda: ivf_scan_plain(q, probe, index._cells, index._valid, K, 1), 3),
+            "library_ms": time_ms(torch, library, 10) if nq == 1 else None,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "probe_ms": time_ms(torch, lambda: knn_topk(q, cents, ones_c, index.nprobe, "dot"), 10),
+            "brute_force_ms": time_ms(torch, lambda: knn_topk(q, slab, ones, K, "dot"), 5),
+        }
+        log(f"K12 ivf_scan: {json.dumps(scan_rows[nq])}")
+    scan_row = {**scan_rows[1], "max_abs_err": max(scan_err, search_err), "_nq32": scan_rows[32]}
+    del slab, ones
+    lap("kernels_s")
+
+    # (f) the grow scenario of tests/test_ivf.py at d=768, on the card, and
+    # the card's limits on nprobe and k
+    rng = np.random.default_rng(SEED)
+    base = rng.normal(size=(1, dim)).astype(np.float32)
+    xs = base + 0.01 * rng.normal(size=(3000, dim)).astype(np.float32)
+    small = IvfKnnIndex(dim, metric="dot", capacity=64, nlist=16, nprobe=16, device=dev)
+    small.train(xs[:500])
+    cap0 = small.cell_cap
+    small.add_batch(range(3000), xs)
+    outlier = (100.0 * np.eye(1, dim)).astype(np.float32)
+    small.add_batch(["outlier"], outlier)
+    top = small.search(outlier, 1)[0]
+    if not (small.cell_cap > cap0 and top and top[0][0] == "outlier" and len(small) == 3001):
+        fail(f"IVF grow: cell_cap {cap0} -> {small.cell_cap}, outlier search {top}, {len(small)} keys")
+    res["grow"] = {"cell_cap": [cap0, small.cell_cap], "outlier_score": top[0][1]}
+    log(f"IVF grow: {json.dumps(res['grow'])}")
+    del small
+    if dev.type == "cuda":  # the CPU path (a rehearsal) has no such limit
+        wide = IvfKnnIndex(dim, metric="cos", capacity=64, nlist=256, nprobe=8, device=dev)
+        wide.train(xs[:300])
+        for kwargs in ({"k": K, "nprobe": 129}, {"k": 129}):
+            try:
+                wide.search(xs[:1], **kwargs)
+            except ValueError as e:
+                if "MAX_K" not in str(e):
+                    fail(f"IVF search {kwargs}: ValueError without naming MAX_K: {e}")
+            else:
+                fail(f"IVF search {kwargs} on the card did not raise")
+        log("IVF search with nprobe=129 or k=129 raises naming MAX_K")
+    lap("grow_s")
+
+    # (g) where the time goes: one ingest chunk (an upsert of the first
+    # chunk's keys: remove, assign, scatter) and one nq=32 search
+    res["profile"] = profile_call(
+        torch, lambda: index.add_batch(range(starts[1]), chunks[0]), IVF_CHUNK
+    )
+    log(f"IVF ingest chunk profile: {json.dumps(res['profile'])}")
+    res["query_profile"] = profile_call(torch, lambda: index.search(queries[:32], K), 32)
+    log(f"IVF search profile (nq=32): {json.dumps(res['query_profile'])}")
+    lap("profile_s")
+    res["search"] = lat
+    res["kernels"] = {"ivf_assign": assign_row, "ivf_scan": scan_row}
+    res["flat_scatter"] = scatter_row
+    res["docs_per_s_embed"] = N_DOCS / wall["embed_s"]
+    wall["total_s"] = time.perf_counter() - t_phase
+    res["wall_s"] = wall
+    log(f"IVF search: {json.dumps(lat)}; phase wall times: {json.dumps(wall)}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1445,6 +1862,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     i_out = phase_image(torch, dev, compared_widths)
     wall["image_s"] = i_out["wall_s"]["total_s"]
+    torch.cuda.empty_cache()
+    ivf_out = phase_ivf(torch, dev)
+    wall["ivf_s"] = ivf_out["wall_s"]["total_s"]
+    k_out.update(ivf_out.pop("kernels"))
+    ivf_scan_nq32 = k_out["ivf_scan"].pop("_nq32")
 
     csrc = "pathway_tpu_torch/kernels/csrc/"
     sources = {
@@ -1459,12 +1881,14 @@ def main() -> int:
         "patchify": ("patchify.cu", "pathway_tpu/models/vision.py:60"),
         "vision_head": ("vision_head.cu", "pathway_tpu/models/vision.py:81"),
         "dual_logits": ("dual_logits.cu", "pathway_tpu/models/vision.py:120"),
+        "ivf_assign": ("ivf_assign.cu", "pathway_tpu/parallel/ivf_knn.py:44"),
+        "ivf_scan": ("ivf_scan.cu", "pathway_tpu/parallel/ivf_knn.py:316"),
     }
     entries = []
     for name, (src, replaces) in sources.items():
         m = k_out[name]
         by_path = {"embed": s_out["launches"][name], "rerank": r_out["launches"][name],
-                   "image": i_out["launches"][name]}
+                   "image": i_out["launches"][name], "ivf": ivf_out["launches"][name]}
         entries.append({
             "name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1493,6 +1917,9 @@ def main() -> int:
         "profile": s_out["profile"],
         "rerank": r_out,
         "image": i_out,
+        "ivf": ivf_out,
+        "ivf_scan_nq32": ivf_scan_nq32,
+        "ivf_assign_lloyd_ms": k_out["ivf_assign"]["lloyd_ms"],
         "phase_wall_s": wall,
     }
     log("summary: " + json.dumps(summary))

@@ -3,14 +3,16 @@ device plane, for one NVIDIA H100 (``sm_90a``).
 
 It carries the live-RAG paths: text -> hash tokenizer -> BERT-family
 encoder (:mod:`~pathway_tpu_torch.models`) -> device-resident KNN index
-(:mod:`~pathway_tpu_torch.parallel`), retrieve -> cross-encoder rerank
+(:mod:`~pathway_tpu_torch.parallel`, brute force or the IVF approximate
+index), retrieve -> cross-encoder rerank
 (:mod:`~pathway_tpu_torch.xpacks.llm.rerankers`), and images -> SigLIP-class
 dual encoder -> index -> text-to-image retrieve, with hand-written CUDA
 kernels for the attention core, the dense layers' bias/activation
 epilogue (and the patch embed's position add), residual + LayerNorm, the
 embedding gather + LayerNorm, pooling + normalize, the patchify, the
-vision tail, the pairwise logits, the slab scatter and the fused score +
-top-k (:mod:`~pathway_tpu_torch.kernels`).  The package imports torch
+vision tail, the pairwise logits, the slab scatter, the fused score +
+top-k, the IVF's centroid assignment and its cell scan
+(:mod:`~pathway_tpu_torch.kernels`).  The package imports torch
 and numpy, never jax or ``pathway_tpu``.  Entry points run on
 ``device="cuda"`` unless the caller passes another device, and raise
 when no card is present.
@@ -28,7 +30,7 @@ from pathway_tpu_torch.models import (
     VisionConfig,
     VisionEncoderModel,
 )
-from pathway_tpu_torch.parallel import ShardedKnnIndex, TorchEncoder
+from pathway_tpu_torch.parallel import IvfKnnIndex, ShardedKnnIndex, TorchEncoder
 from pathway_tpu_torch.xpacks.llm.embedders import (
     SentenceTransformerEmbedder,
     TorchEncoderEmbedder,
@@ -55,6 +57,7 @@ __all__ = [
     "SIGLIP_BASE",
     "TorchEncoder",
     "ShardedKnnIndex",
+    "IvfKnnIndex",
     "TorchEncoderEmbedder",
     "SentenceTransformerEmbedder",
     "CrossEncoderReranker",

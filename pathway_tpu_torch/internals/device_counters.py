@@ -4,8 +4,9 @@ Counterpart of ``pathway_tpu/internals/device_counters.py``.  The
 ``h2d_bytes`` / ``d2h_bytes`` counters are recorded at the port's own
 transfer call sites (``parallel/executor.py`` chunk uploads and
 readbacks, ``parallel/sharded_knn.py`` dispatch/collect and host
-ingest): PyTorch, like jax, has no public per-transfer hook, so these
-count the transfers the port issues.
+ingest, ``parallel/ivf_knn.py`` search, ingest and training uploads and
+the search readback): PyTorch, like jax, has no public per-transfer
+hook, so these count the transfers the port issues.
 
 The JAX package also counts XLA backend compiles through a
 ``jax.monitoring`` listener.  That counter has no counterpart here:

@@ -14,12 +14,15 @@ K7 pool_normalize  ``csrc/pool_normalize.cu``    ``models/encoder.py:196-202``
 K8 patchify        ``csrc/patchify.cu``          ``models/vision.py:60-69``
 K9 vision_head     ``csrc/vision_head.cu``       ``models/vision.py:81-87``
 K10 dual_logits    ``csrc/dual_logits.cu``       ``models/vision.py:120``
+K11 ivf_assign     ``csrc/ivf_assign.cu``        ``parallel/ivf_knn.py:44-47,62-66``
+K12 ivf_scan       ``csrc/ivf_scan.cu``          ``parallel/ivf_knn.py:318-339``
 =================  ============================  =================================
 
 Each wrapper checks device, dtype, shape and contiguity, launches its
 kernel on PyTorch's current stream for CUDA tensors and counts each
 kernel launch in its ``launches`` attribute (``knn_topk`` launches pass 1
-and its merge passes, one count each); for CPU tensors it runs the plain
+and its merge passes, one count each; ``ivf_scan``'s merge passes are
+K3's and count on ``knn_topk``); for CPU tensors it runs the plain
 PyTorch version beside it.  Kernels build from ``csrc/`` at first use
 (:mod:`pathway_tpu_torch.kernels._build`).
 """
@@ -29,6 +32,8 @@ from pathway_tpu_torch.kernels.attention import attention, attention_plain
 from pathway_tpu_torch.kernels.bias_act import bias_act, bias_act_plain
 from pathway_tpu_torch.kernels.dual_logits import dual_logits, dual_logits_plain
 from pathway_tpu_torch.kernels.embed_ln import embed_ln, embed_ln_plain
+from pathway_tpu_torch.kernels.ivf_assign import ivf_assign, ivf_assign_plain
+from pathway_tpu_torch.kernels.ivf_scan import ivf_scan, ivf_scan_plain
 from pathway_tpu_torch.kernels.knn_topk import MAX_K, knn_topk, knn_topk_plain
 from pathway_tpu_torch.kernels.patchify import patch_grid, patchify, patchify_plain
 from pathway_tpu_torch.kernels.pool_normalize import pool_normalize, pool_normalize_plain
@@ -65,6 +70,10 @@ __all__ = [
     "vision_head_plain",
     "dual_logits",
     "dual_logits_plain",
+    "ivf_assign",
+    "ivf_assign_plain",
+    "ivf_scan",
+    "ivf_scan_plain",
     "WRAPPERS",
     "launch_counts",
     "reset_launch_counts",
@@ -83,6 +92,8 @@ WRAPPERS = {
     "patchify": patchify,
     "vision_head": vision_head,
     "dual_logits": dual_logits,
+    "ivf_assign": ivf_assign,
+    "ivf_scan": ivf_scan,
 }
 
 

@@ -26,6 +26,7 @@ NAMES = (
     "attention", "slab_scatter", "knn_topk",
     "bias_act", "add_layer_norm", "embed_ln", "pool_normalize",
     "patchify", "vision_head", "dual_logits",
+    "ivf_assign", "ivf_scan",
 )
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -136,6 +137,8 @@ _SIGNATURES = {
     "patchify": {"pw_patchify": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "vision_head": {"pw_vision_head": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]},
     "dual_logits": {"pw_dual_logits": [_P, _P, _P, _P, _P, _I, _I, _I, _P]},
+    "ivf_assign": {"pw_ivf_assign": [_P, _P, _P, _I, _I, _I, _I, _P]},
+    "ivf_scan": {"pw_ivf_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
 }
 
 

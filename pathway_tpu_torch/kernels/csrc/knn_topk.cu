@@ -37,19 +37,20 @@
 
 #include <atomic>
 
+#include "topk.cuh"
+
 namespace {
+
+using pw::better;
+using pw::kNegInf;
+using pw::kPadIdx;
+using pw::Row;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 256;          // slab rows per pass-1 block
 constexpr int kMaxGroup = 32;       // queries per pass-1 block
 constexpr int kMaxElems = 32;       // row elements per lane: d <= 1024
-constexpr float kNegInf = -3.0e38f; // ops/topk.py NEG_INF
-constexpr int kPadIdx = 0x7fffffff;
-
-__device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
-  return va > vb || (va == vb && ia < ib);
-}
 
 // Sort `count` arrays of n (a power of two) (value, index) pairs held
 // back to back in shared memory, best first.  All threads of the block
@@ -81,9 +82,8 @@ __device__ void bitonic_sort(float* vals, int* idx, int n, int count) {
 // Write the best kk (<= kRows) of each of `group` arrays of kRows (value,
 // index) pairs in shared memory to out[(g0 + qi) * ntiles + tile][0..kk),
 // best first.  Each warp takes whole arrays and runs kk rounds of a
-// warp-wide arg-max (each lane holds kRows / 32 entries), which costs far
-// less than sorting all kRows entries at the k of a search.  All threads
-// of the block take part.
+// warp-wide arg-max (pw::warp_top_k; each lane holds kRows / 32 entries).
+// All threads of the block take part.
 __device__ void write_best(const float* v_s, const int* i_s, int group, int kk, int g0,
                            int tile, int ntiles, float* __restrict__ out_vals,
                            int32_t* __restrict__ out_idx) {
@@ -98,64 +98,14 @@ __device__ void write_best(const float* v_s, const int* i_s, int group, int kk, 
       id[e] = i_s[qi * kRows + lane + 32 * e];
     }
     const size_t o = ((size_t)(g0 + qi) * ntiles + tile) * kk;
-    for (int j = 0; j < kk; ++j) {
-      float bv = v[0];
-      int bi = id[0];
-#pragma unroll
-      for (int e = 1; e < kPer; ++e) {
-        if (better(v[e], id[e], bv, bi)) {
-          bv = v[e];
-          bi = id[e];
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        if (better(ov, oi, bv, bi)) {
-          bv = ov;
-          bi = oi;
-        }
-      }
-      // every lane now holds the winner; its owner drops it (pads share
-      // one index and are all dropped at once, which leaves pads)
-#pragma unroll
-      for (int e = 0; e < kPer; ++e) {
-        if (id[e] == bi && v[e] == bv) {
-          v[e] = -INFINITY;
-          id[e] = kPadIdx;
-        }
-      }
+    pw::warp_top_k<kPer>(v, id, kk, [&](int j, float bv, int bi) {
       if (lane == 0) {
         out_vals[o + j] = bv;
         out_idx[o + j] = bi;
       }
-    }
+    });
   }
 }
-
-template <typename SlabT>
-struct Row;
-
-template <>
-struct Row<float> {
-  static constexpr int kVec = 4;
-  __device__ __forceinline__ static void load(const float* row, int c, float* dst) {
-    float4 t = reinterpret_cast<const float4*>(row)[c];
-    dst[0] = t.x; dst[1] = t.y; dst[2] = t.z; dst[3] = t.w;
-  }
-};
-
-template <>
-struct Row<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* row, int c, float* dst) {
-    uint4 u = reinterpret_cast<const uint4*>(row)[c];
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) dst[e] = __bfloat162float(h[e]);
-  }
-};
 
 template <typename SlabT>
 __global__ void __launch_bounds__(kThreads)

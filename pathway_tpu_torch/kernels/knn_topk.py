@@ -23,7 +23,7 @@ from pathway_tpu_torch.kernels._launch import check_cuda, launch
 from pathway_tpu_torch.ops.distances import dot_scores, l2sq_distances
 from pathway_tpu_torch.ops.topk import masked_top_k
 
-__all__ = ["knn_topk", "knn_topk_plain", "MAX_K", "METRICS"]
+__all__ = ["knn_topk", "knn_topk_plain", "merge_partials", "MAX_K", "METRICS"]
 
 #: largest k the kernel takes (pass 1 keeps k of every 256-row tile)
 MAX_K = 128
@@ -106,7 +106,21 @@ def _launch(
             *ptrs, nq, d, cap, bf16, min(nq, _GROUP), kk, l2sq,
         )
     knn_topk.launches += 1
-    n_in = tiles * kk
+    return merge_partials(vals, idx, k)
+
+
+def merge_partials(
+    vals: torch.Tensor, idx: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's pass 2 on the card: reduce each row's candidates ``(vals [nq,
+    n] f32, idx [nq, n] int32)``, in lists of at least k that are each
+    sorted best first, to its best k, by merge passes over segments of up
+    to 1,024 entries.  Each pass is one launch of ``pw_knn_merge`` and adds
+    one to ``knn_topk.launches``; ``ivf_scan`` merges its partial lists
+    here too."""
+    nq, n_in = vals.shape
+    device = vals.device
+    lib = _build.library("knn_topk")
     while n_in > k:
         seg = min(_SEGMENT, 1 << (n_in - 1).bit_length())
         segs = -(-n_in // seg)

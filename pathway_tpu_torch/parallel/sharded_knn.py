@@ -284,15 +284,16 @@ class ShardedKnnIndex:
 
     # ------------------------------------------------------------------
     # persistence support (same format as the JAX index; a bf16 slab is
-    # written out as f32)
+    # written out as f32).  The arrays are copies, as the JAX index's are,
+    # on the CPU too.
 
     def state_dict(self) -> dict:
         return {
             "dim": self.dim,
             "metric": self.metric,
             "capacity": self.capacity,
-            "vectors": self._vectors.float().cpu().numpy(),
-            "valid": self._valid.cpu().numpy(),
+            "vectors": self._vectors.to("cpu", copy=True).float().numpy(),
+            "valid": self._valid.to("cpu", copy=True).numpy(),
             "slot_of": dict(self._slot_of),
             "cursor": self._cursor,
             "free": list(self._free) + list(self._quarantine),

@@ -98,6 +98,21 @@ def test_jax_state_dict_loads_and_searches_identically(metric):
     _same_results(back.search(queries, 10), port.search(queries, 10), 1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_state_dict_is_a_snapshot(dtype):
+    """The state's arrays do not change with the index afterwards, as the
+    JAX index's (host copies) do not; on the CPU they are copies too, not
+    views of the index's tensors."""
+    _, tidx = _pair("cos", dtype)
+    tidx.add_batch(["a", "b"], _vecs(2, 1))
+    state = tidx.state_dict()
+    vectors, valid = state["vectors"].copy(), state["valid"].copy()
+    tidx.add_batch(["a", "c"], _vecs(2, 2))
+    tidx.remove(["b"])
+    np.testing.assert_array_equal(state["vectors"], vectors)
+    np.testing.assert_array_equal(state["valid"], valid)
+
+
 def test_pre_restore_handle_raises():
     idx = ShardedKnnIndex(DIM, capacity=128, device="cpu")
     idx.add_batch(["a", "b"], _vecs(2, 1))
