@@ -9,9 +9,12 @@ Phases, each fatal on failure:
    and the build of every kernel from ``pathway_tpu_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once);
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes of both paths below, with the tolerance stated beside each
+   shapes of the paths below, with the tolerance stated beside each
    check, and timed beside the plain version and the one PyTorch call
-   that computes the same function, where there is one;
+   that computes the same function, where there is one; among them K3
+   with a shard's slot offset, K3 at k=256 over the 1M slab (its
+   score-only pass and K13), and K13 on [32, 1,048,576] scores at k in
+   {129, 256, 1,024} and on [32, 2,048] at k=256 (the IVF probe);
 3. the live-RAG embed path at BGE-base full width (768 hidden, 12
    layers, 12 heads, MLP 3072, bf16, seeded random weights): a
    1,048,576-slot cosine index bulk-filled with seeded random vectors,
@@ -56,11 +59,38 @@ Phases, each fatal on failure:
    over the same tensors) at nq in {1, 8, 32}; recall@10 >= 0.95 for 256
    mixture queries against exact f32 brute force; self-retrieval of the
    documents that have a margin; the grow scenario of
-   ``tests/test_ivf.py`` at d=768; the card's limits on nprobe and k.
-   Every kernel of the path must launch during it.
+   ``tests/test_ivf.py`` at d=768; an nprobe and a k above 128 against
+   the plain search.  Every kernel of the path must launch during it;
+7. phase 6's second part, once its 1M-row index is freed: the IVF at the
+   JAX defaults from 4,194,304 rows of capacity (2,048 cells of 8,192
+   bf16 slots, 25.8 GB, nprobe 256, above K3's k limit of 128): 262,144
+   mixture rows train and fill it, searches at nq 1 and 32 with k=10 and
+   k=256 must equal its plain search and reach recall@10 >= 0.95, and K13
+   must launch for them;
+8. the sharded corpus: ``make_mesh({"data": 4}, [card] * 4)``; BGE-base
+   data parallel over the mesh embeds phase 3's documents into a
+   1,048,576-slot index of four 262,144-row shards, bulk-filled with
+   phase 3's seeded rows; searches at nq 1 and 32, k=10 and k=256 (each
+   document its own top-1).  Gates: every component of the data-parallel
+   embeddings within one bf16 ulp of the single-device one (and cosine
+   0.999); with the documents' rows set
+   to phase 3's, the sharded answers equal the unsharded index's (scores
+   within 3e-6, keys but near-ties); K3 on each shard with its offset,
+   gathered and merged, equal to K3 over the whole slab.  (One card: the
+   copies between cards that a mesh of distinct cards makes are not
+   exercised here);
+9. BGE-base-width checkpoint directories (``config.json``, a WordPiece
+   ``vocab.txt``, ``model.safetensors`` from the port's writer, seeded
+   weights) written to a temporary directory and loaded on the card by
+   ``TorchEncoderEmbedder(model=dir)`` and ``CrossEncoderReranker(dir)``:
+   the loaded tensors equal the written ones, and 256 embeddings and
+   pair scores lie within the bf16 tolerances of the plain forward of the
+   same weights.
 
-The second-to-last line of output is a JSON object with one entry per
-kernel wrapper; the last is ``{"ok": true, "device": {...}}``.  Without a
+Phase 8 runs right after phase 4, while phase 3's index is alive; phases
+5, 6 and 9 follow.  The second-to-last line of output is a JSON object
+with one entry per kernel wrapper (K1-K13); the last is ``{"ok": true,
+"device": {...}}``.  Without a
 CUDA device the script exits 1 and prints no result.
 """
 
@@ -97,6 +127,8 @@ N_CAPTIONS = 256  # captions: the first 32 query the index, all 256 make the log
 ATTN_ATOL = ATTN_RTOL = 2e-2  # bf16 output (8 mantissa bits); plain rounds logits to bf16, K1 keeps f32
 SCATTER_ATOL = 1e-6  # f32 norm summed in another order: ~1 ulp of a unit-norm row
 TOPK_ATOL = 1e-5  # f32 dot of unit rows over 768 dims, summed in another order
+SELECT_ATOL = 0.0  # K13 copies the values it selects
+SELECT_K = 256  # the k above K3's MAX_K that phases 2, 6 and 8 search at
 SELF_COS = 0.999
 # K4-K7: two bf16 ulps of the value; kernel and plain version round at the
 # same steps, but LayerNorm statistics and pooling sums are taken in
@@ -139,6 +171,14 @@ IVF_RECALL = 0.95  # the JAX package's recall@10 contract (tests/test_ivf.py)
 # K11 decides a row where its top-2 scores differ by more than this (f32
 # dots of unit rows over 768 dims summed in another order)
 ASSIGN_ATOL = 1e-5
+# phase 6, continued: IvfKnnIndex(768, capacity=C3_CAPACITY) gives the JAX
+# package's defaults nlist=2,048, nprobe=256, cell_cap=8,192 (bf16, 25.8 GB)
+C3_CAPACITY = 1 << 22
+C3_NLIST, C3_NPROBE, C3_CELL_CAP = 2048, 256, 8192
+C3_ROWS = 262_144  # mixture rows loaded (the first add trains the index)
+# phase 8, the sharded corpus: the 1M-slot index as SHARDS shards of one card
+SHARDS = 4
+SHARD_ATOL = 3e-6  # sharded against unsharded scores over the same rows
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, bf16 and f32 FLOP/s
 PEAK_BYTES = 3.35e12
@@ -227,6 +267,8 @@ def phase_kernels(torch, dev) -> dict:
         slab_clear_plain,
         slab_scatter,
         slab_scatter_plain,
+        topk_select,
+        topk_select_plain,
     )
     from pathway_tpu_torch.kernels.knn_topk import TILED_MIN_QUERIES
     from pathway_tpu_torch.kernels.knn_topk import _launch as knn_launch
@@ -445,11 +487,78 @@ def phase_kernels(torch, dev) -> dict:
             )
         paths[nq] = row
     log(f"K3 pass-1 paths by nq (TILED_MIN_QUERIES={TILED_MIN_QUERIES}): {json.dumps(paths)}")
+    # a shard's search: rows [lo, hi) of the slab as the shard whose first
+    # global slot is lo, which must come back as global slots
+    # (one of phase 8's four shards), at k=10 and, through the score-only
+    # pass and K13, at k=256
+    lo, hi = CAPACITY // 4, CAPACITY // 2
+    for nq in (1, 32):
+        for k in (K, SELECT_K):
+            kv, ki = knn_topk(qn[:nq], slab[lo:hi], valid[lo:hi], k, "dot", offset=lo)
+            pv, pi = knn_topk_plain(qn[:nq], slab[lo:hi], valid[lo:hi], k, "dot", offset=lo)
+            topk_err = max(topk_err, compare_topk(kv, ki, pv, pi, TOPK_ATOL))
+            if not bool(((ki >= lo) & (ki < hi)).all()):
+                fail(f"knn_topk k={k} with offset {lo}: a slot outside [{lo}, {hi})")
+    log(f"K3 with offset {lo} over rows [{lo}, {hi}), k {K} and {SELECT_K}: equal to its plain version")
+    # above MAX_K: k=256 over the 1M slab (the score-only pass 1, then K13)
+    n_valid = int(valid.sum())
+    k256 = {}
+    for nq in (1, 32):
+        qs = qn[:nq]
+        kv, ki = knn_topk(qs, slab, valid, SELECT_K, "dot")
+        pv, pi = knn_topk_plain(qs, slab, valid, SELECT_K, "dot")
+        topk_err = max(topk_err, compare_topk(kv, ki, pv, pi, TOPK_ATOL))
+        nbytes = n_valid * HIDDEN * 4 + CAPACITY * 4 + nq * HIDDEN * 4 + nq * SELECT_K * 8
+        b_ms, b_by = bound(nbytes, 2 * nq * n_valid * HIDDEN, PEAK_F32)
+        k256[nq] = {
+            "shape": f"nq={nq} k={SELECT_K} over [{CAPACITY},{HIDDEN}] f32, {n_valid} rows valid",
+            "ms": time_ms(torch, lambda: knn_topk(qs, slab, valid, SELECT_K, "dot"), 5),
+            "plain_ms": time_ms(torch, lambda: knn_topk_plain(qs, slab, valid, SELECT_K, "dot"), 3),
+            "library_ms": time_ms(torch, lambda: torch.topk(torch.matmul(qs, slab.T), SELECT_K), 3),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+        }
+        log(f"K3 + K13 knn_topk k={SELECT_K}: {json.dumps(k256[nq])}")
     log(f"K3 knn_topk: max_abs_err {topk_err:.3e}")
     out["knn_topk"] = {**timings[32], "max_abs_err": topk_err}
     out["_knn_topk_by_nq"] = timings
     out["_knn_paths"] = paths
     out["_knn_k128"] = k128
+    out["_knn_k256"] = k256
+
+    # ---- K13 topk_select: what K3's score-only pass hands it, the masked
+    # scores of 32 queries over the 1M slab, at k in {129, 256, 1024};
+    # [32, 2048] centroid scores at k=256, the IVF's probe at its default
+    # nprobe from 4,194,304 rows of capacity; and a reduction of candidate
+    # lists with their ids, [32, 1024] at k=256: four shards' k=256 lists,
+    # the sharded merge's shape
+    scores = torch.where(valid.bool(), qn[:32] @ slab.T, NEG_INF)
+    cents = torch.randn((2048, HIDDEN), generator=g, device=dev)
+    cents /= cents.norm(dim=1, keepdim=True)
+    probe_scores = qn[:32] @ cents.T
+    cand = torch.randn((32, SHARDS * SELECT_K), generator=g, device=dev)
+    cand_ids = torch.randint(0, 2**31 - 1, cand.shape, generator=g, device=dev, dtype=torch.int32)
+    select_err, select_rows = 0.0, {}
+    for name, vals, ids, k in (("k129", scores, None, MAX_K + 1), ("k256", scores, None, SELECT_K),
+                               ("k1024", scores, None, 1024), ("probe", probe_scores, None, SELECT_K),
+                               ("merge", cand, cand_ids, SELECT_K)):
+        kv, ki = topk_select(vals, k, ids)
+        pv, pi = topk_select_plain(vals, k, ids)
+        select_err = max(select_err, compare_topk(kv, ki, pv, pi, SELECT_ATOL))
+        nq, n = vals.shape
+        n_in = 4 if ids is None else 8  # bytes read per entry: a score, and its id
+        b_ms, b_by = bound(nq * n * n_in + nq * k * 8, 0, PEAK_F32)
+        select_rows[name] = {
+            "shape": f"[{nq},{n}] f32 scores{'' if ids is None else ' + int32 ids'}, k={k}",
+            "ms": time_ms(torch, lambda: topk_select(vals, k, ids), 10),
+            "plain_ms": time_ms(torch, lambda: topk_select_plain(vals, k, ids), 10),
+            "library_ms": time_ms(torch, lambda: torch.topk(vals, k, dim=1), 10),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+        }
+        log(f"K13 topk_select {name}: {json.dumps(select_rows[name])}")
+    out["topk_select"] = {**select_rows["k256"], "max_abs_err": select_err}
+    out["_topk_select_rows"] = select_rows
     return out
 
 
@@ -1070,7 +1179,7 @@ def phase_slice(torch, dev, compared_widths: set) -> tuple[dict, dict]:
     zero = [name for name in embed_path if res["launches"][name] == 0]
     if zero:
         fail(f"kernels not launched on the embed path: {zero}")
-    return res, {"index": index, "embedder": embedder, "docs": docs, "keys": keys}
+    return res, {"index": index, "embedder": embedder, "docs": docs, "keys": keys, "q_all": q_all}
 
 
 def synthetic_questions(np, docs: list[str], n: int, seed: int) -> list[str]:
@@ -1183,7 +1292,7 @@ def phase_rerank(torch, dev, ctx: dict, compared_widths: set) -> dict:
                                  pair=[d["text"] for d in pair_docs[i : i + RERANK_BATCH]],
                                  max_len=cross.max_len)
         widths.add(batch[0].shape[1])
-        args, n = cross._upload(*batch)
+        (args,), n = cross._upload_parts(*batch)
         with torch.inference_mode():
             plain.append(plain_forward(cross.model, *args)[:n].float().cpu().numpy())
             plain32.append(plain_forward(model32, *args)[:n].float().cpu().numpy())
@@ -1477,21 +1586,22 @@ def check_assign(torch, x, c, half_norm: bool) -> float:
     return short
 
 
-def plain_ivf_search(torch, index, qs):
+def plain_ivf_search(torch, index, qs, k=K, nprobe=None):
     """The index's search through K3's and K12's plain versions over its own
-    tensors: (scores [nq, K], keys per query, and how many queries' probes
+    tensors: (scores [nq, k], keys per query, and how many queries' probes
     differ from the kernel's by a near-tie, where the plain scan then takes
     the kernel's probe: both are right).  Nothing on the path calls it."""
     from pathway_tpu_torch.kernels import ivf_scan_plain, knn_topk, knn_topk_plain
 
+    nprobe = nprobe or index.nprobe
     q = torch.from_numpy(index._normalize(qs)).to(index.device)
     ones = torch.ones((index.nlist,), device=index.device)
-    pv, pi = knn_topk_plain(q, index._centroids, ones, index.nprobe, "dot")
-    kv, ki = knn_topk(q, index._centroids, ones, index.nprobe, "dot")
+    pv, pi = knn_topk_plain(q, index._centroids, ones, nprobe, "dot")
+    kv, ki = knn_topk(q, index._centroids, ones, nprobe, "dot")
     compare_topk(kv, ki, pv, pi, TOPK_ATOL)
     same = torch.tensor([set(a) == set(b) for a, b in zip(pi.tolist(), ki.tolist())], device=q.device)
     probe = torch.where(same[:, None], pi, ki)
-    vals, flat = ivf_scan_plain(q, probe, index._cells, index._valid, K, query_block=1)
+    vals, flat = ivf_scan_plain(q, probe, index._cells, index._valid, k, query_block=1)
     keys = [[index._key_of[divmod(f, index.cell_cap)] for f in row] for row in flat.tolist()]
     return vals.cpu().numpy(), keys, int((~same).sum())
 
@@ -1757,7 +1867,7 @@ def phase_ivf(torch, dev) -> dict:
     lap("kernels_s")
 
     # (f) the grow scenario of tests/test_ivf.py at d=768, on the card, and
-    # the card's limits on nprobe and k
+    # an nprobe and a k above K3's MAX_K, which K13 selects
     rng = np.random.default_rng(SEED)
     base = rng.normal(size=(1, dim)).astype(np.float32)
     xs = base + 0.01 * rng.normal(size=(3000, dim)).astype(np.float32)
@@ -1773,18 +1883,18 @@ def phase_ivf(torch, dev) -> dict:
     res["grow"] = {"cell_cap": [cap0, small.cell_cap], "outlier_score": top[0][1]}
     log(f"IVF grow: {json.dumps(res['grow'])}")
     del small
-    if dev.type == "cuda":  # the CPU path (a rehearsal) has no such limit
-        wide = IvfKnnIndex(dim, metric="cos", capacity=64, nlist=256, nprobe=8, device=dev)
-        wide.train(xs[:300])
-        for kwargs in ({"k": K, "nprobe": 129}, {"k": 129}):
-            try:
-                wide.search(xs[:1], **kwargs)
-            except ValueError as e:
-                if "MAX_K" not in str(e):
-                    fail(f"IVF search {kwargs}: ValueError without naming MAX_K: {e}")
-            else:
-                fail(f"IVF search {kwargs} on the card did not raise")
-        log("IVF search with nprobe=129 or k=129 raises naming MAX_K")
+    wide = IvfKnnIndex(dim, metric="cos", capacity=64, nlist=256, nprobe=8, device=dev)
+    wide.train(xs[:300])
+    wide.add_batch(range(300), xs[:300])
+    for k, nprobe in ((K, 129), (129, 256)):
+        got = wide.search(xs[:2], k, nprobe=nprobe)
+        want_v, _, _ = plain_ivf_search(torch, wide, xs[:2], k, nprobe)
+        for row, want in zip(got, want_v):
+            err = float(np.abs(np.array([v for _, v in row]) - want).max())
+            if len(row) != k or not err <= TOPK_ATOL:
+                fail(f"IVF search k={k} nprobe={nprobe}: {len(row)} results, err {err} against the plain search")
+    log("IVF search at nprobe=129 and at k=129 equals its plain search")
+    del wide
     lap("grow_s")
 
     # (g) where the time goes: one ingest chunk (an upsert of the first
@@ -1803,6 +1913,389 @@ def phase_ivf(torch, dev) -> dict:
     wall["total_s"] = time.perf_counter() - t_phase
     res["wall_s"] = wall
     log(f"IVF search: {json.dumps(lat)}; phase wall times: {json.dumps(wall)}")
+    return res
+
+
+def compare_rows(got_rows, want_rows, k: int, tol: float, what: str) -> float:
+    """Search answers ``[[(key, score), ...], ...]`` against a reference's:
+    k results each, scores within ``tol`` rank by rank, and every key the
+    reference ranks clear of its k-th score by more than ``tol`` (away from
+    near-ties) among the answers.  Returns the largest score difference."""
+    import numpy as np
+
+    worst = 0.0
+    for r, (got, want) in enumerate(zip(got_rows, want_rows)):
+        gv = np.array([v for _, v in got])
+        wv = np.array([v for _, v in want])
+        if len(got) != k or len(want) != k:
+            fail(f"{what} row {r}: {len(got)} results against {len(want)}, expected {k}")
+        err = float(np.abs(gv - wv).max())
+        sure = {key for key, v in want if v > wv[-1] + tol}
+        if not err <= tol or not sure <= {key for key, _ in got}:
+            fail(f"{what} row {r}: differs from the reference (err {err}, tol {tol})")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_ivf_defaults(torch, dev) -> dict:
+    """Phase 6, continued: the JAX IVF's defaults from 4,194,304 rows of
+    capacity (nlist 2,048, nprobe 256: above K3's MAX_K, so the probe and
+    a k=256 search go through K13).  262,144 mixture rows train and fill
+    it; searches at nq 1 and 32, k=10 and k=256, against its plain search;
+    recall@10 against exact f32 brute force."""
+    import numpy as np
+
+    from pathway_tpu_torch import IvfKnnIndex, kernels
+    from pathway_tpu_torch.kernels import knn_topk
+
+    res: dict = {}
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    index = IvfKnnIndex(HIDDEN, metric="cos", capacity=C3_CAPACITY, device=dev)
+    shape = (index.nlist, index.nprobe, index.cell_cap, index.dtype)
+    if shape != (C3_NLIST, C3_NPROBE, C3_CELL_CAP, torch.bfloat16):
+        fail(f"IVF configuration {shape} is not the JAX package's default at {C3_CAPACITY}")
+    res["cells_gb"] = index._cells.numel() * index._cells.element_size() / 1e9
+    chunks = mixture(np, C3_ROWS, HIDDEN, SEED, IVF_CHUNK)
+    starts = np.cumsum([0] + [len(c) for c in chunks])
+    queries = mixture(np, IVF_QUERIES, HIDDEN, SEED + 1, IVF_QUERIES)[0]
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i, chunk in enumerate(chunks):
+        index.add_batch(range(starts[i], starts[i + 1]), chunk)
+    torch.cuda.synchronize()
+    res["ingest_rows_per_s"] = C3_ROWS / (time.perf_counter() - t0)
+    if not index.trained or len(index) != C3_ROWS:
+        fail(f"IVF defaults: trained={index.trained}, {len(index)} keys")
+    lat: dict = {}
+    for k in (K, SELECT_K):
+        for nq, reps in ((1, 20), (32, 10)):
+            times = []
+            for r in range(reps):
+                lo = (r * nq) % (IVF_QUERIES - nq + 1)
+                s0 = time.perf_counter()
+                rows = index.search(queries[lo : lo + nq], k)
+                times.append((time.perf_counter() - s0) * 1e3)
+                if any(len(row) != k for row in rows):
+                    fail(f"IVF defaults search nq={nq} k={k}: short result")
+            lat[f"nq{nq}_k{k}"] = {"p50_ms": float(np.percentile(times, 50)),
+                                   "p99_ms": float(np.percentile(times, 99))}
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    res["launches"] = launches
+    res["search"] = lat
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"IVF defaults (C3): {json.dumps(res)}")
+    zero = [n for n in ("ivf_assign", "ivf_scan", "knn_topk", "topk_select", "slab_scatter") if launches[n] == 0]
+    if zero:
+        fail(f"kernels not launched on the IVF path at its defaults: {zero}")
+    if any(t.device != dev for t in (index._cells, index._valid, index._centroids)):
+        fail("IVF defaults: the index's tensors left the card")
+
+    # the searches against the plain search over the same tensors (the
+    # plain top-256, whose first ten are the plain top-10)
+    pv, pkeys, ties = plain_ivf_search(torch, index, queries[:32], SELECT_K)
+    err = 0.0
+    for nq in (1, 32):
+        for k in (K, SELECT_K):
+            want = [list(zip(pkeys[r][:k], pv[r][:k].tolist())) for r in range(nq)]
+            err = max(err, compare_rows(index.search(queries[:nq], k), want, k, TOPK_ATOL,
+                                        f"IVF defaults nq={nq} k={k}"))
+    res["vs_plain"] = {"max_abs_err": err, "probe_near_ties": ties}
+    # recall@10 against exact f32 brute force over the same rows (K3)
+    slab = torch.cat([torch.from_numpy(index._normalize(c)).to(dev) for c in chunks])
+    ones = torch.ones((slab.shape[0],), device=dev)
+    qn = torch.from_numpy(index._normalize(queries)).to(dev)
+    hits = 0
+    for lo in range(0, IVF_QUERIES, 32):
+        got = index.search(queries[lo : lo + 32], K)
+        truth = knn_topk(qn[lo : lo + 32], slab, ones, K, "dot")[1].tolist()
+        hits += sum(len({key for key, _ in row} & set(t)) for row, t in zip(got, truth))
+    res["recall_at_10"] = hits / (IVF_QUERIES * K)
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"IVF defaults gates: {json.dumps(res['vs_plain'])}, recall@{K} {res['recall_at_10']:.4f}, "
+        f"wall {res['wall_s']:.1f} s")
+    if not res["recall_at_10"] >= IVF_RECALL:
+        fail(f"IVF defaults recall@{K} {res['recall_at_10']:.4f} < {IVF_RECALL}")
+    return res
+
+
+def phase_sharded(torch, dev, ctx: dict) -> dict:
+    """Phase 8: the sharded corpus on a mesh of SHARDS copies of the card:
+    BGE-base full width data parallel over the mesh embeds phase 3's
+    documents into a 1,048,576-slot index of SHARDS shards, bulk-filled
+    with phase 3's seeded rows; searches at nq 1 and 32, k=10 and k=256,
+    against phase 3's unsharded index over the same rows."""
+    import numpy as np
+
+    from pathway_tpu_torch import BGE_BASE, ShardedKnnIndex, TorchEncoder, kernels, make_mesh
+    from pathway_tpu_torch.kernels import knn_topk
+    from pathway_tpu_torch.kernels.knn_topk import merge_partials
+    from pathway_tpu_torch.ops.distances import normalize
+
+    index, docs, keys, q_all = ctx["index"], ctx["docs"], ctx["keys"], ctx["q_all"]
+    res: dict = {}
+    t_phase = time.perf_counter()
+    mesh = make_mesh({"data": SHARDS}, [dev] * SHARDS)
+    sidx = ShardedKnnIndex(HIDDEN, metric="cos", capacity=CAPACITY, mesh=mesh)
+    if (sidx.shards, sidx.shard_rows) != (SHARDS, CAPACITY // SHARDS):
+        fail(f"sharded index: {sidx.shards} shards of {sidx.shard_rows} rows")
+    dp = TorchEncoder(BGE_BASE, max_batch=DOC_BATCH, seed=SEED, mesh=mesh)
+    # set-up: phase 3's seeded bulk rows, copied on the card into the same slots
+    n_bulk = CAPACITY - N_DOCS - 1024
+    whole = index._vectors
+    for lo in range(0, n_bulk, 65536):
+        n = min(65536, n_bulk - lo)
+        sidx.add_batch_device(range(lo, lo + n), whole[lo : lo + n])
+    dp.encode(docs[:8])  # first-call set-up, untimed
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    n = dp.encode_into(sidx, keys, docs)
+    torch.cuda.synchronize()
+    res["dp_embed_docs_per_s"] = n / (time.perf_counter() - t0)
+    if n != N_DOCS or len(sidx) != n_bulk + N_DOCS:
+        fail(f"sharded index holds {len(sidx)} keys after {n} documents")
+    sidx.remove(keys[-N_REMOVED:])
+    lat: dict = {}
+    for k in (K, SELECT_K):
+        for nq, reps in ((1, 50), (32, 20)):
+            times = []
+            for r in range(reps):
+                lo = (r * nq) % (DOC_BATCH - nq + 1)
+                s0 = time.perf_counter()
+                rows = sidx.search(q_all[lo : lo + nq], k)
+                times.append((time.perf_counter() - s0) * 1e3)
+                for i, row in enumerate(rows):
+                    if len(row) != k or row[0][0] != keys[lo + i] or row[0][1] < SELF_COS:
+                        fail(f"sharded search nq={nq} k={k}: query doc-{lo + i} came back as {row[:1]}")
+            lat[f"nq{nq}_k{k}"] = {"p50_ms": float(np.percentile(times, 50)),
+                                   "p99_ms": float(np.percentile(times, 99))}
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    res["launches"] = launches
+    res["search"] = lat
+    log(f"sharded corpus ({SHARDS} shards on {dev}): {json.dumps(res)}")
+    path = ("knn_topk", "topk_select", "slab_scatter", "slab_clear", "attention", "bias_act",
+            "add_layer_norm", "embed_ln", "pool_normalize")
+    zero = [name for name in path if launches[name] == 0]
+    if zero:
+        fail(f"kernels not launched on the sharded path: {zero}")
+
+    # (a) the data-parallel embeddings against the single-device ones: the
+    # same kernels over parts of the same chunks, so each component within
+    # one bf16 ulp of its single-device value (a cosine gate alone would
+    # pass a wrong pad mask or a misplaced row among near-duplicates)
+    emb = dp.encode(docs[:DOC_BATCH])
+    cos = (emb * q_all).sum(1) / np.linalg.norm(emb, axis=1) / np.linalg.norm(q_all, axis=1)
+    diff = np.abs(emb - q_all)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(q_all), 2.0**-126))) - 7)
+    res["dp_vs_single"] = {"min_cos": float(cos.min()), "max_abs_err": float(diff.max()),
+                           "n_differ": int((diff > 0).sum()), "max_bf16_ulps": float((diff / ulp).max())}
+    if not (np.isfinite(emb).all() and (diff <= ulp).all() and cos.min() >= EMBED_COS):
+        fail(f"data-parallel embeddings against the single-device ones: {res['dp_vs_single']}")
+    # (b) the same rows: the documents upserted from phase 3's slab, then
+    # the sharded index's answers against the unsharded one's
+    kept = [key for key in keys if key in index]
+    slots = torch.tensor([index._slot_of[key] for key in kept], device=dev)
+    sidx.add_batch_device(kept, whole[slots])
+    sidx.remove([key for key in keys if key not in index])
+    err = 0.0
+    for nq in (1, 32):
+        for k in (K, SELECT_K):
+            qs = q_all[:nq]
+            err = max(err, compare_rows(sidx.search(qs, k), index.search(qs, k), k, SHARD_ATOL,
+                                        f"sharded vs unsharded nq={nq} k={k}"))
+    # (c) K3 on each shard with its offset, gathered and merged, against K3
+    # over the whole slab
+    q = normalize(torch.from_numpy(q_all[:32]).to(dev))
+    flat, flags = sidx._vectors, sidx._valid
+    for k in (K, SELECT_K):
+        kk = min(k, sidx.shard_rows)
+        parts = [knn_topk(q, sidx._vecs[s], sidx._flags[s], kk, "dot", offset=s * sidx.shard_rows)
+                 for s in range(SHARDS)]
+        mv, mi = merge_partials(torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1),
+                                k, presorted=False)
+        wv, wi = knn_topk(q, flat, flags, k, "dot")
+        err = max(err, compare_topk(mv, mi, wv, wi, SHARD_ATOL))
+    del flat, flags
+    res["vs_unsharded_max_abs_err"] = err
+    # where one question's time goes, sharded and not: nq=1, k=10; and a
+    # batch at k=256 (K3's score-only pass and twelve K13 launches per
+    # shard, then the K13 merge), three times each, for its spread
+    res["query_profile"] = profile_call(torch, lambda: sidx.search(q_all[:1], K), 1)
+    res["unsharded_query_profile"] = profile_call(torch, lambda: index.search(q_all[:1], K), 1)
+    log(f"sharded search profile (nq=1): {json.dumps(res['query_profile'])}; "
+        f"unsharded: {json.dumps(res['unsharded_query_profile'])}")
+    for name, idx in (("batch_k256_profiles", sidx), ("unsharded_batch_k256_profiles", index)):
+        res[name] = [profile_call(torch, lambda: idx.search(q_all[:32], SELECT_K), 32) for _ in range(3)]
+        log(f"{name} (nq=32, k={SELECT_K}): {json.dumps(res[name])}")
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"sharded gates: dp vs single {json.dumps(res['dp_vs_single'])}, vs unsharded max err {err:.3e}, "
+        f"wall {res['wall_s']:.1f} s")
+    return res
+
+
+def smoke_vocab() -> list[str]:
+    """A BERT-layout vocabulary for the synthetic documents: [PAD] 0,
+    [unused*], [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103, the words w0 to
+    w29999 and the pieces ##0 to ##9 (higher word numbers split)."""
+    vocab = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    return vocab + [f"w{i}" for i in range(30_000)] + [f"##{d}" for d in range(10)]
+
+
+def write_checkpoint(np, root: str, cross: bool, seed: int) -> dict:
+    """A BGE-base-width BERT checkpoint directory, as ``save_pretrained``
+    lays one out: ``config.json``, ``vocab.txt`` and ``model.safetensors``
+    (written by the port's own writer) with seeded random weights; the
+    cross-encoder's under ``bert.`` with a one-label ``classifier``.
+    Returns the arrays by name."""
+    from pathway_tpu_torch.models.convert import save_safetensors
+
+    vocab = smoke_vocab()
+    with open(os.path.join(root, "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab))
+    config = {
+        "architectures": ["BertForSequenceClassification" if cross else "BertModel"],
+        "model_type": "bert", "_name_or_path": "bge-reranker-base-smoke" if cross else "bge-base-smoke",
+        "vocab_size": len(vocab), "hidden_size": HIDDEN, "num_hidden_layers": 12,
+        "num_attention_heads": 12, "intermediate_size": 4 * HIDDEN, "max_position_embeddings": 512,
+        "type_vocab_size": 2, "hidden_act": "gelu", "layer_norm_eps": 1e-12,
+    }
+    if cross:
+        config.update(id2label={"0": "LABEL_0"}, label2id={"LABEL_0": 0})
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(config, f)
+    rng = np.random.default_rng(seed)
+    pre = "bert." if cross else ""
+
+    def normal(*shape, mean=0.0):
+        return (rng.standard_normal(shape, dtype=np.float32) * 0.02 + mean).astype(np.float32)
+
+    arrays = {f"{pre}embeddings.word_embeddings.weight": normal(len(vocab), HIDDEN),
+              f"{pre}embeddings.position_embeddings.weight": normal(512, HIDDEN),
+              f"{pre}embeddings.token_type_embeddings.weight": normal(2, HIDDEN)}
+
+    def ln(name):
+        arrays[f"{name}.weight"] = normal(HIDDEN, mean=1.0)
+        arrays[f"{name}.bias"] = normal(HIDDEN)
+
+    def linear(name, n_out, n_in):
+        arrays[f"{name}.weight"] = normal(n_out, n_in)
+        arrays[f"{name}.bias"] = normal(n_out)
+
+    ln(f"{pre}embeddings.LayerNorm")
+    for i in range(12):
+        p = f"{pre}encoder.layer.{i}"
+        for name in ("query", "key", "value"):
+            linear(f"{p}.attention.self.{name}", HIDDEN, HIDDEN)
+        linear(f"{p}.attention.output.dense", HIDDEN, HIDDEN)
+        ln(f"{p}.attention.output.LayerNorm")
+        linear(f"{p}.intermediate.dense", 4 * HIDDEN, HIDDEN)
+        linear(f"{p}.output.dense", HIDDEN, 4 * HIDDEN)
+        ln(f"{p}.output.LayerNorm")
+    linear(f"{pre}pooler.dense", HIDDEN, HIDDEN)
+    if cross:
+        linear("classifier", 1, HIDDEN)
+    save_safetensors(os.path.join(root, "model.safetensors"), arrays)
+    return arrays
+
+
+def phase_checkpoint(torch, dev, compared_widths: set) -> dict:
+    """Phase 9: BGE-base-width checkpoint directories written here from the
+    seed, loaded on the card by ``TorchEncoderEmbedder(model=dir)`` and
+    ``CrossEncoderReranker(dir)``; their outputs against the plain forward
+    of the same weights."""
+    import tempfile
+
+    import numpy as np
+
+    from pathway_tpu_torch import CrossEncoderReranker, TorchEncoderEmbedder, kernels
+    from pathway_tpu_torch.models import WordPieceTokenizer
+
+    res: dict = {}
+    t_phase = time.perf_counter()
+    docs = synthetic_docs(np, DOC_BATCH, SEED + 9)
+    questions = synthetic_questions(np, docs, DOC_BATCH, SEED + 10)
+    widths: set = set()
+    with tempfile.TemporaryDirectory() as root:
+        bi_dir, cross_dir = os.path.join(root, "bi"), os.path.join(root, "cross")
+        os.mkdir(bi_dir)
+        os.mkdir(cross_dir)
+        bi = write_checkpoint(np, bi_dir, False, SEED + 11)
+        cross = write_checkpoint(np, cross_dir, True, SEED + 12)
+        res["write_s"] = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        emb = TorchEncoderEmbedder(bi_dir, max_batch_size=DOC_BATCH, device=dev)
+        rer = CrossEncoderReranker(cross_dir, max_batch_size=RERANK_BATCH, device=dev)
+        torch.cuda.synchronize()
+        res["load_s"] = time.perf_counter() - t0
+    for name, enc, arrays, pre in (("embedder", emb.encoder, bi, ""), ("reranker", rer.encoder, cross, "bert.")):
+        cfg = enc.config
+        if (cfg.hidden, cfg.layers, cfg.mlp_dim, cfg.pool) != (HIDDEN, 12, 4 * HIDDEN, "cls"):
+            fail(f"{name}: config {cfg} is not BGE-base's shape with CLS pooling")
+        if not isinstance(enc.tokenizer, WordPieceTokenizer):
+            fail(f"{name}: the checkpoint's vocab.txt did not give a WordPiece tokenizer")
+        state = enc.model.state_dict()
+        for ours, theirs in (("embeddings.word.weight", "embeddings.word_embeddings.weight"),
+                             ("layer_11.attention.query.bias", "encoder.layer.11.attention.self.query.bias"),
+                             ("layer_7.mlp_down.weight", "encoder.layer.7.output.dense.weight")):
+            if not np.array_equal(state[ours].cpu().numpy(), arrays[pre + theirs]):
+                fail(f"{name}: {ours} is not the checkpoint's {pre + theirs}")
+    if not np.array_equal(rer.encoder.model.classifier.bias.detach().cpu().numpy(), cross["classifier.bias"]):
+        fail("reranker: the classifier is not the checkpoint's")
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = np.stack(emb.__batch__(docs))
+    t1 = time.perf_counter()
+    pairs = [{"text": d} for d in docs]
+    scores = np.asarray(rer.__batch__(pairs, questions), np.float32)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    res["launches"] = kernels.launch_counts()
+    res["embed_docs_per_s"] = len(docs) / (t1 - t0)
+    res["rerank_pairs_per_s"] = len(docs) / (t2 - t1)
+    zero = [n for n in ("attention", "bias_act", "add_layer_norm", "embed_ln", "pool_normalize")
+            if res["launches"][n] == 0]
+    if zero:
+        fail(f"kernels not launched on the checkpoint path: {zero}")
+
+    # the plain forward of the same loaded weights on the same batches
+    enc = emb.encoder
+    ref = []
+    for i in range(0, len(docs), DOC_BATCH):
+        batch = enc.tokenizer.encode_batch(docs[i : i + DOC_BATCH], max_len=enc.max_len)
+        widths.add(batch[0].shape[1])
+        (args,), n = enc._upload_parts(*batch)
+        with torch.inference_mode():
+            ref.append(plain_forward(enc.model, *args)[:n].float().cpu().numpy())
+    ref = np.concatenate(ref)
+    cos = (got * ref).sum(1) / np.linalg.norm(got, axis=1) / np.linalg.norm(ref, axis=1)
+    emb_err = float(np.abs(got - ref).max())
+    cross_enc = rer.encoder
+    plain = []
+    for i in range(0, len(docs), RERANK_BATCH):
+        batch = cross_enc.tokenizer.encode_batch(questions[i : i + RERANK_BATCH], pair=docs[i : i + RERANK_BATCH],
+                                                 max_len=cross_enc.max_len)
+        widths.add(batch[0].shape[1])
+        (args,), n = cross_enc._upload_parts(*batch)
+        with torch.inference_mode():
+            plain.append(plain_forward(cross_enc.model, *args)[:n].float().cpu().numpy())
+    score_err = float(np.abs(scores - np.concatenate(plain)).max())
+    res["embed_vs_plain"] = {"min_cos": float(cos.min()), "max_abs_err": emb_err}
+    res["score_vs_plain_max_abs_err"] = score_err
+    res["attention_widths"] = sorted(widths)
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"checkpoint path: {json.dumps(res)}")
+    if not (np.isfinite(got).all() and cos.min() >= EMBED_COS and emb_err <= EMBED_ATOL):
+        fail(f"checkpoint embeddings against the plain forward: cosine {cos.min()}, err {emb_err}")
+    if not (np.isfinite(scores).all() and score_err <= SCORE_ATOL):
+        fail(f"checkpoint rerank scores against the plain forward: err {score_err}")
+    if not widths <= compared_widths:
+        fail(f"checkpoint path widths {sorted(widths)} outside the shapes phase 2 compared")
     return res
 
 
@@ -1837,6 +2330,8 @@ def main() -> int:
     by_nq = k_out.pop("_knn_topk_by_nq")
     paths = k_out.pop("_knn_paths")
     k128 = k_out.pop("_knn_k128")
+    k256 = k_out.pop("_knn_k256")
+    select_rows = k_out.pop("_topk_select_rows")
     attn_l512 = k_out.pop("_attention_b32_l512")
     attn_rerank = k_out.pop("_attention_rerank")
     attn_image = k_out.pop("_attention_image")
@@ -1858,6 +2353,11 @@ def main() -> int:
     t_phase = time.perf_counter()
     r_out = phase_rerank(torch, dev, ctx, compared_widths)
     wall["rerank_s"] = time.perf_counter() - t_phase
+    sh_out = phase_sharded(torch, dev, ctx)
+    wall["sharded_s"] = sh_out["wall_s"]
+    log(f"embed docs/s: data parallel over {SHARDS} shards {sh_out['dp_embed_docs_per_s']:.1f}, "
+        f"one device {s_out['embed_docs_per_s']:.1f}; query p50/p99 ms: sharded {json.dumps(sh_out['search'])}, "
+        f"unsharded {json.dumps(s_out['search'])}")
     del ctx
     torch.cuda.empty_cache()
     i_out = phase_image(torch, dev, compared_widths)
@@ -1865,6 +2365,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     ivf_out = phase_ivf(torch, dev)
     wall["ivf_s"] = ivf_out["wall_s"]["total_s"]
+    torch.cuda.empty_cache()
+    c3_out = phase_ivf_defaults(torch, dev)
+    wall["ivf_defaults_s"] = c3_out["wall_s"]
+    torch.cuda.empty_cache()
+    ck_out = phase_checkpoint(torch, dev, compared_widths)
+    wall["checkpoint_s"] = ck_out["wall_s"]
     k_out.update(ivf_out.pop("kernels"))
     ivf_scan_nq32 = k_out["ivf_scan"].pop("_nq32")
 
@@ -1883,12 +2389,15 @@ def main() -> int:
         "dual_logits": ("dual_logits.cu", "pathway_tpu/models/vision.py:120"),
         "ivf_assign": ("ivf_assign.cu", "pathway_tpu/parallel/ivf_knn.py:44"),
         "ivf_scan": ("ivf_scan.cu", "pathway_tpu/parallel/ivf_knn.py:316"),
+        "topk_select": ("topk_select.cu", "pathway_tpu/parallel/sharded_knn.py:364"),
     }
     entries = []
     for name, (src, replaces) in sources.items():
         m = k_out[name]
         by_path = {"embed": s_out["launches"][name], "rerank": r_out["launches"][name],
-                   "image": i_out["launches"][name], "ivf": ivf_out["launches"][name]}
+                   "image": i_out["launches"][name], "ivf": ivf_out["launches"][name],
+                   "ivf_defaults": c3_out["launches"][name], "sharded": sh_out["launches"][name],
+                   "checkpoint": ck_out["launches"][name]}
         entries.append({
             "name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1908,6 +2417,8 @@ def main() -> int:
         "knn_topk_by_nq": by_nq,
         "knn_pass1_paths": paths,
         "knn_topk_k128_ms": k128,
+        "knn_topk_k256": k256,
+        "topk_select_shapes": select_rows,
         "attention_b32_l512": attn_l512,
         "attention_rerank_b256_l512": attn_rerank,
         "attention_image_b256_l196": attn_image,
@@ -1918,6 +2429,9 @@ def main() -> int:
         "rerank": r_out,
         "image": i_out,
         "ivf": ivf_out,
+        "ivf_defaults": c3_out,
+        "sharded": sh_out,
+        "checkpoint": ck_out,
         "ivf_scan_nq32": ivf_scan_nq32,
         "ivf_assign_lloyd_ms": k_out["ivf_assign"]["lloyd_ms"],
         "phase_wall_s": wall,

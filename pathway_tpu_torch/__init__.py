@@ -1,9 +1,11 @@
 """``pathway_tpu_torch``: the PyTorch/CUDA port of ``pathway_tpu``'s
 device plane, for one NVIDIA H100 (``sm_90a``).
 
-It carries the live-RAG paths: text -> hash tokenizer -> BERT-family
-encoder (:mod:`~pathway_tpu_torch.models`) -> device-resident KNN index
-(:mod:`~pathway_tpu_torch.parallel`, brute force or the IVF approximate
+It carries the live-RAG paths: text -> hash or WordPiece tokenizer ->
+BERT-family encoder (:mod:`~pathway_tpu_torch.models`; seeded weights or
+a local HF checkpoint), data parallel over a device mesh or not ->
+device-resident KNN index (:mod:`~pathway_tpu_torch.parallel`, brute
+force on one card or sharded over the mesh, or the IVF approximate
 index), retrieve -> cross-encoder rerank
 (:mod:`~pathway_tpu_torch.xpacks.llm.rerankers`), and images -> SigLIP-class
 dual encoder -> index -> text-to-image retrieve, with hand-written CUDA
@@ -11,8 +13,8 @@ kernels for the attention core, the dense layers' bias/activation
 epilogue (and the patch embed's position add), residual + LayerNorm, the
 embedding gather + LayerNorm, pooling + normalize, the patchify, the
 vision tail, the pairwise logits, the slab scatter, the fused score +
-top-k, the IVF's centroid assignment and its cell scan
-(:mod:`~pathway_tpu_torch.kernels`).  The package imports torch
+top-k, the IVF's centroid assignment and its cell scan, and the radix
+top-k select for k above 128 (:mod:`~pathway_tpu_torch.kernels`).  The package imports torch
 and numpy, never jax or ``pathway_tpu``.  Entry points run on
 ``device="cuda"`` unless the caller passes another device, and raise
 when no card is present.
@@ -30,7 +32,14 @@ from pathway_tpu_torch.models import (
     VisionConfig,
     VisionEncoderModel,
 )
-from pathway_tpu_torch.parallel import IvfKnnIndex, ShardedKnnIndex, TorchEncoder
+from pathway_tpu_torch.parallel import (
+    IvfKnnIndex,
+    ShardedKnnIndex,
+    TorchEncoder,
+    best_mesh,
+    make_mesh,
+    mesh_axis_size,
+)
 from pathway_tpu_torch.xpacks.llm.embedders import (
     SentenceTransformerEmbedder,
     TorchEncoderEmbedder,
@@ -58,6 +67,9 @@ __all__ = [
     "TorchEncoder",
     "ShardedKnnIndex",
     "IvfKnnIndex",
+    "make_mesh",
+    "best_mesh",
+    "mesh_axis_size",
     "TorchEncoderEmbedder",
     "SentenceTransformerEmbedder",
     "CrossEncoderReranker",

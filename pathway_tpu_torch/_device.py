@@ -15,14 +15,17 @@ __all__ = ["resolve_device", "upload", "start_readback", "finish_readback"]
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
-    """``torch.device`` for ``device``; raises when it names CUDA and no
-    card is present."""
+    """``torch.device`` for ``device``, a bare ``"cuda"`` given the current
+    card's index (so that it equals the device of a tensor made there);
+    raises when it names CUDA and no card is present."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "pathway_tpu_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch path"
         )
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

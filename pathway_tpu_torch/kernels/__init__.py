@@ -16,13 +16,18 @@ K9 vision_head     ``csrc/vision_head.cu``       ``models/vision.py:81-87``
 K10 dual_logits    ``csrc/dual_logits.cu``       ``models/vision.py:120``
 K11 ivf_assign     ``csrc/ivf_assign.cu``        ``parallel/ivf_knn.py:44-47,62-66``
 K12 ivf_scan       ``csrc/ivf_scan.cu``          ``parallel/ivf_knn.py:318-339``
+K13 topk_select    ``csrc/topk_select.cu``       ``jax.lax.top_k`` for k > 128 in
+                                                 ``parallel/sharded_knn.py:336-375``,
+                                                 ``parallel/ivf_knn.py:320-336``
 =================  ============================  =================================
 
 Each wrapper checks device, dtype, shape and contiguity, launches its
 kernel on PyTorch's current stream for CUDA tensors and counts each
 kernel launch in its ``launches`` attribute (``knn_topk`` launches pass 1
 and its merge passes, one count each; ``ivf_scan``'s merge passes are
-K3's and count on ``knn_topk``); for CPU tensors it runs the plain
+K3's and count on ``knn_topk``; a selection above ``MAX_K`` counts its
+score-only pass on ``knn_topk`` or ``ivf_scan`` and its select on
+``topk_select``); for CPU tensors it runs the plain
 PyTorch version beside it.  Kernels build from ``csrc/`` at first use
 (:mod:`pathway_tpu_torch.kernels._build`).
 """
@@ -43,6 +48,7 @@ from pathway_tpu_torch.kernels.slab_scatter import (
     slab_scatter,
     slab_scatter_plain,
 )
+from pathway_tpu_torch.kernels.topk_select import topk_select, topk_select_plain
 from pathway_tpu_torch.kernels.vision_head import vision_head, vision_head_plain
 
 __all__ = [
@@ -74,6 +80,8 @@ __all__ = [
     "ivf_assign_plain",
     "ivf_scan",
     "ivf_scan_plain",
+    "topk_select",
+    "topk_select_plain",
     "WRAPPERS",
     "launch_counts",
     "reset_launch_counts",
@@ -94,6 +102,7 @@ WRAPPERS = {
     "dual_logits": dual_logits,
     "ivf_assign": ivf_assign,
     "ivf_scan": ivf_scan,
+    "topk_select": topk_select,
 }
 
 

@@ -26,7 +26,7 @@ NAMES = (
     "attention", "slab_scatter", "knn_topk",
     "bias_act", "add_layer_norm", "embed_ln", "pool_normalize",
     "patchify", "vision_head", "dual_logits",
-    "ivf_assign", "ivf_scan",
+    "ivf_assign", "ivf_scan", "topk_select",
 )
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -124,8 +124,8 @@ _SIGNATURES = {
         "pw_slab_clear": [_P, _P, _I, _LL, _P],
     },
     "knn_topk": {
-        "pw_knn_partial": [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _I, _P],
-        "pw_knn_partial_tiled": [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
+        "pw_knn_partial": [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _I, _LL, _P],
+        "pw_knn_partial_tiled": [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _LL, _P],
         "pw_knn_merge": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "bias_act": {"pw_bias_act": [_P, _P, _P, _I, _LL, _I, _I, _P]},
@@ -139,6 +139,10 @@ _SIGNATURES = {
     "dual_logits": {"pw_dual_logits": [_P, _P, _P, _P, _P, _I, _I, _I, _P]},
     "ivf_assign": {"pw_ivf_assign": [_P, _P, _P, _I, _I, _I, _I, _P]},
     "ivf_scan": {"pw_ivf_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
+    "topk_select": {
+        "pw_topk_select": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _P],
+        "pw_topk_select_launches": [],
+    },
 }
 
 

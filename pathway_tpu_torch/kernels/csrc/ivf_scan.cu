@@ -24,7 +24,10 @@
 // registers; then warp 0 merges the tile's scores into the block's
 // running best k by k rounds of a warp-wide arg-max.  Rows flagged
 // invalid are never read.  Order: higher score first, lower flat id
-// first on ties.
+// first on ties.  For k above 128 (knn_topk.MAX_K) the running list
+// would cost k rounds a tile: the score-only form (k = 0) keeps the whole
+// tile instead, writing every slot's masked score and flat id of each
+// probed cell, and K13 (topk_select.cu) selects from them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,7 +93,7 @@ scan_kernel(const float* __restrict__ q, const int32_t* __restrict__ probe,
     const int live = __syncthreads_or(flag != 0.0f);
     // a tile with no valid row only matters while the running list still
     // holds pads: its slots are NEG_INF sentinels, as in the JAX program
-    if (!live && v_s[kTile + k - 1] != -INFINITY) continue;
+    if (!live && k > 0 && v_s[kTile + k - 1] != -INFINITY) continue;
 
     for (int r = warp; r < kTile; r += kWarps) {
       const int slot = slot0 + r;
@@ -123,7 +126,16 @@ scan_kernel(const float* __restrict__ q, const int32_t* __restrict__ probe,
     }
     __syncthreads();
 
-    if (warp == 0) {
+    if (k == 0) {
+      // score-only: the tile as it is, at (query, probe rank, slot)
+      const size_t o = ((size_t)qi * nprobe + blockIdx.x / splits) * cap;
+      for (int r = tid; r < kTile; r += kThreads) {
+        if (slot0 + r < cap) {
+          out_vals[o + slot0 + r] = v_s[r];
+          out_idx[o + slot0 + r] = i_s[r];
+        }
+      }
+    } else if (warp == 0) {
       // candidates: the tile's kTile scores and the running list's k
       const int n_cand = kTile + k;
       float cv[kPer];
@@ -171,14 +183,16 @@ int launch(const void* q, const void* probe, const void* cells, const void* vali
 // nprobe] int32 cells; cells: [nlist, cap, d] f32 (cells_bf16 = 0) or bf16
 // (1); valid: [nlist, cap] f32; out_vals/out_idx: [nq, nprobe * splits, k]
 // f32/int32, each block's best k (score, cell * cap + slot), best first,
-// padded with (-inf, 0x7fffffff) where it saw fewer than k slots.  k <= 128;
+// padded with (-inf, 0x7fffffff) where it saw fewer than k slots; k <= 128.
+// With k = 0, the score-only form: out_vals/out_idx [nq, nprobe, cap],
+// every probed slot's score (NEG_INF where invalid) and flat id.
 // nlist * cap < 2^31.  Returns a cudaError_t.
 extern "C" int pw_ivf_scan(const void* q, const void* probe, const void* cells,
                            const void* valid, void* out_vals, void* out_idx, int nq,
                            int nprobe, int d, int nlist, int cap, int splits, int k,
                            int cells_bf16, void* stream) {
   if (nq == 0 || nprobe == 0) return 0;
-  if (k < 1 || k > kMaxK || splits < 1 || cap < 1 || nq > 65535) return (int)cudaErrorInvalidValue;
+  if (k < 0 || k > kMaxK || splits < 1 || cap < 1 || nq > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cells_bf16) {
     if (d % 8 != 0 || d > kMaxElems * 32) return (int)cudaErrorInvalidValue;

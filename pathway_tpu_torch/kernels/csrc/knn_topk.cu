@@ -25,7 +25,12 @@
 //    query read feed 32 FMAs.
 // Either way the block then masks, applies the metric's epilogue and
 // keeps each query's best k of the tile by k rounds of a warp-wide
-// arg-max.
+// arg-max.  Slot ids carry an offset, a shard's first global slot (the
+// `li + axis_index * shard_rows` of the mesh search, sharded_knn.py:358).
+// For k above 128 (knn_topk.MAX_K) the k rounds would cost more than a
+// select: the score-only form of pass 1 writes the tile's masked scores
+// as they are, and K13 (topk_select.cu) selects from the [nq, capacity]
+// scores.
 // Pass 2 merges the partial lists in segments of up to 1024 entries until
 // k remain.  Order: higher score first, lower slot first on ties, as
 // jax.lax.top_k orders them.  Tensor cores (TF32 would change the f32
@@ -42,6 +47,7 @@
 namespace {
 
 using pw::better;
+using pw::bitonic_sort;
 using pw::kNegInf;
 using pw::kPadIdx;
 using pw::Row;
@@ -51,33 +57,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 256;          // slab rows per pass-1 block
 constexpr int kMaxGroup = 32;       // queries per pass-1 block
 constexpr int kMaxElems = 32;       // row elements per lane: d <= 1024
-
-// Sort `count` arrays of n (a power of two) (value, index) pairs held
-// back to back in shared memory, best first.  All threads of the block
-// take part.
-__device__ void bitonic_sort(float* vals, int* idx, int n, int count) {
-  const int half = n / 2;
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < count * half; t += blockDim.x) {
-        const int a = t / half;
-        const int p = t % half;
-        const int i = 2 * p - (p & (stride - 1));
-        const int j = i + stride;
-        float* v = vals + a * n;
-        int* x = idx + a * n;
-        const float vi = v[i], vj = v[j];
-        const int xi = x[i], xj = x[j];
-        const bool swap = (i & size) == 0 ? better(vj, xj, vi, xi) : better(vi, xi, vj, xj);
-        if (swap) {
-          v[i] = vj; v[j] = vi;
-          x[i] = xj; x[j] = xi;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
 
 // Write the best kk (<= kRows) of each of `group` arrays of kRows (value,
 // index) pairs in shared memory to out[(g0 + qi) * ntiles + tile][0..kk),
@@ -107,12 +86,31 @@ __device__ void write_best(const float* v_s, const int* i_s, int group, int kk, 
   }
 }
 
+// Pass 1's output for one tile of `group` queries: with kk > 0 each
+// query's best kk (write_best); with kk == 0, the score-only pass for k
+// above MAX_K, every score of the tile's rows, to out_vals[q * capacity +
+// row], for K13 (topk_select.cu) to select from.  All threads take part.
+__device__ void write_tile(const float* v_s, const int* i_s, int group, int kk, int g0,
+                           int tile, int ntiles, int64_t capacity,
+                           float* __restrict__ out_vals, int32_t* __restrict__ out_idx) {
+  if (kk > 0) {
+    write_best(v_s, i_s, group, kk, g0, tile, ntiles, out_vals, out_idx);
+    return;
+  }
+  const int64_t row0 = (int64_t)tile * kRows;
+  for (int e = threadIdx.x; e < group * kRows; e += blockDim.x) {
+    const int qi = e / kRows;
+    const int r = e % kRows;
+    if (row0 + r < capacity) out_vals[(size_t)(g0 + qi) * capacity + row0 + r] = v_s[qi * kRows + r];
+  }
+}
+
 template <typename SlabT>
 __global__ void __launch_bounds__(kThreads)
 score_partial_kernel(const float* __restrict__ q, const SlabT* __restrict__ slab,
                      const float* __restrict__ valid, float* __restrict__ out_vals,
                      int32_t* __restrict__ out_idx, int nq, int d, int64_t capacity,
-                     int group, int kk, int l2sq) {
+                     int group, int kk, int l2sq, int64_t offset) {
   constexpr int kVec = Row<SlabT>::kVec;
   constexpr int kChunks = kMaxElems / kVec;  // 16-byte chunks per lane
   extern __shared__ __align__(16) unsigned char smem[];
@@ -145,7 +143,7 @@ score_partial_kernel(const float* __restrict__ q, const SlabT* __restrict__ slab
     if (row >= capacity || valid[row] == 0.0f) {
       if (lane < group) {
         v_s[lane * kRows + r] = row >= capacity ? -INFINITY : kNegInf;
-        i_s[lane * kRows + r] = row >= capacity ? kPadIdx : (int)row;
+        i_s[lane * kRows + r] = row >= capacity ? kPadIdx : (int)(row + offset);
       }
       continue;
     }
@@ -188,12 +186,12 @@ score_partial_kernel(const float* __restrict__ q, const SlabT* __restrict__ slab
       for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
       if (lane == 0) {
         v_s[qi * kRows + r] = l2sq ? -fmaxf(qq_s[qi] - 2.0f * dot + cc, 0.0f) : dot;
-        i_s[qi * kRows + r] = (int)row;
+        i_s[qi * kRows + r] = (int)(row + offset);
       }
     }
   }
   __syncthreads();
-  write_best(v_s, i_s, min(group, nq - g0), kk, g0, tile, gridDim.x, out_vals, out_idx);
+  write_tile(v_s, i_s, min(group, nq - g0), kk, g0, tile, gridDim.x, capacity, out_vals, out_idx);
 }
 
 // Pass 1 for query batches: the same tile of 256 rows and 32 queries, but
@@ -217,7 +215,8 @@ template <typename SlabT, bool L2SQ>
 __global__ void __launch_bounds__(kThreads, 2)
 score_tiled_kernel(const float* __restrict__ q, const SlabT* __restrict__ slab,
                    const float* __restrict__ valid, float* __restrict__ out_vals,
-                   int32_t* __restrict__ out_idx, int nq, int d, int64_t capacity, int kk) {
+                   int32_t* __restrict__ out_idx, int nq, int d, int64_t capacity, int kk,
+                   int64_t offset) {
   constexpr int kVec = Row<SlabT>::kVec;
   constexpr int kChunks = kBK / kVec;               // 16-byte chunks per row per stage
   constexpr int kLoads = kRows * kChunks / kThreads;
@@ -321,12 +320,12 @@ score_tiled_kernel(const float* __restrict__ q, const SlabT* __restrict__ slab,
       const int qi = qg * 4 + j;
       const float s = L2SQ ? -fmaxf(qq[j] - 2.0f * acc[i][j] + cc[i], 0.0f) : acc[i][j];
       v_s[qi * kRows + r] = !in ? -INFINITY : (live ? s : kNegInf);
-      i_s[qi * kRows + r] = in ? (int)row : kPadIdx;
+      i_s[qi * kRows + r] = in ? (int)(row + offset) : kPadIdx;
     }
   }
   __syncthreads();
-  write_best(v_s, i_s, min(kMaxGroup, nq - g0), kk, g0, blockIdx.x, gridDim.x, out_vals,
-             out_idx);
+  write_tile(v_s, i_s, min(kMaxGroup, nq - g0), kk, g0, blockIdx.x, gridDim.x, capacity,
+             out_vals, out_idx);
 }
 
 // For each query, sort segment blockIdx.x (seg entries) of its n_in
@@ -376,7 +375,7 @@ size_t partial_smem(int group, int d) {
 template <typename SlabT>
 int launch_partial(const void* q, const void* slab, const void* valid, void* out_vals,
                    void* out_idx, int nq, int d, long long capacity, int group, int kk,
-                   int l2sq, cudaStream_t stream) {
+                   int l2sq, long long offset, cudaStream_t stream) {
   const size_t bytes = partial_smem(group, d);
   auto kernel = score_partial_kernel<SlabT>;
   static std::atomic<unsigned> done{0};
@@ -386,13 +385,14 @@ int launch_partial(const void* q, const void* slab, const void* valid, void* out
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const SlabT*>(slab),
       static_cast<const float*>(valid), static_cast<float*>(out_vals),
-      static_cast<int32_t*>(out_idx), nq, d, capacity, group, kk, l2sq);
+      static_cast<int32_t*>(out_idx), nq, d, capacity, group, kk, l2sq, offset);
   return (int)cudaGetLastError();
 }
 
 template <typename SlabT, bool L2SQ>
 int launch_tiled(const void* q, const void* slab, const void* valid, void* out_vals,
-                 void* out_idx, int nq, int d, long long capacity, int kk, cudaStream_t stream) {
+                 void* out_idx, int nq, int d, long long capacity, int kk, long long offset,
+                 cudaStream_t stream) {
   const size_t bytes = tiled_smem();
   auto kernel = score_tiled_kernel<SlabT, L2SQ>;
   static std::atomic<unsigned> done{0};
@@ -402,7 +402,7 @@ int launch_tiled(const void* q, const void* slab, const void* valid, void* out_v
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const SlabT*>(slab),
       static_cast<const float*>(valid), static_cast<float*>(out_vals),
-      static_cast<int32_t*>(out_idx), nq, d, capacity, kk);
+      static_cast<int32_t*>(out_idx), nq, d, capacity, kk, offset);
   return (int)cudaGetLastError();
 }
 
@@ -410,22 +410,25 @@ int launch_tiled(const void* q, const void* slab, const void* valid, void* out_v
 
 // Pass 1.  q: [nq, d] f32 (rounded to the slab's type by the caller);
 // slab: [capacity, d] f32 (slab_bf16 = 0) or bf16 (1); valid: [capacity]
-// f32; out_vals/out_idx: [nq, ceil(capacity / 256), kk] f32/int32, with
-// kk <= 256 and group <= 32.  Returns a cudaError_t.
+// f32; group <= 32.  With 1 <= kk <= 256, out_vals/out_idx: [nq,
+// ceil(capacity / 256), kk] f32/int32, each tile's best kk, the slot ids
+// offset by `offset` (a shard's first global slot).  With kk = 0, the
+// score-only pass: out_vals [nq, capacity] f32, every slot's score
+// (NEG_INF where invalid), out_idx unused.  Returns a cudaError_t.
 extern "C" int pw_knn_partial(const void* q, const void* slab, const void* valid,
                               void* out_vals, void* out_idx, int nq, int d,
                               long long capacity, int slab_bf16, int group, int kk,
-                              int l2sq, void* stream) {
+                              int l2sq, long long offset, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (group < 1 || group > kMaxGroup || kk < 1 || kk > kRows) return (int)cudaErrorInvalidValue;
+  if (group < 1 || group > kMaxGroup || kk < 0 || kk > kRows) return (int)cudaErrorInvalidValue;
   if (slab_bf16) {
     if (d % 8 != 0 || d > kMaxElems * 32) return (int)cudaErrorInvalidValue;
     return launch_partial<__nv_bfloat16>(q, slab, valid, out_vals, out_idx, nq, d, capacity,
-                                         group, kk, l2sq, s);
+                                         group, kk, l2sq, offset, s);
   }
   if (d % 4 != 0 || d > kMaxElems * 32) return (int)cudaErrorInvalidValue;
   return launch_partial<float>(q, slab, valid, out_vals, out_idx, nq, d, capacity, group, kk,
-                               l2sq, s);
+                               l2sq, offset, s);
 }
 
 // Pass 1 for query batches (score_tiled_kernel): the same arguments and
@@ -433,15 +436,15 @@ extern "C" int pw_knn_partial(const void* q, const void* slab, const void* valid
 extern "C" int pw_knn_partial_tiled(const void* q, const void* slab, const void* valid,
                                     void* out_vals, void* out_idx, int nq, int d,
                                     long long capacity, int slab_bf16, int kk, int l2sq,
-                                    void* stream) {
+                                    long long offset, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kk < 1 || kk > kRows || d % 4 != 0 || (slab_bf16 && d % 8 != 0))
+  if (kk < 0 || kk > kRows || d % 4 != 0 || (slab_bf16 && d % 8 != 0))
     return (int)cudaErrorInvalidValue;
   if (slab_bf16)
-    return l2sq ? launch_tiled<__nv_bfloat16, true>(q, slab, valid, out_vals, out_idx, nq, d, capacity, kk, s)
-                : launch_tiled<__nv_bfloat16, false>(q, slab, valid, out_vals, out_idx, nq, d, capacity, kk, s);
-  return l2sq ? launch_tiled<float, true>(q, slab, valid, out_vals, out_idx, nq, d, capacity, kk, s)
-              : launch_tiled<float, false>(q, slab, valid, out_vals, out_idx, nq, d, capacity, kk, s);
+    return l2sq ? launch_tiled<__nv_bfloat16, true>(q, slab, valid, out_vals, out_idx, nq, d, capacity, kk, offset, s)
+                : launch_tiled<__nv_bfloat16, false>(q, slab, valid, out_vals, out_idx, nq, d, capacity, kk, offset, s);
+  return l2sq ? launch_tiled<float, true>(q, slab, valid, out_vals, out_idx, nq, d, capacity, kk, offset, s)
+              : launch_tiled<float, false>(q, slab, valid, out_vals, out_idx, nq, d, capacity, kk, offset, s);
 }
 
 // Pass 2.  in: [nq, n_in]; out: [nq, ceil(n_in / seg), kk], seg a power of

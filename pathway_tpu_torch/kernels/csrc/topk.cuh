@@ -1,6 +1,7 @@
-// Shared by K3 (knn_topk.cu) and K12 (ivf_scan.cu): the top-k order, the
-// row loads of a slab of f32 or bf16 rows, and the warp-wide selection of
-// the best k (value, index) pairs.
+// Shared by K3 (knn_topk.cu), K12 (ivf_scan.cu) and K13 (topk_select.cu):
+// the top-k order, the row loads of a slab of f32 or bf16 rows, the
+// block-wide bitonic sort and the warp-wide selection of the best k
+// (value, index) pairs.
 //
 // Order: higher score first, lower index first on ties, as jax.lax.top_k
 // orders them.  Masked slots score NEG_INF (ops/topk.py); pads (past the
@@ -46,6 +47,33 @@ struct Row<__nv_bfloat16> {
     for (int e = 0; e < 8; ++e) dst[e] = __bfloat162float(h[e]);
   }
 };
+
+// Sort `count` arrays of n (a power of two) (value, index) pairs held
+// back to back in shared (or, for one block, global) memory, best first.
+// All threads of the block take part.
+__device__ inline void bitonic_sort(float* vals, int* idx, int n, int count) {
+  const int half = n / 2;
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = threadIdx.x; t < count * half; t += blockDim.x) {
+        const int a = t / half;
+        const int p = t % half;
+        const int i = 2 * p - (p & (stride - 1));
+        const int j = i + stride;
+        float* v = vals + a * n;
+        int* x = idx + a * n;
+        const float vi = v[i], vj = v[j];
+        const int xi = x[i], xj = x[j];
+        const bool swap = (i & size) == 0 ? better(vj, xj, vi, xi) : better(vi, xi, vj, xj);
+        if (swap) {
+          v[i] = vj; v[j] = vi;
+          x[i] = xj; x[j] = xi;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
 
 // k rounds of a warp-wide arg-max over the kPer (value, index) pairs each
 // lane holds, which costs far less than a sort at the k of a search.

@@ -10,11 +10,15 @@ cap] == 0`` score ``NEG_INF``.  Returns ``(vals [nq, k] f32, flat [nq, k]
 int32)``, best first, where ``flat = cell * cap + slot``; where fewer
 than k slots are valid the rest come back as ``NEG_INF`` sentinels.
 
-For CUDA tensors the wrapper launches the scan (k <= :data:`MAX_K`, d <=
-1024) and K3's merge passes (:func:`~pathway_tpu_torch.kernels.knn_topk.
-merge_partials`), and raises on anything else; for CPU tensors it runs
-:func:`ivf_scan_plain`.  Ties may come back in another order than the JAX
-program's, which prefers the lower probe rank.
+For CUDA tensors the wrapper launches the scan (d <= 1024) and raises on
+anything else: up to :data:`~pathway_tpu_torch.kernels.knn_topk.MAX_K`
+each block keeps its best k and K3's merge passes reduce them
+(:func:`~pathway_tpu_torch.kernels.knn_topk.merge_partials`); above it,
+the scan writes every probed slot's score and K13
+(:mod:`~pathway_tpu_torch.kernels.topk_select`) selects the k.  For CPU
+tensors it runs :func:`ivf_scan_plain`.  Up to MAX_K, ties may come
+back in another order than the JAX program's, which prefers the lower
+probe rank; above it, K13 keeps that order.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 from pathway_tpu_torch.kernels import _build
 from pathway_tpu_torch.kernels._launch import check_cuda, launch
 from pathway_tpu_torch.kernels.knn_topk import MAX_K, merge_partials
+from pathway_tpu_torch.kernels.topk_select import topk_select
 from pathway_tpu_torch.ops.topk import NEG_INF
 
 __all__ = ["ivf_scan", "ivf_scan_plain"]
@@ -74,8 +79,6 @@ def ivf_scan(
     if q.device.type == "cpu":
         return ivf_scan_plain(q, probe, cells, valid, k, query_block)
     device = check_cuda("ivf_scan", q=q, probe=probe, cells=cells, valid=valid)
-    if k > MAX_K:
-        raise ValueError(f"ivf_scan: k={k} > MAX_K={MAX_K}, the largest k of K3's merge on the card")
     if cells.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"ivf_scan: cells must be f32 or bf16, got {cells.dtype}")
     vec = 4 if cells.dtype == torch.float32 else 8
@@ -93,15 +96,19 @@ def ivf_scan(
         return torch.empty((0, k), device=device), torch.empty((0, k), dtype=torch.int32, device=device)
     qr = q.to(cells.dtype).float() if cells.dtype != torch.float32 else q
     splits = min(-(-cap // _TILE), max(1, _TARGET_BLOCKS // (nq * nprobe)))
-    vals = torch.empty((nq, nprobe * splits * k), device=device)
-    idx = torch.empty((nq, nprobe * splits * k), dtype=torch.int32, device=device)
+    kept = 0 if k > MAX_K else k  # 0: the score-only scan, for K13
+    width = nprobe * cap if kept == 0 else nprobe * splits * k
+    vals = torch.empty((nq, width), device=device)
+    idx = torch.empty((nq, width), dtype=torch.int32, device=device)
     launch(
         "ivf_scan", _build.library("ivf_scan").pw_ivf_scan, device,
         qr.data_ptr(), probe.data_ptr(), cells.data_ptr(), valid.data_ptr(),
-        vals.data_ptr(), idx.data_ptr(), nq, nprobe, d, nlist, cap, splits, k,
+        vals.data_ptr(), idx.data_ptr(), nq, nprobe, d, nlist, cap, splits, kept,
         int(cells.dtype == torch.bfloat16),
     )
     ivf_scan.launches += 1
+    if kept == 0:
+        return topk_select(vals, k, idx)
     return merge_partials(vals, idx, k)
 
 

@@ -9,9 +9,16 @@ slots [nq, k] int32)``, best first; where fewer than k slots are valid
 the rest come back as ``NEG_INF`` sentinels.
 
 As in the JAX program, queries are rounded to the slab's type before
-scoring (a bf16 slab scores bf16 queries, in f32).  For CUDA tensors the
-wrapper launches the kernels (k <= :data:`MAX_K`, d <= 1024) and raises
-on anything else; for CPU tensors it runs :func:`knn_topk_plain`.
+scoring (a bf16 slab scores bf16 queries, in f32).  ``offset`` is added
+to every slot id: a shard's first global slot, so that a shard's search
+returns global slots (the mesh search's ``li + axis_index * shard_rows``,
+``sharded_knn.py:358``).
+
+For CUDA tensors the wrapper launches the kernels (d <= 1024) and raises
+on anything else: up to :data:`MAX_K`, pass 1 keeps each tile's best k
+and the merge passes reduce them; above it, pass 1 writes every score
+and K13 (:mod:`~pathway_tpu_torch.kernels.topk_select`) selects the k.
+For CPU tensors it runs :func:`knn_topk_plain`.
 """
 
 from __future__ import annotations
@@ -20,12 +27,14 @@ import torch
 
 from pathway_tpu_torch.kernels import _build
 from pathway_tpu_torch.kernels._launch import check_cuda, launch
+from pathway_tpu_torch.kernels.topk_select import topk_select, topk_select_plain
 from pathway_tpu_torch.ops.distances import dot_scores, l2sq_distances
 from pathway_tpu_torch.ops.topk import masked_top_k
 
 __all__ = ["knn_topk", "knn_topk_plain", "merge_partials", "MAX_K", "METRICS"]
 
-#: largest k the kernel takes (pass 1 keeps k of every 256-row tile)
+#: largest k that pass 1 selects per 256-row tile and the merge passes
+#: reduce; a larger k goes through the score-only pass and K13
 MAX_K = 128
 METRICS = ("dot", "l2sq")
 _ROWS = 256  # slab rows per pass-1 block (csrc/knn_topk.cu kRows)
@@ -39,30 +48,28 @@ TILED_MIN_QUERIES = 16
 
 
 def knn_topk_plain(
-    queries: torch.Tensor, slab: torch.Tensor, valid: torch.Tensor, k: int, metric: str
+    queries: torch.Tensor, slab: torch.Tensor, valid: torch.Tensor, k: int, metric: str,
+    offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     q = queries.to(slab.dtype)
     scores = -l2sq_distances(q, slab) if metric == "l2sq" else dot_scores(q, slab)
     vals, idx = masked_top_k(scores, valid, k)
-    return vals, idx.to(torch.int32)
+    return vals, (idx + offset).to(torch.int32)
 
 
 def knn_topk(
-    queries: torch.Tensor, slab: torch.Tensor, valid: torch.Tensor, k: int, metric: str
+    queries: torch.Tensor, slab: torch.Tensor, valid: torch.Tensor, k: int, metric: str,
+    offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k slots per query over the valid rows of ``slab``."""
+    """Top-k slots (plus ``offset``) per query over the valid rows of ``slab``."""
     if metric not in METRICS:
         raise ValueError(f"knn_topk: metric {metric!r} not in {METRICS}")
     cap, d = slab.shape
     if not 1 <= k <= cap:
         raise ValueError(f"knn_topk: k={k} outside 1..{cap} (slab rows)")
     if queries.device.type == "cpu":
-        return knn_topk_plain(queries, slab, valid, k, metric)
+        return knn_topk_plain(queries, slab, valid, k, metric, offset)
     device = check_cuda("knn_topk", queries=queries, slab=slab, valid=valid)
-    if k > MAX_K:
-        raise ValueError(
-            f"knn_topk: k={k} > {MAX_K}, the largest k the CUDA kernel takes"
-        )
     if slab.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"knn_topk: slab must be f32 or bf16, got {slab.dtype}")
     vec = 4 if slab.dtype == torch.float32 else 8
@@ -72,20 +79,24 @@ def knn_topk(
         raise ValueError(f"knn_topk: queries must be f32 [nq, {d}]")
     if valid.dtype != torch.float32 or valid.shape != (cap,):
         raise ValueError("knn_topk: valid must be f32 [capacity]")
+    if cap + offset >= 2**31:
+        raise ValueError(f"knn_topk: slots up to {cap + offset} past the kernel's int32 ids")
     nq = queries.shape[0]
     if nq == 0:
         return (torch.empty((0, k), device=device), torch.empty((0, k), dtype=torch.int32, device=device))
     q = queries.to(slab.dtype).float() if slab.dtype != torch.float32 else queries
-    return _launch(q, slab, valid, k, metric, tiled=nq >= TILED_MIN_QUERIES)
+    return _launch(q, slab, valid, k, metric, nq >= TILED_MIN_QUERIES, offset)
 
 
 def _launch(
-    q: torch.Tensor, slab: torch.Tensor, valid: torch.Tensor, k: int, metric: str, tiled: bool
+    q: torch.Tensor, slab: torch.Tensor, valid: torch.Tensor, k: int, metric: str, tiled: bool,
+    offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pass 1 (row-streaming or tiled) and the merge passes, on checked
-    inputs; each kernel launched adds one to ``knn_topk.launches``.
-    ``tiled`` is chosen by :func:`knn_topk`; timing both passes on the card
-    (``chip_smoke.py``) is what set :data:`TILED_MIN_QUERIES`."""
+    """Pass 1 (row-streaming or tiled) and the merge passes, or for k >
+    MAX_K the score-only pass 1 and K13, on checked inputs; each kernel
+    launched adds one to its wrapper's ``launches``.  ``tiled`` is chosen
+    by :func:`knn_topk`; timing both passes on the card (``chip_smoke.py``)
+    is what set :data:`TILED_MIN_QUERIES`."""
     cap, d = slab.shape
     nq = q.shape[0]
     device = q.device
@@ -93,36 +104,50 @@ def _launch(
     bf16 = int(slab.dtype == torch.bfloat16)
     l2sq = int(metric == "l2sq")
 
-    tiles = -(-cap // _ROWS)
-    kk = min(k, _ROWS)
-    vals = torch.empty((nq, tiles * kk), device=device)
-    idx = torch.empty((nq, tiles * kk), dtype=torch.int32, device=device)
+    if k > MAX_K:
+        kk = 0  # score-only: every slot's masked score, for K13
+        vals = torch.empty((nq, cap), device=device)
+        idx = vals  # unused by the score-only pass
+    else:
+        tiles = -(-cap // _ROWS)
+        kk = min(k, _ROWS)
+        vals = torch.empty((nq, tiles * kk), device=device)
+        idx = torch.empty((nq, tiles * kk), dtype=torch.int32, device=device)
     ptrs = (q.data_ptr(), slab.data_ptr(), valid.data_ptr(), vals.data_ptr(), idx.data_ptr())
     if tiled:
-        launch("knn_topk", lib.pw_knn_partial_tiled, device, *ptrs, nq, d, cap, bf16, kk, l2sq)
+        launch("knn_topk", lib.pw_knn_partial_tiled, device, *ptrs, nq, d, cap, bf16, kk, l2sq, offset)
     else:
         launch(
             "knn_topk", lib.pw_knn_partial, device,
-            *ptrs, nq, d, cap, bf16, min(nq, _GROUP), kk, l2sq,
+            *ptrs, nq, d, cap, bf16, min(nq, _GROUP), kk, l2sq, offset,
         )
     knn_topk.launches += 1
+    if k > MAX_K:
+        return topk_select(vals, k, offset=offset)
     return merge_partials(vals, idx, k)
 
 
 def merge_partials(
-    vals: torch.Tensor, idx: torch.Tensor, k: int
+    vals: torch.Tensor, idx: torch.Tensor, k: int, *, presorted: bool = True
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3's pass 2 on the card: reduce each row's candidates ``(vals [nq,
-    n] f32, idx [nq, n] int32)``, in lists of at least k that are each
-    sorted best first, to its best k, by merge passes over segments of up
-    to 1,024 entries.  Each pass is one launch of ``pw_knn_merge`` and adds
-    one to ``knn_topk.launches``; ``ivf_scan`` merges its partial lists
-    here too."""
+    """Reduce each row's candidates ``(vals [nq, n] f32, idx [nq, n]
+    int32)``, n >= k, to its best k, best first.  On the card, for k <=
+    MAX_K, K3's pass 2: merge passes over segments of up to 1,024 entries,
+    each one launch of ``pw_knn_merge`` that adds one to
+    ``knn_topk.launches`` (``ivf_scan`` merges its partial lists here
+    too); ``presorted=False`` says the candidates are not already k best
+    ones sorted, so one pass runs even when n == k.  Above MAX_K, K13
+    (``topk_select``).  On the CPU, its plain version."""
     nq, n_in = vals.shape
+    if vals.device.type == "cpu":
+        return topk_select_plain(vals, k, idx)
+    if k > MAX_K:
+        return topk_select(vals, k, idx)
     device = vals.device
     lib = _build.library("knn_topk")
-    while n_in > k:
-        seg = min(_SEGMENT, 1 << (n_in - 1).bit_length())
+    while n_in > k or not presorted:
+        presorted = True
+        seg = min(_SEGMENT, 1 << max(1, (n_in - 1).bit_length()))
         segs = -(-n_in // seg)
         out_vals = torch.empty((nq, segs * k), device=device)
         out_idx = torch.empty((nq, segs * k), dtype=torch.int32, device=device)

@@ -7,9 +7,12 @@ lowercase, split on non-alphanumerics, id = blake2b hash of the token
 folded into the vocab.  Its ids are identical to the JAX package's, so
 both packages feed their encoders the same batches.
 
-The HuggingFace and WordPiece tokenizers wait until a checkpoint with a
-``vocab.txt`` is in the repository; :func:`get_tokenizer` returns the
-hash tokenizer until then.
+:class:`HFTokenizer` wraps a locally stored HuggingFace tokenizer (a
+cache entry or a directory, never a download; ``transformers`` is
+imported only when one is asked for), and :func:`get_tokenizer` picks it
+for a model name that resolves locally, else the hash tokenizer, as the
+JAX package's does.  A checkpoint's ``vocab.txt`` is read by
+:class:`~pathway_tpu_torch.models.wordpiece.WordPieceTokenizer`.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import numpy as np
 
 from pathway_tpu_torch.ops.bucketing import bucket_size
 
-__all__ = ["Tokenizer", "HashTokenizer", "get_tokenizer"]
+__all__ = ["Tokenizer", "HashTokenizer", "HFTokenizer", "get_tokenizer"]
 
 _WORD_RE = re.compile(r"[a-z0-9]+", re.UNICODE)
 
@@ -95,7 +98,53 @@ class HashTokenizer(Tokenizer):
         return ids_arr, mask, type_arr
 
 
+class HFTokenizer(Tokenizer):
+    """Locally stored HuggingFace tokenizer (no downloads attempted)."""
+
+    def __init__(self, name: str):
+        from transformers import AutoTokenizer
+
+        self._tok = AutoTokenizer.from_pretrained(name, local_files_only=True)
+
+    def count_tokens(self, text: str) -> int:
+        return len(self._tok.encode(text, add_special_tokens=False))
+
+    def encode_batch(
+        self,
+        texts: Sequence[str],
+        *,
+        max_len: int = 512,
+        pair: Sequence[str] | None = None,
+        bucket_len: bool = True,
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        enc = self._tok(
+            list(texts),
+            text_pair=list(pair) if pair is not None else None,
+            truncation=True,
+            max_length=max_len,
+            padding=True,
+            return_tensors="np",
+        )
+        ids = enc["input_ids"].astype(np.int32)
+        mask = enc["attention_mask"].astype(np.int32)
+        if bucket_len:
+            width = min(max(bucket_size(ids.shape[1], min_bucket=16), ids.shape[1]), max_len)
+            if width > ids.shape[1]:
+                pad = width - ids.shape[1]
+                ids = np.pad(ids, ((0, 0), (0, pad)))
+                mask = np.pad(mask, ((0, 0), (0, pad)))
+        tps = enc.get("token_type_ids")
+        tps = tps.astype(np.int32) if tps is not None and tps.shape == ids.shape else np.zeros_like(ids)
+        return ids, mask, tps
+
+
 def get_tokenizer(model_name: str | None = None, vocab_size: int = 30522) -> Tokenizer:
-    """The deterministic hash tokenizer (``model_name`` is accepted for the
-    JAX package's signature; no local checkpoint tokenizer is ported yet)."""
+    """The HuggingFace tokenizer of ``model_name`` where it resolves
+    locally (a cache entry or a directory), else the deterministic hash
+    tokenizer, as the JAX package chooses."""
+    if model_name:
+        try:
+            return HFTokenizer(model_name)
+        except Exception:
+            pass
     return HashTokenizer(vocab_size)

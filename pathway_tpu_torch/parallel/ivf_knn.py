@@ -20,15 +20,16 @@ An inverted-file index, the JAX package's approximate index behind
   ``kernels/knn_topk.py``, with k = ``nprobe``), then K12
   (``kernels/ivf_scan.py``) scores the valid rows of the probed cells and
   K3's merge passes reduce them to k, without the JAX program's
-  ``[query_block, nprobe, cell_cap, d]`` gather;
+  ``[query_block, nprobe, cell_cap, d]`` gather; an ``nprobe`` or a k
+  above K3's ``MAX_K`` (128) is selected by K13 instead
+  (``kernels/topk_select.py``);
 - a cell overflow doubles ``cell_cap`` for every cell, copied on the
   card.
 
 The JAX index pads each update batch to a power-of-two bucket so that a
 few compiled programs serve every size; PyTorch runs eagerly, so the
 port sends the rows as they are.  ``query_block`` only sizes the plain
-scan's gather on the CPU.  On the card ``nprobe`` and ``k`` may not
-exceed K3's ``MAX_K`` (128).
+scan's gather on the CPU.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from pathway_tpu_torch._device import finish_readback, resolve_device, start_rea
 from pathway_tpu_torch.internals import device_counters as _devctr
 from pathway_tpu_torch.kernels.ivf_assign import ivf_assign
 from pathway_tpu_torch.kernels.ivf_scan import ivf_scan
-from pathway_tpu_torch.kernels.knn_topk import MAX_K, knn_topk
+from pathway_tpu_torch.kernels.knn_topk import knn_topk
 from pathway_tpu_torch.kernels.slab_scatter import INGEST_EPS, slab_clear, slab_scatter
 from pathway_tpu_torch.ops.bucketing import bucket_size
 from pathway_tpu_torch.ops.topk import NEG_INF
@@ -304,11 +305,6 @@ class IvfKnnIndex:
         k_eff = min(k, nprobe * self.cell_cap)
         if k_eff < 1:
             return [[] for _ in range(nq)]
-        if self.device.type == "cuda" and max(nprobe, k_eff) > MAX_K:
-            raise ValueError(
-                f"IVF search with nprobe={nprobe}, k={k_eff}: both must be <= MAX_K={MAX_K}, "
-                "the largest k of K3 (knn_topk) on the card"
-            )
         q = self._upload(queries)
         ones = torch.ones((self.nlist,), dtype=torch.float32, device=self.device)
         probe = knn_topk(q, self._centroids, ones, nprobe, "dot")[1]

@@ -13,6 +13,7 @@ with it.
 
 from __future__ import annotations
 
+import os
 from typing import Any
 
 import numpy as np
@@ -44,26 +45,34 @@ def _resolve_config(model: str) -> _enc.EncoderConfig:
 class TorchEncoderEmbedder:
     """Sentence encoder on the card; one batched call per epoch.
 
-    ``model`` picks an architecture preset (MiniLM/BGE/E5 family); the
-    weights are a seeded random init unless ``params`` (a flax parameter
-    tree of the JAX package's encoder) is passed.
+    ``model`` is a local HF checkpoint directory (weights, config and
+    vocabulary; ``config.json`` decides pooling unless ``config`` is
+    passed), or it picks an architecture preset (MiniLM/BGE/E5 family)
+    whose weights are a seeded random init unless ``params`` (a flax
+    parameter tree of the JAX package's encoder) is passed.  ``mesh`` runs
+    the encoder data parallel (:class:`~pathway_tpu_torch.parallel.TorchEncoder`).
     """
 
     def __init__(
         self,
         model: str = "all-MiniLM-L6-v2",
         *,
+        mesh: Any = None,
         max_batch_size: int | None = 1024,
         params: Any = None,
         config: _enc.EncoderConfig | None = None,
+        sequence_axis: str | None = None,
         seed: int = 0,
         device: str | torch.device = "cuda",
     ):
+        checkpoint_dir = model if os.path.isdir(model) else None
+        if config is None and checkpoint_dir is None:
+            config = _resolve_config(model)
         self.model = model
         self.encoder = TorchEncoder(
-            config if config is not None else _resolve_config(model),
-            model_name=model, params=params, max_batch=max_batch_size or 1024,
-            seed=seed, device=device,
+            config, mesh=mesh, model_name=model, params=params,
+            max_batch=max_batch_size or 1024, checkpoint_dir=checkpoint_dir,
+            sequence_axis=sequence_axis, seed=seed, device=device,
         )
 
     def get_embedding_dimension(self, **kwargs: Any) -> int:

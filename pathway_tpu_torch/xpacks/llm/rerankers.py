@@ -48,15 +48,15 @@ class CrossEncoderReranker:
     :data:`~pathway_tpu_torch.models.BGE_RERANKER_BASE`, as for the
     default ``model_name``; the weights are a seeded random init unless
     ``params`` (a flax parameter tree of the JAX package's
-    ``CrossEncoderModel``) is passed.  A checkpoint
-    directory as ``model_name`` raises until checkpoint loading is ported
-    (ROADMAP A3).
+    ``CrossEncoderModel``) is passed.  A local HF checkpoint directory as
+    ``model_name`` loads its weights, config and vocabulary.
     """
 
     def __init__(
         self,
         model_name: str = "BAAI/bge-reranker-base",
         *,
+        mesh: Any = None,
         params: Any = None,
         config: EncoderConfig | None = None,
         max_batch_size: int | None = 256,
@@ -67,7 +67,7 @@ class CrossEncoderReranker:
         if config is None and checkpoint_dir is None:
             config = BGE_RERANKER_BASE
         self.encoder = TorchEncoder(
-            config, cross=True, model_name=model_name, params=params,
+            config, cross=True, mesh=mesh, model_name=model_name, params=params,
             max_batch=max_batch_size or 256, checkpoint_dir=checkpoint_dir,
             seed=seed, device=device,
         )

@@ -18,7 +18,7 @@ import torch
 
 from pathway_tpu.parallel import ShardedKnnIndex as JaxIndex
 from pathway_tpu_torch.kernels import knn_topk, knn_topk_plain, slab_scatter, slab_scatter_plain
-from pathway_tpu_torch.parallel import ShardedKnnIndex
+from pathway_tpu_torch.parallel import ShardedKnnIndex, make_mesh
 
 DIM = 32
 _TOL = {"f32": 1e-5, "bf16": 1e-3}
@@ -166,8 +166,8 @@ def test_rejects_bad_shapes_and_metric():
         idx.add_batch(["a"], np.zeros((1, DIM + 1), np.float32))
     with pytest.raises(ValueError):
         idx.add_batch_device(["a", "b"], torch.zeros((1, DIM)))
-    with pytest.raises(NotImplementedError, match="A9"):
-        ShardedKnnIndex(DIM, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A9b"):
+        ShardedKnnIndex(DIM, mesh=make_mesh({"data": 4, "model": 2}, ["cpu"] * 8))
 
 
 def test_scatter_plain_normalizes_with_ingest_eps_and_drops_pads():

@@ -26,7 +26,7 @@ from pathway_tpu.parallel import JittedEncoder
 from pathway_tpu.parallel import ShardedKnnIndex as JaxIndex
 from pathway_tpu_torch.internals import device_counters
 from pathway_tpu_torch.models import HashTokenizer
-from pathway_tpu_torch.parallel import ShardedKnnIndex, TorchEncoder
+from pathway_tpu_torch.parallel import ShardedKnnIndex, TorchEncoder, make_mesh
 from pathway_tpu_torch.xpacks.llm.embedders import (
     SentenceTransformerEmbedder,
     TorchEncoderEmbedder,
@@ -130,13 +130,24 @@ def test_embedder_presets_and_alias():
 
 
 @pytest.mark.parametrize(
-    "kwargs,item",
-    [({"cross": True, "checkpoint_dir": "/nonexistent"}, "A3"), ({"mesh": object()}, "A9"),
-     ({"sequence_axis": "data"}, "A9"), ({"checkpoint_dir": "/nonexistent"}, "A3")],
+    "kwargs,error",
+    [pytest.param({"cross": True, "checkpoint_dir": "/nonexistent"}, FileNotFoundError, id="kwargs0-A3"),
+     pytest.param({"mesh": make_mesh({"data": 4, "model": 2}, ["cpu"] * 8)}, "A9b", id="kwargs1-A9"),
+     pytest.param({"sequence_axis": "data"}, "A9b", id="kwargs2-A9"),
+     pytest.param({"checkpoint_dir": "/nonexistent"}, FileNotFoundError, id="kwargs3-A3")],
 )
-def test_unported_executor_options_name_their_roadmap_item(kwargs, item):
+def test_unported_executor_options_name_their_roadmap_item(kwargs, error):
+    """Tensor and sequence parallelism raise naming ROADMAP A9b; a missing
+    checkpoint directory raises as the JAX executor does."""
     cfg = port_config(graft._flagship_config(tiny=True))
-    with pytest.raises(NotImplementedError, match=item):
+    if isinstance(error, str):
+        with pytest.raises(NotImplementedError, match=error):
+            TorchEncoder(cfg, device="cpu", **kwargs)
+        return
+    jax_kwargs = {k: v for k, v in kwargs.items() if k != "mesh"}
+    with pytest.raises(error):
+        JittedEncoder(graft._flagship_config(tiny=True), **jax_kwargs)
+    with pytest.raises(error):
         TorchEncoder(cfg, device="cpu", **kwargs)
 
 
