@@ -14,7 +14,13 @@ Phases, each fatal on failure:
    that computes the same function, where there is one; among them K3
    with a shard's slot offset, K3 at k=256 over the 1M slab (its
    score-only pass and K13), and K13 on [32, 1,048,576] scores at k in
-   {129, 256, 1,024} and on [32, 2,048] at k=256 (the IVF probe);
+   {129, 256, 1,024} and on [32, 2,048] at k=256 (the IVF probe); the
+   f32 forms: K1 at head_dim 16 (the flagship tiny config's) and at
+   BGE-base's B=256 L=256, K1 in bf16 at head_dim 16, K4-K7 at the embed
+   path's BGE-base shapes (K6 also at a position offset); K14, one ring
+   step, in bf16 and f32 at B=8, 2,048 keys, 12 heads of 64 (a middle
+   step from a carried state and a finishing step, with a row that has
+   no valid key), timed beside SDPA over the whole 8,192-token sequence;
 3. the live-RAG embed path at BGE-base full width (768 hidden, 12
    layers, 12 heads, MLP 3072, bf16, seeded random weights): a
    1,048,576-slot cosine index bulk-filled with seeded random vectors,
@@ -87,16 +93,45 @@ Phases, each fatal on failure:
    pair scores lie within the bf16 tolerances of the plain forward of the
    same weights.
 
-Phase 8 runs right after phase 4, while phase 3's index is alive; phases
-5, 6 and 9 follow.  The second-to-last line of output is a JSON object
-with one entry per kernel wrapper (K1-K13); the last is ``{"ok": true,
-"device": {...}}``.  Without a
-CUDA device the script exits 1 and prints no result.
+10. sequence and tensor parallelism at BGE-base width, on meshes that
+    repeat the card: (a) ``TorchEncoder(sequence_axis="data")`` over 4
+    blocks embeds 1,024 of phase 3's documents padded to 512, within
+    1e-2 of phase 3's single-device encoder and no further from the f32
+    forward than 1.5x it; (b) ``max_len`` 8,192: 8 documents of 8,192
+    tokens and the edge rows of ``tests/test_tpu_plane.py`` (at blocks
+    of 2,048, a fully masked row among them) through 4 blocks, against
+    a 1-block sequence axis (K14 in one step over 8,192 keys) and the
+    plain forward (``ring_attention_plain``), each embedding finite and
+    within the bf16 embedding tolerance; ``encode_into`` an index whose
+    search answers as the 1-block embeddings' does; tokens/s, peak memory
+    and a profile of one batch; (c) tensor parallel over ``"model"``
+    (``{"data": 1, "model": 2}`` and ``{"data": 2, "model": 2}``) embeds
+    the same documents and scores phase 4's pairs within 1e-2 of one
+    device on the first weight seed, and on three seeds no further, on
+    average, from the f32 forward than 1.5x one device (read beside a
+    control that sums the shards' products in f32), with the card holding
+    each shard once and no full copy (at most 1.5x one device's weights);
+    (d) the flagship tiny f32 config through the 4-block sequence axis
+    and on one device, within 1e-5 of its plain forward.
+
+Phase 8 runs right after phase 4, while phase 3's index is alive, and
+phase 10 after it; phases 5, 6 and 9 follow.  The second-to-last line of
+output is a JSON object with one entry per kernel wrapper (K1-K14; K1 and
+K4-K7 with their f32 forms); the last is ``{"ok": true, "device":
+{...}}``.  Without a CUDA device the script exits 1 and prints no result.
+
+``python3 chip_smoke.py --distinct-cards`` runs instead, on four cards,
+only what a mesh that repeats one card cannot show: ring attention and
+the sequence-parallel encoder over four cards, tensor parallelism over
+two and four, each against the same mesh on one card, and each card's
+bytes (``phase_distinct_cards``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -178,6 +213,42 @@ C3_NLIST, C3_NPROBE, C3_CELL_CAP = 2048, 256, 8192
 C3_ROWS = 262_144  # mixture rows loaded (the first add trains the index)
 # phase 8, the sharded corpus: the 1M-slot index as SHARDS shards of one card
 SHARDS = 4
+# f32 kernels (K1, K4-K7, K14) against their plain versions: the same f32
+# operations, sums taken in another order
+F32_ATOL = 1e-5
+# K14 on the card: one block of a long document (B=8, 2,048 keys, BGE-base's
+# 12 heads of 64), and the whole 8,192-token sequence SDPA is timed over
+RING_B, RING_L, RING_H, RING_D = 8, 2048, 12, 64
+LONG_LEN = 8192
+# K14 in bf16: the finished output within two bf16 ulps of its largest value
+# (RING_ATOL times max |ref|: 1.6e-2 at |o| <= 1).  The f32 state within
+# RING_STATE_RTOL of the plain version's, relative to l (o / l is what the
+# state carries, and o and l scale together with the running max).  p stays
+# f32 in the reference; K14 splits it into two bf16 parts for p.v and lay
+# 3.5e-6 from the plain state on an H100 (PERF.md), where the same step with
+# p rounded to bf16 once, as K1 rounds it, moves the state far more: the
+# limit lies between the two, and phase 2 requires that control to miss it
+RING_ATOL = 1.6e-2
+RING_STATE_RTOL = 2e-5
+# phase 10: sequence and tensor parallelism at BGE-base width, on one card
+SEQ_SHARDS = 4
+SP_DOCS = 1024  # phase 3's documents embedded by the SP and TP encoders
+LONG_DOCS = 8  # documents of LONG_LEN tokens, plus the edge rows
+# SP against the single-device (K1) encoder: K14 keeps p in f32 where K1
+# rounds it to bf16, a gap the bf16 activations hide end to end (phase 2's
+# state check and its control hold p's precision).  TP against one device:
+# each shard's partial product is rounded to bf16 before the sum.  The
+# pair scores sit at this limit's noise floor: on an H100 one device's own
+# forward with its products taken in f32 (the control) lies 7.8e-3-1.1e-2
+# from its bf16 forward (PERF.md), so on the TP_SEEDS weight seeds TP is
+# held to the f32 forward relative to one device (F32_RATIO, on average),
+# and to TP_ATOL on the first seed
+SP_ATOL = 1e-2
+TP_ATOL = 1e-2
+TP_SEEDS = (SEED, SEED + 1, SEED + 2)
+# the card's bytes for a TP encoder on a mesh that repeats it: each shard
+# once (the embeddings and head once per shard), no full copy beside them
+TP_WEIGHTS_RATIO = 1.5
 SHARD_ATOL = 3e-6  # sharded against unsharded scores over the same rows
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, bf16 and f32 FLOP/s
@@ -889,6 +960,289 @@ def phase_vision_kernels(torch, dev) -> dict:
     return out
 
 
+def phase_f32_ring_kernels(torch, dev) -> dict:
+    """Phase 2, continued: K1 in f32 (at the flagship tiny config's head_dim
+    16 and at BGE-base's shape) and in bf16 at head_dim 16; K4-K7 in f32 at
+    the embed path's BGE-base shapes; K14 in bf16 and f32 at a long
+    document's block, one middle step and one finishing step against its
+    plain version, timed beside SDPA over the whole 8,192-token sequence."""
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch.kernels import (
+        add_layer_norm,
+        add_layer_norm_plain,
+        attention,
+        attention_plain,
+        bias_act,
+        bias_act_plain,
+        embed_ln,
+        embed_ln_plain,
+        pool_normalize,
+        pool_normalize_plain,
+        ring_block,
+        ring_block_plain,
+        ring_state,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    out: dict = {}
+
+    def randn(*shape, scale=1.0, dtype=f32):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def check(name, got, ref, tol):
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        if not (bool(torch.isfinite(got.float()).all()) and err <= tol):
+            fail(f"{name}: max err {err} > {tol}")
+        log(f"{name}: max_abs_err {err:.3e} (tol {tol})")
+        return err
+
+    def lengths_mask(B, L, min_len=1):
+        lens = torch.randint(min_len, L + 1, (B,), generator=g, device=dev)
+        lens[0] = L
+        return (torch.arange(L, device=dev)[None] < lens[:, None]).to(torch.uint8)
+
+    # ---- K1: f32 at head_dim 16 and BGE-base's shape; bf16 at head_dim 16
+    k1_err = {}
+    for dt, B, L, H, D in ((f32, 2, 16, 4, 16), (f32, 8, 64, 4, 16), (f32, DOC_BATCH, 256, 12, 64),
+                           (bf16, 2, 16, 4, 16), (bf16, 32, 128, 4, 16)):
+        q, k, v = (randn(B, L, H, D, dtype=dt) for _ in range(3))
+        mask = lengths_mask(B, L)
+        label = f"{'f32' if dt == f32 else 'bf16'} B={B} L={L} H={H} D={D}"
+        k1_err[label] = check(f"K1 attention {label}", attention(q, k, v, mask),
+                              attention_plain(q, k, v, mask), F32_ATOL if dt == f32 else ATTN_ATOL)
+    B, L, H, D = DOC_BATCH, 256, 12, 64
+    q, k, v = (randn(B, L, H, D) for _ in range(3))
+    mask = lengths_mask(B, L, 64)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    keys = int(mask.sum())
+    b_ms, b_by = bound(2 * B * L * H * D * 4 + 2 * keys * H * D * 4 + B * L, 4 * H * D * L * keys, PEAK_F32)
+    out["attention"] = {
+        "shape": f"B={B} L={L} H={H} D={D} f32, {keys} of {B * L} keys present",
+        "max_abs_err": max(e for lab, e in k1_err.items() if lab.startswith("f32")),
+        "bf16_head_dim16_max_abs_err": max(e for lab, e in k1_err.items() if lab.startswith("bf16")),
+        "errors": k1_err,
+        "ms": time_ms(torch, lambda: attention(q, k, v, mask), 10),
+        "plain_ms": time_ms(torch, lambda: attention_plain(q, k, v, mask), 3),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask.bool()[:, None, None, :]), 10),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    log(f"K1 attention f32: {json.dumps(out['attention'])}")
+    del q, k, v, qt, kt, vt
+
+    # ---- K4-K7 in f32 at the embed path's shapes (M = DOC_BATCH x 256 rows)
+    M = DOC_BATCH * 256
+    k4 = {}
+    flops_per = {"none": 1, "gelu_tanh": 9}
+    for N, act in ((HIDDEN, "none"), (4 * HIDDEN, "gelu_tanh")):
+        y, bias = randn(M, N), randn(N, scale=0.5)
+        err = check(f"K4 bias_act f32 N={N} {act}", bias_act(y.clone(), bias, act),
+                    bias_act_plain(y.clone(), bias, act), F32_ATOL)
+        b_ms, b_by = bound(2 * M * N * 4 + N * 4, flops_per[act] * M * N, PEAK_F32)
+        k4[act] = {"shape": f"M={M} N={N} act={act} f32", "max_abs_err": err,
+                   "ms": time_ms(torch, lambda: bias_act(y, bias, act), 20),
+                   "plain_ms": time_ms(torch, lambda: bias_act_plain(y, bias, act), 5),
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        if act == "none":  # one call computes it: the add of the f32 bias
+            k4[act]["library_ms"] = time_ms(torch, lambda: torch.add(y, bias, out=y), 20)
+        del y
+    out["bias_act"] = {**k4["none"], "max_abs_err": max(r["max_abs_err"] for r in k4.values()),
+                       "gelu_tanh": k4["gelu_tanh"]}
+    x, r = randn(M, HIDDEN), randn(M, HIDDEN)
+    scale, lbias = 1.0 + randn(HIDDEN, scale=0.1), randn(HIDDEN, scale=0.1)
+    b_ms, b_by = bound(3 * M * HIDDEN * 4 + 2 * HIDDEN * 4, 10 * M * HIDDEN, PEAK_F32)
+    out["add_layer_norm"] = {
+        "shape": f"M={M} H={HIDDEN} f32",
+        "max_abs_err": check("K5 add_layer_norm f32", add_layer_norm(x, r, scale, lbias, 1e-12),
+                             add_layer_norm_plain(x, r, scale, lbias, 1e-12), F32_ATOL),
+        "ms": time_ms(torch, lambda: add_layer_norm(x, r, scale, lbias, 1e-12), 20),
+        "plain_ms": time_ms(torch, lambda: add_layer_norm_plain(x, r, scale, lbias, 1e-12), 5),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+    del x, r
+    vocab, n_pos = 30522, 512
+    word, position, types = (randn(n, HIDDEN, scale=0.02) for n in (vocab, n_pos, 2))
+    B, L = DOC_BATCH, 256
+    ids = torch.randint(1000, vocab, (B, L), generator=g, device=dev).to(torch.int16)
+    tids = (torch.arange(L, device=dev)[None] >= L // 3).expand(B, L).to(torch.uint8).contiguous()
+    args = (ids, tids, word, position, types, scale, lbias, 1e-12, f32)
+    err = check("K6 embed_ln f32", embed_ln(*args), embed_ln_plain(*args), F32_ATOL)
+    # a block of a longer sequence: the position table from its offset on
+    off = (ids[:, :128].contiguous(), tids[:, :128].contiguous(), word, position[384:], types, scale, lbias,
+           1e-12, f32)
+    err = max(err, check("K6 embed_ln f32 at position offset 384", embed_ln(*off), embed_ln_plain(*off), F32_ATOL))
+    distinct = int(torch.unique(ids).numel())
+    b_ms, b_by = bound((distinct + L + 2) * HIDDEN * 4 + B * L * 3 + B * L * HIDDEN * 4, 14 * B * L * HIDDEN,
+                       PEAK_F32)
+    out["embed_ln"] = {
+        "shape": f"B={B} L={L} H={HIDDEN} int16 ids ({distinct} distinct), uint8 types -> f32",
+        "max_abs_err": err,
+        "ms": time_ms(torch, lambda: embed_ln(*args), 20),
+        "plain_ms": time_ms(torch, lambda: embed_ln_plain(*args), 5),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+    x = randn(B, L, HIDDEN)
+    mask = lengths_mask(B, L, 64)
+    k7 = {}
+    for pool in ("cls", "mean"):
+        err = check(f"K7 pool_normalize f32 {pool}", pool_normalize(x, mask, pool, True),
+                    pool_normalize_plain(x, mask, pool, True), F32_ATOL)
+        rows = B if pool == "cls" else int(mask.sum())
+        b_ms, b_by = bound(rows * HIDDEN * 4 + (0 if pool == "cls" else B * L) + B * HIDDEN * 4,
+                           (2 * rows + 4 * B) * HIDDEN, PEAK_F32)
+        k7[pool] = {"shape": f"B={B} L={L} H={HIDDEN} f32, {pool} + normalise, {rows} rows read",
+                    "max_abs_err": err,
+                    "ms": time_ms(torch, lambda: pool_normalize(x, mask, pool, True), 50),
+                    "plain_ms": time_ms(torch, lambda: pool_normalize_plain(x, mask, pool, True), 20),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    out["pool_normalize"] = {**k7["cls"], "max_abs_err": max(r["max_abs_err"] for r in k7.values()),
+                             "mean": k7["mean"]}
+    del x, word, position, types
+    for name in ("bias_act", "add_layer_norm", "embed_ln", "pool_normalize"):
+        log(f"{name} f32: {json.dumps(out[name])}")
+
+    # ---- K14 ring_block: a middle step (from the state a first step left)
+    # and the finishing step, against ring_block_plain on the same inputs.
+    # Row 1 has no valid key in the first block, row 2 none in any: its
+    # output must be the uniform average of v over all keys.
+    B, L, H, D = RING_B, RING_L, RING_H, RING_D
+    ring = {}
+    for dt in (bf16, f32):
+        tag = "bf16" if dt == bf16 else "f32"
+        q = randn(B, L, H, D, dtype=dt)
+        kv = [(randn(B, L, H, D, dtype=dt), randn(B, L, H, D, dtype=dt), lengths_mask(B, L)) for _ in range(3)]
+        kv[0][2][1] = 0
+        for _, _, m in kv:
+            m[2] = 0
+        st_p = ring_state(B, L, H, D, dev)
+        ring_block_plain(q, *kv[0], *st_p)
+        st_k = [t.clone() for t in st_p]
+        ring_block(q, *kv[1], *st_k)
+        ring_block_plain(q, *kv[1], *st_p)
+        torch.cuda.synchronize()
+        state_err, m_err = ring_state_err(st_k, st_p)
+        state_tol = F32_ATOL if dt == f32 else RING_STATE_RTOL
+        if not (state_err <= state_tol and m_err <= state_tol):
+            fail(f"ring_block {tag} middle step: state err {state_err}, running max err {m_err} > {state_tol}")
+        control = None
+        if dt == bf16:  # the gate must tell K14's f32 p from K1's bf16 p
+            st_c = ring_state(B, L, H, D, dev)
+            ring_step_p_bf16(q, *kv[0], *st_c)
+            ring_step_p_bf16(q, *kv[1], *st_c)
+            control = ring_state_err(st_c, st_p)[0]
+            if not control > state_tol:
+                fail(f"ring_block bf16: p rounded to bf16 lies {control} from the f32-p state, within "
+                     f"the limit {state_tol}: the gate cannot tell the two apart")
+        got = ring_block(q, *kv[2], *st_k, finalize=True)
+        ref = ring_block_plain(q, *kv[2], *st_p, finalize=True)
+        err = check(f"K14 ring_block {tag} finishing step", got, ref,
+                    F32_ATOL if dt == f32 else RING_ATOL * ref.float().abs().max().item())
+        uniform = torch.cat([v for _, v, _ in kv], dim=1)[2].float().mean(dim=0)
+        err_u = check(f"K14 ring_block {tag} row with no valid key: the mean of v", got[2],
+                      uniform.expand(L, H, D), F32_ATOL if dt == f32 else RING_ATOL * uniform.abs().max().item())
+        log(f"K14 ring_block {tag} middle step: state err {state_err:.3e}, running max err {m_err:.3e} "
+            f"(tol {state_tol}); with p rounded to bf16 (the control) {control}; finished output "
+            f"max |ref| {ref.float().abs().max().item():.4f}")
+        mask = kv[1][2]
+        keys = int(mask.sum())
+        es = 2 if dt == bf16 else 4
+        nbytes = 3 * B * L * H * D * es + B * L + 2 * (B * H * L * D * 4 + 2 * B * H * L * 4)
+        b_ms, b_by = bound(nbytes, 4 * H * D * L * keys, PEAK_BF16 if dt == bf16 else PEAK_F32)
+        st = [t.clone() for t in st_k]
+        row = {
+            "shape": f"B={B} Lb={L} H={H} D={D} {tag}, a middle step, {keys} of {B * L} keys present",
+            "max_abs_err": max(err, err_u), "state_err": state_err, "running_max_err": m_err,
+            "state_err_p_bf16": control,
+            "ms": time_ms(torch, lambda: ring_block(q, *kv[1], *st), 10),
+            "plain_ms": time_ms(torch, lambda: ring_block_plain(q, *kv[1], *st_p), 3, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "finalize_ms": time_ms(torch, lambda: ring_block(q, *kv[2], *st, finalize=True), 10),
+        }
+        del st, st_k, st_p, kv, got, ref
+        # the library yardstick: SDPA over the whole sequence at once (never
+        # called by the port), with a key mask of the same density
+        qf, kf, vf = (randn(B, H, LONG_LEN, D, dtype=dt) for _ in range(3))
+        fmask = lengths_mask(B, LONG_LEN).bool()[:, None, None, :]
+        row["library_ms"] = time_ms(
+            torch, lambda: F.scaled_dot_product_attention(qf, kf, vf, attn_mask=fmask), 3, warmup=1)
+        row["library"] = f"F.scaled_dot_product_attention over B={B} L={LONG_LEN} H={H} D={D} {tag}"
+        del qf, kf, vf
+        ring[tag] = row
+        log(f"K14 ring_block {tag}: {json.dumps(row)}")
+        torch.cuda.empty_cache()
+    out["ring_block"] = {**ring["bf16"], "f32": ring["f32"]}
+    return out
+
+
+def ring_state_err(st, ref) -> tuple[float, float]:
+    """The distance of ring state ``st`` = (o, m, l) from ``ref``: o and l
+    relative to ``ref``'s l, once both are brought to ``ref``'s running
+    max (a logit a rounding apart moves the running max, and o and l scale
+    with it); and the running max's relative distance."""
+    import torch
+
+    (o, m, l), (o_r, m_r, l_r) = st, ref
+    shift = torch.exp(m - m_r)
+    state = max(((l * shift - l_r).abs() / l_r).max().item(),
+                ((o * shift[..., None] - o_r).abs() / l_r[..., None]).max().item())
+    return state, ((m - m_r).abs() / m_r.abs().clamp(min=1.0)).max().item()
+
+
+def ring_step_p_bf16(q, k, v, mask, o, m, l) -> None:
+    """The control of K14's state check: ``ring_block_plain``'s step with
+    p rounded to bf16 before p.v, as K1 rounds it (l still sums f32 p)."""
+    import math
+
+    import torch
+
+    s = torch.einsum("blhd,bmhd->bhlm", q, k).float() * (1.0 / math.sqrt(q.shape[-1]))
+    s = s + torch.where(mask.bool()[:, None, None, :], 0.0, -1e30)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l.copy_(l * alpha + p.sum(dim=-1))
+    o.copy_(o * alpha[..., None] + torch.einsum("bhlm,bmhd->bhld", p.bfloat16().float(), v.float()))
+    m.copy_(m_new)
+
+
+@contextlib.contextmanager
+def f32_partial_sums():
+    """The control of the TP score gap: while open, every encoder block
+    computes its out-projection's and ``mlp_down``'s products in f32 (the
+    bf16 operands widened, TF32 off) and sums the shards' f32 products
+    before rounding once to the activation type, as one device's product
+    is rounded once.  The port rounds each shard's product."""
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch.models import encoder as enc
+
+    saved = enc.SelfAttention.project, enc.EncoderBlock.mlp, enc.EncoderBlock.__dict__["finish"]
+
+    def project(self, ctx):
+        B, L = ctx.shape[:2]
+        return F.linear(ctx.reshape(B, L, -1).float(), self.out.weight.to(ctx.dtype).float())
+
+    def mlp(self, x):
+        h = enc._dense(x, self.mlp_up, "gelu_tanh" if self.cfg.gelu_approx else "gelu_erf")
+        return F.linear(h.float(), self.mlp_down.weight.to(h.dtype).float())
+
+    def finish(x, partials, layer, ln):
+        a = partials[0]
+        for p in partials[1:]:
+            a = a + p.to(a.device)
+        return saved[2].__func__(x, [a.to(x.dtype)], layer, ln)
+
+    enc.SelfAttention.project, enc.EncoderBlock.mlp = project, mlp
+    enc.EncoderBlock.finish = staticmethod(finish)
+    try:
+        yield
+    finally:
+        enc.SelfAttention.project, enc.EncoderBlock.mlp, enc.EncoderBlock.finish = saved
+
+
 def _plain_dense(h, layer, act="none"):
     import torch.nn.functional as F
 
@@ -899,8 +1253,10 @@ def _plain_dense(h, layer, act="none"):
 
 def _plain_blocks(blocks, x, mask):
     """The post-LN ``blocks`` (``EncoderBlock``s) over ``x`` through the
-    plain versions of K1, K4 and K5."""
+    plain versions of K1 (or, when the config is sequence parallel, of
+    K14 over the blocks of its sequence axis), K4 and K5."""
     from pathway_tpu_torch.kernels import add_layer_norm_plain, attention_plain
+    from pathway_tpu_torch.ops.ring_attention import ring_attention_plain
 
     def add_ln(a, b, ln):
         return add_layer_norm_plain(a, b, ln.weight, ln.bias, ln.eps)
@@ -910,7 +1266,11 @@ def _plain_blocks(blocks, x, mask):
         cfg, att = block.cfg, block.attention
         heads = (B, L, cfg.heads, cfg.head_dim)
         q, k, v = (_plain_dense(x, lin).view(heads) for lin in (att.query, att.key, att.value))
-        a = _plain_dense(attention_plain(q, k, v, mask).reshape(B, L, cfg.hidden), att.out)
+        if cfg.seq_mesh is None:
+            ctx = attention_plain(q, k, v, mask)
+        else:
+            ctx = ring_attention_plain(q, k, v, mask, mesh=cfg.seq_mesh, axis=cfg.seq_axis)
+        a = _plain_dense(ctx.reshape(B, L, cfg.hidden), att.out)
         x = add_ln(x, a, block.attention_ln)
         h = _plain_dense(x, block.mlp_up, "gelu_tanh" if cfg.gelu_approx else "gelu_erf")
         x = add_ln(x, _plain_dense(h, block.mlp_down), block.mlp_ln)
@@ -1337,6 +1697,7 @@ def phase_rerank(torch, dev, ctx: dict, compared_widths: set) -> dict:
     res["profile"] = profile_call(
         torch, lambda: reranker.__batch__(pair_docs[:RERANK_BATCH], pair_qs[:RERANK_BATCH]), RERANK_BATCH
     )
+    res["_pairs"] = (pair_qs, [d["text"] for d in pair_docs])
     return res
 
 
@@ -2030,7 +2391,7 @@ def phase_sharded(torch, dev, ctx: dict) -> dict:
     import numpy as np
 
     from pathway_tpu_torch import BGE_BASE, ShardedKnnIndex, TorchEncoder, kernels, make_mesh
-    from pathway_tpu_torch.kernels import knn_topk
+    from pathway_tpu_torch.kernels import knn_topk, knn_topk_plain, topk_select_plain
     from pathway_tpu_torch.kernels.knn_topk import merge_partials
     from pathway_tpu_torch.ops.distances import normalize
 
@@ -2122,6 +2483,20 @@ def phase_sharded(torch, dev, ctx: dict) -> dict:
         err = max(err, compare_topk(mv, mi, wv, wi, SHARD_ATOL))
     del flat, flags
     res["vs_unsharded_max_abs_err"] = err
+
+    # B12's device program at nq=1, k=10: K3 on each shard with its offset
+    # and the merge, beside the same through the plain versions
+    def b12(q1, topk, merge):
+        parts = [topk(q1, sidx._vecs[s], sidx._flags[s], K, "dot", offset=s * sidx.shard_rows)
+                 for s in range(SHARDS)]
+        return merge(torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1))
+
+    q1 = q[:1]
+    res["b12_nq1_k10"] = {
+        "ms": time_ms(torch, lambda: b12(q1, knn_topk, lambda v, i: merge_partials(v, i, K, presorted=False)), 20),
+        "plain_ms": time_ms(torch, lambda: b12(q1, knn_topk_plain, lambda v, i: topk_select_plain(v, K, i)), 5),
+    }
+    log(f"B12 per-shard K3 + merge, nq=1 k={K}: {json.dumps(res['b12_nq1_k10'])}")
     # where one question's time goes, sharded and not: nq=1, k=10; and a
     # batch at k=256 (K3's score-only pass and twelve K13 launches per
     # shard, then the K13 merge), three times each, for its spread
@@ -2299,6 +2674,410 @@ def phase_checkpoint(torch, dev, compared_widths: set) -> dict:
     return res
 
 
+def phase_parallel(torch, dev, ctx: dict, pairs: tuple) -> dict:
+    """Phase 10: sequence and tensor parallelism at BGE-base width (768 x
+    12 layers, 12 heads, bf16) on meshes that repeat the card, and the
+    flagship tiny f32 config end to end (C5).  ``ctx`` is phase 3's;
+    ``pairs`` phase 4's (questions, passages)."""
+    import numpy as np
+
+    from pathway_tpu_torch import (
+        BGE_BASE, BGE_RERANKER_BASE, ShardedKnnIndex, TextEncoderModel, TorchEncoder, kernels, make_mesh,
+    )
+
+    res: dict = {"launches": {}}
+    t_phase = time.perf_counter()
+    docs, keys = ctx["docs"][:SP_DOCS], ctx["keys"][:SP_DOCS]
+    single = ctx["embedder"].encoder
+    mesh4 = make_mesh({"data": SEQ_SHARDS}, [dev] * SEQ_SHARDS)
+
+    def gap(a, b) -> dict:
+        cos = (a * b).sum(1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b, axis=1)
+        return {"max_abs_err": float(np.abs(a - b).max()), "min_cos": float(cos.min())}
+
+    def counted(path: str, fn):
+        """``fn()`` with every launch count at 0 before it, read after it
+        (and added to the path's earlier runs)."""
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got, prev = kernels.launch_counts(), res["launches"].get(path)
+        res["launches"][path] = got if prev is None else {k: prev[k] + n for k, n in got.items()}
+        return out
+
+    # ---- (a) SP at the preset's length: 1,024 documents padded to 512,
+    # blocks of 128, against phase 3's single-device (K1) encoder on the same
+    # weights (the same seed) and against the f32 forward of those weights
+    sp = TorchEncoder(BGE_BASE, max_batch=DOC_BATCH, seed=SEED, mesh=mesh4, sequence_axis="data")
+    sp.encode(docs[:8])  # first-call set-up, untimed
+    emb_1 = single.encode(docs)
+    t0 = time.perf_counter()
+    emb_sp = counted("sp", lambda: sp.encode(docs))
+    res["sp_docs_per_s"] = len(docs) / (time.perf_counter() - t0)
+    model32 = TextEncoderModel(dataclasses.replace(single.config, dtype=torch.float32), device=dev)
+    model32.load_state_dict(single.model.state_dict())
+    ref32 = []
+    for i in range(0, len(docs), DOC_BATCH):
+        (args,), n = single._upload_parts(*single.tokenizer.encode_batch(docs[i : i + DOC_BATCH],
+                                                                           max_len=single.max_len))
+        with torch.inference_mode():
+            ref32.append(plain_forward(model32, *args)[:n].cpu().numpy())
+    del model32
+    ref32 = np.concatenate(ref32)
+    res["sp_vs_single"] = gap(emb_sp, emb_1)
+    res["sp_vs_f32"], res["single_vs_f32"] = gap(emb_sp, ref32), gap(emb_1, ref32)
+    log(f"SP at L=512 over {SEQ_SHARDS} blocks: {res['sp_docs_per_s']:.1f} docs/s, vs single "
+        f"{json.dumps(res['sp_vs_single'])}, vs f32 {json.dumps(res['sp_vs_f32'])} (single "
+        f"{json.dumps(res['single_vs_f32'])})")
+    if not (np.isfinite(emb_sp).all() and res["sp_vs_single"]["max_abs_err"] <= SP_ATOL):
+        fail(f"SP embeddings against the single-device encoder: {res['sp_vs_single']} (tol {SP_ATOL})")
+    if not res["sp_vs_f32"]["max_abs_err"] <= F32_RATIO * res["single_vs_f32"]["max_abs_err"]:
+        fail(f"SP embeddings further from the f32 forward than {F32_RATIO}x the single-device path")
+    del sp
+
+    # ---- (b) long documents: max_len 8,192 over 4 blocks of 2,048, against
+    # a 1-device sequence axis (K14 in one step over 8,192 keys) and the
+    # plain forward (ring_attention_plain and the plain kernels)
+    cfg_long = dataclasses.replace(BGE_BASE, max_len=LONG_LEN)
+    enc4 = TorchEncoder(cfg_long, max_batch=16, seed=SEED, mesh=mesh4, sequence_axis="data")
+    enc1 = TorchEncoder(cfg_long, max_batch=16, seed=SEED, mesh=make_mesh({"data": 1}, [dev]),
+                        sequence_axis="data")
+    rng = np.random.default_rng(SEED + 5)
+    long_docs = [" ".join(f"w{w}" for w in rng.integers(0, 50_000, LONG_LEN + 100)) for _ in range(LONG_DOCS)]
+    long_keys = [f"long-{i}" for i in range(LONG_DOCS)]
+    ids, mask, types = enc4.tokenizer.encode_batch(long_docs, max_len=LONG_LEN)
+    if ids.shape != (LONG_DOCS, LONG_LEN) or not mask.all():
+        fail(f"long documents tokenized to {ids.shape}, {int(mask.sum())} tokens")
+    lb = LONG_LEN // SEQ_SHARDS
+    edge = np.zeros((7, LONG_LEN), np.int32)  # tests/test_tpu_plane.py's edge rows, at blocks of 2,048
+    edge[0, : lb - 1] = 1
+    edge[1, :lb] = 1
+    edge[2, : lb + 1] = 1
+    edge[3, : LONG_LEN - 1] = 1
+    edge[4, 2 * lb : 3 * lb] = 1  # valid tokens only inside block 2
+    edge[5, :1] = 1
+    # edge[6] stays all zero: the fully masked row
+    masked_row = LONG_DOCS + 6
+    batch = [np.concatenate([a, b]) for a, b in (
+        (ids, rng.integers(1000, cfg_long.vocab_size, edge.shape)), (mask, edge), (types, np.zeros_like(edge)))]
+    args = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in batch]
+    with torch.inference_mode():
+        enc4.model(*args)  # first-call set-up
+        outs, peaks, secs = {}, {}, {}
+        for name, enc in (("4way", enc4), ("1way", enc1)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            outs[name] = (counted("sp_long", lambda: enc.model(*args)) if name == "4way"
+                          else enc.model(*args)).cpu().numpy()
+            secs[name] = time.perf_counter() - t0
+            peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+        plain = plain_forward(enc4.model, *args).cpu().numpy()
+    torch.cuda.empty_cache()
+    valid = int(batch[1].sum())
+    res["long"] = {
+        "rows": int(batch[0].shape[0]), "len": LONG_LEN, "valid_tokens": valid,
+        "tokens_per_s": {k: valid / v for k, v in secs.items()},
+        "peak_mem_gb": peaks,
+        "4way_vs_1way": gap(outs["4way"], outs["1way"]),
+        "4way_vs_plain": gap(outs["4way"], plain), "1way_vs_plain": gap(outs["1way"], plain),
+        "masked_row_vs_plain": gap(outs["4way"][masked_row : masked_row + 1], plain[masked_row : masked_row + 1]),
+    }
+    for name, o in (*outs.items(), ("plain", plain)):
+        if not np.isfinite(o).all():
+            fail(f"long documents: non-finite embeddings on the {name} path")
+    for what in ("4way_vs_1way", "4way_vs_plain", "1way_vs_plain", "masked_row_vs_plain"):
+        g = res["long"][what]
+        if not (g["max_abs_err"] <= EMBED_ATOL and g["min_cos"] >= EMBED_COS):
+            fail(f"long documents {what}: {g} (tol {EMBED_ATOL}, cosine {EMBED_COS})")
+    # encode_into: the 4-way embeddings in an index answer as the 1-way ones do
+    idx4 = ShardedKnnIndex(HIDDEN, metric="cos", capacity=1024, device=dev)
+    idx1 = ShardedKnnIndex(HIDDEN, metric="cos", capacity=1024, device=dev)
+    t0 = time.perf_counter()
+    enc4.encode_into(idx4, long_keys, long_docs)
+    torch.cuda.synchronize()
+    res["long"]["encode_into_tokens_per_s"] = LONG_DOCS * LONG_LEN / (time.perf_counter() - t0)
+    enc1.encode_into(idx1, long_keys, long_docs)
+    q1 = enc1.encode(long_docs)
+    res["long"]["search_max_abs_err"] = compare_rows(idx4.search(q1, LONG_DOCS), idx1.search(q1, LONG_DOCS),
+                                                     LONG_DOCS, EMBED_ATOL, "long-document search, 4-way vs 1-way")
+    res["long"]["profile"] = profile_call(torch, lambda: enc4.encode(long_docs), LONG_DOCS)
+    log(f"long documents: {json.dumps(res['long'])}")
+    del enc4, enc1, idx4, idx1, args, plain, outs
+    torch.cuda.empty_cache()
+
+    # ---- (c) TP: heads and MLP width over "model", one group per data
+    # replica.  On the first seed, embeddings and phase 4's pair scores
+    # within TP_ATOL of one device; on every seed of TP_SEEDS, the scores
+    # no further, on average, from the f32 forward of the same weights than
+    # F32_RATIO times one device's, with the control (f32 partial products
+    # summed, rounded once) read beside them on the 1 x 2 mesh and on one
+    # device.  The card's bytes per encoder: each shard once, no full copy
+    pair_qs, pair_docs = pairs
+    meshes = {"data1_model2": make_mesh({"data": 1, "model": 2}, [dev] * 2),
+              "data2_model2": make_mesh({"data": 2, "model": 2}, [dev] * 4)}
+
+    def built(make):
+        """``make()`` and the bytes it leaves allocated on the card (a
+        model's grid holds the model itself: the encoders dropped before
+        go with the garbage collector)."""
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        obj = make()
+        torch.cuda.synchronize()
+        return obj, torch.cuda.memory_allocated() - base
+
+    def cross_scores(seed, **where):
+        return TorchEncoder(BGE_RERANKER_BASE, cross=True, max_batch=RERANK_BATCH, seed=seed,
+                            **where).score_pairs(pair_qs, pair_docs)
+
+    res["tp"] = {"seeds": {}}
+    for seed in TP_SEEDS:
+        scores_32 = TorchEncoder(dataclasses.replace(BGE_RERANKER_BASE, dtype=torch.float32), cross=True,
+                                 max_batch=RERANK_BATCH, seed=seed, device=dev).score_pairs(pair_qs, pair_docs)
+        cross1, one_bytes = built(lambda: TorchEncoder(
+            BGE_RERANKER_BASE, cross=True, max_batch=RERANK_BATCH, seed=seed, device=dev))
+        scores_1 = cross1.score_pairs(pair_qs, pair_docs)
+        with f32_partial_sums():
+            control_1 = cross1.score_pairs(pair_qs, pair_docs)
+        del cross1
+
+        def vs(scores) -> dict:
+            return {"vs_one_device_max": float(np.abs(scores - scores_1).max()),
+                    "vs_f32_mean": float(np.abs(scores - scores_32).mean()),
+                    "vs_f32_max": float(np.abs(scores - scores_32).max())}
+
+        row = {"max_abs_score": float(np.abs(scores_1).max()), "one_device": vs(scores_1),
+               "one_device_weights_gb": one_bytes / 1e9, "control_one_device": vs(control_1)}
+        for name, mesh in meshes.items():
+            cross, weights = built(lambda: TorchEncoder(
+                BGE_RERANKER_BASE, cross=True, max_batch=RERANK_BATCH, seed=seed, mesh=mesh))
+            enc = TorchEncoder(BGE_BASE, max_batch=DOC_BATCH, seed=SEED, mesh=mesh) if seed == SEED else None
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            if enc is not None:
+                emb, scores = counted("tp", lambda: (enc.encode(docs), cross.score_pairs(pair_qs, pair_docs)))
+                del enc
+                row[f"{name}_embed_vs_one_device"] = g = gap(emb, emb_1)
+                if not (np.isfinite(emb).all() and g["max_abs_err"] <= TP_ATOL):
+                    fail(f"TP {name} embeddings against one device: {g} (tol {TP_ATOL})")
+            else:
+                scores = cross.score_pairs(pair_qs, pair_docs)
+            row[name] = r = {**vs(scores), "weights_gb": weights / 1e9,
+                             "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+            if name == "data1_model2":
+                with f32_partial_sums():
+                    row["control_" + name] = vs(cross.score_pairs(pair_qs, pair_docs))
+            del cross
+            if not np.isfinite(scores).all():
+                fail(f"TP {name}: non-finite pair scores on seed {seed}")
+            if seed == SEED and not r["vs_one_device_max"] <= TP_ATOL:
+                fail(f"TP {name} pair scores against one device: {r} (tol {TP_ATOL})")
+            if not r["vs_f32_mean"] <= F32_RATIO * row["one_device"]["vs_f32_mean"]:
+                fail(f"TP {name} pair scores on seed {seed} further from the f32 forward than "
+                     f"{F32_RATIO}x one device: {r}, one device {row['one_device']}")
+            if weights > TP_WEIGHTS_RATIO * one_bytes:
+                fail(f"TP {name}: {weights / 1e9} GB of weights on the card against {one_bytes / 1e9} GB "
+                     "for one device: a full copy beside the shards")
+        res["tp"]["seeds"][seed] = row
+        log(f"TP, seed {seed}: {json.dumps(row)}")
+    res["tp"]["pairs"] = len(pair_qs)
+
+    # ---- (d) C5 end to end: the flagship tiny f32 config (2 layers, hidden
+    # 64, 4 heads of 16) through the 4-way sequence axis (K14) and on one
+    # device (K1), each against its plain forward
+    tiny = dataclasses.replace(BGE_BASE, layers=2, hidden=64, heads=4, mlp_dim=128, dtype=torch.float32,
+                               max_len=64)
+    tiny_sp = TorchEncoder(tiny, max_batch=64, seed=SEED, mesh=mesh4, sequence_axis="data")
+    tiny_1 = TorchEncoder(tiny, max_batch=64, seed=SEED, device=dev)
+    texts = ctx["docs"][:128]
+    e_sp, e_1 = counted("f32", lambda: (tiny_sp.encode(texts), tiny_1.encode(texts)))
+    res["f32"] = {}
+    for name, enc, got in (("sp", tiny_sp, e_sp), ("one_device", tiny_1, e_1)):
+        ref = []
+        for i in range(0, len(texts), enc.max_batch):
+            (args,), n = enc._upload_parts(*enc.tokenizer.encode_batch(texts[i : i + enc.max_batch],
+                                                                       max_len=enc.max_len))
+            with torch.inference_mode():
+                ref.append(plain_forward(enc.model, *args)[:n].cpu().numpy())
+        err = float(np.abs(got - np.concatenate(ref)).max())
+        res["f32"][name] = err
+        if not (np.isfinite(got).all() and err <= F32_ATOL):
+            fail(f"f32 tiny config ({name}) against its plain forward: {err} > {F32_ATOL}")
+    log(f"C5, the f32 tiny config against its plain forward: {json.dumps(res['f32'])}")
+
+    for path, kernels_run in (("sp", ("ring_block", "bias_act", "add_layer_norm", "embed_ln", "pool_normalize")),
+                              ("sp_long", ("ring_block", "bias_act", "add_layer_norm", "embed_ln", "pool_normalize")),
+                              ("tp", ("attention", "bias_act", "add_layer_norm", "embed_ln", "pool_normalize")),
+                              ("f32", ("attention", "ring_block", "bias_act", "add_layer_norm", "embed_ln",
+                                       "pool_normalize"))):
+        zero = [name for name in kernels_run if res["launches"][path][name] == 0]
+        if zero:
+            fail(f"kernels not launched on the {path} path: {zero}")
+    if res["launches"]["sp"]["attention"] or res["launches"]["sp_long"]["attention"]:
+        fail("K1 launched on a sequence-parallel path: its attention is K14's")
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 10 wall {res['wall_s']:.1f} s")
+    return res
+
+
+def profile_cards(torch, fn, cards: list) -> dict:
+    """One call of ``fn`` on several ``cards``, traced: the host's time to
+    enqueue it, the wall time to its end, and for each card the device
+    time by kernel, its busy time and the span from the call's start to
+    its last event."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for c in cards:
+        torch.cuda.synchronize(c)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("profile_cards"):
+            t0 = time.perf_counter()
+            fn()
+            enqueue = time.perf_counter() - t0
+            for c in cards:
+                torch.cuda.synchronize(c)
+            wall = time.perf_counter() - t0
+    events = prof.events()
+    on_device = [e for e in events if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    call = next(e for e in events if e.name == "profile_cards" and e not in on_device)
+    start = call.time_range.start
+    per_card: dict = {}
+    for e in on_device:
+        if e.name == "profile_cards" or e.time_range.start < start:
+            continue
+        card = per_card.setdefault(e.device_index, {"busy_ms": 0.0, "end_ms": 0.0, "by_kernel": {}})
+        ms = e.time_range.elapsed_us() / 1e3
+        card["busy_ms"] += ms
+        card["end_ms"] = max(card["end_ms"], (e.time_range.end - start) / 1e3)
+        name = e.name[:60]
+        card["by_kernel"][name] = card["by_kernel"].get(name, 0.0) + ms
+    for card in per_card.values():
+        card["by_kernel"] = dict(sorted(card["by_kernel"].items(), key=lambda kv: -kv[1])[:6])
+    return {"enqueue_ms": enqueue * 1e3, "wall_ms": wall * 1e3, "cards": per_card}
+
+
+def phase_distinct_cards(torch, cards: list) -> dict:
+    """``--distinct-cards``, on four ``cards``: what a mesh that repeats one
+    card cannot show.  The ring over four distinct cards (K/V blocks
+    handed on by copies between cards) against the same ring on a mesh
+    that repeats card 0; the sequence-parallel BGE-base encoder at 8,192
+    tokens over four cards against the same encoder on the repeated card;
+    tensor parallelism (``{"data": 1, "model": 2}`` over two cards,
+    ``{"data": 2, "model": 2}`` over four) against the repeated card, and
+    each card's bytes.  The same kernels run on the same blocks in the
+    same order, so the outputs are expected equal to the bit."""
+    import numpy as np
+
+    from pathway_tpu_torch import BGE_BASE, BGE_RERANKER_BASE, TorchEncoder, make_mesh
+    from pathway_tpu_torch.ops.ring_attention import ring_attention
+
+    res: dict = {}
+
+    def sync_all() -> None:
+        for c in cards:
+            torch.cuda.synchronize(c)
+
+    def timed(fn, iters: int = 3):
+        """(``fn()``, mean seconds of ``iters`` more calls, all cards synced)."""
+        out = fn()
+        sync_all()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        sync_all()
+        return out, (time.perf_counter() - t0) / iters
+
+    # ---- the ring alone: B=8, L=8,192, BGE-base's heads, bf16
+    g = torch.Generator(device=cards[0]).manual_seed(SEED + 11)
+    B, L, H, D = RING_B, LONG_LEN, RING_H, RING_D
+    q, k, v = (torch.randn((B, L, H, D), generator=g, device=cards[0]).bfloat16() for _ in range(3))
+    lens = torch.randint(1, L + 1, (B,), generator=g, device=cards[0])
+    mask = (torch.arange(L, device=cards[0])[None] < lens[:, None]).to(torch.uint8)
+    mask[B - 1] = 0  # no valid key anywhere
+    apart, t_apart = timed(lambda: ring_attention(q, k, v, mask, mesh=make_mesh({"data": 4}, cards)))
+    same, t_same = timed(lambda: ring_attention(q, k, v, mask, mesh=make_mesh({"data": 4}, [cards[0]] * 4)))
+    err = (apart.float() - same.float()).abs().max().item()
+    # the ring alone, its blocks already on their cards (the list form),
+    # and the copy it makes each step: one K block from card 0 to card 1
+    blocks = [[c.to(d).contiguous() for c, d in zip(t.chunk(4, dim=1), cards)] for t in (q, k, v, mask)]
+    _, t_blocks = timed(lambda: ring_attention(*blocks, mesh=make_mesh({"data": 4}, cards)))
+    ring_profile = profile_cards(torch, lambda: ring_attention(*blocks, mesh=make_mesh({"data": 4}, cards)),
+                                 cards)
+    kb = blocks[1][0]
+    _, t_copy = timed(lambda: kb.to(cards[1]), 10)
+    res["ring"] = {"shape": f"B={B} L={L} H={H} D={D} bf16 over 4 blocks", "max_abs_err": err,
+                   "ms_four_cards": t_apart * 1e3, "ms_one_card": t_same * 1e3,
+                   "ms_four_cards_blocks_in_place": t_blocks * 1e3,
+                   "peer_access_0_1": torch.cuda.can_device_access_peer(cards[0], cards[1]),
+                   "block_copy_ms": t_copy * 1e3,
+                   "block_copy_gb_per_s": kb.numel() * kb.element_size() / t_copy / 1e9,
+                   "profile_blocks_in_place": ring_profile}
+    del blocks, kb
+    log(f"ring over four cards: {json.dumps(res['ring'])}")
+    if not (bool(torch.isfinite(apart.float()).all()) and err <= RING_ATOL * same.float().abs().max().item()):
+        fail(f"ring attention over four cards against one card: {err}")
+    del q, k, v, apart, same
+
+    # ---- the sequence-parallel encoder at 8,192 tokens
+    cfg_long = dataclasses.replace(BGE_BASE, max_len=LONG_LEN)
+    rng = np.random.default_rng(SEED + 5)
+    docs = [" ".join(f"w{w}" for w in rng.integers(0, 50_000, LONG_LEN + 100)) for _ in range(LONG_DOCS)]
+    docs += [" ".join(["w"] * n) for n in (1, 2047, 2049, 5000)]
+    embs, secs = {}, {}
+    for name, devs in (("four_cards", cards), ("one_card", [cards[0]] * 4)):
+        enc = TorchEncoder(cfg_long, max_batch=16, seed=SEED, mesh=make_mesh({"data": 4}, devs),
+                           sequence_axis="data")
+        embs[name], secs[name] = timed(lambda: enc.encode(docs), 2)
+        del enc
+        torch.cuda.empty_cache()
+    e = float(np.abs(embs["four_cards"] - embs["one_card"]).max())
+    res["sp_long"] = {"docs": len(docs), "max_abs_err": e,
+                      "tokens_per_s": {n: len(docs) * LONG_LEN / t for n, t in secs.items()}}
+    log(f"sequence-parallel encoder over four cards: {json.dumps(res['sp_long'])}")
+    if not (np.isfinite(embs["four_cards"]).all() and e <= EMBED_ATOL):
+        fail(f"SP encoder over four cards against one card: {e}")
+
+    # ---- tensor parallelism: scores and each card's bytes
+    rng = np.random.default_rng(SEED + 6)
+    qs = [" ".join(f"q{w}" for w in rng.integers(0, 5000, 12)) for _ in range(256)]
+    ds = [" ".join(f"w{w}" for w in rng.integers(0, 50_000, 300)) for _ in range(256)]
+    one = TorchEncoder(BGE_RERANKER_BASE, cross=True, max_batch=RERANK_BATCH, seed=SEED, device=cards[0])
+    one_bytes = sum(p.numel() * p.element_size() for p in one.model.parameters())
+    del one
+    res["tp"] = {"one_device_weights_gb": one_bytes / 1e9}
+    for name, shape, devs in (("data1_model2", {"data": 1, "model": 2}, cards[:2]),
+                              ("data2_model2", {"data": 2, "model": 2}, cards)):
+        out = {}
+        for where, mesh_devs in (("apart", devs), ("same", [cards[0]] * len(devs))):
+            gc.collect()
+            sync_all()
+            torch.cuda.empty_cache()
+            base = [torch.cuda.memory_allocated(c) for c in cards]
+            cross = TorchEncoder(BGE_RERANKER_BASE, cross=True, max_batch=RERANK_BATCH, seed=SEED,
+                                 mesh=make_mesh(shape, mesh_devs))
+            sync_all()
+            held = [(torch.cuda.memory_allocated(c) - b) / 1e9 for c, b in zip(cards, base)]
+            for c in cards:
+                torch.cuda.reset_peak_memory_stats(c)
+            out[where], t = timed(lambda: cross.score_pairs(qs, ds), 2)
+            peak = [(torch.cuda.max_memory_allocated(c) - b) / 1e9 for c, b in zip(cards, base)]
+            if where == "apart":
+                res["tp"][name] = {"weights_gb_per_card": held, "peak_gb_per_card": peak,
+                                   "pairs_per_s": len(qs) / t}
+            del cross
+        err = float(np.abs(out["apart"] - out["same"]).max())
+        res["tp"][name]["max_abs_err"] = err
+        log(f"TP {name} over distinct cards: {json.dumps(res['tp'][name])}")
+        most = max(res["tp"][name]["weights_gb_per_card"])
+        if not (np.isfinite(out["apart"]).all() and err <= TP_ATOL and most < 0.75 * one_bytes / 1e9):
+            fail(f"TP {name} over distinct cards: {res['tp'][name]} (one device holds {one_bytes / 1e9} GB)")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2325,6 +3104,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", file=sys.stderr)
     dev = torch.device("cuda:0")
+    if "--distinct-cards" in sys.argv[1:]:
+        if torch.cuda.device_count() < 4:
+            fail(f"--distinct-cards needs four cards, found {torch.cuda.device_count()}")
+        cards = [torch.device("cuda", i) for i in range(4)]
+        log("distinct cards: " + json.dumps(phase_distinct_cards(torch, cards)))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}))
+        return 0
 
     k_out = phase_kernels(torch, dev)
     by_nq = k_out.pop("_knn_topk_by_nq")
@@ -2347,6 +3135,11 @@ def main() -> int:
     fused_shapes["bias_act_pos"] = v_out.pop("bias_act_pos")
     k_out.update(v_out)
     torch.cuda.empty_cache()
+    f32_out = phase_f32_ring_kernels(torch, dev)
+    k_out["ring_block"] = f32_out.pop("ring_block")
+    for name, row in f32_out.items():
+        k_out[name]["f32"] = row
+    torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     s_out, ctx = phase_slice(torch, dev, compared_widths)
     wall = {"embed_s": time.perf_counter() - t_phase}
@@ -2358,6 +3151,9 @@ def main() -> int:
     log(f"embed docs/s: data parallel over {SHARDS} shards {sh_out['dp_embed_docs_per_s']:.1f}, "
         f"one device {s_out['embed_docs_per_s']:.1f}; query p50/p99 ms: sharded {json.dumps(sh_out['search'])}, "
         f"unsharded {json.dumps(s_out['search'])}")
+    torch.cuda.empty_cache()
+    p10_out = phase_parallel(torch, dev, ctx, r_out.pop("_pairs"))
+    wall["parallel_s"] = p10_out["wall_s"]
     del ctx
     torch.cuda.empty_cache()
     i_out = phase_image(torch, dev, compared_widths)
@@ -2390,6 +3186,7 @@ def main() -> int:
         "ivf_assign": ("ivf_assign.cu", "pathway_tpu/parallel/ivf_knn.py:44"),
         "ivf_scan": ("ivf_scan.cu", "pathway_tpu/parallel/ivf_knn.py:316"),
         "topk_select": ("topk_select.cu", "pathway_tpu/parallel/sharded_knn.py:364"),
+        "ring_block": ("ring_block.cu", "pathway_tpu/ops/ring_attention.py:47"),
     }
     entries = []
     for name, (src, replaces) in sources.items():
@@ -2397,14 +3194,15 @@ def main() -> int:
         by_path = {"embed": s_out["launches"][name], "rerank": r_out["launches"][name],
                    "image": i_out["launches"][name], "ivf": ivf_out["launches"][name],
                    "ivf_defaults": c3_out["launches"][name], "sharded": sh_out["launches"][name],
-                   "checkpoint": ck_out["launches"][name]}
+                   "checkpoint": ck_out["launches"][name],
+                   **{path: counts[name] for path, counts in p10_out["launches"].items()}}
         entries.append({
             "name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"], "shape": m["shape"],
-            **({"device_ms": m["device_ms"]} if "device_ms" in m else {}),
+            **{key: m[key] for key in ("device_ms", "f32") if key in m},
         })
     summary = {
         "card": smi,
@@ -2432,6 +3230,7 @@ def main() -> int:
         "ivf_defaults": c3_out,
         "sharded": sh_out,
         "checkpoint": ck_out,
+        "parallel": p10_out,
         "ivf_scan_nq32": ivf_scan_nq32,
         "ivf_assign_lloyd_ms": k_out["ivf_assign"]["lloyd_ms"],
         "phase_wall_s": wall,

@@ -19,6 +19,7 @@ K12 ivf_scan       ``csrc/ivf_scan.cu``          ``parallel/ivf_knn.py:318-339``
 K13 topk_select    ``csrc/topk_select.cu``       ``jax.lax.top_k`` for k > 128 in
                                                  ``parallel/sharded_knn.py:336-375``,
                                                  ``parallel/ivf_knn.py:320-336``
+K14 ring_block     ``csrc/ring_block.cu``        ``ops/ring_attention.py:47-77``
 =================  ============================  =================================
 
 Each wrapper checks device, dtype, shape and contiguity, launches its
@@ -42,6 +43,7 @@ from pathway_tpu_torch.kernels.ivf_scan import ivf_scan, ivf_scan_plain
 from pathway_tpu_torch.kernels.knn_topk import MAX_K, knn_topk, knn_topk_plain
 from pathway_tpu_torch.kernels.patchify import patch_grid, patchify, patchify_plain
 from pathway_tpu_torch.kernels.pool_normalize import pool_normalize, pool_normalize_plain
+from pathway_tpu_torch.kernels.ring_block import ring_block, ring_block_plain, ring_state
 from pathway_tpu_torch.kernels.slab_scatter import (
     slab_clear,
     slab_clear_plain,
@@ -82,6 +84,9 @@ __all__ = [
     "ivf_scan_plain",
     "topk_select",
     "topk_select_plain",
+    "ring_block",
+    "ring_block_plain",
+    "ring_state",
     "WRAPPERS",
     "launch_counts",
     "reset_launch_counts",
@@ -103,6 +108,7 @@ WRAPPERS = {
     "ivf_assign": ivf_assign,
     "ivf_scan": ivf_scan,
     "topk_select": topk_select,
+    "ring_block": ring_block,
 }
 
 

@@ -26,7 +26,7 @@ NAMES = (
     "attention", "slab_scatter", "knn_topk",
     "bias_act", "add_layer_norm", "embed_ln", "pool_normalize",
     "patchify", "vision_head", "dual_logits",
-    "ivf_assign", "ivf_scan", "topk_select",
+    "ivf_assign", "ivf_scan", "topk_select", "ring_block",
 )
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -118,7 +118,7 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 
 _SIGNATURES = {
-    "attention": {"pw_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]},
+    "attention": {"pw_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]},
     "slab_scatter": {
         "pw_slab_scatter": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
         "pw_slab_clear": [_P, _P, _I, _LL, _P],
@@ -128,12 +128,12 @@ _SIGNATURES = {
         "pw_knn_partial_tiled": [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _LL, _P],
         "pw_knn_merge": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
-    "bias_act": {"pw_bias_act": [_P, _P, _P, _I, _LL, _I, _I, _P]},
-    "add_layer_norm": {"pw_add_layer_norm": [_P, _P, _P, _P, _P, _I, _I, _F, _P]},
+    "bias_act": {"pw_bias_act": [_P, _P, _P, _I, _LL, _I, _I, _I, _P]},
+    "add_layer_norm": {"pw_add_layer_norm": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P]},
     "embed_ln": {
-        "pw_embed_ln": [_P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P],
+        "pw_embed_ln": [_P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     },
-    "pool_normalize": {"pw_pool_normalize": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "pool_normalize": {"pw_pool_normalize": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
     "patchify": {"pw_patchify": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "vision_head": {"pw_vision_head": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]},
     "dual_logits": {"pw_dual_logits": [_P, _P, _P, _P, _P, _I, _I, _I, _P]},
@@ -142,6 +142,9 @@ _SIGNATURES = {
     "topk_select": {
         "pw_topk_select": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _P],
         "pw_topk_select_launches": [],
+    },
+    "ring_block": {
+        "pw_ring_block": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     },
 }
 

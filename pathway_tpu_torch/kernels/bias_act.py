@@ -15,8 +15,10 @@ conv's bias add.
 
 :func:`bias_act` updates ``y`` (``[..., N]``, the fresh contiguous output
 of ``F.linear``) in place and returns it.  For CUDA tensors it launches
-the kernel (bf16 ``y``, f32 ``bias`` and ``pos``, N divisible by 8) and
-raises on anything else; for CPU tensors it runs :func:`bias_act_plain`.
+the kernel (bf16 or f32 ``y``, f32 ``bias`` and ``pos``, N divisible by 8)
+and raises on anything else (:func:`check_bias_act` says what it takes);
+for CPU tensors it runs :func:`bias_act_plain`.  In f32 every rounding
+is the identity, as flax ``Dense(dtype=f32)`` has it.
 """
 
 from __future__ import annotations
@@ -27,10 +29,12 @@ import torch.nn.functional as F
 from pathway_tpu_torch.kernels import _build
 from pathway_tpu_torch.kernels._launch import check_cuda, launch
 
-__all__ = ["bias_act", "bias_act_plain", "ACTS"]
+__all__ = ["bias_act", "bias_act_plain", "check_bias_act", "ACTS", "DTYPES"]
 
 #: activation name -> the kernel's code
 ACTS = {"none": 0, "gelu_tanh": 1, "gelu_erf": 2, "tanh": 3}
+#: the activation types the kernel takes
+DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _activate(s: torch.Tensor, act: str) -> torch.Tensor:
@@ -72,6 +76,27 @@ def bias_act_plain(
     return y
 
 
+def check_bias_act(
+    y: torch.Tensor, bias: torch.Tensor, act: str, pos: torch.Tensor | None = None
+) -> None:
+    """Raise ``ValueError`` unless the kernel takes these arguments; reads
+    shapes, types and alignment only, on any device."""
+    if act not in ACTS:
+        raise ValueError(f"bias_act: act {act!r} not in {sorted(ACTS)}")
+    n = y.shape[-1] if y.dim() else 0
+    if bias.shape != (n,):
+        raise ValueError(f"bias_act: bias {tuple(bias.shape)} != ({n},)")
+    p = _pos_rows(y, pos)
+    if y.dtype not in DTYPES or bias.dtype != torch.float32 or (p and pos.dtype != torch.float32):
+        raise ValueError(f"bias_act: the kernel takes bf16 or f32 y and f32 bias and pos, "
+                         f"got {y.dtype}, {bias.dtype}")
+    if n % 8 or y.data_ptr() % 16 or bias.data_ptr() % 16 or (p and pos.data_ptr() % 16):
+        raise ValueError("bias_act: N must divide by 8 and y, bias, pos be 16-byte aligned")
+    m = y.numel() // n if n else 0
+    if m * n // 8 >= 2**31:
+        raise ValueError(f"bias_act: {m} x {n} is too large for one launch")
+
+
 def bias_act(
     y: torch.Tensor, bias: torch.Tensor, act: str = "none", pos: torch.Tensor | None = None
 ) -> torch.Tensor:
@@ -82,24 +107,16 @@ def bias_act(
         return bias_act_plain(y, bias, act, pos)
     extra = {} if pos is None else {"pos": pos}
     device = check_cuda("bias_act", y=y, bias=bias, **extra)
-    if act not in ACTS:
-        raise ValueError(f"bias_act: act {act!r} not in {sorted(ACTS)}")
-    n = y.shape[-1] if y.dim() else 0
-    if bias.shape != (n,):
-        raise ValueError(f"bias_act: bias {tuple(bias.shape)} != ({n},)")
-    p = _pos_rows(y, pos)
-    if y.dtype != torch.bfloat16 or bias.dtype != torch.float32 or (p and pos.dtype != torch.float32):
-        raise ValueError(f"bias_act: the kernel takes bf16 y and f32 bias and pos, got {y.dtype}, {bias.dtype}")
-    if n % 8 or y.data_ptr() % 16 or bias.data_ptr() % 16 or (p and pos.data_ptr() % 16):
-        raise ValueError("bias_act: N must divide by 8 and y, bias, pos be 16-byte aligned")
-    m = y.numel() // n if n else 0
-    if m * n // 8 >= 2**31:
-        raise ValueError(f"bias_act: {m} x {n} is too large for one launch")
+    check_bias_act(y, bias, act, pos)
+    n = y.shape[-1]
+    m = y.numel() // n
     if m == 0:
         return y
+    p = _pos_rows(y, pos)
     launch(
         "bias_act", _build.library("bias_act").pw_bias_act, device,
         y.data_ptr(), bias.data_ptr(), pos.data_ptr() if p else None, p, m, n, ACTS[act],
+        int(y.dtype == torch.float32),
     )
     bias_act.launches += 1
     return y

@@ -1,9 +1,11 @@
-// K5: fused residual add + LayerNorm for the encoder block (bf16 in and out).
+// K5: fused residual add + LayerNorm for the encoder block (bf16 in and
+// out, or f32 in and out for the f32 configs).
 //
 // Replaces: the two nn.LayerNorm(x + a) of EncoderBlock.__call__ in
 //   pathway_tpu/models/encoder.py:128-150 (attention_ln and mlp_ln):
-//   s = bf16(x + r); mean and variance of s in f32; then
-//   bf16((s - mean) * rsqrt(var + eps) * scale + bias), eps = 1e-12.
+//   s = T(x + r); mean and variance of s in f32; then
+//   T((s - mean) * rsqrt(var + eps) * scale + bias), eps = 1e-12, T the
+//   activation type (in f32 the roundings are the identity).
 //   XLA fuses the add into the normalisation on the TPU; eager torch runs
 //   it as an add, a cast to f32, F.layer_norm and a cast back.
 //
@@ -11,40 +13,41 @@
 // (4H bytes) and writes the output (2H bytes) for about 10 operations per
 // value: 0.6 operations per byte, far below the 20 at which f32 FMA rate
 // would start to matter.  At M = 65,536 rows of 768 that is 302 MB, 90 us
-// at 3.35 TB/s; the four eager passes (add, cast, LayerNorm, cast) move 26
-// bytes per value against these 6.
+// at 3.35 TB/s (f32 activations double the bytes); the four eager passes
+// (add, cast, LayerNorm, cast) move 26 bytes per value against these 6.
 //
 // What the design does about it: one pass.  One warp per row; each lane
-// loads its vectors of x and r with 16-byte loads, rounds the sum to bf16
-// as the JAX program does, keeps the row in registers for both statistics
-// and the normalise (row_ln.cuh), and stores the bf16 row once.  scale
+// loads its vectors of x and r with 16-byte loads, rounds the sum to the
+// activation type as the JAX program does, keeps the row in registers for
+// both statistics and the normalise (row_ln.cuh), and stores the row once.
+// The element type is a template parameter: one instance for bf16, one
+// for f32.  scale
 // and bias (3 KB each) stay in L1/L2 across the rows of a block.
 
 #include "row_ln.cuh"
 
 namespace {
 
-template <int VPT>
+template <int VPT, typename T>
 __global__ void __launch_bounds__(pw::kRowsPerBlock * 32)
-add_ln_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ r,
-              const float* __restrict__ scale, const float* __restrict__ bias,
-              __nv_bfloat16* __restrict__ out, int m, int h, float eps) {
+add_ln_kernel(const T* __restrict__ x, const T* __restrict__ r, const float* __restrict__ scale,
+              const float* __restrict__ bias, T* __restrict__ out, int m, int h, float eps) {
   const int row = blockIdx.x * pw::kRowsPerBlock + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= m) return;
   const int nvec = h / 8;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * h);
-  const uint4* rr = reinterpret_cast<const uint4*>(r + (size_t)row * h);
+  const T* xr = x + (size_t)row * h;
+  const T* rr = r + (size_t)row * h;
   float v[VPT][8];
 #pragma unroll
   for (int j = 0; j < VPT; ++j) {
     const int vec = lane + 32 * j;
     if (vec < nvec) {
       float a[8], b[8];
-      pw::unpack8(xr[vec], a);
-      pw::unpack8(rr[vec], b);
+      pw::load8(xr + vec * 8, a);
+      pw::load8(rr + vec * 8, b);
 #pragma unroll
-      for (int k = 0; k < 8; ++k) v[j][k] = pw::round_bf16(a[k] + b[k]);
+      for (int k = 0; k < 8; ++k) v[j][k] = pw::round_to<T>(a[k] + b[k]);
     } else {
 #pragma unroll
       for (int k = 0; k < 8; ++k) v[j][k] = 0.0f;
@@ -53,31 +56,38 @@ add_ln_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restri
   pw::warp_layer_norm<VPT>(v, lane, nvec, h, scale, bias, eps, out + (size_t)row * h);
 }
 
-template <int VPT>
+template <int VPT, typename T>
 int launch(const void* x, const void* r, const void* scale, const void* bias, void* out, int m,
            int h, float eps, cudaStream_t stream) {
   const int blocks = (m + pw::kRowsPerBlock - 1) / pw::kRowsPerBlock;
-  add_ln_kernel<VPT><<<blocks, pw::kRowsPerBlock * 32, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(r),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), m, h, eps);
+  add_ln_kernel<VPT, T><<<blocks, pw::kRowsPerBlock * 32, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(r), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<T*>(out), m, h, eps);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_vpt(const void* x, const void* r, const void* scale, const void* bias, void* out,
+               int m, int h, float eps, cudaStream_t s) {
+  switch ((h / 8 + 31) / 32) {
+    case 1: return launch<1, T>(x, r, scale, bias, out, m, h, eps, s);
+    case 2: return launch<2, T>(x, r, scale, bias, out, m, h, eps, s);
+    case 3: return launch<3, T>(x, r, scale, bias, out, m, h, eps, s);
+    default: return launch<4, T>(x, r, scale, bias, out, m, h, eps, s);
+  }
 }
 
 }  // namespace
 
-// x, r, out: [m, h] bf16; scale, bias: [h] f32; h % 8 == 0, h <= 1024;
-// every pointer 16-byte aligned.  Returns a cudaError_t (0 on success).
+// x, r, out: [m, h] bf16 (f32 = 0) or f32 (f32 = 1); scale, bias: [h] f32;
+// h % 8 == 0, h <= 1024; every pointer 16-byte aligned.  Returns a
+// cudaError_t (0 on success).
 extern "C" int pw_add_layer_norm(const void* x, const void* r, const void* scale,
-                                 const void* bias, void* out, int m, int h, float eps,
+                                 const void* bias, void* out, int m, int h, float eps, int f32,
                                  void* stream) {
   if (m == 0) return 0;
   if (h % 8 != 0 || h <= 0 || h > 32 * 8 * pw::kMaxVpt) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((h / 8 + 31) / 32) {
-    case 1: return launch<1>(x, r, scale, bias, out, m, h, eps, s);
-    case 2: return launch<2>(x, r, scale, bias, out, m, h, eps, s);
-    case 3: return launch<3>(x, r, scale, bias, out, m, h, eps, s);
-    default: return launch<4>(x, r, scale, bias, out, m, h, eps, s);
-  }
+  if (f32) return launch_vpt<float>(x, r, scale, bias, out, m, h, eps, s);
+  return launch_vpt<__nv_bfloat16>(x, r, scale, bias, out, m, h, eps, s);
 }

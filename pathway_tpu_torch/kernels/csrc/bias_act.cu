@@ -1,4 +1,5 @@
-// K4: the dense layer's epilogue, in place: bias add plus activation (bf16).
+// K4: the dense layer's epilogue, in place: bias add plus activation (bf16,
+// or f32 for the f32 configs).
 //
 // Replaces: the bias add of every nn.Dense / nn.DenseGeneral(dtype=bf16)
 //   of EncoderBlock.__call__ and SelfAttention.__call__ in
@@ -7,6 +8,7 @@
 //   rounds the product to bf16, casts the f32 bias to bf16 and adds it
 //   (rounding again), then applies the activation to the rounded sum:
 //     out = bf16(act(bf16(y + bf16(bias)))).
+//   In f32 (Dense(dtype=f32)) every rounding is the identity.
 //   XLA fuses all of it into the product's epilogue on the TPU; eager
 //   torch runs a cast of the bias, a broadcast add and a separate GELU.
 //   With a position table (pos [P, N] f32, row r reading pos[r % P]) it
@@ -24,14 +26,13 @@
 // vision tower's M = 50,176, N = 768, P = 196, 154 MB, 46 us.
 //
 // What the design does about it: one pass over y, in place.  Each thread
-// handles vectors of 8 bf16 values (16-byte loads and stores) in a
-// grid-stride loop sized to fill every SM; the 8 bias values of a vector
-// come from two 16-byte loads that hit L1/L2 after the first row.  The
-// activation is a template parameter, so each variant is a straight line.
+// handles vectors of 8 values (one 16-byte load and store in bf16, two in
+// f32) in a grid-stride loop sized to fill every SM; the 8 bias values of
+// a vector come from two 16-byte loads that hit L1/L2 after the first row.
+// The element type and the activation are template parameters, so each
+// variant is a straight line.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "vec8.cuh"
 
 namespace {
 
@@ -54,50 +55,30 @@ __device__ __forceinline__ float activate(float x) {
   return x;
 }
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ void load8(const float4* p, float* f) {
-  const float4 a = __ldg(p);
-  const float4 b = __ldg(p + 1);
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-
-template <int ACT, bool POS>
+template <typename T, int ACT, bool POS>
 __global__ void __launch_bounds__(kThreads)
-bias_act_kernel(__nv_bfloat16* __restrict__ y, const float* __restrict__ bias,
-                const float* __restrict__ pos, uint32_t pos_rows, uint32_t nvec,
-                uint32_t row_vecs) {
-  uint4* yv = reinterpret_cast<uint4*>(y);
-  const float4* bv = reinterpret_cast<const float4*>(bias);
+bias_act_kernel(T* __restrict__ y, const float* __restrict__ bias, const float* __restrict__ pos,
+                uint32_t pos_rows, uint32_t nvec, uint32_t row_vecs) {
   for (uint32_t v = blockIdx.x * kThreads + threadIdx.x; v < nvec; v += gridDim.x * kThreads) {
     const uint32_t col = v % row_vecs;  // 8 consecutive columns of one row
-    uint4 raw = yv[v];
-    float b[8], p[8];
-    load8(bv + 2 * col, b);
+    float f[8], b[8], p[8];
+    pw::load8(y + (size_t)v * 8, f);
+    pw::load_f32x8(bias + col * 8, b);
     if (POS) {
       const size_t prow = (v / row_vecs) % pos_rows;
-      load8(reinterpret_cast<const float4*>(pos) + 2 * (prow * row_vecs + col), p);
+      pw::load_f32x8(pos + (prow * row_vecs + col) * 8, p);
     }
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      float s0 = round_bf16(f.x + round_bf16(b[2 * j]));
-      float s1 = round_bf16(f.y + round_bf16(b[2 * j + 1]));
-      if (POS) {
-        s0 = round_bf16(s0 + round_bf16(p[2 * j]));
-        s1 = round_bf16(s1 + round_bf16(p[2 * j + 1]));
-      }
-      h[j] = __floats2bfloat162_rn(activate<ACT>(s0), activate<ACT>(s1));
+    for (int j = 0; j < 8; ++j) {
+      float s = pw::round_to<T>(f[j] + pw::round_to<T>(b[j]));
+      if (POS) s = pw::round_to<T>(s + pw::round_to<T>(p[j]));
+      f[j] = activate<ACT>(s);
     }
-    yv[v] = raw;
+    pw::store8(y + (size_t)v * 8, f);
   }
 }
 
-template <int ACT, bool POS>
+template <typename T, int ACT, bool POS>
 int launch(void* y, const void* bias, const void* pos, uint32_t pos_rows, uint32_t nvec,
            uint32_t row_vecs, cudaStream_t stream) {
   static int max_blocks = 0;
@@ -109,32 +90,40 @@ int launch(void* y, const void* bias, const void* pos, uint32_t pos_rows, uint32
   }
   const uint32_t want = (nvec + kThreads - 1) / kThreads;
   const int blocks = want < (uint32_t)max_blocks ? (int)want : max_blocks;
-  bias_act_kernel<ACT, POS><<<blocks, kThreads, 0, stream>>>(
-      static_cast<__nv_bfloat16*>(y), static_cast<const float*>(bias),
-      static_cast<const float*>(pos), pos_rows, nvec, row_vecs);
+  bias_act_kernel<T, ACT, POS><<<blocks, kThreads, 0, stream>>>(
+      static_cast<T*>(y), static_cast<const float*>(bias), static_cast<const float*>(pos),
+      pos_rows, nvec, row_vecs);
   return (int)cudaGetLastError();
 }
 
-template <bool POS>
+template <typename T, bool POS>
 int launch_act(void* y, const void* bias, const void* pos, uint32_t pos_rows, uint32_t nvec,
                uint32_t row_vecs, int act, cudaStream_t s) {
   switch (act) {
-    case kNone: return launch<kNone, POS>(y, bias, pos, pos_rows, nvec, row_vecs, s);
-    case kGeluTanh: return launch<kGeluTanh, POS>(y, bias, pos, pos_rows, nvec, row_vecs, s);
-    case kGeluErf: return launch<kGeluErf, POS>(y, bias, pos, pos_rows, nvec, row_vecs, s);
-    case kTanh: return launch<kTanh, POS>(y, bias, pos, pos_rows, nvec, row_vecs, s);
+    case kNone: return launch<T, kNone, POS>(y, bias, pos, pos_rows, nvec, row_vecs, s);
+    case kGeluTanh: return launch<T, kGeluTanh, POS>(y, bias, pos, pos_rows, nvec, row_vecs, s);
+    case kGeluErf: return launch<T, kGeluErf, POS>(y, bias, pos, pos_rows, nvec, row_vecs, s);
+    case kTanh: return launch<T, kTanh, POS>(y, bias, pos, pos_rows, nvec, row_vecs, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+template <typename T>
+int launch_pos(void* y, const void* bias, const void* pos, int pos_rows, uint32_t nvec,
+               uint32_t row_vecs, int act, cudaStream_t s) {
+  if (pos != nullptr)
+    return launch_act<T, true>(y, bias, pos, (uint32_t)pos_rows, nvec, row_vecs, act, s);
+  return launch_act<T, false>(y, bias, nullptr, 1, nvec, row_vecs, act, s);
+}
+
 }  // namespace
 
-// y: [m, n] bf16, updated in place; bias: [n] f32; pos: null, or
-// [pos_rows, n] f32 added to row r as pos[r % pos_rows]; n % 8 == 0,
-// m * n / 8 < 2^31; all 16-byte aligned.  act: 0 none, 1 tanh GELU,
-// 2 erf GELU, 3 tanh.  Returns a cudaError_t (0 on success).
+// y: [m, n] bf16 (f32 = 0) or f32 (f32 = 1), updated in place; bias: [n]
+// f32; pos: null, or [pos_rows, n] f32 added to row r as pos[r % pos_rows];
+// n % 8 == 0, m * n / 8 < 2^31; all 16-byte aligned.  act: 0 none, 1 tanh
+// GELU, 2 erf GELU, 3 tanh.  Returns a cudaError_t (0 on success).
 extern "C" int pw_bias_act(void* y, const void* bias, const void* pos, int pos_rows,
-                           long long m, int n, int act, void* stream) {
+                           long long m, int n, int act, int f32, void* stream) {
   if (m == 0) return 0;
   if (n % 8 != 0 || n <= 0) return (int)cudaErrorInvalidValue;
   if (pos != nullptr && pos_rows <= 0) return (int)cudaErrorInvalidValue;
@@ -142,6 +131,6 @@ extern "C" int pw_bias_act(void* y, const void* bias, const void* pos, int pos_r
   if (nvec >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t nv = (uint32_t)nvec, rv = (uint32_t)(n / 8);
-  if (pos != nullptr) return launch_act<true>(y, bias, pos, (uint32_t)pos_rows, nv, rv, act, s);
-  return launch_act<false>(y, bias, nullptr, 1, nv, rv, act, s);
+  if (f32) return launch_pos<float>(y, bias, pos, pos_rows, nv, rv, act, s);
+  return launch_pos<__nv_bfloat16>(y, bias, pos, pos_rows, nv, rv, act, s);
 }

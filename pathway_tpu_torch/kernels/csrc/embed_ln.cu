@@ -1,10 +1,12 @@
-// K6: fused embedding gather + sum + LayerNorm (f32 tables in, bf16 out).
+// K6: fused embedding gather + sum + LayerNorm (f32 tables in, bf16 out,
+// or f32 out for the f32 configs).
 //
 // Replaces: Embeddings.__call__ in pathway_tpu/models/encoder.py:152-176,
-//   in flax's order: each table is cast to bf16 before its gather
-//   (nn.Embed(dtype=bf16)), e = bf16(word[id] + position[l]), then
-//   e = bf16(e + type[t]) when the config has a type vocabulary, then
-//   LayerNorm as in K5 with no residual.  Eager torch runs that as three
+//   in flax's order: each table is cast to the activation type T before
+//   its gather (nn.Embed(dtype=T)), e = T(word[id] + position[l]), then
+//   e = T(e + type[t]) when the config has a type vocabulary, then
+//   LayerNorm as in K5 with no residual.  In f32 the roundings are the
+//   identity.  Eager torch runs that as three
 //   gathers, three casts, two adds and the LayerNorm with its own casts.
 //
 // What bounds it on an H100: bytes.  It must read each distinct word row,
@@ -44,13 +46,13 @@ __device__ __forceinline__ int64_t wrap_index(int64_t i, int n) {
   return (i < 0 || i >= n) ? -1 : i;
 }
 
-template <int VPT>
+template <int VPT, typename T>
 __global__ void __launch_bounds__(pw::kRowsPerBlock * 32)
 embed_ln_kernel(const void* __restrict__ ids, int ids_kind, const void* __restrict__ types,
                 int types_kind, const float* __restrict__ word, int vocab,
                 const float* __restrict__ position, const float* __restrict__ type_table,
                 int n_types, const float* __restrict__ scale, const float* __restrict__ bias,
-                __nv_bfloat16* __restrict__ out, int rows, int seq_len, int h, float eps) {
+                T* __restrict__ out, int rows, int seq_len, int h, float eps) {
   const int row = blockIdx.x * pw::kRowsPerBlock + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
@@ -75,11 +77,11 @@ embed_ln_kernel(const void* __restrict__ ids, int ids_kind, const void* __restri
       pw::load_f32x8(p + vec * 8, b);
 #pragma unroll
       for (int k = 0; k < 8; ++k)
-        v[j][k] = pw::round_bf16(pw::round_bf16(a[k]) + pw::round_bf16(b[k]));
+        v[j][k] = pw::round_to<T>(pw::round_to<T>(a[k]) + pw::round_to<T>(b[k]));
       if (t != nullptr) {
         pw::load_f32x8(t + vec * 8, a);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) v[j][k] = pw::round_bf16(v[j][k] + pw::round_bf16(a[k]));
+        for (int k = 0; k < 8; ++k) v[j][k] = pw::round_to<T>(v[j][k] + pw::round_to<T>(a[k]));
       }
     } else {
 #pragma unroll
@@ -95,40 +97,45 @@ embed_ln_kernel(const void* __restrict__ ids, int ids_kind, const void* __restri
   pw::warp_layer_norm<VPT>(v, lane, nvec, h, scale, bias, eps, out + (size_t)row * h);
 }
 
-template <int VPT>
+template <int VPT, typename T>
 int launch(const void* ids, int ids_kind, const void* types, int types_kind, const void* word,
            int vocab, const void* position, const void* type_table, int n_types,
            const void* scale, const void* bias, void* out, int rows, int seq_len, int h,
            float eps, cudaStream_t stream) {
   const int blocks = (rows + pw::kRowsPerBlock - 1) / pw::kRowsPerBlock;
-  embed_ln_kernel<VPT><<<blocks, pw::kRowsPerBlock * 32, 0, stream>>>(
+  embed_ln_kernel<VPT, T><<<blocks, pw::kRowsPerBlock * 32, 0, stream>>>(
       ids, ids_kind, types, types_kind, static_cast<const float*>(word), vocab,
       static_cast<const float*>(position), static_cast<const float*>(type_table), n_types,
       static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), rows, seq_len, h, eps);
+      static_cast<T*>(out), rows, seq_len, h, eps);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // ids, types: [b, l] of the given kinds (types may be null: all zero);
-// word [vocab, h], position [>= l, h], type_table [n_types, h] (null when
-// the config has no type vocabulary), scale, bias [h]: f32.
-// out: [b, l, h] bf16.  h % 8 == 0, h <= 1024; tables 16-byte aligned.
-// Returns a cudaError_t (0 on success).
+// word [vocab, h], position [>= l, h] (row p is read for token position p:
+// a block of a longer sequence passes the table from its first position
+// on), type_table [n_types, h] (null when the config has no type
+// vocabulary), scale, bias [h]: f32.  out: [b, l, h] bf16 (f32 = 0) or f32
+// (f32 = 1).  h % 8 == 0, h <= 1024; tables 16-byte aligned.  Returns a
+// cudaError_t (0 on success).
 extern "C" int pw_embed_ln(const void* ids, int ids_kind, const void* types, int types_kind,
                            const void* word, int vocab, const void* position,
                            const void* type_table, int n_types, const void* scale,
-                           const void* bias, void* out, int b, int l, int h, float eps,
+                           const void* bias, void* out, int b, int l, int h, float eps, int f32,
                            void* stream) {
   const int rows = b * l;
   if (rows == 0) return 0;
   if (h % 8 != 0 || h <= 0 || h > 32 * 8 * pw::kMaxVpt) return (int)cudaErrorInvalidValue;
   if (types == nullptr) types_kind = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PW_EMBED_LN(V)                                                                    \
-  return launch<V>(ids, ids_kind, types, types_kind, word, vocab, position, type_table, \
-                   n_types, scale, bias, out, rows, l, h, eps, s)
+#define PW_EMBED_LN(V)                                                                       \
+  return f32 ? launch<V, float>(ids, ids_kind, types, types_kind, word, vocab, position,    \
+                                type_table, n_types, scale, bias, out, rows, l, h, eps, s)   \
+             : launch<V, __nv_bfloat16>(ids, ids_kind, types, types_kind, word, vocab,      \
+                                        position, type_table, n_types, scale, bias, out,    \
+                                        rows, l, h, eps, s)
   switch ((h / 8 + 31) / 32) {
     case 1: PW_EMBED_LN(1);
     case 2: PW_EMBED_LN(2);

@@ -10,11 +10,15 @@ through LayerNorm as in K5.  Word and type ids out of range give flax
 embedding row, so a NaN output row.
 
 :func:`embed_ln` returns ``[B, L, H]`` in ``dtype``.  For CUDA tensors it
-launches the kernel (bf16 output; ids as int16, int32 or int64 and type
-ids as uint8 or an int type, read as uploaded; f32 tables) and raises on
-anything else; for CPU tensors it runs :func:`embed_ln_plain`.
-``type_ids=None`` means zeros; ``type_table=None`` means the config has
-no type vocabulary.
+launches the kernel (bf16 or f32 output; ids as int16, int32 or int64 and
+type ids as uint8 or an int type, read as uploaded; f32 tables) and
+raises on anything else (:func:`check_embed_ln` says what it takes); for
+CPU tensors it runs :func:`embed_ln_plain`.  ``type_ids=None`` means
+zeros; ``type_table=None`` means the config has no type vocabulary.
+Token ``l`` reads ``position[l]``: a block of a longer sequence that
+starts at position ``s`` passes the view ``position[s:]``, which keeps
+the kernel's 16-byte alignment (a row is ``H * 4`` bytes, ``H`` a
+multiple of 8).
 """
 
 from __future__ import annotations
@@ -24,9 +28,9 @@ import torch.nn.functional as F
 
 from pathway_tpu_torch.kernels import _build
 from pathway_tpu_torch.kernels._launch import check_cuda, launch
-from pathway_tpu_torch.kernels.add_layer_norm import check_norm_params, layer_norm_plain
+from pathway_tpu_torch.kernels.add_layer_norm import DTYPES, check_norm_params, layer_norm_plain
 
-__all__ = ["embed_ln", "embed_ln_plain"]
+__all__ = ["embed_ln", "embed_ln_plain", "check_embed_ln"]
 
 #: index dtype -> the kernel's code for it
 _INDEX_KINDS = {torch.uint8: 1, torch.int16: 2, torch.int32: 3, torch.int64: 4}
@@ -56,6 +60,33 @@ def embed_ln_plain(
     return layer_norm_plain(emb, scale, bias, eps)
 
 
+def check_embed_ln(
+    ids: torch.Tensor, type_ids: torch.Tensor | None, word: torch.Tensor,
+    position: torch.Tensor, type_table: torch.Tensor | None, scale: torch.Tensor,
+    bias: torch.Tensor, dtype: torch.dtype,
+) -> None:
+    """Raise ``ValueError`` unless the kernel takes these arguments; reads
+    shapes, types and alignment only, on any device."""
+    if ids.dim() != 2:
+        raise ValueError(f"embed_ln: ids must be [B, L], got {tuple(ids.shape)}")
+    L = ids.shape[1]
+    h = word.shape[-1]
+    if dtype not in DTYPES:
+        raise ValueError(f"embed_ln: the kernel writes bf16 or f32, asked for {dtype}")
+    if ids.dtype not in _INDEX_KINDS or ids.dtype == torch.uint8:
+        raise ValueError(f"embed_ln: ids must be int16, int32 or int64, got {ids.dtype}")
+    if type_ids is not None and (type_ids.shape != ids.shape or type_ids.dtype not in _INDEX_KINDS):
+        raise ValueError(f"embed_ln: type_ids {tuple(type_ids.shape)} {type_ids.dtype}")
+    for name, t in (("word", word), ("position", position), ("type_table", type_table)):
+        if t is None:
+            continue
+        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != h or t.data_ptr() % 16:
+            raise ValueError(f"embed_ln: {name} must be a 16-byte aligned f32 [n, {h}] table")
+    if position.shape[0] < L:
+        raise ValueError(f"embed_ln: sequence length {L} > {position.shape[0]} positions")
+    check_norm_params("embed_ln", h, scale, bias)
+
+
 def embed_ln(
     ids: torch.Tensor, type_ids: torch.Tensor | None, word: torch.Tensor,
     position: torch.Tensor, type_table: torch.Tensor | None, scale: torch.Tensor,
@@ -71,24 +102,9 @@ def embed_ln(
     if type_ids is not None:
         tables["type_ids"] = type_ids
     device = check_cuda("embed_ln", ids=ids, **tables)
-    if ids.dim() != 2:
-        raise ValueError(f"embed_ln: ids must be [B, L], got {tuple(ids.shape)}")
+    check_embed_ln(ids, type_ids, word, position, type_table, scale, bias, dtype)
     B, L = ids.shape
     h = word.shape[-1]
-    if dtype != torch.bfloat16:
-        raise ValueError(f"embed_ln: the kernel writes bf16, asked for {dtype}")
-    if ids.dtype not in _INDEX_KINDS or ids.dtype == torch.uint8:
-        raise ValueError(f"embed_ln: ids must be int16, int32 or int64, got {ids.dtype}")
-    if type_ids is not None and (type_ids.shape != ids.shape or type_ids.dtype not in _INDEX_KINDS):
-        raise ValueError(f"embed_ln: type_ids {tuple(type_ids.shape)} {type_ids.dtype}")
-    for name, t in (("word", word), ("position", position), ("type_table", type_table)):
-        if t is None:
-            continue
-        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != h or t.data_ptr() % 16:
-            raise ValueError(f"embed_ln: {name} must be a 16-byte aligned f32 [n, {h}] table")
-    if position.shape[0] < L:
-        raise ValueError(f"embed_ln: sequence length {L} > {position.shape[0]} positions")
-    check_norm_params("embed_ln", h, scale, bias)
     out = torch.empty((B, L, h), dtype=dtype, device=device)
     if B * L == 0:
         return out
@@ -101,6 +117,7 @@ def embed_ln(
         None if type_table is None else type_table.data_ptr(),
         0 if type_table is None else type_table.shape[0],
         scale.data_ptr(), bias.data_ptr(), out.data_ptr(), B, L, h, float(eps),
+        int(dtype == torch.float32),
     )
     embed_ln.launches += 1
     return out

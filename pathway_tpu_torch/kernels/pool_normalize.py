@@ -8,8 +8,9 @@ hidden type (a masked mean is taken in f32 and rounded back), then, when
 ``normalize`` is set, ``p / max(||p||, 1e-12)`` in f32.
 
 :func:`pool_normalize` returns ``[B, H]`` f32.  For CUDA tensors it
-launches the kernel (bf16 ``x``, uint8 ``mask``, even H up to 2048) and
-raises on anything else; for CPU tensors it runs :func:`pool_normalize_plain`.
+launches the kernel (bf16 or f32 ``x``, uint8 ``mask``, even H up to
+2048) and raises on anything else (:func:`check_pool_normalize` says what
+it takes); for CPU tensors it runs :func:`pool_normalize_plain`.
 """
 
 from __future__ import annotations
@@ -20,9 +21,11 @@ from pathway_tpu_torch.kernels import _build
 from pathway_tpu_torch.kernels._launch import check_cuda, launch
 from pathway_tpu_torch.ops.pooling import cls_pool, masked_mean_pool
 
-__all__ = ["pool_normalize", "pool_normalize_plain", "POOLS", "NORM_EPS"]
+__all__ = ["pool_normalize", "pool_normalize_plain", "check_pool_normalize", "POOLS", "NORM_EPS"]
 
 POOLS = ("mean", "cls")
+#: the hidden types the kernel takes
+DTYPES = (torch.bfloat16, torch.float32)
 NORM_EPS = 1e-12
 MAX_HIDDEN = 2048
 
@@ -39,6 +42,21 @@ def pool_normalize_plain(
     return pooled
 
 
+def check_pool_normalize(x: torch.Tensor, mask: torch.Tensor, pool: str) -> None:
+    """Raise ``ValueError`` unless the kernel takes these arguments; reads
+    shapes and types only, on any device."""
+    if pool not in POOLS:
+        raise ValueError(f"pool_normalize: pool {pool!r} not in {POOLS}")
+    if x.dim() != 3 or mask.shape != x.shape[:2]:
+        raise ValueError(f"pool_normalize: x {tuple(x.shape)}, mask {tuple(mask.shape)}")
+    L, h = x.shape[1:]
+    if x.dtype not in DTYPES or mask.dtype != torch.uint8:
+        raise ValueError(f"pool_normalize: the kernel takes bf16 or f32 x and uint8 mask, "
+                         f"got {x.dtype}, {mask.dtype}")
+    if h % 2 or not 0 < h <= MAX_HIDDEN or L == 0:
+        raise ValueError(f"pool_normalize: hidden {h} must be even and at most {MAX_HIDDEN}, L > 0")
+
+
 def pool_normalize(
     x: torch.Tensor, mask: torch.Tensor, pool: str = "mean", normalize: bool = True
 ) -> torch.Tensor:
@@ -47,22 +65,15 @@ def pool_normalize(
     if x.device.type == "cpu":
         return pool_normalize_plain(x, mask, pool, normalize)
     device = check_cuda("pool_normalize", x=x, mask=mask)
-    if pool not in POOLS:
-        raise ValueError(f"pool_normalize: pool {pool!r} not in {POOLS}")
-    if x.dim() != 3 or mask.shape != x.shape[:2]:
-        raise ValueError(f"pool_normalize: x {tuple(x.shape)}, mask {tuple(mask.shape)}")
+    check_pool_normalize(x, mask, pool)
     B, L, h = x.shape
-    if x.dtype != torch.bfloat16 or mask.dtype != torch.uint8:
-        raise ValueError(f"pool_normalize: the kernel takes bf16 x and uint8 mask, got {x.dtype}, {mask.dtype}")
-    if h % 2 or not 0 < h <= MAX_HIDDEN or L == 0:
-        raise ValueError(f"pool_normalize: hidden {h} must be even and at most {MAX_HIDDEN}, L > 0")
     out = torch.empty((B, h), dtype=torch.float32, device=device)
     if B == 0:
         return out
     launch(
         "pool_normalize", _build.library("pool_normalize").pw_pool_normalize, device,
         x.data_ptr(), mask.data_ptr(), out.data_ptr(), B, L, h,
-        int(pool == "cls"), int(bool(normalize)),
+        int(pool == "cls"), int(bool(normalize)), int(x.dtype == torch.float32),
     )
     pool_normalize.launches += 1
     return out

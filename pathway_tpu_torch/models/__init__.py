@@ -23,6 +23,7 @@ from pathway_tpu_torch.models.encoder import (
     CrossEncoderModel,
     EncoderConfig,
     TextEncoderModel,
+    encoder_param_specs,
 )
 from pathway_tpu_torch.models.tokenizer import HashTokenizer, HFTokenizer, Tokenizer, get_tokenizer
 from pathway_tpu_torch.models.vision import (
@@ -37,6 +38,7 @@ __all__ = [
     "EncoderConfig",
     "TextEncoderModel",
     "CrossEncoderModel",
+    "encoder_param_specs",
     "VisionConfig",
     "VisionEncoderModel",
     "DualEncoderModel",

@@ -17,19 +17,31 @@ cross-encoder.
 
 ``checkpoint_dir=`` loads a local HuggingFace checkpoint directory
 (config, weights, WordPiece vocabulary) as the JAX executor does
-(``pathway_tpu/parallel/executor.py:69-100``).  ``mesh=`` runs data
-parallel over the mesh's ``data_axis`` (``:115-197``): one replica of
-the model per distinct device along it, each batch padded to a multiple
-of the data-parallel degree and cut into that many equal parts, each
-part's forward enqueued on its device before any result is read, and the
-parts' outputs gathered in order on the mesh's first device.  The mesh is
-driven from this one process (see :mod:`~pathway_tpu_torch.parallel.mesh`);
-tensor and sequence parallelism raise (ROADMAP A9b).
+(``pathway_tpu/parallel/executor.py:69-100``).  ``mesh=`` spreads the
+model over the mesh as the JAX executor shards it (``:102-197``), by
+:func:`~pathway_tpu_torch.parallel.mesh.encoder_grids`:
+
+- data parallel over ``data_axis``: one replica of the model per
+  distinct device group along it, each batch padded to a multiple of the
+  data-parallel degree and cut into that many equal parts, each part's
+  forward enqueued before any result is read, and the parts' outputs
+  gathered in order on the mesh's first device;
+- tensor parallel over ``model_axis``: each replica is a group of the
+  devices along it, each holding its shard of the heads and MLP width,
+  cut once from the full weights by
+  :func:`~pathway_tpu_torch.models.encoder_param_specs`; the full
+  weights stay in host memory;
+- sequence parallel over ``sequence_axis`` (the long-document path):
+  every batch is padded to the full ``max_len`` and cut along the
+  sequence over the axis's devices, and attention is ring attention
+  (K14); the batch is then not split.
+
+The mesh is driven from this one process (see
+:mod:`~pathway_tpu_torch.parallel.mesh`).
 """
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 import os
 from collections import deque
@@ -45,7 +57,7 @@ from pathway_tpu_torch.models.encoder import CrossEncoderModel, EncoderConfig, T
 from pathway_tpu_torch.models.tokenizer import Tokenizer, get_tokenizer
 from pathway_tpu_torch.models.wordpiece import WordPieceTokenizer
 from pathway_tpu_torch.ops.bucketing import bucket_size
-from pathway_tpu_torch.parallel.mesh import Mesh, data_devices
+from pathway_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh, encoder_grids
 
 __all__ = ["TorchEncoder"]
 
@@ -62,8 +74,10 @@ class TorchEncoder:
     ``config.json`` gives the config (an explicit ``config`` overrides only
     its pooling and activation type); without either the weights are a
     seeded random init.  With ``mesh`` the devices come from the mesh and
-    ``device`` is not read; a mesh axis besides ``data_axis`` larger than
-    1, or a ``sequence_axis``, raises ``NotImplementedError`` (ROADMAP A9b).
+    ``device`` is not read; ``sequence_axis`` needs a mesh with that axis
+    and a ``max_len`` that divides by its size; a mesh axis larger than 1
+    besides ``data_axis``, ``model_axis`` and ``sequence_axis`` raises
+    ``NotImplementedError``.
     """
 
     def __init__(
@@ -75,6 +89,7 @@ class TorchEncoder:
         model_name: str | None = None,
         mesh: Mesh | None = None,
         data_axis: str = "data",
+        model_axis: str = MODEL_AXIS,
         max_batch: int = 1024,
         max_len: int | None = None,
         seed: int = 0,
@@ -84,18 +99,19 @@ class TorchEncoder:
         sequence_axis: str | None = None,
         device: str | torch.device = "cuda",
     ):
-        if sequence_axis is not None:
-            raise NotImplementedError(
-                "sequence parallelism (ring attention) comes with ROADMAP A9b"
-            )
-        # the data-parallel devices, one part of every batch each (repeats allowed)
-        self._dp_devices = (
-            [resolve_device(device)] if mesh is None else data_devices(mesh, data_axis, "TorchEncoder")
+        if sequence_axis is not None and (mesh is None or sequence_axis not in mesh.shape):
+            raise ValueError("sequence_axis requires a mesh containing that axis")
+        # the device grid of each data-parallel replica (repeats allowed)
+        self._grids = (
+            [[[resolve_device(device)]]] if mesh is None
+            else encoder_grids(mesh, data_axis, sequence_axis, model_axis)
         )
         self.mesh = mesh
         self.data_axis = data_axis
-        self.device = self._dp_devices[0]
-        self._dp = len(self._dp_devices)
+        self.model_axis = model_axis
+        self.sequence_axis = sequence_axis
+        self.device = self._grids[0][0][0]
+        self._dp = len(self._grids)
         state = None
         if checkpoint_dir is not None:
             if params is not None:
@@ -120,22 +136,36 @@ class TorchEncoder:
             raise ValueError("config is required without checkpoint_dir")
         elif params is not None:
             state = _convert.state_dict_from_flax(params, config, cross=cross)
+        if sequence_axis is not None:
+            config = dataclasses.replace(config, seq_mesh=mesh, seq_axis=sequence_axis)
         self.config = config
         self.cross = cross
         self.max_batch = max_batch
         self.max_len = max_len or config.max_len
+        if sequence_axis is not None and self.max_len % mesh.shape[sequence_axis]:
+            raise ValueError(
+                f"max_len {self.max_len} must divide by the {sequence_axis!r} axis size "
+                f"{mesh.shape[sequence_axis]}"
+            )
         self.pipeline_depth = max(1, pipeline_depth)
         self.tokenizer = tokenizer or get_tokenizer(model_name, config.vocab_size)
         model_cls = CrossEncoderModel if cross else TextEncoderModel
-        self.model = model_cls(config, device=self.device, seed=seed)
-        if state is not None:
-            self.model.load_state_dict(state)
-        self.model.eval()
-        # one replica per distinct device, its weights copied from the first
-        self._replicas = {self.device: self.model}
-        for dev in self._dp_devices:
-            if dev not in self._replicas:
-                self._replicas[dev] = copy.deepcopy(self.model).to(dev)
+        # cut into model shards, the full weights stay in host memory: each
+        # device holds only its shards
+        home = torch.device("cpu") if len(self._grids[0][0]) > 1 else None
+        # one replica per distinct device grid, its weights those of the first
+        replicas: dict = {}
+        for grid in self._grids:
+            key = tuple(map(tuple, grid))
+            if key not in replicas:
+                first = next(iter(replicas.values()), None)
+                model = model_cls(config, device=home or grid[0][0], seed=seed if first is None else None,
+                                  grid=grid)
+                if first is not None or state is not None:
+                    model.load_state_dict(state if first is None else first.state_dict())
+                replicas[key] = model.eval()
+        self._replicas = [replicas[tuple(map(tuple, grid))] for grid in self._grids]
+        self.model = self._replicas[0]
         # ids upload as int16 when the vocab permits (mask/type as uint8)
         self._narrow_ids = config.vocab_size < 2**15
 
@@ -156,10 +186,14 @@ class TorchEncoder:
         return ids, mask, tps, n
 
     def _upload_parts(self, ids: np.ndarray, mask: np.ndarray, tps: np.ndarray):
-        """Pad one tokenized chunk, narrow its types and start its upload,
-        one equal part of its rows to each data-parallel device; returns
-        ([[ids, mask, type_ids] per part], n real rows)."""
+        """Pad one tokenized chunk (to the full ``max_len`` when the
+        sequence is split), narrow its types and start its upload, one
+        equal part of its rows to each data-parallel replica's first
+        device; returns ([[ids, mask, type_ids] per part], n real rows)."""
         ids, mask, tps, n = self._pad_batch(ids, mask, tps)
+        if self.sequence_axis is not None and ids.shape[1] < self.max_len:
+            pad = ((0, 0), (0, self.max_len - ids.shape[1]))
+            ids, mask, tps = (np.pad(a, pad) for a in (ids, mask, tps))
         if self._narrow_ids:
             ids = ids.astype(np.int16, copy=False)
             mask = mask.astype(np.uint8, copy=False)
@@ -168,8 +202,8 @@ class TorchEncoder:
         arrays = (ids, mask, tps)
         m = ids.shape[0] // self._dp
         return [
-            [upload(a[i * m : (i + 1) * m], dev) for a in arrays]
-            for i, dev in enumerate(self._dp_devices)
+            [upload(a[i * m : (i + 1) * m], grid[0][0]) for a in arrays]
+            for i, grid in enumerate(self._grids)
         ], n
 
     def _dispatch(self, ids: np.ndarray, mask: np.ndarray, tps: np.ndarray):
@@ -178,7 +212,7 @@ class TorchEncoder:
         [b] f32, n real rows) without waiting."""
         parts, n = self._upload_parts(ids, mask, tps)
         with torch.inference_mode():
-            outs = [self._replicas[dev](*args) for dev, args in zip(self._dp_devices, parts)]
+            outs = [model(*args) for model, args in zip(self._replicas, parts)]
             out = outs[0] if len(outs) == 1 else torch.cat([o.to(self.device) for o in outs])
         return out, n
 

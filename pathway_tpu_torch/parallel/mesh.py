@@ -4,7 +4,9 @@ Conventions, as in the JAX package:
 
 - axis ``"data"``: batch and corpus sharding (data parallelism and index
   shards);
-- axis ``"model"``: tensor parallelism inside encoders (ROADMAP A9b).
+- axis ``"model"``: tensor parallelism inside encoders;
+- an encoder's ``sequence_axis`` (often ``"data"``): sequence
+  parallelism, ring attention over the sequence blocks.
 
 The JAX package is single-controller: one ``jax.sharding.Mesh`` over
 ``jax.devices()``, driven by one Python caller.  The port keeps that
@@ -31,7 +33,13 @@ import torch
 
 from pathway_tpu_torch._device import resolve_device
 
-__all__ = ["Mesh", "make_mesh", "best_mesh", "mesh_axis_size", "data_devices"]
+__all__ = [
+    "Mesh", "make_mesh", "best_mesh", "mesh_axis_size", "data_devices", "encoder_grids",
+    "MODEL_AXIS",
+]
+
+#: the axis tensor parallelism splits heads and MLP width over
+MODEL_AXIS = "model"
 
 
 class Mesh:
@@ -99,17 +107,37 @@ def mesh_axis_size(mesh: Mesh | None, axis: str) -> int:
     return mesh.shape[axis]
 
 
+def encoder_grids(
+    mesh: Mesh, data_axis: str = "data", sequence_axis: str | None = None,
+    model_axis: str = MODEL_AXIS, user: str = "TorchEncoder",
+) -> list[list[list[torch.device]]]:
+    """The device grids an encoder runs on, one per data-parallel replica:
+    row ``b`` of a grid runs block ``b`` of the sequence (the devices
+    along ``sequence_axis``; one row without it), column ``j`` model shard
+    ``j`` (along ``model_axis``).  With a sequence axis the batch is not
+    split (the JAX executor then shards only the sequence): one grid.
+    Without, one grid per device along ``data_axis``.  An axis the mesh
+    lacks has size 1; any other axis larger than 1 raises."""
+    if sequence_axis is not None and sequence_axis == model_axis:
+        raise ValueError(f"{user}: sequence axis {sequence_axis!r} is the model axis")
+    used = {data_axis, model_axis} | ({sequence_axis} if sequence_axis else set())
+    wide = {a: n for a, n in mesh.shape.items() if a not in used and n > 1}
+    if wide:
+        raise NotImplementedError(f"{user}: mesh axes {wide} besides {sorted(used)}")
+    n_data = 1 if sequence_axis else mesh.shape.get(data_axis, 1)
+    n_seq = mesh.shape.get(sequence_axis, 1) if sequence_axis else 1
+    n_tp = mesh.shape.get(model_axis, 1)
+
+    def at(r: int, b: int, j: int) -> torch.device:
+        pos = {sequence_axis: b, model_axis: j} if sequence_axis else {data_axis: r, model_axis: j}
+        return mesh.devices[tuple(pos.get(a, 0) for a in mesh.axis_names)]
+
+    return [[[at(r, b, j) for j in range(n_tp)] for b in range(n_seq)] for r in range(n_data)]
+
+
 def data_devices(mesh: Mesh, data_axis: str, user: str) -> list[torch.device]:
     """The devices ``user`` spreads its data over: those along
-    ``data_axis`` (the first device when the mesh lacks that axis).  Any
-    other axis larger than 1 raises: tensor and sequence parallelism are
-    ROADMAP A9b."""
-    wide = {a: n for a, n in mesh.shape.items() if a != data_axis and n > 1}
-    if wide:
-        raise NotImplementedError(
-            f"{user}: mesh axes {wide} besides {data_axis!r}: tensor and sequence "
-            "parallelism come with ROADMAP A9b"
-        )
-    if data_axis not in mesh.shape:
-        return [mesh.devices.reshape(-1)[0]]
-    return mesh.devices_along(data_axis)
+    ``data_axis`` at index 0 of the ``"model"`` axis (data are replicated
+    over the model shards); the first device when the mesh lacks
+    ``data_axis``.  Any other axis larger than 1 raises."""
+    return [grid[0][0] for grid in encoder_grids(mesh, data_axis, user=user)]

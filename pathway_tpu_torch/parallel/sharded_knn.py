@@ -41,7 +41,9 @@ changes ``shard_rows``, so rows move between shards: they are copied
 device to device, where the JAX index round-trips the slab through the
 host.  ``state_dict`` holds the global arrays, as the JAX one does, so
 states cross between sharded and unsharded indexes of both packages.
-A mesh axis besides ``data_axis`` larger than 1 raises (ROADMAP A9b).
+A ``"model"`` axis replicates the slab over the model shards, as the JAX
+index's ``P(data_axis, None)`` does; any other axis besides ``data_axis``
+larger than 1 raises.
 """
 
 from __future__ import annotations

@@ -166,8 +166,10 @@ def test_rejects_bad_shapes_and_metric():
         idx.add_batch(["a"], np.zeros((1, DIM + 1), np.float32))
     with pytest.raises(ValueError):
         idx.add_batch_device(["a", "b"], torch.zeros((1, DIM)))
-    with pytest.raises(NotImplementedError, match="A9b"):
-        ShardedKnnIndex(DIM, mesh=make_mesh({"data": 4, "model": 2}, ["cpu"] * 8))
+    # a "model" axis replicates the slab, as the JAX index does; other axes raise
+    assert ShardedKnnIndex(DIM, mesh=make_mesh({"data": 4, "model": 2}, ["cpu"] * 8)).shards == 4
+    with pytest.raises(NotImplementedError, match="besides"):
+        ShardedKnnIndex(DIM, mesh=make_mesh({"data": 4, "x": 2}, ["cpu"] * 8))
 
 
 def test_scatter_plain_normalizes_with_ingest_eps_and_drops_pads():

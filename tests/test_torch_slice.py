@@ -132,13 +132,16 @@ def test_embedder_presets_and_alias():
 @pytest.mark.parametrize(
     "kwargs,error",
     [pytest.param({"cross": True, "checkpoint_dir": "/nonexistent"}, FileNotFoundError, id="kwargs0-A3"),
-     pytest.param({"mesh": make_mesh({"data": 4, "model": 2}, ["cpu"] * 8)}, "A9b", id="kwargs1-A9"),
-     pytest.param({"sequence_axis": "data"}, "A9b", id="kwargs2-A9"),
+     pytest.param({"mesh": make_mesh({"data": 2, "x": 4}, ["cpu"] * 8)}, "besides", id="kwargs1-A9"),
+     pytest.param({"sequence_axis": "data"}, ValueError, id="kwargs2-A9"),
      pytest.param({"checkpoint_dir": "/nonexistent"}, FileNotFoundError, id="kwargs3-A3")],
 )
 def test_unported_executor_options_name_their_roadmap_item(kwargs, error):
-    """Tensor and sequence parallelism raise naming ROADMAP A9b; a missing
-    checkpoint directory raises as the JAX executor does."""
+    """A mesh axis the encoder does not spread over ("data", "model" and a
+    sequence axis are ported; ``tests/test_torch_tp.py`` and
+    ``tests/test_torch_ring.py`` run them) raises naming the axes it
+    knows; a missing checkpoint directory, and a sequence axis without a
+    mesh, raise as the JAX executor does."""
     cfg = port_config(graft._flagship_config(tiny=True))
     if isinstance(error, str):
         with pytest.raises(NotImplementedError, match=error):
