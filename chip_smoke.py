@@ -20,7 +20,16 @@ Phases, each fatal on failure:
    path's BGE-base shapes (K6 also at a position offset); K14, one ring
    step, in bf16 and f32 at B=8, 2,048 keys, 12 heads of 64 (a middle
    step from a carried state and a finishing step, with a row that has
-   no valid key), timed beside SDPA over the whole 8,192-token sequence;
+   no valid key), timed beside SDPA over the whole 8,192-token sequence.
+   K1 also, in bf16 and f32, at B=256 L=512 with masks with holes
+   (present key tiles between fully masked ones) and rows with no present
+   key, whose output must be the uniform average of v, and at L=196 with
+   head dims 16 and 32; the share of key tiles K1 walks at each timed
+   shape goes on a line.  K13 also on an all-equal row and an ascending
+   row (both timed), a row whose chosen bin overflows its candidate
+   buffer, rows with fewer live entries than k, signed zeros and k = n,
+   each equal to its plain version bit for bit (values and ids), as every
+   K13 case must be;
 3. the live-RAG embed path at BGE-base full width (768 hidden, 12
    layers, 12 heads, MLP 3072, bf16, seeded random weights): a
    1,048,576-slot cosine index bulk-filled with seeded random vectors,
@@ -323,6 +332,51 @@ def compare_topk(kv, ki, pv, pi, tol: float) -> float:
     return err
 
 
+def holes_mask(torch, g, dev, B: int, L: int):
+    """[B, L] uint8 key masks with holes: each 64-key tile of a row is
+    present with probability 0.4, as a run of 1-64 keys, so present tiles
+    sit between fully masked ones.  Row 0 keeps every key, row 1 none (K1
+    must give it the uniform average of v, walking every tile), row 3 only
+    its last key."""
+    n_tiles = -(-L // 64)
+    pos = torch.arange(64, device=dev)[None]
+    tiles = []
+    for _ in range(n_tiles):
+        start = torch.randint(0, 64, (B, 1), generator=g, device=dev)
+        length = torch.randint(1, 65, (B, 1), generator=g, device=dev)
+        keep = torch.rand((B, 1), generator=g, device=dev) < 0.4
+        tiles.append((pos >= start) & (pos < start + length) & keep)
+    mask = torch.cat(tiles, dim=1)[:, :L].to(torch.uint8).contiguous()
+    mask[0] = 1
+    mask[1] = 0
+    mask[3:4] = 0
+    mask[3:4, L - 1] = 1
+    return mask
+
+
+def check_attention_case(torch, label: str, v, mask, got, ref, atol: float, rtol: float) -> float:
+    """K1's output ``got`` against its plain version ``ref``: finite and
+    within atol + rtol |ref| everywhere, and every batch row with no present
+    key the uniform average of its v over all L keys, to the same
+    tolerance.  Returns the largest difference from ``ref``."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    if not bool(torch.isfinite(got).all()) or bool((err > atol + rtol * ref.abs()).any()):
+        fail(f"attention {label}: max err {err.max().item()}")
+    empty = (mask.sum(dim=1) == 0).nonzero().flatten().tolist()
+    err_u = 0.0
+    for b in empty:
+        mean = v[b].float().mean(dim=0)[None].expand_as(got[b])
+        eu = (got[b] - mean).abs()
+        if bool((eu > atol + rtol * mean.abs()).any()):
+            fail(f"attention {label}: batch row {b} has no present key, but its output is "
+                 f"{eu.max().item()} from the uniform average of v")
+        err_u = max(err_u, eu.max().item())
+    log(f"K1 attention {label}: max_abs_err {err.max().item():.3e}; rows with no present key "
+        f"{empty[:8]}{'...' if len(empty) > 8 else ''} within {err_u:.3e} of the mean of v")
+    return err.max().item()
+
+
 def phase_kernels(torch, dev) -> dict:
     """Phase 2: each kernel against its plain version; returns the
     measurements per kernel."""
@@ -341,6 +395,7 @@ def phase_kernels(torch, dev) -> dict:
         topk_select,
         topk_select_plain,
     )
+    from pathway_tpu_torch.kernels.attention import walked_key_tiles
     from pathway_tpu_torch.kernels.knn_topk import TILED_MIN_QUERIES
     from pathway_tpu_torch.kernels.knn_topk import _launch as knn_launch
     from pathway_tpu_torch.ops.topk import NEG_INF
@@ -393,8 +448,25 @@ def phase_kernels(torch, dev) -> dict:
     widths.add(N_PATCH)
     log(f"K1 attention B={IMAGE_BATCH} L={N_PATCH} H=12 D=64, all keys: max_abs_err {err.max().item():.3e}")
     del q, k, v, mask, got, ref, err
+    # masks with holes at the rerank shape (present key tiles between fully
+    # masked ones; rows with no present key among partial rows), and the
+    # image path's L at head dims 16 and 32, all keys and with holes
+    # (their own generator: the later checks keep their inputs)
+    g_new = torch.Generator(device=dev).manual_seed(SEED + 8)
+    for B, L, D, holes in ((RERANK_BATCH, 512, 64, True), (IMAGE_BATCH, N_PATCH, 16, False),
+                           (IMAGE_BATCH, N_PATCH, 32, False), (IMAGE_BATCH // 4, N_PATCH, 16, True),
+                           (IMAGE_BATCH // 4, N_PATCH, 32, True)):
+        q, k, v = (torch.randn((B, L, 12, D), generator=g_new, device=dev).to(bf16) for _ in range(3))
+        mask = (holes_mask(torch, g_new, dev, B, L) if holes
+                else torch.ones((B, L), dtype=torch.uint8, device=dev))
+        label = f"bf16 B={B} L={L} H=12 D={D} {'holes' if holes else 'all keys'}"
+        attn_err = max(attn_err, check_attention_case(
+            torch, label, v, mask, attention(q, k, v, mask), attention_plain(q, k, v, mask), ATTN_ATOL, ATTN_RTOL))
+        del q, k, v, mask
 
-    def attn_timing(B, L, H, D, min_len, max_len=None):
+    walked_share = {}  # computed from the masks on the host, not read from the kernel
+
+    def attn_timing(name, B, L, H, D, min_len, max_len=None):
         """Times at one shape; the bound counts the keys the masks keep:
         every query row attends over its batch row's present keys only."""
         q, k, v, mask = attn_inputs(B, L, H, D, min_len, max_len)
@@ -403,6 +475,7 @@ def phase_kernels(torch, dev) -> dict:
         keys = int(mask.sum())
         nbytes = 2 * B * L * H * D * 2 + 2 * keys * H * D * 2 + B * L
         b_ms, b_by = bound(nbytes, 4 * H * D * L * keys, PEAK_BF16)
+        walked_share[name] = int(walked_key_tiles(mask).sum()) / (B * -(-L // 64))
         return {
             "shape": f"B={B} L={L} H={H} D={D} bf16, {keys} of {B * L} keys present",
             "ms": time_ms(torch, lambda: attention(q, k, v, mask), 20),
@@ -414,13 +487,14 @@ def phase_kernels(torch, dev) -> dict:
             "bound_by": b_by,
         }
 
-    out["attention"] = {**attn_timing(DOC_BATCH, 256, 12, 64, 64), "max_abs_err": attn_err}
-    out["_attention_b32_l512"] = attn_timing(32, 512, 12, 64, 1)
-    out["_attention_rerank"] = attn_timing(RERANK_BATCH, 512, 12, 64, 75, 283)
-    out["_attention_image"] = attn_timing(IMAGE_BATCH, N_PATCH, 12, 64, N_PATCH)
+    out["attention"] = {**attn_timing("embed", DOC_BATCH, 256, 12, 64, 64), "max_abs_err": attn_err}
+    out["_attention_b32_l512"] = attn_timing("b32_l512", 32, 512, 12, 64, 1)
+    out["_attention_rerank"] = attn_timing("rerank", RERANK_BATCH, 512, 12, 64, 75, 283)
+    out["_attention_image"] = attn_timing("image", IMAGE_BATCH, N_PATCH, 12, 64, N_PATCH)
     out["_attention_widths"] = widths
     log(f"K1 attention timings: {json.dumps(out['attention'])} {json.dumps(out['_attention_b32_l512'])}"
         f" {json.dumps(out['_attention_rerank'])} {json.dumps(out['_attention_image'])}")
+    log("K1 key tiles walked (share of all, from the masks): " + json.dumps(walked_share))
 
     # ---- K2 slab scatter / clear: 256 rows (200 live + 56 pads) into [1M, 768] f32
     slab = torch.randn((CAPACITY, HIDDEN), generator=g, device=dev)
@@ -609,14 +683,45 @@ def phase_kernels(torch, dev) -> dict:
     probe_scores = qn[:32] @ cents.T
     cand = torch.randn((32, SHARDS * SELECT_K), generator=g, device=dev)
     cand_ids = torch.randint(0, 2**31 - 1, cand.shape, generator=g, device=dev, dtype=torch.int32)
+    # Then the edge cases: an all-equal row and an ascending row (both timed,
+    # so that a slow edge case shows; the ascending row's first chosen bin
+    # overflows the candidate buffer and is refined), a row where half the
+    # entries share the best value (its bin overflows down to the last
+    # digit: ties to the lowest positions), rows masked to NEG_INF with fewer
+    # live entries than k, signed zeros among ties, and k = n (a row of odd
+    # length too).  Every case equals the plain version bit for bit, values
+    # and ids.
+    n = CAPACITY
+    few = torch.full((8, 100_000), NEG_INF, device=dev)
+    few[:, ::9_999] = torch.randn((8, 11), generator=g, device=dev)
+    zeros = torch.zeros((4, 4096), device=dev)
+    zeros[:, ::2] = -0.0
+    zeros[:, 5::7] = 1.0
+    odd = torch.randn((3, 12_345), generator=g, device=dev)
+    head = scores[:2, :65536].contiguous()
     select_err, select_rows = 0.0, {}
     for name, vals, ids, k in (("k129", scores, None, MAX_K + 1), ("k256", scores, None, SELECT_K),
                                ("k1024", scores, None, 1024), ("probe", probe_scores, None, SELECT_K),
-                               ("merge", cand, cand_ids, SELECT_K)):
+                               ("merge", cand, cand_ids, SELECT_K),
+                               ("all_equal", torch.full((32, n), 0.25, device=dev), None, SELECT_K),
+                               ("ascending", torch.arange(n, device=dev, dtype=torch.float32).expand(32, n)
+                                .contiguous(), None, SELECT_K),
+                               ("half_ties", torch.where(torch.rand(scores.shape, generator=g, device=dev) < 0.5,
+                                                         0.5, scores), None, SELECT_K),
+                               ("masked_few_live", few, None, SELECT_K), ("signed_zeros", zeros, None, 1000),
+                               ("k_is_n", head, None, head.shape[1]),
+                               ("k_is_n_odd_length", odd, None, odd.shape[1])):
         kv, ki = topk_select(vals, k, ids)
         pv, pi = topk_select_plain(vals, k, ids)
         select_err = max(select_err, compare_topk(kv, ki, pv, pi, SELECT_ATOL))
+        if not (torch.equal(kv, pv) and torch.equal(ki, pi)):
+            bad = (ki != pi).nonzero()[:5].tolist()
+            fail(f"topk_select {name}: not equal to its plain version (values equal: {torch.equal(kv, pv)}; "
+                 f"ids differ at {bad})")
         nq, n = vals.shape
+        if name in ("masked_few_live", "signed_zeros", "half_ties") or name.startswith("k_is_n"):
+            log(f"K13 topk_select {name} [{nq},{n}] k={k}: equal to its plain version")
+            continue
         n_in = 4 if ids is None else 8  # bytes read per entry: a score, and its id
         b_ms, b_by = bound(nq * n * n_in + nq * k * 8, 0, PEAK_F32)
         select_rows[name] = {
@@ -627,8 +732,17 @@ def phase_kernels(torch, dev) -> dict:
             "bound_ms": b_ms,
             "bound_by": b_by,
         }
+        if name in ("probe", "merge"):  # launches, not bytes, set these: the device's own time
+            select_rows[name]["device_ms"] = {
+                "kernel": device_ms(torch, lambda: topk_select(vals, k, ids)),
+                "library": device_ms(torch, lambda: torch.topk(vals, k, dim=1)),
+            }
         log(f"K13 topk_select {name}: {json.dumps(select_rows[name])}")
-    out["topk_select"] = {**select_rows["k256"], "max_abs_err": select_err}
+    before = topk_select.launches
+    topk_select(scores, SELECT_K)
+    launches = topk_select.launches - before
+    log(f"K13 topk_select: {launches} kernels a call")
+    out["topk_select"] = {**select_rows["k256"], "max_abs_err": select_err, "launches_per_call": launches}
     out["_topk_select_rows"] = select_rows
     return out
 
@@ -983,6 +1097,7 @@ def phase_f32_ring_kernels(torch, dev) -> dict:
         ring_block_plain,
         ring_state,
     )
+    from pathway_tpu_torch.kernels.attention import walked_key_tiles
 
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1013,12 +1128,28 @@ def phase_f32_ring_kernels(torch, dev) -> dict:
         label = f"{'f32' if dt == f32 else 'bf16'} B={B} L={L} H={H} D={D}"
         k1_err[label] = check(f"K1 attention {label}", attention(q, k, v, mask),
                               attention_plain(q, k, v, mask), F32_ATOL if dt == f32 else ATTN_ATOL)
+    # in f32 too: masks with holes and rows with no present key at the
+    # rerank width, and the image path's L at head dims 16 and 32 (their
+    # own generator: the later checks keep their inputs)
+    g_new = torch.Generator(device=dev).manual_seed(SEED + 9)
+    for B, L, D, holes in ((RERANK_BATCH, 512, 64, True), (IMAGE_BATCH // 4, N_PATCH, 16, False),
+                           (IMAGE_BATCH // 4, N_PATCH, 32, False), (IMAGE_BATCH // 4, N_PATCH, 16, True),
+                           (IMAGE_BATCH // 4, N_PATCH, 32, True)):
+        q, k, v = (torch.randn((B, L, 12, D), generator=g_new, device=dev) for _ in range(3))
+        mask = (holes_mask(torch, g_new, dev, B, L) if holes
+                else torch.ones((B, L), dtype=torch.uint8, device=dev))
+        label = f"f32 B={B} L={L} H=12 D={D} {'holes' if holes else 'all keys'}"
+        k1_err[label] = check_attention_case(torch, label, v, mask, attention(q, k, v, mask),
+                                             attention_plain(q, k, v, mask), F32_ATOL, 0.0)
+        del q, k, v, mask
     B, L, H, D = DOC_BATCH, 256, 12, 64
     q, k, v = (randn(B, L, H, D) for _ in range(3))
     mask = lengths_mask(B, L, 64)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     keys = int(mask.sum())
     b_ms, b_by = bound(2 * B * L * H * D * 4 + 2 * keys * H * D * 4 + B * L, 4 * H * D * L * keys, PEAK_F32)
+    log("K1 key tiles walked at the f32 shape (share of all, from the mask): "
+        f"{int(walked_key_tiles(mask).sum()) / (B * -(-L // 64))}")
     out["attention"] = {
         "shape": f"B={B} L={L} H={H} D={D} f32, {keys} of {B * L} keys present",
         "max_abs_err": max(e for lab, e in k1_err.items() if lab.startswith("f32")),
@@ -3101,7 +3232,7 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name in _build.NAMES:
         for line in _build.ptxas_report(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", file=sys.stderr)
     dev = torch.device("cuda:0")
     if "--distinct-cards" in sys.argv[1:]:
@@ -3202,7 +3333,7 @@ def main() -> int:
             "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"], "shape": m["shape"],
-            **{key: m[key] for key in ("device_ms", "f32") if key in m},
+            **{key: m[key] for key in ("device_ms", "f32", "launches_per_call") if key in m},
         })
     summary = {
         "card": smi,

@@ -8,8 +8,11 @@ q, k, v and the output are ``[B, L, heads, head_dim]``; ``mask`` is
 :func:`attention` launches the CUDA kernel for CUDA tensors (bf16 or f32
 q/k/v, uint8 mask, head_dim 16, 32 or 64, L <= 512) and raises on
 anything else (:func:`check_attention` says what it takes); for CPU
-tensors it runs :func:`attention_plain`.  In f32 the kernel keeps the JAX
-program's f32 arithmetic throughout (FMA, no tensor cores).
+tensors it runs :func:`attention_plain`.  The kernel walks only the key
+tiles of a batch row that hold a present key (all of them for a row with
+none; :func:`walked_key_tiles` counts them on the host).  In bf16 both
+products run on wgmma with K/V tiles brought by TMA; in f32 as 3xTF32 on
+the tensor cores, which keeps the JAX program's f32 accuracy.
 """
 
 from __future__ import annotations
@@ -21,9 +24,14 @@ import torch
 from pathway_tpu_torch.kernels import _build
 from pathway_tpu_torch.kernels._launch import check_cuda, launch
 
-__all__ = ["attention", "attention_plain", "check_attention", "MAX_LEN", "HEAD_DIMS", "DTYPES"]
+__all__ = [
+    "attention", "attention_plain", "check_attention", "walked_key_tiles",
+    "MAX_LEN", "HEAD_DIMS", "DTYPES", "KEY_TILE",
+]
 
 MAX_LEN = 512
+#: keys per tile of the kernel's walk (and query rows per block)
+KEY_TILE = 64
 HEAD_DIMS = (16, 32, 64)
 #: the activation types the kernel takes
 DTYPES = (torch.bfloat16, torch.float32)
@@ -63,6 +71,23 @@ def check_attention(
         raise ValueError(f"attention: sequence length {L} not in 1..{MAX_LEN}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("attention: q, k and v must be 16-byte aligned")
+    if q.dtype == torch.bfloat16 and L * H * D * 2 >= 2**40:
+        # bf16 tiles come by TMA through a [B, L, H, D] tensor map; at these
+        # head dims its strides are whole 32 bytes, and a batch row's must be
+        # under 2^40 bytes
+        raise ValueError(f"attention: a batch row of {L * H * D * 2} bytes does not fit a tensor map")
+
+
+def walked_key_tiles(mask: torch.Tensor) -> torch.Tensor:
+    """Key tiles the kernel walks for each batch row of ``mask [B, L]``:
+    those that hold a present key, or every tile when the row has none
+    (its output is then the uniform average of v, as the plain version's)."""
+    B, L = mask.shape
+    n_tiles = -(-L // KEY_TILE)
+    padded = torch.zeros((B, n_tiles * KEY_TILE), dtype=torch.bool, device=mask.device)
+    padded[:, :L] = mask.bool()
+    present = padded.view(B, n_tiles, KEY_TILE).any(dim=2).sum(dim=1)
+    return torch.where(present > 0, present, n_tiles)
 
 
 def attention(

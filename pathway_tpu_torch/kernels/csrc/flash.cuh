@@ -1,9 +1,8 @@
-// Shared by K1 (attention.cu) and K14 (ring_block.cu): one block of 64
-// query rows of one (batch, head) walks every key tile of a [B, L, H, D]
-// K/V block with a running softmax, flash style.
+// K14's block (ring_block.cu): one block of 64 query rows of one (batch,
+// head) walks every key tile of a [B, L, H, D] K/V block with a running
+// softmax, flash style, carrying the ring's state in and out.
 //
-// Two forms of the block, each templated on the head dim (16, 32 or 64)
-// and on RING:
+// Two forms of the block, each templated on the head dim (16, 32 or 64):
 //
 // - mma (bf16 q/k/v): 4 warps, 16 query rows each; q.k^T and p.v on the
 //   tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate) with
@@ -22,14 +21,8 @@
 // its logit, never skipped: a row whose keys are all masked comes out as
 // the uniform average of v, as in the JAX program.  Keys past L get -inf.
 //
-// RING = false is K1, softmax(q.k^T / sqrt(d) + bias) . v in one pass,
-// the JAX encoder's attention core: logits kept in f32 (the JAX program
-// rounds them to the activation type; K1 is held at a bf16 tolerance),
-// p rounded to bf16 for the second product as the JAX program rounds its
-// probabilities.
-//
-// RING = true is K14, one step of the ring attention's _ring_body: the
-// state (o [B, H, L, D], m, l [B, H, L], f32) is read at the start and
+// A block runs one step of the ring attention's _ring_body: the state
+// (o [B, H, L, D], m, l [B, H, L], f32) is read at the start and
 // written back at the end, or, with finalize, the step's o / max(l, 1e-30)
 // is written as the [B, L, H, D] output instead.  As the JAX step does,
 // the logits are rounded to the input type before the f32 scale, and p
@@ -45,6 +38,8 @@
 
 #include <atomic>
 
+#include "ptx.cuh"
+
 namespace pw_flash {
 
 constexpr int kTile = 64;  // query rows per block and keys per tile
@@ -56,7 +51,7 @@ struct Args {
   const void* v;
   const uint8_t* mask;  // [B, L], 1 = key present
   void* out;            // [B, L, H, D] in q's type
-  float* st_o;          // ring state [B, H, L, D]; null for K1
+  float* st_o;          // ring state [B, H, L, D]
   float* st_m;          // [B, H, L]
   float* st_l;          // [B, H, L]
   int L;
@@ -65,30 +60,17 @@ struct Args {
   int finalize;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy into shared memory; src_bytes = 0 writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using namespace pw_ptx;
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+               : "r"(smem_u32(p)));
 }
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+               : "r"(smem_u32(p)));
 }
 
 // c[0..3] += a[0..3] (16x16 bf16, row) * b[0..1] (16x8 bf16, col)
@@ -98,11 +80,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // (a, b) as a bf16 pair (hi) and the bf16 pair of what hi leaves out (lo).
@@ -140,22 +117,7 @@ struct MmaSmem {
   static constexpr int kBytes = kBias + 2 * kTile * 4;
 };
 
-// Async copy of rows [row0, row0+64) of one head of a [B, L, H, D] tensor
-// into a shared tile; rows past L are zero.
 template <int D>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               int row0, int L, int row_stride) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < kTile * kChunks; c += kMmaThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    const bool in = row0 + r < L;
-    const __nv_bfloat16* s = in ? src + (size_t)(row0 + r) * row_stride + col : src;
-    cp_async16(dst + r * MmaSmem<D>::kLd + col, s, in ? 16 : 0);
-  }
-}
-
-template <int D, bool RING>
 __global__ void __launch_bounds__(kMmaThreads)
 mma_kernel(Args a) {
   using S = MmaSmem<D>;
@@ -189,13 +151,13 @@ mma_kernel(Args a) {
   };
   auto stage = [&](int t) {  // issue the loads of key tile t into buffer t & 1
     const int k0 = t * kTile;
-    load_tile_bf16<D>(k_buf(t & 1), k + head_base, k0, L, row_stride);
-    load_tile_bf16<D>(v_buf(t & 1), v + head_base, k0, L, row_stride);
+    load_tile<__nv_bfloat16, D, S::kLd, kMmaThreads>(k_buf(t & 1), k + head_base, k0, L, row_stride);
+    load_tile<__nv_bfloat16, D, S::kLd, kMmaThreads>(v_buf(t & 1), v + head_base, k0, L, row_stride);
     for (int j = threadIdx.x; j < kTile; j += kMmaThreads)
       bias_s[(t & 1) * kTile + j] = key_bias(a.mask, b, k0 + j, L);
   };
 
-  load_tile_bf16<D>(q_s, q + head_base, q0, L, row_stride);
+  load_tile<__nv_bfloat16, D, S::kLd, kMmaThreads>(q_s, q + head_base, q0, L, row_stride);
   stage(0);
   cp_async_commit();
 
@@ -208,9 +170,9 @@ mma_kernel(Args a) {
   float m_run[2], l_run[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const bool in = RING && rows[i] < L;
+    const bool in = rows[i] < L;
     const size_t sr = state_base + rows[i];
-    m_run[i] = in ? a.st_m[sr] : (RING ? kMaskBias : -INFINITY);
+    m_run[i] = in ? a.st_m[sr] : kMaskBias;
     l_run[i] = in ? a.st_l[sr] : 0.0f;
 #pragma unroll
     for (int n = 0; n < kDTiles; ++n) {
@@ -266,7 +228,7 @@ mma_kernel(Args a) {
       const int c = n * 8 + c0;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float logit = RING ? round_bf16(s[n][e]) : s[n][e];
+        const float logit = round_bf16(s[n][e]);
         s[n][e] = logit * a.scale + bias[c + (e & 1)];
         mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
       }
@@ -277,7 +239,7 @@ mma_kernel(Args a) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
       const float m_new = fmaxf(m_run[i], mx[i]);
-      alpha[i] = expf(m_run[i] - m_new);  // 0 on K1's first tile
+      alpha[i] = expf(m_run[i] - m_new);
       m_run[i] = m_new;
     }
     float sum[2] = {0.0f, 0.0f};
@@ -303,22 +265,15 @@ mma_kernel(Args a) {
       o[n][3] *= alpha[1];
     }
 
-    // o += p . v, p repacked from the logit accumulators as bf16 A operands
-    // (K1), or as a bf16 high part and a bf16 rest (K14)
+    // o += p . v, p repacked from the logit accumulators as a bf16 high
+    // part and a bf16 rest, two A operands
 #pragma unroll
     for (int j = 0; j < kTile / 16; ++j) {  // keys 16j .. 16j+15
       uint32_t pa[4], pl[4];
-      if (RING) {
-        split_bf16(s[2 * j][0], s[2 * j][1], pa[0], pl[0]);
-        split_bf16(s[2 * j][2], s[2 * j][3], pa[1], pl[1]);
-        split_bf16(s[2 * j + 1][0], s[2 * j + 1][1], pa[2], pl[2]);
-        split_bf16(s[2 * j + 1][2], s[2 * j + 1][3], pa[3], pl[3]);
-      } else {
-        pa[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-        pa[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-        pa[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-        pa[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-      }
+      split_bf16(s[2 * j][0], s[2 * j][1], pa[0], pl[0]);
+      split_bf16(s[2 * j][2], s[2 * j][3], pa[1], pl[1]);
+      split_bf16(s[2 * j + 1][0], s[2 * j + 1][1], pa[2], pl[2]);
+      split_bf16(s[2 * j + 1][2], s[2 * j + 1][3], pa[3], pl[3]);
 #pragma unroll
       for (int dq = 0; dq < kDTiles / 2; ++dq) {  // output dims 16dq .. 16dq+15
         uint32_t vb[4];
@@ -326,10 +281,8 @@ mma_kernel(Args a) {
         ldmatrix_x4_trans(vb, v_s + key * kLd + 16 * dq + 8 * (mi / 2));
         mma_bf16(o[2 * dq], pa, vb[0], vb[1]);
         mma_bf16(o[2 * dq + 1], pa, vb[2], vb[3]);
-        if (RING) {
-          mma_bf16(o[2 * dq], pl, vb[0], vb[1]);
-          mma_bf16(o[2 * dq + 1], pl, vb[2], vb[3]);
-        }
+        mma_bf16(o[2 * dq], pl, vb[0], vb[1]);
+        mma_bf16(o[2 * dq + 1], pl, vb[2], vb[3]);
       }
     }
     __syncthreads();  // buffer t & 1 is free for tile t + 2
@@ -340,7 +293,7 @@ mma_kernel(Args a) {
   for (int i = 0; i < 2; ++i) {
     const int row = rows[i];
     if (row >= L) continue;
-    if (RING && !a.finalize) {
+    if (!a.finalize) {
       const size_t sr = state_base + row;
 #pragma unroll
       for (int n = 0; n < kDTiles; ++n)
@@ -351,7 +304,7 @@ mma_kernel(Args a) {
         a.st_l[sr] = l_run[i];
       }
     } else {
-      const float inv = RING ? 1.0f / fmaxf(l_run[i], 1e-30f) : 1.0f / l_run[i];
+      const float inv = 1.0f / fmaxf(l_run[i], 1e-30f);
       __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(a.out) + head_base +
                            (size_t)row * row_stride + c0;
 #pragma unroll
@@ -380,19 +333,6 @@ struct FmaSmem {
 };
 
 template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int row0, int L,
-                                              int row_stride) {
-  constexpr int kChunks = D / 4;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < kTile * kChunks; c += kFmaThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 4;
-    const bool in = row0 + r < L;
-    const float* s = in ? src + (size_t)(row0 + r) * row_stride + col : src;
-    cp_async16(dst + r * FmaSmem<D>::kLd + col, s, in ? 16 : 0);
-  }
-}
-
-template <int D, bool RING>
 __global__ void __launch_bounds__(kFmaThreads, 1)
 fma_kernel(Args a) {
   using S = FmaSmem<D>;
@@ -420,8 +360,8 @@ fma_kernel(Args a) {
   auto v_buf = [&](int i) { return reinterpret_cast<float*>(smem + S::kV + i * S::kTileBytes); };
   auto stage = [&](int t) {
     const int k0 = t * kTile;
-    load_tile_f32<D>(k_buf(t & 1), k + head_base, k0, L, row_stride);
-    load_tile_f32<D>(v_buf(t & 1), v + head_base, k0, L, row_stride);
+    load_tile<float, D, S::kLd, kFmaThreads>(k_buf(t & 1), k + head_base, k0, L, row_stride);
+    load_tile<float, D, S::kLd, kFmaThreads>(v_buf(t & 1), v + head_base, k0, L, row_stride);
     for (int j = threadIdx.x; j < kTile; j += kFmaThreads)
       bias_s[(t & 1) * kTile + j] = key_bias(a.mask, b, k0 + j, L);
   };
@@ -437,12 +377,12 @@ fma_kernel(Args a) {
       const float4 t = in ? src[d4] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       qr[4 * d4] = t.x; qr[4 * d4 + 1] = t.y; qr[4 * d4 + 2] = t.z; qr[4 * d4 + 3] = t.w;
       // the carried output enters through part 0; the others start at 0
-      const float4 u = (RING && in && part == 0) ? st[d4] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const float4 u = (in && part == 0) ? st[d4] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       o[4 * d4] = u.x; o[4 * d4 + 1] = u.y; o[4 * d4 + 2] = u.z; o[4 * d4 + 3] = u.w;
     }
   }
-  float m_run = (RING && in) ? a.st_m[sr] : (RING ? kMaskBias : -INFINITY);
-  float l_run = (RING && in) ? a.st_l[sr] : 0.0f;
+  float m_run = in ? a.st_m[sr] : kMaskBias;
+  float l_run = in ? a.st_l[sr] : 0.0f;
 
   for (int t = 0; t < n_tiles; ++t) {
     if (t + 1 < n_tiles) {
@@ -478,7 +418,7 @@ fma_kernel(Args a) {
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     const float m_new = fmaxf(m_run, mx);
-    const float alpha = expf(m_run - m_new);  // 0 on K1's first tile
+    const float alpha = expf(m_run - m_new);
     m_run = m_new;
     float sum = 0.0f;
 #pragma unroll
@@ -514,7 +454,7 @@ fma_kernel(Args a) {
     o[d] += __shfl_xor_sync(0xffffffffu, o[d], 2);
   }
   if (!in) return;
-  if (RING && !a.finalize) {
+  if (!a.finalize) {
     float4* st = reinterpret_cast<float4*>(a.st_o + sr * D);
 #pragma unroll
     for (int d4 = 0; d4 < kD4; ++d4)
@@ -525,7 +465,7 @@ fma_kernel(Args a) {
       a.st_l[sr] = l_run;
     }
   } else {
-    const float inv = RING ? 1.0f / fmaxf(l_run, 1e-30f) : 1.0f / l_run;
+    const float inv = 1.0f / fmaxf(l_run, 1e-30f);
     float4* dst = reinterpret_cast<float4*>(static_cast<float*>(a.out) + head_base +
                                             (size_t)row * row_stride);
 #pragma unroll
@@ -559,29 +499,28 @@ int launch(Kernel kernel, std::atomic<unsigned>& done, int smem, int threads, in
   return (int)cudaGetLastError();
 }
 
-template <int D, bool RING>
+template <int D>
 int launch_mma(int B, const Args& a, cudaStream_t stream) {
   static std::atomic<unsigned> done{0};
-  return launch(mma_kernel<D, RING>, done, MmaSmem<D>::kBytes, kMmaThreads, B, a, stream);
+  return launch(mma_kernel<D>, done, MmaSmem<D>::kBytes, kMmaThreads, B, a, stream);
 }
 
-template <int D, bool RING>
+template <int D>
 int launch_fma(int B, const Args& a, cudaStream_t stream) {
   static std::atomic<unsigned> done{0};
-  return launch(fma_kernel<D, RING>, done, FmaSmem<D>::kBytes, kFmaThreads, B, a, stream);
+  return launch(fma_kernel<D>, done, FmaSmem<D>::kBytes, kFmaThreads, B, a, stream);
 }
 
 // The kernel for head dim D (16, 32 or 64) and the element type.
-template <bool RING>
-int dispatch(int B, int D, int f32, const Args& a, cudaStream_t s) {
+inline int dispatch(int B, int D, int f32, const Args& a, cudaStream_t s) {
   if (f32) {
-    if (D == 64) return launch_fma<64, RING>(B, a, s);
-    if (D == 32) return launch_fma<32, RING>(B, a, s);
-    if (D == 16) return launch_fma<16, RING>(B, a, s);
+    if (D == 64) return launch_fma<64>(B, a, s);
+    if (D == 32) return launch_fma<32>(B, a, s);
+    if (D == 16) return launch_fma<16>(B, a, s);
   } else {
-    if (D == 64) return launch_mma<64, RING>(B, a, s);
-    if (D == 32) return launch_mma<32, RING>(B, a, s);
-    if (D == 16) return launch_mma<16, RING>(B, a, s);
+    if (D == 64) return launch_mma<64>(B, a, s);
+    if (D == 32) return launch_mma<32>(B, a, s);
+    if (D == 16) return launch_mma<16>(B, a, s);
   }
   return (int)cudaErrorInvalidValue;
 }

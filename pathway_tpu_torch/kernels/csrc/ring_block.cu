@@ -20,8 +20,8 @@
 // TFLOP/s) and the f32 rate (67 TFLOP/s) the f32 one.  In bf16 p.v runs
 // twice (p's high and low parts), 1.5x the tensor-core work of K1.
 //
-// What the design does about it: K1's block (flash.cuh) in ring mode: 64
-// query rows a block, 64-key tiles double-buffered by cp.async, the
+// What the design does about it: the flash block (flash.cuh): 64 query
+// rows a block, 64-key tiles double-buffered by cp.async, the
 // running softmax in registers, the state read before the first tile and
 // written after the last, so no logit or probability reaches device
 // memory and the state crosses it once per step.  The logits are rounded
@@ -29,8 +29,8 @@
 // kernel's logits equal its plain version's up to the products' summation
 // order.  p stays f32 for p.v: in bf16 it is split into a bf16 high part
 // and the bf16 rounding of the rest, two tensor-core products carrying
-// ~16 bits of p (v is exact in bf16); in f32 both products are FMAs, as
-// in K1.  Masked keys are added as -1e30 and computed, never skipped, so
+// ~16 bits of p (v is exact in bf16); in f32 both products are FMAs.
+// Masked keys are added as -1e30 and computed, never skipped, so
 // a row with no valid key anywhere comes out as the uniform average of v
 // over all its keys, as in the reference.  L is not limited: the card
 // runs blocks of 2,048 keys and one block of 8,192.
@@ -49,5 +49,5 @@ extern "C" int pw_ring_block(const void* q, const void* k, const void* v, const 
   if (B == 0 || L == 0) return 0;
   pw_flash::Args a{q, k, v, static_cast<const uint8_t*>(mask), out, static_cast<float*>(o),
                    static_cast<float*>(m), static_cast<float*>(l), L, H, scale, finalize};
-  return pw_flash::dispatch<true>(B, D, f32, a, static_cast<cudaStream_t>(stream));
+  return pw_flash::dispatch(B, D, f32, a, static_cast<cudaStream_t>(stream));
 }

@@ -147,6 +147,36 @@ def test_attention_plain_matches_jax_math(dtype, atol, D):
     torch.testing.assert_close(attention(tq, tk, tv, torch.from_numpy(mask)).float(), torch.from_numpy(got))
 
 
+def _holes_mask(L):
+    """Rows of [4, L]: every key; none (a fully masked row); a run in the
+    first 64-key tile and one in the last, with fully masked tiles between
+    (holes); only the last key."""
+    mask = np.zeros((4, L), np.uint8)
+    mask[0] = 1
+    mask[2, 5:40] = 1
+    mask[2, L - 20:L - 3] = 1
+    mask[3, L - 1] = 1
+    return mask
+
+
+@pytest.mark.parametrize(
+    "dtype,atol", [(jnp.float32, 1e-5), (jnp.bfloat16, 2e-2)], ids=["f32", "bf16"]
+)
+@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("L", [100, 196])
+def test_attention_plain_matches_jax_with_holes_and_empty_rows(dtype, atol, D, L):
+    rng = np.random.default_rng(L + D)
+    q, k, v = (rng.standard_normal((4, L, 2, D)).astype(np.float32) for _ in range(3))
+    mask = _holes_mask(L)
+    want = _jax_attention(q, k, v, mask, dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(_DTYPES[dtype]) for a in (q, k, v))
+    got = attention_plain(tq, tk, tv, torch.from_numpy(mask)).float().numpy()
+    np.testing.assert_allclose(got, want, atol=atol)
+    # the fully masked row attends uniformly over all L keys
+    mean = tv[1].float().mean(0).numpy()
+    np.testing.assert_allclose(got[1], np.broadcast_to(mean, got[1].shape), atol=atol)
+
+
 def test_fully_masked_row_attends_uniformly_like_jax():
     rng = np.random.default_rng(1)
     q, k, v = (rng.standard_normal((1, 8, 1, 32)).astype(np.float32) for _ in range(3))

@@ -28,6 +28,8 @@ from pathway_tpu.parallel import make_mesh as jax_make_mesh
 from pathway_tpu.parallel import mesh_axis_size as jax_mesh_axis_size
 from pathway_tpu_torch import best_mesh, make_mesh, mesh_axis_size
 from pathway_tpu_torch.kernels import knn_topk_plain, topk_select, topk_select_plain
+from pathway_tpu_torch.kernels.topk_select import MAX_LEN, MAX_ROWS, MAX_SLOTS, select_plan
+from pathway_tpu_torch.ops.topk import NEG_INF
 from pathway_tpu_torch.kernels.knn_topk import merge_partials
 from pathway_tpu_torch.parallel import ShardedKnnIndex, TorchEncoder
 from test_torch_encoder import port_config
@@ -248,7 +250,7 @@ def test_dp_encode_into_a_sharded_index_matches_jax(dp_pair, metric):
 # K13's plain version
 
 
-@pytest.mark.parametrize("k", [129, 256, 1000])
+@pytest.mark.parametrize("k", [129, 256, 1000, 3000])
 def test_topk_select_plain_matches_lax_top_k(k):
     rng = np.random.default_rng(k)
     vals = rng.standard_normal((5, 3000)).astype(np.float32)
@@ -263,3 +265,84 @@ def test_topk_select_plain_matches_lax_top_k(k):
     np.testing.assert_array_equal(i3.numpy(), np.asarray(want_i) + 4096)
     with pytest.raises(ValueError, match="k="):
         topk_select(torch.from_numpy(vals), 3001)
+
+
+def _edge_scores(kind, rng):
+    """[5, 3000] rows for K13's edge cases."""
+    shape = (5, 3000)
+    if kind == "ties":  # few distinct values: ties at and around the k-th
+        return np.round(rng.standard_normal(shape), 1).astype(np.float32)
+    if kind == "signed_zeros":  # +0 and -0 tie, among ones and minus ones
+        vals = np.where(rng.random(shape) < 0.5, np.float32(-0.0), np.float32(0.0))
+        vals[rng.random(shape) < 0.02] = 1.0
+        vals[rng.random(shape) < 0.02] = -1.0
+        return vals.astype(np.float32)
+    if kind == "masked":  # NEG_INF-masked slots, fewer live than k
+        vals = np.full(shape, NEG_INF, np.float32)
+        live = rng.random(shape) < 0.02
+        vals[live] = rng.standard_normal(int(live.sum()))
+        return vals
+    if kind == "all_equal":
+        return np.full(shape, 0.25, np.float32)
+    return np.tile(np.arange(shape[1], dtype=np.float32), (shape[0], 1))  # ascending
+
+
+@pytest.mark.parametrize("kind", ["ties", "signed_zeros", "masked", "all_equal", "ascending"])
+@pytest.mark.parametrize("k", [129, 1000, 3000])
+def test_topk_select_plain_ties_zeros_and_masks_match_lax_top_k(kind, k):
+    vals = _edge_scores(kind, np.random.default_rng(k))
+    # lax.top_k orders -0 below +0 (a total order); the port ranks them
+    # together, as the float comparison does, ties to the lower position
+    # (a deliberate deviation, ROADMAP C §5): lax.top_k of the same rows
+    # with -0 made +0
+    want_v, want_i = jax.lax.top_k(jnp.asarray(vals + np.float32(0.0)), k)
+    got_v, got_i = topk_select(torch.from_numpy(vals), k)  # CPU tensors: the plain version
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    raw_v, raw_i = (np.asarray(a) for a in jax.lax.top_k(jnp.asarray(vals), k))
+    got_zeros = got_v.numpy()[got_v.numpy() == 0]
+    if np.signbit(got_zeros).any():
+        # on the raw rows lax.top_k puts every +0 above every -0, so its
+        # order differs from the port's; the values compare equal
+        assert all(np.all(np.diff(np.signbit(row[row == 0]).astype(int)) >= 0) for row in raw_v)
+        assert not np.array_equal(raw_i, got_i.numpy())
+        assert (raw_v == got_v.numpy()).all()
+    else:  # no -0 among the winners: the raw rows give the same order
+        np.testing.assert_array_equal(raw_i, got_i.numpy())
+    # each value comes back as stored, sign of zero included
+    np.testing.assert_array_equal(
+        np.signbit(got_v.numpy()), np.signbit(np.take_along_axis(vals, got_i.numpy().astype(np.int64), 1))
+    )
+
+
+def test_select_plan_grid_slots_and_int32_limits():
+    # the path's shape: 32 rows of 1M scores spread over ~528 blocks; the
+    # k-th best's bin is sorted with the winners in 4,096 slots
+    p = select_plan(32, 1 << 20, 256)
+    assert p["slots"] == 4096 and p["chunk"] % 4 == 0
+    assert (p["splits"] - 1) * p["chunk"] < 1 << 20 <= p["splits"] * p["chunk"]
+    assert 528 <= 32 * p["splits"] < 528 + 32
+    assert p["scratch_i"] == 32 * (2048 + 16 + 4096 + p["splits"]) and p["scratch_f"] == 32 * 4096
+    # short rows: one chunk, slots down to the row's power of two
+    assert select_plan(32, 2048, 256) == {
+        "slots": 2048, "splits": 1, "chunk": 2048, "scratch_i": 32 * (2048 + 16 + 2048 + 1),
+        "scratch_f": 32 * 2048,
+    }
+    assert select_plan(1, 10, 10)["slots"] == 16 and select_plan(1, 10, 10)["chunk"] == 12
+    # k above 4,096 (and k = n): slots the power of two of k
+    assert select_plan(2, 100_000, 5000)["slots"] == 8192
+    assert select_plan(1, 3000, 3000)["slots"] == 4096
+    # int32 positions and the grid's rows
+    assert select_plan(MAX_ROWS, 10, 1)["splits"] == 1
+    big = select_plan(1, MAX_LEN, 1)
+    assert big["splits"] * big["chunk"] >= MAX_LEN and MAX_LEN + 4096 < 2**31
+    assert select_plan(1, MAX_LEN, MAX_SLOTS)["slots"] == MAX_SLOTS
+    with pytest.raises(ValueError, match="slots"):
+        select_plan(1, MAX_LEN, MAX_SLOTS + 1)
+    with pytest.raises(ValueError, match="int32 positions or grid"):
+        select_plan(MAX_ROWS + 1, 10, 1)
+    with pytest.raises(ValueError, match="int32 positions or grid"):
+        select_plan(1, MAX_LEN + 1, 1)
+    for k in (0, 11):
+        with pytest.raises(ValueError, match="k="):
+            select_plan(1, 10, k)

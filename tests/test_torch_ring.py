@@ -37,7 +37,7 @@ from pathway_tpu.parallel import make_mesh as jax_make_mesh
 from pathway_tpu_torch import make_mesh
 from pathway_tpu_torch.kernels import ring_block, ring_block_plain, ring_state
 from pathway_tpu_torch.kernels.add_layer_norm import check_add_layer_norm
-from pathway_tpu_torch.kernels.attention import check_attention
+from pathway_tpu_torch.kernels.attention import attention_plain, check_attention, walked_key_tiles
 from pathway_tpu_torch.kernels.bias_act import check_bias_act
 from pathway_tpu_torch.kernels.embed_ln import check_embed_ln
 from pathway_tpu_torch.kernels.pool_normalize import check_pool_normalize
@@ -89,6 +89,60 @@ def test_row_kernels_take_f32_activations(dtype):
     check_embed_ln(ids, None, torch.zeros((100, 64)), position[32:], None, f32, f32, dtype)
     for pool in ("cls", "mean"):
         check_pool_normalize(y.view(2, 3, 64), torch.ones((2, 3), dtype=torch.uint8), pool)
+
+
+def test_walked_key_tiles_skip_masked_tiles_and_walk_all_for_an_empty_row():
+    L = 196  # 4 key tiles, the last partial
+    mask = torch.zeros((6, L), dtype=torch.uint8)
+    mask[0] = 1
+    mask[1, 130:140] = 1            # only tile 2
+    mask[2, :3] = 1
+    mask[2, L - 2] = 1              # tiles 0 and 3, masked tiles between
+    mask[4, L - 1] = 1              # only the last key
+    mask[5, 64:128] = 1             # exactly tile 1
+    # row 3 has no present key: every tile is walked (uniform average of v)
+    assert walked_key_tiles(mask).tolist() == [4, 1, 2, 4, 1, 1]
+    assert walked_key_tiles(torch.ones((2, 64), dtype=torch.uint8)).tolist() == [1, 1]
+    assert walked_key_tiles(torch.zeros((1, 512), dtype=torch.uint8)).tolist() == [8]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_skipping_fully_masked_key_tiles_is_exact(dtype):
+    # the kernel's tile skip, in the plain arithmetic: attention over only
+    # the walked tiles' keys (their masked keys still biased) gives what
+    # attention over every key gives
+    g = torch.Generator().manual_seed(7)
+    B, L, H, D = 3, 196, 2, 32
+    q, k, v = (torch.randn((B, L, H, D), generator=g).to(dtype) for _ in range(3))
+    mask = torch.zeros((B, L), dtype=torch.uint8)
+    mask[0, 10:20] = 1
+    mask[0, 150:160] = 1
+    mask[1, 64:70] = 1
+    mask[2, 195] = 1
+    full = attention_plain(q, k, v, mask)
+    for b in range(B):
+        keep = torch.cat([torch.arange(t * 64, min(L, t * 64 + 64)) for t in range(4)
+                          if bool(mask[b, t * 64:t * 64 + 64].any())])
+        # the keys of skipped tiles drop out: q keeps all L rows, k/v only the walked keys
+        logits = torch.einsum("lhd,mhd->hlm", q[b], k[b, keep]).float() / D ** 0.5
+        bias = torch.where(mask[b, keep].bool()[None, None, :], 0.0, -1e30)
+        probs = torch.softmax(logits + bias, dim=-1).to(dtype)
+        got = torch.einsum("hlm,mhd->lhd", probs, v[b, keep])
+        torch.testing.assert_close(got.float(), full[b].float(), rtol=0,
+                                   atol=1e-6 if dtype == torch.float32 else 2e-2)
+
+
+def test_attention_tensor_map_strides():
+    # bf16 K/V tiles come through a [B, L, H, D] tensor map: a batch row's
+    # stride must be under 2^40 bytes (the others are whole 32 bytes)
+    for D in (16, 32, 64):
+        q, k, v = _heads(1, 1, 1, D, torch.bfloat16)
+        check_attention(q, k, v, torch.ones((1, 1), dtype=torch.uint8))
+    huge = torch.empty((1, 512, 2**24, 64), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="tensor map"):
+        check_attention(huge, huge, huge, torch.empty((1, 512), dtype=torch.uint8, device="meta"))
+    f32 = torch.empty((1, 512, 2**24, 64), dtype=torch.float32, device="meta")  # no TMA in f32
+    check_attention(f32, f32, f32, torch.empty((1, 512), dtype=torch.uint8, device="meta"))
 
 
 def test_kernel_checks_still_refuse_what_the_kernels_do_not_take():
