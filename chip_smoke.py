@@ -129,6 +129,11 @@ output is a JSON object with one entry per kernel wrapper (K1-K14; K1 and
 K4-K7 with their f32 forms); the last is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device the script exits 1 and prints no result.
 
+``python3 chip_smoke.py --against-parent DIR`` runs instead, on one card,
+only K11, K10 and K1 f32 of this tree beside the same kernels built from
+the sources under ``DIR`` (another commit, unpacked), timed in turns
+(``phase_against_parent``).
+
 ``python3 chip_smoke.py --distinct-cards`` runs instead, on four cards,
 only what a mesh that repeats one card cannot show: ring attention and
 the sequence-parallel encoder over four cards, tensor parallelism over
@@ -142,6 +147,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -260,10 +266,15 @@ TP_SEEDS = (SEED, SEED + 1, SEED + 2)
 TP_WEIGHTS_RATIO = 1.5
 SHARD_ATOL = 3e-6  # sharded against unsharded scores over the same rows
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, bf16 and f32 FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, bf16, TF32 and f32
+# (FMA units) FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
+# an f32-accurate matrix product: three TF32 passes on the tensor cores
+# (hi.hi + hi.lo + lo.hi, csrc/tf32x3.cuh), 165 TFLOP/s of f32 product
+PEAK_F32_PRODUCT = PEAK_TF32 / 3
 
 
 def log(msg: str) -> None:
@@ -275,7 +286,12 @@ def fail(msg: str) -> None:
 
 
 def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
-    """Least time in ms for the work, and what bounds it."""
+    """Least time in ms for the work, and what bounds it: the larger of
+    ``nbytes / PEAK_BYTES`` and ``flops / peak_flops``.  An f32 matrix
+    product (K1 f32, K3, K10, K11, K12, K14 f32) passes PEAK_F32_PRODUCT,
+    i.e. max(bytes / 3.35e12, 3 * flops / 495e12): three TF32 passes keep
+    f32 accuracy and outrun the FMA units' 67 TFLOP/s.  Elementwise f32
+    work passes PEAK_F32; bf16 products PEAK_BF16."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -299,19 +315,31 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
 def device_ms(torch, fn, iters: int = 50) -> float:
     """Mean device time of ``fn`` in ms: the kernel time the profiler saw
     over ``iters`` calls.  For launches too small to hide the host's launch
-    cost, where CUDA events measure the launch rate instead."""
-    from torch.profiler import ProfilerActivity, profile
+    cost, where CUDA events measure the launch rate instead.  As in
+    ``profile_call``, 32 small kernels run first inside the window (once
+    earlier windows have run, a window's trace can lack its first device
+    events), and only device events that start during the calls count."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
+    scratch = torch.zeros((1,), device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(iters):
-            fn()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(32):
+            scratch.add_(1.0)
         torch.cuda.synchronize()
-    total = sum(
-        getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-        if str(getattr(e, "device_type", "")).endswith("CUDA")
-    )
+        with record_function("device_ms"):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+
+    def on_device(e) -> bool:
+        return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+    events = prof.events()
+    start = next(e for e in events if e.name == "device_ms" and not on_device(e)).time_range.start
+    total = sum(e.time_range.elapsed_us() for e in events
+                if on_device(e) and e.name != "device_ms" and e.time_range.start >= start)
     return total / 1e3 / iters
 
 
@@ -585,7 +613,7 @@ def phase_kernels(torch, dev) -> dict:
         # never reach the answer), every valid flag, the queries, the output
         n_valid = int(valid.sum())
         nbytes = n_valid * HIDDEN * 4 + CAPACITY * 4 + nq * HIDDEN * 4 + nq * K * 8
-        b_ms, b_by = bound(nbytes, 2 * nq * n_valid * HIDDEN, PEAK_F32)
+        b_ms, b_by = bound(nbytes, 2 * nq * n_valid * HIDDEN, PEAK_F32_PRODUCT)
         timings[nq] = {
             "shape": f"nq={nq} k={K} over [{CAPACITY},{HIDDEN}] f32, {n_valid} rows valid",
             "ms": time_ms(torch, lambda: knn_topk(qn, slab, valid, K, "dot"), 10),
@@ -654,7 +682,7 @@ def phase_kernels(torch, dev) -> dict:
         pv, pi = knn_topk_plain(qs, slab, valid, SELECT_K, "dot")
         topk_err = max(topk_err, compare_topk(kv, ki, pv, pi, TOPK_ATOL))
         nbytes = n_valid * HIDDEN * 4 + CAPACITY * 4 + nq * HIDDEN * 4 + nq * SELECT_K * 8
-        b_ms, b_by = bound(nbytes, 2 * nq * n_valid * HIDDEN, PEAK_F32)
+        b_ms, b_by = bound(nbytes, 2 * nq * n_valid * HIDDEN, PEAK_F32_PRODUCT)
         k256[nq] = {
             "shape": f"nq={nq} k={SELECT_K} over [{CAPACITY},{HIDDEN}] f32, {n_valid} rows valid",
             "ms": time_ms(torch, lambda: knn_topk(qs, slab, valid, SELECT_K, "dot"), 5),
@@ -1057,7 +1085,7 @@ def phase_vision_kernels(torch, dev) -> dict:
             fail(f"dual_logits {tuple(got.shape)}: max err {e} > {LOGIT_ATOL}")
         err = max(err, e)
     es = torch.exp(scale)  # the library call's multiplier, computed once (untimed)
-    b_ms, b_by = bound(2 * B * HIDDEN * 4 + 8 + B * B * 4, 2 * B * B * HIDDEN + 2 * B * B, PEAK_F32)
+    b_ms, b_by = bound(2 * B * HIDDEN * 4 + 8 + B * B * 4, 2 * B * B * HIDDEN + 2 * B * B, PEAK_F32_PRODUCT)
     kern = lambda: dual_logits(img, txt, scale, lbias)  # noqa: E731
     plain = lambda: dual_logits_plain(img, txt, scale, lbias)  # noqa: E731
     lib = lambda: torch.matmul(img, txt.T).mul_(es).add_(lbias)  # noqa: E731
@@ -1147,7 +1175,8 @@ def phase_f32_ring_kernels(torch, dev) -> dict:
     mask = lengths_mask(B, L, 64)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     keys = int(mask.sum())
-    b_ms, b_by = bound(2 * B * L * H * D * 4 + 2 * keys * H * D * 4 + B * L, 4 * H * D * L * keys, PEAK_F32)
+    b_ms, b_by = bound(2 * B * L * H * D * 4 + 2 * keys * H * D * 4 + B * L, 4 * H * D * L * keys,
+                       PEAK_F32_PRODUCT)
     log("K1 key tiles walked at the f32 shape (share of all, from the mask): "
         f"{int(walked_key_tiles(mask).sum()) / (B * -(-L // 64))}")
     out["attention"] = {
@@ -1281,7 +1310,7 @@ def phase_f32_ring_kernels(torch, dev) -> dict:
         keys = int(mask.sum())
         es = 2 if dt == bf16 else 4
         nbytes = 3 * B * L * H * D * es + B * L + 2 * (B * H * L * D * 4 + 2 * B * H * L * 4)
-        b_ms, b_by = bound(nbytes, 4 * H * D * L * keys, PEAK_BF16 if dt == bf16 else PEAK_F32)
+        b_ms, b_by = bound(nbytes, 4 * H * D * L * keys, PEAK_BF16 if dt == bf16 else PEAK_F32_PRODUCT)
         st = [t.clone() for t in st_k]
         row = {
             "shape": f"B={B} Lb={L} H={H} D={D} {tag}, a middle step, {keys} of {B * L} keys present",
@@ -2055,13 +2084,14 @@ def mixture(np, n: int, d: int, seed: int, chunk: int, n_clusters: int = 64) -> 
     return out
 
 
-def check_assign(torch, x, c, half_norm: bool) -> float:
-    """K11 against its plain version: the same centroid on every row whose
-    top-2 scores differ by more than ASSIGN_ATOL, elsewhere a centroid
-    within ASSIGN_ATOL of the best.  Returns the largest score shortfall."""
+def check_assign(torch, x, c, half_norm: bool, got=None, label: str = "ivf_assign") -> float:
+    """K11 (or ``got``, another build's answer) against its plain version:
+    the same centroid on every row whose top-2 scores differ by more than
+    ASSIGN_ATOL, elsewhere a centroid within ASSIGN_ATOL of the best.
+    Returns the largest score shortfall."""
     from pathway_tpu_torch.kernels import ivf_assign, ivf_assign_plain
 
-    got = ivf_assign(x, c, half_norm).long()
+    got = (ivf_assign(x, c, half_norm) if got is None else got).long()
     want = ivf_assign_plain(x, c, half_norm).long()
     scores = x @ c.T
     if half_norm:
@@ -2069,11 +2099,11 @@ def check_assign(torch, x, c, half_norm: bool) -> float:
     top2 = scores.topk(2, dim=1).values
     decided = (top2[:, 0] - top2[:, 1]) > ASSIGN_ATOL
     if not bool((got[decided] == want[decided]).all()):
-        fail(f"ivf_assign (half_norm={half_norm}): {int((got != want)[decided].sum())} decided rows differ")
+        fail(f"{label} (half_norm={half_norm}): {int((got != want)[decided].sum())} decided rows differ")
     short = (top2[:, 0] - scores.gather(1, got[:, None])[:, 0]).max().item()
     if not short <= ASSIGN_ATOL:
-        fail(f"ivf_assign (half_norm={half_norm}): a row's centroid scores {short} below the best")
-    log(f"K11 ivf_assign n={x.shape[0]} half_norm={half_norm}: {int(decided.sum())} rows decided, "
+        fail(f"{label} (half_norm={half_norm}): a row's centroid scores {short} below the best")
+    log(f"K11 {label} n={x.shape[0]} half_norm={half_norm}: {int(decided.sum())} rows decided, "
         f"{int((got != want).sum())} near-tie rows differ, max shortfall {short:.3e}")
     return short
 
@@ -2288,15 +2318,26 @@ def phase_ivf(torch, dev) -> dict:
     x = torch.from_numpy(index._normalize(index._normalize(chunks[0]))).to(dev)
     assign_err = max(check_assign(torch, x, cents, False), check_assign(torch, x[:50_000], cents, True))
     nb = x.shape[0] * dim * 4 + cents.numel() * 4 + x.shape[0] * 4
-    b_ms, b_by = bound(nb, 2 * x.shape[0] * index.nlist * dim, PEAK_F32)
+    b_ms, b_by = bound(nb, 2 * x.shape[0] * index.nlist * dim, PEAK_F32_PRODUCT)
+    kern = lambda: ivf_assign(x, cents, False)  # noqa: E731
+    plain = lambda: ivf_assign_plain(x, cents, False)  # noqa: E731
+    lib = lambda: torch.argmax(torch.matmul(x, cents.T), dim=1)  # noqa: E731
+    xl = x[:50_000]
+    half_sq = 0.5 * (cents * cents).sum(1)  # the library call's Lloyd term, computed once (untimed)
     assign_row = {
         "shape": f"n={x.shape[0]} x [{index.nlist},{dim}] f32 -> argmax (ingest chunk)",
         "max_abs_err": assign_err,
-        "ms": time_ms(torch, lambda: ivf_assign(x, cents, False), 10),
-        "plain_ms": time_ms(torch, lambda: ivf_assign_plain(x, cents, False), 5),
-        "library_ms": time_ms(torch, lambda: torch.argmax(torch.matmul(x, cents.T), dim=1), 5),
+        "ms": time_ms(torch, kern, 10),
+        "plain_ms": time_ms(torch, plain, 5),
+        "library_ms": time_ms(torch, lib, 5),
         "bound_ms": b_ms, "bound_by": b_by,
-        "lloyd_ms": time_ms(torch, lambda: ivf_assign(x[:50_000], cents, True), 10),
+        "device_ms": {"kernel": device_ms(torch, kern, 10), "plain": device_ms(torch, plain, 10),
+                      "library": device_ms(torch, lib, 10)},
+        "lloyd_ms": time_ms(torch, lambda: ivf_assign(xl, cents, True), 10),
+        "lloyd_library_ms": time_ms(torch, lambda: torch.argmax(torch.matmul(xl, cents.T) - half_sq, dim=1), 5),
+        "lloyd_bound_ms": bound(xl.shape[0] * dim * 4 + cents.numel() * 4 + xl.shape[0] * 4,
+                                2 * xl.shape[0] * index.nlist * dim + xl.shape[0] * index.nlist,
+                                PEAK_F32_PRODUCT)[0],
     }
     log(f"K11 ivf_assign: {json.dumps(assign_row)}")
 
@@ -2335,7 +2376,7 @@ def phase_ivf(torch, dev) -> dict:
         live_per_q = int(index._valid[probe.long()].sum())
         nb = (live_union * dim * 2 + cells_used.numel() * index.cell_cap * 4 + q.numel() * 4
               + probe.numel() * 4 + nq * K * 8)
-        b_ms, b_by = bound(nb, 2 * live_per_q * dim, PEAK_F32)
+        b_ms, b_by = bound(nb, 2 * live_per_q * dim, PEAK_F32_PRODUCT)
         sub_q = q[0].to(index.dtype)
         p0 = probe[0].long()
 
@@ -3209,6 +3250,147 @@ def phase_distinct_cards(torch, cards: list) -> dict:
     return res
 
 
+def phase_against_parent(torch, dev, parent: str) -> dict:
+    """``--against-parent DIR``: K11, K10 and K1 f32 of this tree against
+    the same kernels built from the sources under ``DIR`` (an unpacked
+    ``git archive`` of another commit), on one card, timed in turns
+    (parent, this tree, this tree, parent) by CUDA events and by the
+    profiler's device time, beside the one PyTorch call that computes the
+    same function.  Both builds must pass the gates of phase 2 and 6 on the
+    same inputs: K11 at the ingest chunk (65,536 unit mixture rows against
+    1,024 and 2,048 centroids) and the Lloyd step (50,000 rows), K10 at
+    256 x 256 x 768, K1 f32 at B=256 L=256 H=12 D=64."""
+    import importlib.util
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch.kernels import (
+        attention,
+        attention_plain,
+        dual_logits,
+        dual_logits_plain,
+        ivf_assign,
+    )
+    from pathway_tpu_torch.kernels._launch import launch
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", os.path.join(parent, "pathway_tpu_torch", "kernels", "_build.py"))
+    pb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pb)
+    t0 = time.perf_counter()
+    pb.build_all(("ivf_assign", "dual_logits", "attention"))
+    log(f"parent kernels built from {parent}: {time.perf_counter() - t0:.1f} s")
+    p_assign = pb.library("ivf_assign").pw_ivf_assign
+    p_logits = pb.library("dual_logits").pw_dual_logits
+    p_attn = pb.library("attention").pw_attention
+
+    def parent_assign(x, c, half_norm):
+        n, d = x.shape
+        out = torch.empty((n,), dtype=torch.int32, device=dev)
+        args = [x.data_ptr(), c.data_ptr(), out.data_ptr(), n, d, c.shape[0], int(half_norm)]
+        if len(p_assign.argtypes) == 9:  # this tree's ABI: centroid scratch after c
+            scratch = torch.empty((2 * c.shape[0] * d + c.shape[0],), device=dev)
+            args.insert(2, scratch.data_ptr())
+        launch("parent ivf_assign", p_assign, dev, *args)
+        return out
+
+    def parent_logits(a, b, s, bias):
+        out = torch.empty((a.shape[0], b.shape[0]), device=dev)
+        launch("parent dual_logits", p_logits, dev, a.data_ptr(), b.data_ptr(), s.data_ptr(), bias.data_ptr(),
+               out.data_ptr(), a.shape[0], b.shape[0], a.shape[1])
+        return out
+
+    def parent_attention(q, k, v, mask):
+        B, L, H, D = q.shape
+        out = torch.empty_like(q)
+        launch("parent attention", p_attn, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+               out.data_ptr(), B, L, H, D, 1.0 / math.sqrt(D), 1)
+        return out
+
+    def turns(parent_fn, fn, iters: int) -> dict:
+        """Events and device ms of both in turns: parent, tree, tree, parent."""
+        t = {"parent": [], "tree": []}
+        for who in ("parent", "tree", "tree", "parent"):
+            f = parent_fn if who == "parent" else fn
+            t[who].append({"ms": time_ms(torch, f, iters), "device_ms": device_ms(torch, f, iters)})
+        return {who: {"ms": sum(r["ms"] for r in rs) / 2, "device_ms": sum(r["device_ms"] for r in rs) / 2,
+                      "turns": rs} for who, rs in t.items()}
+
+    res: dict = {}
+    rows = mixture(np, 65536 + 2048, HIDDEN, SEED + 11, 65536 + 2048)[0]
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    x = torch.from_numpy(rows[:65536]).to(dev)
+    for nlist in (1024, 2048):
+        c = torch.from_numpy(rows[65536:65536 + nlist].copy()).to(dev)
+        for label, xs, half in (("ingest", x, False), ("lloyd", x[:50_000], True)):
+            if nlist == 2048 and half:
+                continue
+            name = f"K11 {label} n={xs.shape[0]} nlist={nlist}"
+            err = {"parent": check_assign(torch, xs, c, half, parent_assign(xs, c, half), f"parent {label}"),
+                   "tree": check_assign(torch, xs, c, half, None, label)}
+            hs = 0.5 * (c * c).sum(1) if half else None
+            lib = ((lambda xs=xs, c=c, hs=hs: torch.argmax(torch.matmul(xs, c.T) - hs, dim=1)) if half
+                   else (lambda xs=xs, c=c: torch.argmax(torch.matmul(xs, c.T), dim=1)))
+            res[name] = {
+                "shortfall": err,
+                **turns(lambda xs=xs, c=c, half=half: parent_assign(xs, c, half),
+                        lambda xs=xs, c=c, half=half: ivf_assign(xs, c, half), 10),
+                "library": {"ms": time_ms(torch, lib, 5), "device_ms": device_ms(torch, lib, 5)},
+                "bound_ms": bound(xs.numel() * 4 + c.numel() * 4 + xs.shape[0] * 4,
+                                  2 * xs.shape[0] * nlist * HIDDEN, PEAK_F32_PRODUCT)[0],
+            }
+            log(f"{name}: {json.dumps(res[name])}")
+    del x
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+
+    def unit(n):
+        v = torch.randn((n, HIDDEN), generator=g, device=dev)
+        return v / v.norm(dim=1, keepdim=True)
+
+    img, txt = unit(256), unit(256)
+    s, bias = torch.tensor(2.3, device=dev), torch.tensor(-0.5, device=dev)
+    err = {}
+    for who, fn in (("parent", parent_logits), ("tree", dual_logits)):
+        e = (fn(img, txt, s, bias) - dual_logits_plain(img, txt, s, bias)).abs().max().item()
+        if not e <= LOGIT_ATOL:
+            fail(f"{who} dual_logits: max err {e} > {LOGIT_ATOL}")
+        err[who] = e
+    es = torch.exp(s)
+    lib = lambda: torch.matmul(img, txt.T).mul_(es).add_(bias)  # noqa: E731
+    res["K10 256x256x768"] = {
+        "max_abs_err": err,
+        **turns(lambda: parent_logits(img, txt, s, bias), lambda: dual_logits(img, txt, s, bias), 200),
+        "library": {"ms": time_ms(torch, lib, 200), "device_ms": device_ms(torch, lib, 200)},
+        "bound_ms": bound(2 * 256 * HIDDEN * 4 + 8 + 256 * 256 * 4, 2 * 256 * 256 * HIDDEN + 2 * 256 * 256,
+                          PEAK_F32_PRODUCT)[0],
+    }
+    log(f"K10: {json.dumps(res['K10 256x256x768'])}")
+
+    B, L, H, D = DOC_BATCH, 256, 12, 64
+    q, k, v = (torch.randn((B, L, H, D), generator=g, device=dev) for _ in range(3))
+    lens = torch.randint(64, L + 1, (B,), generator=g, device=dev)
+    mask = (torch.arange(L, device=dev)[None] < lens[:, None]).to(torch.uint8)
+    ref = attention_plain(q, k, v, mask)
+    err = {}
+    for who, fn in (("parent", parent_attention), ("tree", attention)):
+        e = (fn(q, k, v, mask) - ref).abs().max().item()
+        if not e <= F32_ATOL:
+            fail(f"{who} attention f32: max err {e} > {F32_ATOL}")
+        err[who] = e
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa_mask = mask.bool()[:, None, None, :]
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask)  # noqa: E731
+    res["K1 f32 B=256 L=256 H=12 D=64"] = {
+        "max_abs_err": err,
+        **turns(lambda: parent_attention(q, k, v, mask), lambda: attention(q, k, v, mask), 10),
+        "library": {"ms": time_ms(torch, lib, 10), "device_ms": device_ms(torch, lib, 10)},
+    }
+    log(f"K1 f32: {json.dumps(res['K1 f32 B=256 L=256 H=12 D=64'])}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -3235,6 +3417,13 @@ def main() -> int:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", file=sys.stderr)
     dev = torch.device("cuda:0")
+    if "--against-parent" in sys.argv[1:]:
+        parent = sys.argv[sys.argv.index("--against-parent") + 1]
+        log("against parent: " + json.dumps(phase_against_parent(torch, dev, parent)))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}))
+        return 0
     if "--distinct-cards" in sys.argv[1:]:
         if torch.cuda.device_count() < 4:
             fail(f"--distinct-cards needs four cards, found {torch.cuda.device_count()}")
@@ -3363,7 +3552,7 @@ def main() -> int:
         "checkpoint": ck_out,
         "parallel": p10_out,
         "ivf_scan_nq32": ivf_scan_nq32,
-        "ivf_assign_lloyd_ms": k_out["ivf_assign"]["lloyd_ms"],
+        "ivf_assign_lloyd": {key: k_out["ivf_assign"][f"lloyd_{key}"] for key in ("ms", "library_ms", "bound_ms")},
         "phase_wall_s": wall,
     }
     log("summary: " + json.dumps(summary))

@@ -137,7 +137,7 @@ _SIGNATURES = {
     "patchify": {"pw_patchify": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "vision_head": {"pw_vision_head": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]},
     "dual_logits": {"pw_dual_logits": [_P, _P, _P, _P, _P, _I, _I, _I, _P]},
-    "ivf_assign": {"pw_ivf_assign": [_P, _P, _P, _I, _I, _I, _I, _P]},
+    "ivf_assign": {"pw_ivf_assign": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "ivf_scan": {"pw_ivf_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "topk_select": {
         "pw_topk_select": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _P],

@@ -44,7 +44,8 @@
 //  - f32: the JAX program keeps everything in f32, which neither bf16 nor
 //    one-pass TF32 (10 mantissa bits) holds.  Both products run on the
 //    tensor cores as 3xTF32 (mma.sync m16n8k8: a.b ~ a_hi.b_hi + a_hi.b_lo
-//    + a_lo.b_hi, each part rounded to TF32, ~21 bits of each operand), 4
+//    + a_lo.b_hi, each part rounded to TF32, ~21 bits of each operand;
+//    helpers in tf32x3.cuh), 4
 //    warps of 16 query rows; k and v tiles double-buffered in shared memory
 //    by cp.async.  p.v takes p straight from the logit accumulators: its k
 //    index t of a key octet stands for key 2t and t + 4 for key 2t + 1, and
@@ -61,11 +62,13 @@
 
 #include "ptx.cuh"
 #include "sm90.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 using namespace pw_ptx;
 using namespace pw_sm90;
+using namespace pw_tf32x3;
 
 constexpr int kTile = 64;  // query rows per block and keys per tile
 constexpr int kMaxLen = 512;
@@ -100,22 +103,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// Raise the device's dynamic shared memory limit for `kernel` once per
-// device (one bit each).  Returns a cudaError_t.
-template <typename Kernel>
-int allow_smem(Kernel kernel, std::atomic<unsigned>& done, int bytes) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned bit = dev < 32 ? 1u << dev : 0u;
-  if (!(done.load(std::memory_order_relaxed) & bit)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    done.fetch_or(bit, std::memory_order_relaxed);
-  }
-  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -311,29 +298,6 @@ wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, found through the runtime so that
-// the library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(p)
-                                                                        : nullptr;
-  }();
-  return fn;
-}
-
 // The tensor map of a [B, L, H, D] bf16 tensor, a box of [1, 64, 1, D]
 // (innermost first: D, H, L, B) with the swizzle of D * 2 bytes.
 int tensor_map(CUtensorMap* map, const void* base, int B, int L, int H, int D) {
@@ -383,30 +347,6 @@ struct TfLayout {
   static constexpr int kBits = kBias + kMaxLen * 4;
   static constexpr int kBytes = kBits + 16;
 };
-
-// x as a TF32 high part and the TF32 rounding of the rest.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
-}
-
-// c[0..3] += a (16x8 tf32, row) . b (8x8 tf32, col)
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a . b in 3xTF32: the small parts first
-__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* a_hi, const uint32_t* a_lo,
-                                           uint32_t b0_hi, uint32_t b0_lo, uint32_t b1_hi,
-                                           uint32_t b1_lo) {
-  mma_tf32(c, a_lo, b0_hi, b1_hi);
-  mma_tf32(c, a_hi, b0_lo, b1_lo);
-  mma_tf32(c, a_hi, b0_hi, b1_hi);
-}
 
 template <int D>
 __global__ void __launch_bounds__(kTfThreads)

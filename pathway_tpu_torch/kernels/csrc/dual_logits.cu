@@ -6,96 +6,146 @@
 //   scalars read from device memory so no host sync is needed.
 //
 // What bounds it on an H100: at the sizes a batch gives, neither: at
-// 256 x 256 x 768 it moves 1.8 MB (0.5 us at 3.35 TB/s) for 0.1 GFLOP
-// (1.5 us at the 67 TFLOP/s f32 rate), so a single launch's latency
-// dominates.  In f32, as the JAX program computes it (tensor cores would
-// need TF32, which keeps ~3 decimal digits).
+// 256 x 256 x 768 it moves 1.8 MB (0.5 us at 3.35 TB/s) for 0.1 GFLOP of
+// f32-accurate product (0.6 us as three TF32 passes at 495 TFLOP/s), so
+// the latency of one launch, its loads and its dependent steps dominates.
 //
-// What the design does about it: a plain tiled SIMT product with enough
-// blocks to spread over the card.  A block of 256 threads computes a
-// 32 x 32 tile of the output (64 blocks at 256 x 256), walking K in steps
-// of 32: both 32 x 32 operand tiles are staged in shared memory,
-// transposed and padded so neither the stores nor the inner loop's reads
-// conflict, and the next step's tiles are loaded into registers (16-byte
-// loads) while this step is multiplied, so a step's
-// global-load latency hides behind the last one's arithmetic.  Each
-// thread keeps a 2 x 2 block of sums in registers (rows ty and ty + 16,
-// columns tx and tx + 16).  The epilogue applies exp(s) and b with
-// explicit round-to-nearest multiply and add (no fused multiply-add), as
-// the JAX program rounds between them.
+// What the design does about it: spread the product over the card and keep
+// each block's chain of dependent steps short.  A cluster of 8 blocks owns
+// a 64 x 64 tile of the output and splits d between its blocks (96 values
+// each at d = 768: 4 x 4 tiles x 8 = 128 blocks at 256 x 256).  A block
+// loads its slice of img raw and of txt split into TF32 hi and lo parts
+// (tf32x3.cuh) into shared memory in the 64-byte swizzle, runs the three
+// products on the tensor cores (wgmma m64n64k8, tf32x3_stage) and leaves
+// its 64 x 64 partial sums in shared memory.  Then block q of the cluster
+// sums rows 8 q .. 8 q + 7 of the eight partials through distributed
+// shared memory, always in the order of the blocks (the result does not
+// depend on timing; no atomics), and applies exp(s) and b with explicit
+// round-to-nearest multiply and add (no fused multiply-add), as the JAX
+// program rounds between them.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "ptx.cuh"
+#include "sm90.cuh"
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kStep = 32;
-constexpr int kThreads = 256;  // 16 x 16, 2 x 2 outputs each
-constexpr int kPitch = kTile + 1;  // shared row pitch: conflict-free transposed stores
+namespace cg = cooperative_groups;
+using namespace pw_ptx;
+using namespace pw_sm90;
+using namespace pw_tf32x3;
 
-// One thread's share of a 32 x 32 operand tile, rows [r0, r0 + 32) x
-// columns [k0, k0 + 32) of a [rows, k] matrix: 4 consecutive columns of one
-// row, all in or all out as k % 4 == 0 (zeros outside the matrix).
-__device__ __forceinline__ void fetch(float (&f)[4], const float* __restrict__ a, int rows, int k,
-                                      int r0, int k0) {
-  const int r = r0 + threadIdx.x / 8, c = k0 + (threadIdx.x % 8) * 4;
-  if (r < rows && c < k) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(a + (size_t)r * k + c));
-    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-  } else {
-    f[0] = f[1] = f[2] = f[3] = 0.0f;
-  }
-}
+constexpr int kTile = 64;      // output rows and columns of a cluster
+constexpr int kSplit = 8;      // blocks of a cluster, each a slice of d
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kGroup = 6;      // 16-value stages held at once (96 values)
+constexpr int kStageBytes = kTile * kRowBytes;  // 4 KB: one tile of 64 rows
+constexpr int kPer = kGroup * kTile * 4 / kThreads;  // 16-byte chunks of each operand a thread
+constexpr int kA = 0;
+constexpr int kHi = kA + kGroup * kStageBytes;
+constexpr int kLo = kHi + kGroup * kStageBytes;
+constexpr int kPitch = kTile + 4;  // floats a row of the partial sums
+constexpr int kSmemBytes = kLo + kGroup * kStageBytes + 1024;  // + the alignment slack
+static_assert(kTile * kPitch * 4 <= kLo + kGroup * kStageBytes, "the partial sums reuse the operand tiles");
 
-// s[col][row] = the fetched values.
-__device__ __forceinline__ void store(float (*s)[kPitch], const float (&f)[4]) {
-  const int r = threadIdx.x / 8, c = (threadIdx.x % 8) * 4;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) s[c + q][r] = f[q];
-}
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
 dual_logits_kernel(const float* __restrict__ img, const float* __restrict__ txt,
                    const float* __restrict__ scale, const float* __restrict__ bias,
-                   float* __restrict__ out, int m, int n, int k) {
-  __shared__ float a_s[kStep][kPitch];
-  __shared__ float b_s[kStep][kPitch];
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[2][2] = {};
-  float fa[4], fb[4];
-  fetch(fa, img, m, k, m0, 0);
-  fetch(fb, txt, n, k, n0, 0);
-  for (int k0 = 0; k0 < k; k0 += kStep) {
-    store(a_s, fa);
-    store(b_s, fb);
-    __syncthreads();
-    if (k0 + kStep < k) {  // the next step's tiles, in flight during this one
-      fetch(fa, img, m, k, m0, k0 + kStep);
-      fetch(fb, txt, n, k, n0, k0 + kStep);
+                   float* __restrict__ out, int m, int n, int k, int tiles_n) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tile = blockIdx.x / kSplit;
+  const int m0 = tile / tiles_n * kTile, n0 = tile % tiles_n * kTile;
+
+  // this block's stages of d: an even share of the 16-value steps
+  const int steps = (k + kRowFloats - 1) / kRowFloats;
+  const int per = (steps + kSplit - 1) / kSplit;
+  const int s_begin = min(steps, rank * per), s_end = min(steps, s_begin + per);
+
+  float acc[kTile / 2];
+#pragma unroll
+  for (int i = 0; i < kTile / 2; ++i) acc[i] = 0.0f;
+  for (int g0 = s_begin; g0 < s_end; g0 += kGroup) {
+    const int g_n = min(kGroup, s_end - g0);
+    if (g0 != s_begin) __syncthreads();  // the last group's tiles are read
+    // 64 rows x 4 chunks of 16 bytes a stage, of each operand: img's
+    // copied raw, txt's loaded (all at once), split and stored
+    float4 v[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c = threadIdx.x + i * kThreads;
+      const int st = c / (kTile * 4), row = c / 4 % kTile, chunk = c % 4;
+      const int col = (g0 + st) * kRowFloats + 4 * chunk;
+      const bool a_in = st < g_n && m0 + row < m && col < k;
+      if (st < g_n)
+        cp_async16(reinterpret_cast<float*>(smem + kA + st * kStageBytes) + swz(row, 4 * chunk),
+                   a_in ? img + (size_t)(m0 + row) * k + col : img, a_in ? 16 : 0);
+      const bool b_in = st < g_n && n0 + row < n && col < k;
+      v[i] = b_in ? __ldg(reinterpret_cast<const float4*>(txt + (size_t)(n0 + row) * k + col))
+                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
 #pragma unroll
-    for (int kk = 0; kk < kStep; ++kk) {
-      const float a0 = a_s[kk][ty], a1 = a_s[kk][ty + 16];
-      const float b0 = b_s[kk][tx], b1 = b_s[kk][tx + 16];
-      acc[0][0] = fmaf(a0, b0, acc[0][0]);
-      acc[0][1] = fmaf(a0, b1, acc[0][1]);
-      acc[1][0] = fmaf(a1, b0, acc[1][0]);
-      acc[1][1] = fmaf(a1, b1, acc[1][1]);
+    for (int i = 0; i < kPer; ++i) {
+      const int c = threadIdx.x + i * kThreads;
+      const int st = c / (kTile * 4);
+      if (st < g_n)
+        store_split(reinterpret_cast<float*>(smem + kHi + st * kStageBytes),
+                    reinterpret_cast<float*>(smem + kLo + st * kStageBytes), c / 4 % kTile, c % 4, v[i]);
     }
+    cp_async_commit();
+    cp_async_wait<0>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the split tiles, to wgmma
     __syncthreads();
+    for (int st = 0; st < g_n; ++st)
+      tf32x3_stage<kTile>(acc, reinterpret_cast<const float*>(smem + kA + st * kStageBytes),
+                          reinterpret_cast<const float*>(smem + kHi + st * kStageBytes),
+                          reinterpret_cast<const float*>(smem + kLo + st * kStageBytes));
+  }
+
+  // the partial sums, [64][kPitch] over the operand tiles
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(smem);
+  {
+    const int lane = threadIdx.x % 32;
+    const int r = 16 * (threadIdx.x / 32) + lane / 4, c = 2 * (lane % 4);
+#pragma unroll
+    for (int q = 0; q < kTile / 8; ++q) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<float2*>(part + (r + 8 * i) * kPitch + 8 * q + c) =
+            make_float2(acc[4 * q + 2 * i], acc[4 * q + 2 * i + 1]);
+    }
+  }
+  cluster.sync();
+
+  // rows 8 rank .. 8 rank + 7 of the tile: 4 columns a thread
+  const int row = 8 * rank + threadIdx.x / 16, col = 4 * (threadIdx.x % 16);
+  float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int q = 0; q < kSplit; ++q) {
+    const float4 v = *reinterpret_cast<const float4*>(cluster.map_shared_rank(part, q) + row * kPitch + col);
+    sum.x += v.x;
+    sum.y += v.y;
+    sum.z += v.z;
+    sum.w += v.w;
   }
   const float es = expf(*scale), eb = *bias;
+  const float s4[4] = {sum.x, sum.y, sum.z, sum.w};
+  if (m0 + row < m) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = m0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = n0 + tx + 16 * j;
-      if (r < m && c < n) out[(size_t)r * n + c] = __fadd_rn(__fmul_rn(acc[i][j], es), eb);
+    for (int e = 0; e < 4; ++e) {
+      if (n0 + col + e < n) out[(size_t)(m0 + row) * n + n0 + col + e] = __fadd_rn(__fmul_rn(s4[e], es), eb);
     }
   }
+  cluster.sync();  // no block leaves while another still reads its partial sums
 }
 
 }  // namespace
@@ -107,10 +157,12 @@ extern "C" int pw_dual_logits(const void* img, const void* txt, const void* scal
                               const void* bias, void* out, int m, int n, int k, void* stream) {
   if (m == 0 || n == 0) return 0;
   if (k <= 0 || k % 4 != 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile);
-  dual_logits_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(img), static_cast<const float*>(txt),
-      static_cast<const float*>(scale), static_cast<const float*>(bias), static_cast<float*>(out),
-      m, n, k);
+  static std::atomic<unsigned> done{0};
+  const int err = allow_smem(dual_logits_kernel, done, kSmemBytes);
+  if (err) return err;
+  const int tiles_m = (m + kTile - 1) / kTile, tiles_n = (n + kTile - 1) / kTile;
+  dual_logits_kernel<<<tiles_m * tiles_n * kSplit, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(img), static_cast<const float*>(txt), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<float*>(out), m, n, k, tiles_n);
   return (int)cudaGetLastError();
 }

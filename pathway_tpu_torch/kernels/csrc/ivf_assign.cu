@@ -6,37 +6,55 @@
 //   Ties go to the lower centroid, and a NaN score wins as jnp.argmax
 //   lets it (the first NaN).
 //
-// What bounds it on an H100: operations.  2 * n * nlist * d f32 FMAs
-// (103 GFLOP for a 65,536-row ingest chunk against 1,024 centroids of 768:
-// 1.54 ms at 67 TFLOP/s) against n * d * 4 + nlist * d * 4 bytes read
-// (204 MB, 0.06 ms).  Tensor cores would change the f32 result (TF32),
-// so the product runs on the FMA units.
+// What bounds it on an H100: operations.  2 * n * nlist * d f32
+// multiply-adds (103 GFLOP for a 65,536-row ingest chunk against 1,024
+// centroids of 768) at f32 accuracy: three TF32 passes on the tensor cores
+// (tf32x3.cuh), 0.62 ms at 495 TFLOP/s, against n * d * 4 + nlist * d * 4
+// bytes read (204 MB, 0.06 ms).  On the FMA units (67 TFLOP/s) the same
+// product needs 1.54 ms.
 //
-// What the design does about it: the [n, nlist] score matrix never
-// reaches device memory.  A block owns 128 rows of x and walks every
-// centroid in tiles of 64; each tile is a register-blocked product (each
-// thread an 8-row x 4-centroid block of scores, 32 dimensions staged in
-// shared memory at a time, the next stage fetched into registers while
-// this one is multiplied).  The tile's epilogue subtracts half of each
-// centroid's squared norm (summed from the same staged values) and folds
-// the scores into each row's running (max, argmax) in registers: a
-// 16-lane butterfly over the threads that share the rows.  The centroids
-// (3 MB) stay in L2 across blocks.
+// What the design does about it.  The [n, nlist] score matrix never
+// reaches device memory.
+//  - A pre-pass splits the centroids once per call into TF32 hi and lo
+//    parts (2 * nlist * d floats of scratch) and 0.5 ||c||^2 in f32, so no
+//    block splits them again.
+//  - A persistent grid (one block an SM) walks tiles of 128 rows; a tile
+//    walks the centroids 256 at a time, each over d in stages of 16 values.
+//    A producer warp keeps a ring of 5 stages in flight by TMA (x: 128 x 16,
+//    hi and lo: 256 x 16, 40 KB a stage, 64-byte swizzle) and mbarriers,
+//    and runs on into the next tile while the consumers finish this one.
+//  - Two consumer warpgroups each own 64 of the rows: split x in registers
+//    and run the three products as wgmma m64n256k8 (tf32x3_stage), 128 f32
+//    sums a thread.  After each 256 centroids they subtract 0.5 ||c||^2
+//    (Lloyd) and fold the scores into each row's running (max, argmax) in
+//    registers: a scan of the thread's 64 columns, then a butterfly over the
+//    4 lanes that share the row.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "sm90.cuh"
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBM = 128;  // rows of x per block
-constexpr int kBN = 64;   // centroids per tile
-constexpr int kBK = 32;   // dimensions per stage
-constexpr int kALd = kBM + 4;
-constexpr int kBLd = kBN + 4;
-constexpr int kALoads = kBM * kBK / 4 / kThreads;  // float4 loads of x per thread and stage
-constexpr int kBLoads = kBN * kBK / 4 / kThreads;  // ... of the centroids
+using namespace pw_sm90;
+using namespace pw_tf32x3;
+
+constexpr int kBM = 128;  // rows of x a tile
+constexpr int kBN = 256;  // centroids a pass over the row tile
+constexpr int kStages = 5;
+constexpr int kConsumers = 256;               // two warpgroups
+constexpr int kThreads = kConsumers + 32;     // and the producer warp
+constexpr int kABytes = kBM * kRowBytes;      // 8 KB
+constexpr int kBBytes = kBN * kRowBytes;      // 16 KB, each of hi and lo
+constexpr int kStageBytes = kABytes + 2 * kBBytes;
+constexpr int kBars = kStages * kStageBytes;  // full[kStages], empty[kStages]
+constexpr int kSmemBytes = kBars + 2 * kStages * 8 + 1024;  // + the alignment slack
 constexpr int kPadIdx = 0x7fffffff;
 
 // (va, ia) ranks before (vb, ib): the larger score, the lower index on a
@@ -47,150 +65,195 @@ __device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);
 }
 
-__global__ void __launch_bounds__(kThreads)
-assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
-              int32_t* __restrict__ out, int n, int d, int nlist, int half_norm) {
-  __shared__ __align__(16) float a_s[kBK * kALd];  // x tile, transposed: [k][row]
-  __shared__ __align__(16) float b_s[kBK * kBLd];  // centroid tile, transposed: [k][centroid]
-
-  const int tid = threadIdx.x;
-  const int rg = tid / 16;  // rows rg*8 .. rg*8+7 of the block
-  const int cg = tid % 16;  // centroids cg*4 .. cg*4+3 of the tile
-  const int64_t row0 = (int64_t)blockIdx.x * kBM;
-
-  float best[8];
-  int arg[8];
+// One warp a centroid: hi and lo parts of its row, and 0.5 ||c||^2.
+__global__ void __launch_bounds__(256)
+split_kernel(const float* __restrict__ c, float* __restrict__ hi, float* __restrict__ lo,
+             float* __restrict__ half_sq, int nlist, int d) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= nlist) return;
+  const size_t base = (size_t)row * d;
+  float sq = 0.0f;
+  for (int k = 4 * lane; k < d; k += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(c + base + k);
+    uint32_t h[4], l[4];
+    split_tf32(v.x, h[0], l[0]);
+    split_tf32(v.y, h[1], l[1]);
+    split_tf32(v.z, h[2], l[2]);
+    split_tf32(v.w, h[3], l[3]);
+    *reinterpret_cast<uint4*>(hi + base + k) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + base + k) = make_uint4(l[0], l[1], l[2], l[3]);
+    sq = fmaf(v.x, v.x, sq);
+    sq = fmaf(v.y, v.y, sq);
+    sq = fmaf(v.z, v.z, sq);
+    sq = fmaf(v.w, v.w, sq);
+  }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    best[i] = -INFINITY;
-    arg[i] = kPadIdx;
+  for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+  if (lane == 0) half_sq[row] = 0.5f * sq;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+assign_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap hi_map,
+              const __grid_constant__ CUtensorMap lo_map, const float* __restrict__ half_sq,
+              int32_t* __restrict__ out, int n, int d, int nlist) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBars);
+  uint64_t* empty = full + kStages;
+  auto a_tile = [&](int s) { return reinterpret_cast<float*>(smem + s * kStageBytes); };
+  auto hi_tile = [&](int s) { return reinterpret_cast<float*>(smem + s * kStageBytes + kABytes); };
+  auto lo_tile = [&](int s) { return reinterpret_cast<float*>(smem + s * kStageBytes + kABytes + kBBytes); };
+
+  const int tiles = (n + kBM - 1) / kBM;
+  const int n_passes = (nlist + kBN - 1) / kBN;
+  const int k_steps = (d + kRowFloats - 1) / kRowFloats;
+  const int warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // the producer warp: one lane issues every load
+    if (threadIdx.x % 32 == 0) {
+      int j = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        for (int p = 0; p < n_passes; ++p) {
+          for (int ks = 0; ks < k_steps; ++ks, ++j) {
+            const int s = j % kStages;
+            if (j >= kStages) mbar_wait(&empty[s], (j / kStages - 1) & 1);
+            mbar_expect_tx(&full[s], kStageBytes);
+            tma_load_2d(a_tile(s), &x_map, &full[s], ks * kRowFloats, tile * kBM);
+            tma_load_2d(hi_tile(s), &hi_map, &full[s], ks * kRowFloats, p * kBN);
+            tma_load_2d(lo_tile(s), &lo_map, &full[s], ks * kRowFloats, p * kBN);
+          }
+        }
+      }
+    }
+    return;
   }
 
-  float4 pa[kALoads], pb[kBLoads];
-  auto fetch = [&](int n0, int k0) {
+  // A consumer warpgroup: rows 64 wg .. 64 wg + 63 of the tile.  This
+  // thread's rows are r and r + 8 of them; its sums for row r + 8 i and
+  // column 8 q + 2 t + e are acc[4 q + 2 i + e].
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const int r = 64 * wg + 16 * (warp % 4) + lane / 4;
+  const int t = lane % 4;
+  float acc[kBN / 2];
+  int j = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    float best[2] = {-INFINITY, -INFINITY};
+    int arg[2] = {kPadIdx, kPadIdx};
+    for (int p = 0; p < n_passes; ++p) {
 #pragma unroll
-    for (int i = 0; i < kALoads; ++i) {
-      const int idx = tid + i * kThreads;
-      const int64_t row = row0 + idx / (kBK / 4);
-      const int k = k0 + (idx % (kBK / 4)) * 4;
-      pa[i] = (row < n && k < d) ? *reinterpret_cast<const float4*>(x + row * d + k)
-                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
-#pragma unroll
-    for (int i = 0; i < kBLoads; ++i) {
-      const int idx = tid + i * kThreads;
-      const int cent = n0 + idx / (kBK / 4);
-      const int k = k0 + (idx % (kBK / 4)) * 4;
-      pb[i] = (cent < nlist && k < d)
-                  ? *reinterpret_cast<const float4*>(c + (int64_t)cent * d + k)
-                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
-  };
+      for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.0f;
+      for (int ks = 0; ks < k_steps; ++ks, ++j) {
+        const int s = j % kStages;
+        mbar_wait(&full[s], (j / kStages) & 1);
+        tf32x3_stage<kBN>(acc, a_tile(s) + 64 * wg * kRowFloats, hi_tile(s), lo_tile(s));
+        mbar_arrive(&empty[s]);  // stage s may be loaded again
+      }
 
-  for (int n0 = 0; n0 < nlist; n0 += kBN) {
-    float acc[8][4];
-    float cc[4];
+      // fold this pass's scores into each row's running (max, argmax)
+      const int c0 = p * kBN;
+      float bv[2] = {-INFINITY, -INFINITY};
+      int bi[2] = {kPadIdx, kPadIdx};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      cc[j] = 0.0f;
+      for (int q = 0; q < kBN / 8; ++q) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i][j] = 0.0f;
-    }
-    fetch(n0, 0);
-    for (int k0 = 0; k0 < d; k0 += kBK) {
-      __syncthreads();  // every thread is done reading the previous stage
+        for (int e = 0; e < 2; ++e) {
+          const int cent = c0 + 8 * q + 2 * t + e;
+          if (cent >= nlist) continue;
+          const float hs = half_sq ? __ldg(half_sq + cent) : 0.0f;
 #pragma unroll
-      for (int i = 0; i < kALoads; ++i) {
-        const int idx = tid + i * kThreads;
-        const int r = idx / (kBK / 4);
-        const int k = (idx % (kBK / 4)) * 4;
-        a_s[(k + 0) * kALd + r] = pa[i].x;
-        a_s[(k + 1) * kALd + r] = pa[i].y;
-        a_s[(k + 2) * kALd + r] = pa[i].z;
-        a_s[(k + 3) * kALd + r] = pa[i].w;
-      }
-#pragma unroll
-      for (int i = 0; i < kBLoads; ++i) {
-        const int idx = tid + i * kThreads;
-        const int r = idx / (kBK / 4);
-        const int k = (idx % (kBK / 4)) * 4;
-        b_s[(k + 0) * kBLd + r] = pb[i].x;
-        b_s[(k + 1) * kBLd + r] = pb[i].y;
-        b_s[(k + 2) * kBLd + r] = pb[i].z;
-        b_s[(k + 3) * kBLd + r] = pb[i].w;
-      }
-      __syncthreads();
-      if (k0 + kBK < d) fetch(n0, k0 + kBK);
-#pragma unroll 8
-      for (int k = 0; k < kBK; ++k) {
-        const float4 a0 = *reinterpret_cast<const float4*>(a_s + k * kALd + rg * 8);
-        const float4 a1 = *reinterpret_cast<const float4*>(a_s + k * kALd + rg * 8 + 4);
-        const float4 b = *reinterpret_cast<const float4*>(b_s + k * kBLd + cg * 4);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+          for (int i = 0; i < 2; ++i) {
+            const float sc = acc[4 * q + 2 * i + e] - hs;
+            if (better(sc, cent, bv[i], bi[i])) {
+              bv[i] = sc;
+              bi[i] = cent;
+            }
+          }
         }
-        if (half_norm) {
+      }
 #pragma unroll
-          for (int j = 0; j < 4; ++j) cc[j] = fmaf(bv[j], bv[j], cc[j]);
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {  // the 4 lanes that share the row
+          const float ov = __shfl_xor_sync(0xffffffffu, bv[i], off);
+          const int oi = __shfl_xor_sync(0xffffffffu, bi[i], off);
+          if (better(ov, oi, bv[i], bi[i])) {
+            bv[i] = ov;
+            bi[i] = oi;
+          }
+        }
+        if (better(bv[i], bi[i], best[i], arg[i])) {
+          best[i] = bv[i];
+          arg[i] = bi[i];
         }
       }
     }
-
-    // fold this tile's scores into each row's running (max, argmax)
+    if (t == 0) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float bv = -INFINITY;
-      int bi = kPadIdx;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cent = n0 + cg * 4 + j;
-        const float s = half_norm ? acc[i][j] - 0.5f * cc[j] : acc[i][j];
-        if (cent < nlist && better(s, cent, bv, bi)) {
-          bv = s;
-          bi = cent;
-        }
+      for (int i = 0; i < 2; ++i) {
+        const int64_t row = (int64_t)tile * kBM + r + 8 * i;
+        if (row < n) out[row] = arg[i];
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {  // the 16 lanes that share these rows
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        if (better(ov, oi, bv, bi)) {
-          bv = ov;
-          bi = oi;
-        }
-      }
-      if (better(bv, bi, best[i], arg[i])) {
-        best[i] = bv;
-        arg[i] = bi;
-      }
-    }
-  }
-
-  if (cg == 0) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int64_t row = row0 + rg * 8 + i;
-      if (row < n) out[row] = arg[i];
     }
   }
 }
 
+// The tensor map of a [rows, d] f32 matrix, a box of [box_rows, 16] in the
+// 64-byte swizzle; outside the matrix the box reads zeros.
+int tensor_map(CUtensorMap* map, const void* base, int rows, int d, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)kRowFloats, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides,
+                              box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// x: [n, d] f32; c: [nlist, d] f32; out: [n] int32, the centroid of the
-// best score per row (x . c, minus 0.5 ||c||^2 when half_norm).  d must
-// divide by 4 and both arrays be 16-byte aligned.  Returns a cudaError_t.
-extern "C" int pw_ivf_assign(const void* x, const void* c, void* out, int n, int d, int nlist,
+// x: [n, d] f32; c: [nlist, d] f32; scratch: 2 * nlist * d + nlist f32
+// (the centroids' hi and lo parts and 0.5 ||c||^2); out: [n] int32, the
+// centroid of the best score per row (x . c, minus 0.5 ||c||^2 when
+// half_norm).  d must divide by 4 and every array be 16-byte aligned.
+// Two launches: the split, then the assignment.  Returns a cudaError_t.
+extern "C" int pw_ivf_assign(const void* x, const void* c, void* scratch, void* out, int n, int d, int nlist,
                              int half_norm, void* stream) {
   if (n == 0) return 0;
   if (d % 4 != 0 || nlist < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  assign_kernel<<<(n + kBM - 1) / kBM, kThreads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(c), static_cast<int32_t*>(out), n,
-      d, nlist, half_norm);
+  float* hi = static_cast<float*>(scratch);
+  float* lo = hi + (size_t)nlist * d;
+  float* half_sq = lo + (size_t)nlist * d;
+  split_kernel<<<(nlist + 7) / 8, 256, 0, s>>>(static_cast<const float*>(c), hi, lo, half_sq, nlist, d);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+
+  static std::atomic<unsigned> done{0};
+  err = allow_smem(assign_kernel, done, kSmemBytes);
+  CUtensorMap maps[3];
+  if (!err) err = tensor_map(&maps[0], x, n, d, kBM);
+  if (!err) err = tensor_map(&maps[1], hi, nlist, d, kBN);
+  if (!err) err = tensor_map(&maps[2], lo, nlist, d, kBN);
+  int dev = 0, sms = 0;
+  if (!err) err = (int)cudaGetDevice(&dev);
+  if (!err) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err) return err;
+  const int tiles = (n + kBM - 1) / kBM;
+  assign_kernel<<<tiles < sms ? tiles : sms, kThreads, kSmemBytes, s>>>(
+      maps[0], maps[1], maps[2], half_norm ? half_sq : nullptr, static_cast<int32_t*>(out), n, d, nlist);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// PTX wrappers shared by K1 (attention.cu) and K14's block (flash.cuh):
+// PTX wrappers shared by K1 (attention.cu), K10 (dual_logits.cu) and
+// K14's block (flash.cuh):
 // the shared-memory address of a pointer, 16-byte cp.async copies into
 // shared memory, the bf16 pair of two floats, and a loader of one head's
 // 64-row tile of a [B, L, H, D] tensor.

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: mbarriers,
 // TMA tensor loads, wgmma shared-memory descriptors and the few wgmma
-// shapes the port uses (bf16 in, f32 accumulate).  Used by K1
-// (attention.cu).
+// shapes the port uses (bf16 in, f32 accumulate), and the host side of
+// TMA (libcuda's tensor-map encoder, the dynamic shared memory limit).
+// Used by K1 (attention.cu) and, through tf32x3.cuh, K10 and K11.
 //
 // Layouts.  A tile is rows of R = 32, 64 or 128 bytes, loaded by TMA with
 // the swizzle of the same width (CU_TENSOR_MAP_SWIZZLE_32B/64B/128B), at an
@@ -22,6 +23,8 @@
 #include <cuda.h>  // CUtensorMap and its enums (types only: the library does not link libcuda)
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "ptx.cuh"
 
@@ -90,6 +93,55 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Box of a 2-D tensor map at (c0 innermost, c1), as tma_load_4d.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// cuTensorMapEncodeTiled from libcuda, found through the runtime so that a
+// library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(p)
+                                                                        : nullptr;
+  }();
+  return fn;
+}
+
+// Raise the device's dynamic shared memory limit for `kernel` once per
+// device (one bit each).  Returns a cudaError_t.
+template <typename Kernel>
+int allow_smem(Kernel kernel, std::atomic<unsigned>& done, int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (!(done.load(std::memory_order_relaxed) & bit)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    done.fetch_or(bit, std::memory_order_relaxed);
+  }
+  return 0;
 }
 
 // ---------------------------------------------------------------------------

@@ -10,7 +10,10 @@ the lower centroid, as ``jnp.argmax`` and ``torch.argmax`` give them.
 For CUDA tensors the wrapper launches the kernel (d divisible by 4,
 16-byte aligned rows), which never writes the ``[n, nlist]`` scores to
 device memory, and raises on anything else; for CPU tensors it runs
-:func:`ivf_assign_plain`.
+:func:`ivf_assign_plain`.  The kernel takes the product on the tensor
+cores in three TF32 passes (f32 accuracy, ``csrc/tf32x3.cuh``); a call is
+two launches, the centroids' split into TF32 parts (into scratch the
+wrapper allocates) and the assignment.
 """
 
 from __future__ import annotations
@@ -43,16 +46,19 @@ def ivf_assign(x: torch.Tensor, c: torch.Tensor, half_norm: bool) -> torch.Tenso
         raise ValueError(f"ivf_assign: the kernel takes f32 rows and centroids, got {x.dtype}, {c.dtype}")
     if d % 4 or x.data_ptr() % 16 or c.data_ptr() % 16:
         raise ValueError("ivf_assign: the kernel takes a width divisible by 4 and 16-byte aligned rows")
+    nlist = c.shape[0]
     out = torch.empty((n,), dtype=torch.int32, device=device)
     if n == 0:
         return out
+    # the centroids' TF32 hi and lo parts, then 0.5 ||c||^2
+    scratch = torch.empty((2 * nlist * d + nlist,), dtype=torch.float32, device=device)
     launch(
         "ivf_assign", _build.library("ivf_assign").pw_ivf_assign, device,
-        x.data_ptr(), c.data_ptr(), out.data_ptr(), n, d, c.shape[0], int(bool(half_norm)),
+        x.data_ptr(), c.data_ptr(), scratch.data_ptr(), out.data_ptr(), n, d, nlist, int(bool(half_norm)),
     )
-    ivf_assign.launches += 1
+    ivf_assign.launches += 2
     return out
 
 
-#: launches of the CUDA kernel in this process
+#: launches of the CUDA kernels in this process (two a call)
 ivf_assign.launches = 0
