@@ -20,7 +20,12 @@ Phases, each fatal on failure:
    path's BGE-base shapes (K6 also at a position offset); K14, one ring
    step, in bf16 and f32 at B=8, 2,048 keys, 12 heads of 64 (a middle
    step from a carried state and a finishing step, with a row that has
-   no valid key), timed beside SDPA over the whole 8,192-token sequence.
+   no valid key), once with the sequence's any_key (the tile skip) and
+   once walking every tile, the two bit-equal, timed beside SDPA over the
+   same block and mask (and, named apart, over the whole 8,192-token
+   sequence); K3 at nq 32 and 64 in one pass over the slab (4 launches a
+   call: the queries' split, the pass, two merges); the ptxas lines of
+   K1, K3 and K14.
    K1 also, in bf16 and f32, at B=256 L=512 with masks with holes
    (present key tiles between fully masked ones) and rows with no present
    key, whose output must be the uniform average of v, and at L=196 with
@@ -130,9 +135,9 @@ K4-K7 with their f32 forms); the last is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device the script exits 1 and prints no result.
 
 ``python3 chip_smoke.py --against-parent DIR`` runs instead, on one card,
-only K11, K10 and K1 f32 of this tree beside the same kernels built from
-the sources under ``DIR`` (another commit, unpacked), timed in turns
-(``phase_against_parent``).
+only K14, K3's tiled pass and K1 of this tree beside the same kernels
+built from the sources under ``DIR`` (another commit, unpacked), timed in
+turns (``phase_against_parent``).
 
 ``python3 chip_smoke.py --distinct-cards`` runs instead, on four cards,
 only what a mesh that repeats one card cannot show: ring attention and
@@ -424,7 +429,7 @@ def phase_kernels(torch, dev) -> dict:
         topk_select_plain,
     )
     from pathway_tpu_torch.kernels.attention import walked_key_tiles
-    from pathway_tpu_torch.kernels.knn_topk import TILED_MIN_QUERIES
+    from pathway_tpu_torch.kernels.knn_topk import TILED_MIN_QUERIES, merge_passes, tiled_groups
     from pathway_tpu_torch.kernels.knn_topk import _launch as knn_launch
     from pathway_tpu_torch.ops.topk import NEG_INF
 
@@ -623,6 +628,19 @@ def phase_kernels(torch, dev) -> dict:
             "bound_by": b_by,
         }
         log(f"K3 knn_topk nq={nq}: {json.dumps(timings[nq])}")
+    # one pass over the slab per call at nq 32 and 64 (one group of queries):
+    # the split of the queries, the tiled pass, then the merges
+    for nq in (32, 64):
+        width, groups = tiled_groups(nq)
+        before = knn_topk.launches
+        knn_topk(qn[:nq], slab, valid, K, "dot")  # qn: the 64 queries of the last timing
+        got = knn_topk.launches - before
+        blocks = min(-(-CAPACITY // 256), torch.cuda.get_device_properties(dev).multi_processor_count)
+        want = 2 + merge_passes(blocks * K, K)  # one list a block and query
+        if groups != 1 or got != want:
+            fail(f"knn_topk nq={nq}: {got} launches, {groups} query groups; want {want}, one group")
+        log(f"K3 knn_topk nq={nq}: {got} launches (the split, one tiled pass of {width} queries over the "
+            f"slab on {blocks} blocks, {want - 2} merges)")
     # fewer live rows than k: the rest must come back as NEG_INF sentinels
     few = torch.zeros((CAPACITY,), device=dev)
     few[torch.randperm(CAPACITY, generator=g, device=dev)[:5]] = 1.0
@@ -632,14 +650,26 @@ def phase_kernels(torch, dev) -> dict:
         topk_err = max(topk_err, compare_topk(kv[:, :5], ki[:, :5], pv[:, :5], pi[:, :5], TOPK_ATOL))
         if not bool((kv[:, 5:] <= NEG_INF / 2).all()):
             fail("knn_topk: missing NEG_INF sentinels when k > live rows")
-    # both pass-1 paths: bf16 slab, l2sq, the largest k
+    # both pass-1 paths: bf16 slab, l2sq (f32: the running lists of one
+    # and of four entries a lane), the largest k
     small = slab[:65536].to(bf16)
-    for qs in (qn[:2], qn):
-        for s_, metric, k in ((small, "dot", 128), (small, "l2sq", 10), (slab[:65536], "l2sq", 128)):
+    for qs in (qn[:2], qn[:32], qn):
+        for s_, metric, k in ((small, "dot", 128), (small, "l2sq", 10), (slab[:65536], "l2sq", 10),
+                              (slab[:65536], "l2sq", 128)):
             kv, ki = knn_topk(qs, s_, valid[:65536], k, metric)
             pv, pi = knn_topk_plain(qs, s_, valid[:65536], k, metric)
             topk_err = max(topk_err, compare_topk(kv, ki, pv, pi, TOPK_ATOL))
-    # the largest k, off the main path: every tile's best 128 by arg-max rounds
+    # more than 64 queries: two groups of the tensor-core pass, each over
+    # every tile, the running lists started again for the second
+    q96 = torch.randn((96, HIDDEN), generator=torch.Generator(device=dev).manual_seed(SEED + 13), device=dev)
+    q96 /= q96.norm(dim=1, keepdim=True)
+    for k in (K, MAX_K):
+        kv, ki = knn_topk(q96, slab, valid, k, "dot")
+        pv, pi = knn_topk_plain(q96, slab, valid, k, "dot")
+        topk_err = max(topk_err, compare_topk(kv, ki, pv, pi, TOPK_ATOL))
+    log(f"K3 knn_topk nq=96 ({tiled_groups(96)[1]} query groups) at k {K} and {MAX_K}: equal to its plain version")
+    del q96
+    # the largest k: each block's running list of 128, four entries a lane
     k128 = {}
     for nq in (1, 32):
         qs = qn[:nq]
@@ -1107,7 +1137,9 @@ def phase_f32_ring_kernels(torch, dev) -> dict:
     16 and at BGE-base's shape) and in bf16 at head_dim 16; K4-K7 in f32 at
     the embed path's BGE-base shapes; K14 in bf16 and f32 at a long
     document's block, one middle step and one finishing step against its
-    plain version, timed beside SDPA over the whole 8,192-token sequence."""
+    plain version, each also with every tile walked (bit-equal to the tile
+    skip), timed beside SDPA over the same block and, named apart, over the
+    whole 8,192-token sequence."""
     import torch.nn.functional as F
 
     from pathway_tpu_torch.kernels import (
@@ -1126,6 +1158,7 @@ def phase_f32_ring_kernels(torch, dev) -> dict:
         ring_state,
     )
     from pathway_tpu_torch.kernels.attention import walked_key_tiles
+    from pathway_tpu_torch.kernels.ring_block import walked_ring_tiles
 
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1267,9 +1300,12 @@ def phase_f32_ring_kernels(torch, dev) -> dict:
     # ---- K14 ring_block: a middle step (from the state a first step left)
     # and the finishing step, against ring_block_plain on the same inputs.
     # Row 1 has no valid key in the first block, row 2 none in any: its
-    # output must be the uniform average of v over all keys.
+    # output must be the uniform average of v over all keys.  Each step runs
+    # twice: with the sequence's any_key (the ring's tile skip) and with
+    # any_key all zeros (every tile walked); the two must be bit-equal.
     B, L, H, D = RING_B, RING_L, RING_H, RING_D
     ring = {}
+    walked = {}
     for dt in (bf16, f32):
         tag = "bf16" if dt == bf16 else "f32"
         q = randn(B, L, H, D, dtype=dt)
@@ -1277,12 +1313,19 @@ def phase_f32_ring_kernels(torch, dev) -> dict:
         kv[0][2][1] = 0
         for _, _, m in kv:
             m[2] = 0
+        any_key = torch.stack([m for _, _, m in kv]).amax(dim=(0, 2))
+        walk_all = torch.zeros_like(any_key)
         st_p = ring_state(B, L, H, D, dev)
         ring_block_plain(q, *kv[0], *st_p)
         st_k = [t.clone() for t in st_p]
-        ring_block(q, *kv[1], *st_k)
+        st_a = [t.clone() for t in st_p]
+        ring_block(q, *kv[1], *st_k, any_key=any_key)
+        ring_block(q, *kv[1], *st_a, any_key=walk_all)
         ring_block_plain(q, *kv[1], *st_p)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(st_k, st_a)):
+            fail(f"ring_block {tag} middle step: the state with the tile skip is not bit-equal to the walk of "
+                 f"every tile (o, m, l equal: {[torch.equal(a, b) for a, b in zip(st_k, st_a)]})")
         state_err, m_err = ring_state_err(st_k, st_p)
         state_tol = F32_ATOL if dt == f32 else RING_STATE_RTOL
         if not (state_err <= state_tol and m_err <= state_tol):
@@ -1296,7 +1339,10 @@ def phase_f32_ring_kernels(torch, dev) -> dict:
             if not control > state_tol:
                 fail(f"ring_block bf16: p rounded to bf16 lies {control} from the f32-p state, within "
                      f"the limit {state_tol}: the gate cannot tell the two apart")
-        got = ring_block(q, *kv[2], *st_k, finalize=True)
+        got = ring_block(q, *kv[2], *st_k, finalize=True, any_key=any_key)
+        if not torch.equal(got, ring_block(q, *kv[2], *st_a, finalize=True, any_key=walk_all)):
+            fail(f"ring_block {tag} finishing step: the output with the tile skip is not bit-equal to the "
+                 "walk of every tile")
         ref = ring_block_plain(q, *kv[2], *st_p, finalize=True)
         err = check(f"K14 ring_block {tag} finishing step", got, ref,
                     F32_ATOL if dt == f32 else RING_ATOL * ref.float().abs().max().item())
@@ -1305,34 +1351,85 @@ def phase_f32_ring_kernels(torch, dev) -> dict:
                       uniform.expand(L, H, D), F32_ATOL if dt == f32 else RING_ATOL * uniform.abs().max().item())
         log(f"K14 ring_block {tag} middle step: state err {state_err:.3e}, running max err {m_err:.3e} "
             f"(tol {state_tol}); with p rounded to bf16 (the control) {control}; finished output "
-            f"max |ref| {ref.float().abs().max().item():.4f}")
+            f"max |ref| {ref.float().abs().max().item():.4f}; the tile skip bit-equal to the walk of every tile")
         mask = kv[1][2]
+        walked[tag] = int(walked_ring_tiles(mask, any_key).sum()) / (B * -(-L // 64))
         keys = int(mask.sum())
         es = 2 if dt == bf16 else 4
-        nbytes = 3 * B * L * H * D * es + B * L + 2 * (B * H * L * D * 4 + 2 * B * H * L * 4)
+        nbytes = 3 * B * L * H * D * es + B * L + B + 2 * (B * H * L * D * 4 + 2 * B * H * L * 4)
         b_ms, b_by = bound(nbytes, 4 * H * D * L * keys, PEAK_BF16 if dt == bf16 else PEAK_F32_PRODUCT)
         st = [t.clone() for t in st_k]
         row = {
             "shape": f"B={B} Lb={L} H={H} D={D} {tag}, a middle step, {keys} of {B * L} keys present",
             "max_abs_err": max(err, err_u), "state_err": state_err, "running_max_err": m_err,
             "state_err_p_bf16": control,
-            "ms": time_ms(torch, lambda: ring_block(q, *kv[1], *st), 10),
+            "ms": time_ms(torch, lambda: ring_block(q, *kv[1], *st, any_key=any_key), 10),
+            "walk_all_ms": time_ms(torch, lambda: ring_block(q, *kv[1], *st, any_key=walk_all), 10),
             "plain_ms": time_ms(torch, lambda: ring_block_plain(q, *kv[1], *st_p), 3, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by,
-            "finalize_ms": time_ms(torch, lambda: ring_block(q, *kv[2], *st, finalize=True), 10),
+            "finalize_ms": time_ms(torch, lambda: ring_block(q, *kv[2], *st, finalize=True, any_key=any_key), 10),
         }
-        del st, st_k, st_p, kv, got, ref
-        # the library yardstick: SDPA over the whole sequence at once (never
-        # called by the port), with a key mask of the same density
+        # the library yardstick: SDPA over the same block, query block against
+        # the K/V block with its key mask (never called by the port); and,
+        # named apart, SDPA over the whole sequence at once with a key mask
+        # of the same density
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, *kv[1][:2]))
+        bmask = mask.bool()[:, None, None, :]
+        row["library_ms"] = time_ms(
+            torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bmask), 10)
+        row["library"] = f"F.scaled_dot_product_attention over the block, B={B} Lq=Lk={L} H={H} D={D} {tag}"
+        del st, st_k, st_a, st_p, kv, got, ref, qt, kt, vt
         qf, kf, vf = (randn(B, H, LONG_LEN, D, dtype=dt) for _ in range(3))
         fmask = lengths_mask(B, LONG_LEN).bool()[:, None, None, :]
-        row["library_ms"] = time_ms(
+        row["library_whole_sequence_ms"] = time_ms(
             torch, lambda: F.scaled_dot_product_attention(qf, kf, vf, attn_mask=fmask), 3, warmup=1)
-        row["library"] = f"F.scaled_dot_product_attention over B={B} L={LONG_LEN} H={H} D={D} {tag}"
+        row["library_whole_sequence"] = f"F.scaled_dot_product_attention over B={B} L={LONG_LEN} H={H} D={D} {tag}"
         del qf, kf, vf
         ring[tag] = row
         log(f"K14 ring_block {tag}: {json.dumps(row)}")
         torch.cuda.empty_cache()
+    log("K14 key tiles walked at the middle step (share of all, from the masks and any_key): "
+        + json.dumps(walked))
+    # the tile skip on masks with holes (present tiles between masked ones),
+    # over two ring steps from the first state, every step run with the
+    # sequence's any_key and with all zeros: row 1 has keys only in the first
+    # block (it walks no tile of the second), row 3 only the last key of the
+    # second (it walks no tile of the first), row 2 none anywhere (every
+    # tile).  The final states must be bit-equal, and within the middle
+    # step's limit of the plain version's (own generator: the checks above
+    # keep their inputs)
+    g_h = torch.Generator(device=dev).manual_seed(SEED + 14)
+    Bh, Lh, Hh = 8, 1024, 4
+    holes = {}
+    for dt in (bf16, f32):
+        tag = "bf16" if dt == bf16 else "f32"
+        q, k0, v0, k1, v1 = (torch.randn((Bh, Lh, Hh, D), generator=g_h, device=dev).to(dt) for _ in range(5))
+        m0 = holes_mask(torch, g_h, dev, Bh, Lh)
+        m0[1] = 1
+        m0[3] = 0
+        m1 = holes_mask(torch, g_h, dev, Bh, Lh)
+        m0[2] = 0
+        m1[2] = 0
+        any_key = torch.maximum(m0, m1).amax(dim=1)
+        st_k, st_a, st_p = (ring_state(Bh, Lh, Hh, D, dev) for _ in range(3))
+        for kb, vb, mb in ((k0, v0, m0), (k1, v1, m1)):
+            ring_block(q, kb, vb, mb, *st_k, any_key=any_key)
+            ring_block(q, kb, vb, mb, *st_a, any_key=torch.zeros_like(any_key))
+            ring_block_plain(q, kb, vb, mb, *st_p)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(st_k, st_a)):
+            fail(f"ring_block {tag} over masks with holes: the state with the tile skip is not bit-equal to the "
+                 f"walk of every tile (o, m, l equal: {[torch.equal(a, b) for a, b in zip(st_k, st_a)]})")
+        state_err, m_err = ring_state_err(st_k, st_p)
+        state_tol = F32_ATOL if dt == f32 else RING_STATE_RTOL
+        if not (state_err <= state_tol and m_err <= state_tol):
+            fail(f"ring_block {tag} over masks with holes: state err {state_err}, running max err {m_err} "
+                 f"> {state_tol}")
+        holes[tag] = {"state_err": state_err, "running_max_err": m_err, "walked_tile_share": [
+            int(walked_ring_tiles(mb, any_key).sum()) / (Bh * -(-Lh // 64)) for mb in (m0, m1)]}
+        del q, k0, v0, k1, v1, st_k, st_a, st_p
+    log(f"K14 over masks with holes, B={Bh} Lb={Lh} H={Hh} D={D}, two steps: the tile skip bit-equal to the walk "
+        f"of every tile; against the plain version (walked share from the masks and any_key): {json.dumps(holes)}")
     out["ring_block"] = {**ring["bf16"], "f32": ring["f32"]}
     return out
 
@@ -3251,61 +3348,71 @@ def phase_distinct_cards(torch, cards: list) -> dict:
 
 
 def phase_against_parent(torch, dev, parent: str) -> dict:
-    """``--against-parent DIR``: K11, K10 and K1 f32 of this tree against
-    the same kernels built from the sources under ``DIR`` (an unpacked
-    ``git archive`` of another commit), on one card, timed in turns
-    (parent, this tree, this tree, parent) by CUDA events and by the
-    profiler's device time, beside the one PyTorch call that computes the
-    same function.  Both builds must pass the gates of phase 2 and 6 on the
-    same inputs: K11 at the ingest chunk (65,536 unit mixture rows against
-    1,024 and 2,048 centroids) and the Lloyd step (50,000 rows), K10 at
-    256 x 256 x 768, K1 f32 at B=256 L=256 H=12 D=64."""
+    """``--against-parent DIR``: K14 (bf16 and f32), K3's tiled pass (nq 32
+    and 64, k 10 and 256; k=128 at nq 32 over the slab and over the IVF's
+    centroids) and K1 (bf16 and f32) of this tree against the
+    same kernels built from the sources under ``DIR`` (an unpacked ``git
+    archive`` of another commit), on one card, timed in turns (parent,
+    this tree, this tree, parent) by CUDA events and by the profiler's
+    device time, beside the one PyTorch call that computes the same
+    function.  Both builds must pass phase 2's gates on the same inputs:
+    K14 a middle step at B=8, 2,048 keys, 12 heads of 64 (state against the
+    plain version's), K3 over 1,048,576 x 768 unit f32 rows with 10%
+    invalid (TOPK_ATOL against the plain version), K1 at B=256 L=256 H=12
+    D=64 with 64-256 present keys."""
     import importlib.util
 
-    import numpy as np
     import torch.nn.functional as F
 
     from pathway_tpu_torch.kernels import (
+        MAX_K,
         attention,
         attention_plain,
-        dual_logits,
-        dual_logits_plain,
-        ivf_assign,
+        knn_topk,
+        knn_topk_plain,
+        ring_block,
+        ring_block_plain,
+        ring_state,
+        topk_select,
     )
     from pathway_tpu_torch.kernels._launch import launch
+    from pathway_tpu_torch.kernels.knn_topk import merge_partials
 
     spec = importlib.util.spec_from_file_location(
         "parent_build", os.path.join(parent, "pathway_tpu_torch", "kernels", "_build.py"))
     pb = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(pb)
     t0 = time.perf_counter()
-    pb.build_all(("ivf_assign", "dual_logits", "attention"))
+    pb.build_all(("ring_block", "knn_topk", "attention"))
     log(f"parent kernels built from {parent}: {time.perf_counter() - t0:.1f} s")
-    p_assign = pb.library("ivf_assign").pw_ivf_assign
-    p_logits = pb.library("dual_logits").pw_dual_logits
+    p_ring = pb.library("ring_block").pw_ring_block
+    p_knn = pb.library("knn_topk")
     p_attn = pb.library("attention").pw_attention
 
-    def parent_assign(x, c, half_norm):
-        n, d = x.shape
-        out = torch.empty((n,), dtype=torch.int32, device=dev)
-        args = [x.data_ptr(), c.data_ptr(), out.data_ptr(), n, d, c.shape[0], int(half_norm)]
-        if len(p_assign.argtypes) == 9:  # this tree's ABI: centroid scratch after c
-            scratch = torch.empty((2 * c.shape[0] * d + c.shape[0],), device=dev)
-            args.insert(2, scratch.data_ptr())
-        launch("parent ivf_assign", p_assign, dev, *args)
-        return out
+    def parent_ring(q, k, v, mask, o, m, l, any_key):  # the parent's step walks every tile
+        B, L, H, D = q.shape
+        launch("parent ring_block", p_ring, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+               o.data_ptr(), m.data_ptr(), l.data_ptr(), None, B, L, H, D, 1.0 / math.sqrt(D),
+               int(q.dtype == torch.float32), 0)
 
-    def parent_logits(a, b, s, bias):
-        out = torch.empty((a.shape[0], b.shape[0]), device=dev)
-        launch("parent dual_logits", p_logits, dev, a.data_ptr(), b.data_ptr(), s.data_ptr(), bias.data_ptr(),
-               out.data_ptr(), a.shape[0], b.shape[0], a.shape[1])
-        return out
+    def parent_knn(q, slab, valid, k):
+        """The parent's tiled pass 1 (a list a tile of 256 rows, or every
+        score above MAX_K), then this tree's merge passes or K13, which
+        this change leaves as they were."""
+        cap, d = slab.shape
+        nq = q.shape[0]
+        kk = 0 if k > MAX_K else k
+        vals = torch.empty((nq, cap if kk == 0 else -(-cap // 256) * kk), device=dev)
+        idx = vals if kk == 0 else torch.empty(vals.shape, dtype=torch.int32, device=dev)
+        launch("parent knn_topk", p_knn.pw_knn_partial_tiled, dev, q.data_ptr(), slab.data_ptr(),
+               valid.data_ptr(), vals.data_ptr(), idx.data_ptr(), nq, d, cap, 0, kk, 0, 0)
+        return topk_select(vals, k) if kk == 0 else merge_partials(vals, idx, k)
 
     def parent_attention(q, k, v, mask):
         B, L, H, D = q.shape
         out = torch.empty_like(q)
         launch("parent attention", p_attn, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-               out.data_ptr(), B, L, H, D, 1.0 / math.sqrt(D), 1)
+               out.data_ptr(), B, L, H, D, 1.0 / math.sqrt(D), int(q.dtype == torch.float32))
         return out
 
     def turns(parent_fn, fn, iters: int) -> dict:
@@ -3317,77 +3424,113 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
         return {who: {"ms": sum(r["ms"] for r in rs) / 2, "device_ms": sum(r["device_ms"] for r in rs) / 2,
                       "turns": rs} for who, rs in t.items()}
 
+    def library(fn, iters: int) -> dict:
+        return {"ms": time_ms(torch, fn, iters), "device_ms": device_ms(torch, fn, iters)}
+
     res: dict = {}
-    rows = mixture(np, 65536 + 2048, HIDDEN, SEED + 11, 65536 + 2048)[0]
-    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
-    x = torch.from_numpy(rows[:65536]).to(dev)
-    for nlist in (1024, 2048):
-        c = torch.from_numpy(rows[65536:65536 + nlist].copy()).to(dev)
-        for label, xs, half in (("ingest", x, False), ("lloyd", x[:50_000], True)):
-            if nlist == 2048 and half:
-                continue
-            name = f"K11 {label} n={xs.shape[0]} nlist={nlist}"
-            err = {"parent": check_assign(torch, xs, c, half, parent_assign(xs, c, half), f"parent {label}"),
-                   "tree": check_assign(torch, xs, c, half, None, label)}
-            hs = 0.5 * (c * c).sum(1) if half else None
-            lib = ((lambda xs=xs, c=c, hs=hs: torch.argmax(torch.matmul(xs, c.T) - hs, dim=1)) if half
-                   else (lambda xs=xs, c=c: torch.argmax(torch.matmul(xs, c.T), dim=1)))
-            res[name] = {
-                "shortfall": err,
-                **turns(lambda xs=xs, c=c, half=half: parent_assign(xs, c, half),
-                        lambda xs=xs, c=c, half=half: ivf_assign(xs, c, half), 10),
-                "library": {"ms": time_ms(torch, lib, 5), "device_ms": device_ms(torch, lib, 5)},
-                "bound_ms": bound(xs.numel() * 4 + c.numel() * 4 + xs.shape[0] * 4,
-                                  2 * xs.shape[0] * nlist * HIDDEN, PEAK_F32_PRODUCT)[0],
-            }
-            log(f"{name}: {json.dumps(res[name])}")
-    del x
-
     g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    bf16, f32 = torch.bfloat16, torch.float32
 
-    def unit(n):
-        v = torch.randn((n, HIDDEN), generator=g, device=dev)
-        return v / v.norm(dim=1, keepdim=True)
+    def lengths_mask(B, L, min_len=1):
+        lens = torch.randint(min_len, L + 1, (B,), generator=g, device=dev)
+        lens[0] = L
+        return (torch.arange(L, device=dev)[None] < lens[:, None]).to(torch.uint8)
 
-    img, txt = unit(256), unit(256)
-    s, bias = torch.tensor(2.3, device=dev), torch.tensor(-0.5, device=dev)
-    err = {}
-    for who, fn in (("parent", parent_logits), ("tree", dual_logits)):
-        e = (fn(img, txt, s, bias) - dual_logits_plain(img, txt, s, bias)).abs().max().item()
-        if not e <= LOGIT_ATOL:
-            fail(f"{who} dual_logits: max err {e} > {LOGIT_ATOL}")
-        err[who] = e
-    es = torch.exp(s)
-    lib = lambda: torch.matmul(img, txt.T).mul_(es).add_(bias)  # noqa: E731
-    res["K10 256x256x768"] = {
-        "max_abs_err": err,
-        **turns(lambda: parent_logits(img, txt, s, bias), lambda: dual_logits(img, txt, s, bias), 200),
-        "library": {"ms": time_ms(torch, lib, 200), "device_ms": device_ms(torch, lib, 200)},
-        "bound_ms": bound(2 * 256 * HIDDEN * 4 + 8 + 256 * 256 * 4, 2 * 256 * 256 * HIDDEN + 2 * 256 * 256,
-                          PEAK_F32_PRODUCT)[0],
-    }
-    log(f"K10: {json.dumps(res['K10 256x256x768'])}")
+    # ---- K14: a middle step, from the state a plain first step left
+    B, L, H, D = RING_B, RING_L, RING_H, RING_D
+    for dt in (bf16, f32):
+        tag = "bf16" if dt == bf16 else "f32"
+        q, k0, v0, k1, v1 = (torch.randn((B, L, H, D), generator=g, device=dev).to(dt) for _ in range(5))
+        m0, m1 = lengths_mask(B, L), lengths_mask(B, L)
+        any_key = torch.maximum(m0, m1).amax(dim=1)
+        st0 = ring_state(B, L, H, D, dev)
+        ring_block_plain(q, k0, v0, m0, *st0)
+        ref = [t.clone() for t in st0]
+        ring_block_plain(q, k1, v1, m1, *ref)
+        tol = F32_ATOL if dt == f32 else RING_STATE_RTOL
+        err = {}
+        for who, fn in (("parent", parent_ring), ("tree", ring_block)):
+            st = [t.clone() for t in st0]
+            fn(q, k1, v1, m1, *st, any_key=any_key)
+            torch.cuda.synchronize()
+            e, em = ring_state_err(st, ref)
+            if not (e <= tol and em <= tol):
+                fail(f"{who} ring_block {tag}: state err {e}, running max err {em} > {tol}")
+            err[who] = e
+        sp, st = [t.clone() for t in st0], [t.clone() for t in st0]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k1, v1))
+        bmask = m1.bool()[:, None, None, :]
+        name = f"K14 {tag} B={B} Lb={L} H={H} D={D}"
+        res[name] = {
+            "state_err": err,
+            **turns(lambda: parent_ring(q, k1, v1, m1, *sp, any_key=any_key),
+                    lambda: ring_block(q, k1, v1, m1, *st, any_key=any_key), 10),
+            "library": library(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bmask), 10),
+        }
+        log(f"{name}: {json.dumps(res[name])}")
+        del q, k0, v0, k1, v1, st0, ref, sp, st, qt, kt, vt
+        torch.cuda.empty_cache()
 
+    # ---- K3's tiled pass: nq 32 and 64, k 10 and 256; k=128 at nq 32 over
+    # the slab and over the IVF's 1,024 centroids (phase 6's probe at
+    # nprobe 128; all valid)
+    slab = torch.randn((CAPACITY, HIDDEN), generator=g, device=dev)
+    slab /= slab.norm(dim=1, keepdim=True)
+    valid = (torch.rand((CAPACITY,), generator=g, device=dev) >= 0.1).float()
+    qs = torch.randn((64, HIDDEN), generator=g, device=dev)
+    qs /= qs.norm(dim=1, keepdim=True)
+    cents = torch.randn((IVF_NLIST, HIDDEN), generator=g, device=dev)
+    cents /= cents.norm(dim=1, keepdim=True)
+    cases = [(nq, k, slab, valid, "") for nq in (32, 64) for k in (K, SELECT_K)]
+    cases += [(32, MAX_K, slab, valid, ""), (32, IVF_NPROBE, cents, torch.ones((IVF_NLIST,), device=dev),
+                                             f" probe over [{IVF_NLIST},{HIDDEN}] centroids")]
+    for nq, k, rows, flags, where in cases:
+        q = qs[:nq]
+        pv, pi = knn_topk_plain(q, rows, flags, k, "dot")
+
+        def parent_fn(q=q, k=k, rows=rows, flags=flags):
+            return parent_knn(q, rows, flags, k)
+
+        def tree_fn(q=q, k=k, rows=rows, flags=flags):
+            return knn_topk(q, rows, flags, k, "dot")
+
+        err = {}
+        for who, fn in (("parent", parent_fn), ("tree", tree_fn)):
+            kv, ki = fn()
+            err[who] = compare_topk(kv, ki, pv, pi, TOPK_ATOL)
+        name = f"K3 nq={nq} k={k}{where}"
+        res[name] = {
+            "max_abs_err": err,
+            **turns(parent_fn, tree_fn, 5),
+            "library": library(lambda q=q, k=k, rows=rows: torch.topk(torch.matmul(q, rows.T), k), 5),
+        }
+        log(f"{name}: {json.dumps(res[name])}")
+    del slab, valid, cents, cases, rows, flags
+    torch.cuda.empty_cache()
+
+    # ---- K1: bf16 and f32 at the embed path's shape
     B, L, H, D = DOC_BATCH, 256, 12, 64
-    q, k, v = (torch.randn((B, L, H, D), generator=g, device=dev) for _ in range(3))
-    lens = torch.randint(64, L + 1, (B,), generator=g, device=dev)
-    mask = (torch.arange(L, device=dev)[None] < lens[:, None]).to(torch.uint8)
-    ref = attention_plain(q, k, v, mask)
-    err = {}
-    for who, fn in (("parent", parent_attention), ("tree", attention)):
-        e = (fn(q, k, v, mask) - ref).abs().max().item()
-        if not e <= F32_ATOL:
-            fail(f"{who} attention f32: max err {e} > {F32_ATOL}")
-        err[who] = e
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    sdpa_mask = mask.bool()[:, None, None, :]
-    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask)  # noqa: E731
-    res["K1 f32 B=256 L=256 H=12 D=64"] = {
-        "max_abs_err": err,
-        **turns(lambda: parent_attention(q, k, v, mask), lambda: attention(q, k, v, mask), 10),
-        "library": {"ms": time_ms(torch, lib, 10), "device_ms": device_ms(torch, lib, 10)},
-    }
-    log(f"K1 f32: {json.dumps(res['K1 f32 B=256 L=256 H=12 D=64'])}")
+    for dt in (bf16, f32):
+        tag = "bf16" if dt == bf16 else "f32"
+        q, k, v = (torch.randn((B, L, H, D), generator=g, device=dev).to(dt) for _ in range(3))
+        mask = lengths_mask(B, L, 64)
+        ref = attention_plain(q, k, v, mask).float()
+        tol = F32_ATOL if dt == f32 else ATTN_ATOL
+        err = {}
+        for who, fn in (("parent", parent_attention), ("tree", attention)):
+            d = (fn(q, k, v, mask).float() - ref).abs()
+            if not bool((d <= tol + (0.0 if dt == f32 else ATTN_RTOL) * ref.abs()).all()):
+                fail(f"{who} attention {tag}: max err {d.max().item()}")
+            err[who] = d.max().item()
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa_mask = mask.bool()[:, None, None, :]
+        name = f"K1 {tag} B={B} L={L} H={H} D={D}"
+        res[name] = {
+            "max_abs_err": err,
+            **turns(lambda: parent_attention(q, k, v, mask), lambda: attention(q, k, v, mask), 10),
+            "library": library(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask), 10),
+        }
+        log(f"{name}: {json.dumps(res[name])}")
     return res
 
 
@@ -3414,8 +3557,10 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name in _build.NAMES:
         for line in _build.ptxas_report(name).splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line or "spill" in line or "smem" in line:
                 print(f"ptxas {name}: {line.strip()}", file=sys.stderr)
+                if name in ("attention", "ring_block", "knn_topk"):  # K1, K3 and K14 on stdout too
+                    log(f"ptxas {name}: {line.strip()}")
     dev = torch.device("cuda:0")
     if "--against-parent" in sys.argv[1:]:
         parent = sys.argv[sys.argv.index("--against-parent") + 1]

@@ -25,7 +25,8 @@ K14 ring_block     ``csrc/ring_block.cu``        ``ops/ring_attention.py:47-77``
 Each wrapper checks device, dtype, shape and contiguity, launches its
 kernel on PyTorch's current stream for CUDA tensors and counts each
 kernel launch in its ``launches`` attribute (``knn_topk`` launches pass 1
-and its merge passes, one count each; ``ivf_scan``'s merge passes are
+and its merge passes, one count each, and before the tensor-core pass the
+split of its queries; ``ivf_scan``'s merge passes are
 K3's and count on ``knn_topk``; a selection above ``MAX_K`` counts its
 score-only pass on ``knn_topk`` or ``ivf_scan`` and its select on
 ``topk_select``); for CPU tensors it runs the plain

@@ -125,7 +125,7 @@ _SIGNATURES = {
     },
     "knn_topk": {
         "pw_knn_partial": [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _I, _LL, _P],
-        "pw_knn_partial_tiled": [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _LL, _P],
+        "pw_knn_partial_tiled": [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _LL, _I, _P],
         "pw_knn_merge": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "bias_act": {"pw_bias_act": [_P, _P, _P, _I, _LL, _I, _I, _I, _P]},
@@ -144,7 +144,7 @@ _SIGNATURES = {
         "pw_topk_select_launches": [],
     },
     "ring_block": {
-        "pw_ring_block": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+        "pw_ring_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     },
 }
 

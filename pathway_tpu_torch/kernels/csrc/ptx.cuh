@@ -1,5 +1,5 @@
-// PTX wrappers shared by K1 (attention.cu), K10 (dual_logits.cu) and
-// K14's block (flash.cuh):
+// PTX wrappers shared by the attention block of K1 and K14
+// (attn_block.cuh) and K10 (dual_logits.cu):
 // the shared-memory address of a pointer, 16-byte cp.async copies into
 // shared memory, the bf16 pair of two floats, and a loader of one head's
 // 64-row tile of a [B, L, H, D] tensor.

@@ -2,7 +2,8 @@
 // TMA tensor loads, wgmma shared-memory descriptors and the few wgmma
 // shapes the port uses (bf16 in, f32 accumulate), and the host side of
 // TMA (libcuda's tensor-map encoder, the dynamic shared memory limit).
-// Used by K1 (attention.cu) and, through tf32x3.cuh, K10 and K11.
+// Used by K1 and K14 (attn_block.cuh) and, through tf32x3.cuh, K3, K10
+// and K11.
 //
 // Layouts.  A tile is rows of R = 32, 64 or 128 bytes, loaded by TMA with
 // the swizzle of the same width (CU_TENSOR_MAP_SWIZZLE_32B/64B/128B), at an

@@ -88,6 +88,46 @@ __device__ __forceinline__ void store_split(float* hi, float* lo, int row, int c
 
 // d = (scale_d ? d : 0) + A . B^T, A (64 x 8 tf32) in registers, B (N x 8
 // tf32) K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n8k8_tf32_rs(float (&d)[4], const uint32_t (&a)[4], uint64_t b,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d = (scale_d ? d : 0) + A . B^T, A (64 x 8 tf32) in registers, B (N x 8
+// tf32) K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n16k8_tf32_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d = (scale_d ? d : 0) + A . B^T, A (64 x 8 tf32) in registers, B (N x 8
+// tf32) K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d = (scale_d ? d : 0) + A . B^T, A (64 x 8 tf32) in registers, B (N x 8
+// tf32) K-major in shared memory.
 __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
                                                       int scale_d) {
   asm volatile(
@@ -140,8 +180,63 @@ __device__ __forceinline__ void wgmma_m64n256k8_tf32_rs(float (&d)[128], const u
 
 template <int N>
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 256, "a wgmma TF32 width of the port");
   if constexpr (N == 256) wgmma_m64n256k8_tf32_rs(d, a, b, 1);
-  else wgmma_m64n64k8_tf32_rs(d, a, b, 1);
+  else if constexpr (N == 64) wgmma_m64n64k8_tf32_rs(d, a, b, 1);
+  else if constexpr (N == 32) wgmma_m64n32k8_tf32_rs(d, a, b, 1);
+  else if constexpr (N == 16) wgmma_m64n16k8_tf32_rs(d, a, b, 1);
+  else wgmma_m64n8k8_tf32_rs(d, a, b, 1);
+}
+
+// acc[m] (the wgmma accumulator layout) += A_m . B^T over one stage, for
+// kM blocks of 64 rows of A (raw f32, one after another in the tile; a:
+// the first) and N rows of B's parts: the splits of every block first,
+// then the 6 kM products, waited for before it returns (the A registers of
+// the next stage must not be written while a product still reads them).
+// With kSquares, sq[m][i] also sums the squares of the raw A values this
+// thread holds of row r + 8 i of block m (4 of the stage's 16 columns; the
+// 4 lanes that share a row hold the other 12).  Every thread of the
+// warpgroup calls it.
+template <int N, int kM, bool kSquares>
+__device__ __forceinline__ void tf32x3_stage_rows(float (&acc)[kM][N / 2], const float* a, const float* b_hi,
+                                                  const float* b_lo, float (&sq)[kM][2]) {
+  const int lane = threadIdx.x % 32;
+  const int r = 16 * (threadIdx.x / 32 % 4) + lane / 4;  // this thread's rows r and r + 8
+  const int t = lane % 4;
+  uint32_t ah[kM][2][4], al[kM][2][4];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    const float* am = a + 64 * m * kRowFloats;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      // A fragment of k8 step kk: (r, t), (r + 8, t), (r, t + 4), (r + 8, t + 4)
+      const float x[4] = {am[swz(r, 8 * kk + t)], am[swz(r + 8, 8 * kk + t)], am[swz(r, 8 * kk + t + 4)],
+                          am[swz(r + 8, 8 * kk + t + 4)]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        split_tf32(x[e], ah[m][kk][e], al[m][kk][e]);
+        if constexpr (kSquares) sq[m][e & 1] = fmaf(x[e], x[e], sq[m][e & 1]);
+      }
+    }
+  }
+  const uint64_t dh = wgmma_desc(b_hi, 16, kSbo, kMode);
+  const uint64_t dl = wgmma_desc(b_lo, 16, kSbo, kMode);
+#pragma unroll
+  for (int m = 0; m < kM; ++m) fence_regs(acc[m]);
+  wgmma_fence();
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {  // one k8 step is 32 bytes along the rows
+      wgmma_tf32_rs<N>(acc[m], al[m][kk], dh + 2 * kk);
+      wgmma_tf32_rs<N>(acc[m], ah[m][kk], dl + 2 * kk);
+      wgmma_tf32_rs<N>(acc[m], ah[m][kk], dh + 2 * kk);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int m = 0; m < kM; ++m) fence_regs(acc[m]);
 }
 
 // acc (64 x N, the wgmma accumulator layout) += A . B^T over one stage.
@@ -150,31 +245,8 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t 
 template <int N>
 __device__ __forceinline__ void tf32x3_stage(float (&acc)[N / 2], const float* a, const float* b_hi,
                                              const float* b_lo) {
-  const int lane = threadIdx.x % 32;
-  const int r = 16 * (threadIdx.x / 32 % 4) + lane / 4;  // this thread's rows r and r + 8
-  const int t = lane % 4;
-  uint32_t ah[2][4], al[2][4];
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
-    // A fragment of k8 step kk: (r, t), (r + 8, t), (r, t + 4), (r + 8, t + 4)
-    split_tf32(a[swz(r, 8 * kk + t)], ah[kk][0], al[kk][0]);
-    split_tf32(a[swz(r + 8, 8 * kk + t)], ah[kk][1], al[kk][1]);
-    split_tf32(a[swz(r, 8 * kk + t + 4)], ah[kk][2], al[kk][2]);
-    split_tf32(a[swz(r + 8, 8 * kk + t + 4)], ah[kk][3], al[kk][3]);
-  }
-  const uint64_t dh = wgmma_desc(b_hi, 16, kSbo, kMode);
-  const uint64_t dl = wgmma_desc(b_lo, 16, kSbo, kMode);
-  fence_regs(acc);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {  // one k8 step is 32 bytes along the rows
-    wgmma_tf32_rs<N>(acc, al[kk], dh + 2 * kk);
-    wgmma_tf32_rs<N>(acc, ah[kk], dl + 2 * kk);
-    wgmma_tf32_rs<N>(acc, ah[kk], dh + 2 * kk);
-  }
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(acc);
+  float sq[1][2];
+  tf32x3_stage_rows<N, 1, false>(reinterpret_cast<float (&)[1][N / 2]>(acc), a, b_hi, b_lo, sq);
 }
 
 }  // namespace pw_tf32x3

@@ -14,11 +14,15 @@ to every slot id: a shard's first global slot, so that a shard's search
 returns global slots (the mesh search's ``li + axis_index * shard_rows``,
 ``sharded_knn.py:358``).
 
-For CUDA tensors the wrapper launches the kernels (d <= 1024) and raises
-on anything else: up to :data:`MAX_K`, pass 1 keeps each tile's best k
-and the merge passes reduce them; above it, pass 1 writes every score
-and K13 (:mod:`~pathway_tpu_torch.kernels.topk_select`) selects the k.
-For CPU tensors it runs :func:`knn_topk_plain`.
+For CUDA tensors the wrapper launches the kernels (d <= 1024; what they
+take is :func:`check_knn_topk`'s) and raises on anything else: up to
+:data:`MAX_K`, pass 1 keeps each tile's best k and the merge passes
+reduce them; above it, pass 1 writes every score and K13
+(:mod:`~pathway_tpu_torch.kernels.topk_select`) selects the k.  For
+:data:`TILED_MIN_QUERIES` queries and more over an f32 slab, pass 1 runs
+the product on the tensor cores in 3xTF32 after a split of the queries
+(:func:`tiled_groups` says how they are grouped).  For CPU tensors it
+runs :func:`knn_topk_plain`.
 """
 
 from __future__ import annotations
@@ -31,7 +35,10 @@ from pathway_tpu_torch.kernels.topk_select import topk_select, topk_select_plain
 from pathway_tpu_torch.ops.distances import dot_scores, l2sq_distances
 from pathway_tpu_torch.ops.topk import masked_top_k
 
-__all__ = ["knn_topk", "knn_topk_plain", "merge_partials", "MAX_K", "METRICS"]
+__all__ = [
+    "knn_topk", "knn_topk_plain", "check_knn_topk", "merge_partials", "merge_passes", "tiled_groups", "MAX_K",
+    "METRICS",
+]
 
 #: largest k that pass 1 selects per 256-row tile and the merge passes
 #: reduce; a larger k goes through the score-only pass and K13
@@ -40,11 +47,44 @@ METRICS = ("dot", "l2sq")
 _ROWS = 256  # slab rows per pass-1 block (csrc/knn_topk.cu kRows)
 _GROUP = 32  # queries per pass-1 block (kMaxGroup)
 _SEGMENT = 1024  # candidates per pass-2 block
-#: from this many queries on, pass 1 scores tiles of 256 rows x 32 queries
-#: as a register-blocked product; below it, each warp streams rows.  On an
-#: H100 the row-streaming pass is faster up to nq=8 and slower from 16 on
-#: (chip_smoke.py's table of both paths by nq, recorded in PERF.md)
-TILED_MIN_QUERIES = 16
+#: from this many queries on, pass 1 scores tiles of 256 rows as a matrix
+#: product (3xTF32 on the tensor cores for an f32 slab); below it, each
+#: warp streams rows.  Set from chip_smoke.py's table of both paths by nq
+#: over 1,048,576 x 768 f32 rows on an H100 (PERF.md): the tiled pass is
+#: slower up to nq=4 and faster from 8 on
+TILED_MIN_QUERIES = 8
+#: the query widths of the tensor-core pass: a group of queries is one
+#: wgmma's N, nq rounded up to one of these; above the last, groups of it
+TC_WIDTHS = (8, 16, 32, 64)
+
+
+def tiled_groups(nq: int) -> tuple[int, int]:
+    """(N, groups) of the tensor-core pass over an f32 slab for ``nq``
+    queries: each group of N queries reads the slab once."""
+    if nq < 1:
+        raise ValueError(f"knn_topk: nq={nq}")
+    width = next((w for w in TC_WIDTHS if nq <= w), TC_WIDTHS[-1])
+    return width, -(-nq // width)
+
+
+def check_knn_topk(queries: torch.Tensor, slab: torch.Tensor, valid: torch.Tensor, offset: int = 0) -> None:
+    """Raise ``ValueError`` unless the kernels take these arguments; reads
+    shapes, types and alignment only, on any device."""
+    cap, d = slab.shape
+    if slab.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"knn_topk: slab must be f32 or bf16, got {slab.dtype}")
+    vec = 4 if slab.dtype == torch.float32 else 8
+    if d % vec or d > 1024:
+        raise ValueError(f"knn_topk: dim {d} must divide by {vec} and be <= 1024")
+    if queries.dtype != torch.float32 or queries.dim() != 2 or queries.shape[1] != d:
+        raise ValueError(f"knn_topk: queries must be f32 [nq, {d}]")
+    if valid.dtype != torch.float32 or valid.shape != (cap,):
+        raise ValueError("knn_topk: valid must be f32 [capacity]")
+    if cap + offset >= 2**31:
+        raise ValueError(f"knn_topk: slots up to {cap + offset} past the kernel's int32 ids")
+    if slab.data_ptr() % 16 or queries.data_ptr() % 16:
+        # the tensor-core pass reads slab rows by TMA, and queries by 16 bytes
+        raise ValueError("knn_topk: slab and queries must be 16-byte aligned")
 
 
 def knn_topk_plain(
@@ -70,17 +110,7 @@ def knn_topk(
     if queries.device.type == "cpu":
         return knn_topk_plain(queries, slab, valid, k, metric, offset)
     device = check_cuda("knn_topk", queries=queries, slab=slab, valid=valid)
-    if slab.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"knn_topk: slab must be f32 or bf16, got {slab.dtype}")
-    vec = 4 if slab.dtype == torch.float32 else 8
-    if d % vec or d > 1024:
-        raise ValueError(f"knn_topk: dim {d} must divide by {vec} and be <= 1024")
-    if queries.dtype != torch.float32 or queries.dim() != 2 or queries.shape[1] != d:
-        raise ValueError(f"knn_topk: queries must be f32 [nq, {d}]")
-    if valid.dtype != torch.float32 or valid.shape != (cap,):
-        raise ValueError("knn_topk: valid must be f32 [capacity]")
-    if cap + offset >= 2**31:
-        raise ValueError(f"knn_topk: slots up to {cap + offset} past the kernel's int32 ids")
+    check_knn_topk(queries, slab, valid, offset)
     nq = queries.shape[0]
     if nq == 0:
         return (torch.empty((0, k), device=device), torch.empty((0, k), dtype=torch.int32, device=device))
@@ -94,9 +124,10 @@ def _launch(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Pass 1 (row-streaming or tiled) and the merge passes, or for k >
     MAX_K the score-only pass 1 and K13, on checked inputs; each kernel
-    launched adds one to its wrapper's ``launches``.  ``tiled`` is chosen
-    by :func:`knn_topk`; timing both passes on the card (``chip_smoke.py``)
-    is what set :data:`TILED_MIN_QUERIES`."""
+    launched adds one to its wrapper's ``launches`` (the tiled pass over an
+    f32 slab is two: the split of the queries, then the pass).  ``tiled``
+    is chosen by :func:`knn_topk`; timing both passes on the card
+    (``chip_smoke.py``) is what set :data:`TILED_MIN_QUERIES`."""
     cap, d = slab.shape
     nq = q.shape[0]
     device = q.device
@@ -104,18 +135,33 @@ def _launch(
     bf16 = int(slab.dtype == torch.bfloat16)
     l2sq = int(metric == "l2sq")
 
+    tiles = -(-cap // _ROWS)
+    # the tensor-core pass: one block an SM, each keeping a running list of
+    # the best k per query over the tiles it walks
+    tc = tiled and not bf16
+    blocks = min(tiles, torch.cuda.get_device_properties(device).multi_processor_count) if tc else 0
     if k > MAX_K:
         kk = 0  # score-only: every slot's masked score, for K13
         vals = torch.empty((nq, cap), device=device)
         idx = vals  # unused by the score-only pass
     else:
-        tiles = -(-cap // _ROWS)
         kk = min(k, _ROWS)
-        vals = torch.empty((nq, tiles * kk), device=device)
-        idx = torch.empty((nq, tiles * kk), dtype=torch.int32, device=device)
+        lists = blocks if tc else tiles
+        vals = torch.empty((nq, lists * kk), device=device)
+        idx = torch.empty((nq, lists * kk), dtype=torch.int32, device=device)
     ptrs = (q.data_ptr(), slab.data_ptr(), valid.data_ptr(), vals.data_ptr(), idx.data_ptr())
     if tiled:
-        launch("knn_topk", lib.pw_knn_partial_tiled, device, *ptrs, nq, d, cap, bf16, kk, l2sq, offset)
+        scratch = None
+        if tc:  # the queries' TF32 hi and lo parts and squared norms
+            width, groups = tiled_groups(nq)
+            rows = width * groups
+            scratch = torch.empty((2 * rows * d + rows,), device=device)
+            knn_topk.launches += 1
+        launch(
+            "knn_topk", lib.pw_knn_partial_tiled, device, *ptrs[:3],
+            None if scratch is None else scratch.data_ptr(), *ptrs[3:], nq, d, cap, bf16, kk, l2sq, offset,
+            blocks,
+        )
     else:
         launch(
             "knn_topk", lib.pw_knn_partial, device,
@@ -125,6 +171,21 @@ def _launch(
     if k > MAX_K:
         return topk_select(vals, k, offset=offset)
     return merge_partials(vals, idx, k)
+
+
+def _segment(n_in: int) -> int:
+    """The candidates a merge block sorts, for ``n_in`` a query."""
+    return min(_SEGMENT, 1 << max(1, (n_in - 1).bit_length()))
+
+
+def merge_passes(n_in: int, k: int) -> int:
+    """The merge launches :func:`merge_partials` makes to reduce ``n_in``
+    presorted candidates a query to k <= MAX_K."""
+    passes = 0
+    while n_in > k:
+        n_in = -(-n_in // _segment(n_in)) * k
+        passes += 1
+    return passes
 
 
 def merge_partials(
@@ -147,7 +208,7 @@ def merge_partials(
     lib = _build.library("knn_topk")
     while n_in > k or not presorted:
         presorted = True
-        seg = min(_SEGMENT, 1 << max(1, (n_in - 1).bit_length()))
+        seg = _segment(n_in)
         segs = -(-n_in // seg)
         out_vals = torch.empty((nq, segs * k), device=device)
         out_idx = torch.empty((nq, segs * k), dtype=torch.int32, device=device)
@@ -161,6 +222,8 @@ def merge_partials(
     return vals, idx
 
 
-#: CUDA kernels launched in this process: pass 1 and each merge pass
-#: count one each (three per call over a 1,048,576-row slab at k=10)
+#: CUDA kernels launched in this process: pass 1 (the tiled pass over an
+#: f32 slab with the split of its queries: two) and each merge pass count
+#: one each (three per call over a 1,048,576-row slab at k=10 and one
+#: query; at 32, the split, the pass and two merges of its 132 lists)
 knn_topk.launches = 0

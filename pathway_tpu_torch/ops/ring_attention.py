@@ -14,6 +14,13 @@ that on distinct cards the copy neither waits for the step's compute nor
 holds it back.  On a mesh that repeats one device the copy is the
 block itself.
 
+Before the first step each call makes ``any_key [B]`` (uint8): 1 where a
+batch row has a present key in some block, the OR of every block's
+``mask.amax(1)``, gathered on the first device and copied back to the
+others (B bytes each).  Every step gets it: K14 skips the key tiles of
+its block with no present key wherever the row has one elsewhere, which
+changes no result (``kernels/csrc/attn_block.cuh``).
+
 Non-causal (encoder) attention with a key padding mask, as the JAX
 module's.
 """
@@ -31,7 +38,9 @@ from pathway_tpu_torch.kernels.ring_block import ring_block, ring_block_plain, r
 if TYPE_CHECKING:
     from pathway_tpu_torch.parallel.mesh import Mesh
 
-__all__ = ["local_attention", "ring_attention", "ring_attention_plain", "ring_attention_blocks"]
+__all__ = [
+    "local_attention", "ring_attention", "ring_attention_plain", "ring_attention_blocks", "any_keys",
+]
 
 Blocks = Sequence[torch.Tensor]
 
@@ -94,6 +103,22 @@ def _hand_on(block: tuple, ready, device: torch.device) -> tuple[tuple, object]:
     return moved, done
 
 
+def any_keys(masks: Blocks) -> list[torch.Tensor]:
+    """For per-device ``masks[i]`` ``[B, Lb]`` uint8: ``[B]`` uint8 on each
+    block's device, 1 where the batch row has a present key in any block.
+    The parts meet on the first device and go back from there."""
+    first = masks[0].device
+    whole = None
+    for mask in masks:
+        part = mask.amax(dim=1).to(first)
+        whole = part if whole is None else whole | part
+    on: dict = {}
+    for mask in masks:
+        if mask.device not in on:
+            on[mask.device] = whole.to(mask.device)
+    return [on[mask.device] for mask in masks]
+
+
 def ring_attention_blocks(
     qs: Blocks, ks: Blocks, vs: Blocks, masks: Blocks, step: Callable = ring_block
 ) -> list[torch.Tensor]:
@@ -105,6 +130,7 @@ def ring_attention_blocks(
     devices = [q.device for q in qs]
     B, Lb, H, D = qs[0].shape
     states = [ring_state(B, Lb, H, D, dev) for dev in devices]
+    whole = any_keys(masks)
     cur = [((ks[i], vs[i], masks[i]), None) for i in range(n)]
     outs: list = [None] * n
     for s in range(n):
@@ -116,7 +142,7 @@ def ring_attention_blocks(
             (k, v, mask), ready = cur[i]
             if ready is not None:
                 torch.cuda.current_stream(devices[i]).wait_event(ready)
-            outs[i] = step(qs[i], k, v, mask, *states[i], finalize=last)
+            outs[i] = step(qs[i], k, v, mask, *states[i], finalize=last, any_key=whole[i])
         cur = nxt
     return outs
 

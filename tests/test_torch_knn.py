@@ -212,3 +212,48 @@ def test_knn_topk_rejects_bad_k():
         knn_topk(torch.zeros((1, DIM)), slab, valid, 5, "dot")
     with pytest.raises(ValueError, match="metric"):
         knn_topk(torch.zeros((1, DIM)), slab, valid, 2, "cos")
+
+
+def test_knn_topk_checks_refuse_what_the_kernels_do_not_take():
+    from pathway_tpu_torch.kernels.knn_topk import check_knn_topk
+
+    slab, valid, q = torch.zeros((64, DIM)), torch.ones(64), torch.zeros((3, DIM))
+    check_knn_topk(q, slab, valid)
+    check_knn_topk(q, slab.bfloat16(), valid)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        check_knn_topk(q, slab.half(), valid)
+    with pytest.raises(ValueError, match="divide by 4"):
+        check_knn_topk(torch.zeros((3, 6)), torch.zeros((64, 6)), valid)
+    with pytest.raises(ValueError, match="divide by 8"):
+        check_knn_topk(torch.zeros((3, 12)), torch.zeros((64, 12), dtype=torch.bfloat16), valid)
+    with pytest.raises(ValueError, match="<= 1024"):
+        check_knn_topk(torch.zeros((3, 1028)), torch.zeros((64, 1028)), valid)
+    with pytest.raises(ValueError, match="queries"):
+        check_knn_topk(q.double(), slab, valid)
+    with pytest.raises(ValueError, match="valid"):
+        check_knn_topk(q, slab, torch.ones(63))
+    with pytest.raises(ValueError, match="int32"):
+        check_knn_topk(q, slab, valid, offset=2**31 - 64)
+    # the tensor-core pass reads the slab by TMA: 16-byte aligned rows
+    with pytest.raises(ValueError, match="16-byte"):
+        check_knn_topk(q, torch.zeros((65 * DIM + 1,))[1:].view(65, DIM), torch.ones(65))
+
+
+@pytest.mark.parametrize(("nq", "want"), [(1, (8, 1)), (8, (8, 1)), (9, (16, 1)), (16, (16, 1)), (17, (32, 1)),
+                                          (32, (32, 1)), (33, (64, 1)), (64, (64, 1)), (65, (64, 2)),
+                                          (256, (64, 4))])
+def test_tiled_groups_read_the_slab_once_up_to_64_queries(nq, want):
+    from pathway_tpu_torch.kernels.knn_topk import tiled_groups
+
+    assert tiled_groups(nq) == want
+
+
+@pytest.mark.parametrize(("n_in", "k", "want"), [(10, 10, 0), (132 * 10, 10, 2), (4096 * 10, 10, 2),
+                                                 (132 * 128, 128, 3), (4 * 128, 128, 1), (4096 * 128, 128, 4)])
+def test_merge_passes_count_the_launches_of_merge_partials(n_in, k, want):
+    from pathway_tpu_torch.kernels.knn_topk import merge_passes
+
+    # one list a block of the tensor-core pass (132 blocks, one an SM of an
+    # H100), one a tile (4,096 tiles of 256 rows of a 1M slab), and the
+    # four blocks of the IVF's 1,024-centroid probe
+    assert merge_passes(n_in, k) == want

@@ -41,9 +41,9 @@ from pathway_tpu_torch.kernels.attention import attention_plain, check_attention
 from pathway_tpu_torch.kernels.bias_act import check_bias_act
 from pathway_tpu_torch.kernels.embed_ln import check_embed_ln
 from pathway_tpu_torch.kernels.pool_normalize import check_pool_normalize
-from pathway_tpu_torch.kernels.ring_block import check_ring_block
+from pathway_tpu_torch.kernels.ring_block import MAX_RING_LEN, check_ring_block, walked_ring_tiles
 from pathway_tpu_torch.models import TextEncoderModel, state_dict_from_flax
-from pathway_tpu_torch.ops.ring_attention import local_attention, ring_attention, ring_attention_plain
+from pathway_tpu_torch.ops.ring_attention import any_keys, local_attention, ring_attention, ring_attention_plain
 from pathway_tpu_torch.parallel import TorchEncoder
 from test_torch_encoder import port_config
 
@@ -161,7 +161,8 @@ def test_kernel_checks_still_refuse_what_the_kernels_do_not_take():
         check_ring_block(q, k, v, mask, o.transpose(1, 2), m, l)
     with pytest.raises(ValueError, match="f32"):
         check_ring_block(q, k, v, mask, o.double(), m, l)
-    # K14 has no length limit: blocks of 2,048 keys and more
+    # K14 takes blocks of 2,048 keys and more, up to MAX_RING_LEN (its walk's
+    # shared memory grows with the block)
     check_ring_block(*_heads(1, 4096, 1, 16, torch.bfloat16), torch.ones((1, 4096), dtype=torch.uint8),
                      *ring_state(1, 4096, 1, 16, "cpu"))
     with pytest.raises(ValueError, match="bf16 or f32"):
@@ -175,6 +176,140 @@ def test_kernel_checks_still_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="bf16 or f32"):
         check_pool_normalize(torch.zeros((1, 2, 8), dtype=torch.float16),
                              torch.ones((1, 2), dtype=torch.uint8), "cls")
+
+
+def test_ring_block_checks_the_block_length_and_any_key():
+    meta = dict(device="meta")
+    big = torch.empty((1, MAX_RING_LEN, 1, 16), dtype=torch.bfloat16, **meta)
+    state = (torch.empty((1, 1, MAX_RING_LEN, 16), **meta), torch.empty((1, 1, MAX_RING_LEN), **meta),
+             torch.empty((1, 1, MAX_RING_LEN), **meta))
+    check_ring_block(big, big, big, torch.empty((1, MAX_RING_LEN), dtype=torch.uint8, **meta), *state)
+    n = MAX_RING_LEN + 64
+    over = torch.empty((1, n, 1, 16), dtype=torch.bfloat16, **meta)
+    with pytest.raises(ValueError, match="block length"):
+        check_ring_block(over, over, over, torch.empty((1, n), dtype=torch.uint8, **meta),
+                         torch.empty((1, 1, n, 16), **meta), torch.empty((1, 1, n), **meta),
+                         torch.empty((1, 1, n), **meta))
+    q, k, v = _heads(2, 16, 4, 16, torch.float32)
+    mask = torch.ones((2, 16), dtype=torch.uint8)
+    st = ring_state(2, 16, 4, 16, "cpu")
+    check_ring_block(q, k, v, mask, *st, torch.ones(2, dtype=torch.uint8))
+    with pytest.raises(ValueError, match="any_key"):
+        check_ring_block(q, k, v, mask, *st, torch.ones(3, dtype=torch.uint8))
+    with pytest.raises(ValueError, match="any_key"):
+        check_ring_block(q, k, v, mask, *st, torch.ones(2, dtype=torch.bool))
+
+
+def test_ring_block_off_the_cpu_needs_any_key():
+    # the kernel's wrapper has no default for the tile-skip flag: a tensor
+    # off the CPU ("meta" stands in for a card) without it is refused before
+    # anything is launched; on the CPU the plain step runs without it
+    meta = [t.to("meta") for t in (*_heads(2, 16, 4, 16, torch.float32), torch.ones((2, 16), dtype=torch.uint8),
+                                   *ring_state(2, 16, 4, 16, "cpu"))]
+    with pytest.raises(ValueError, match="needs any_key"):
+        ring_block(*meta)
+    q, k, v = _heads(2, 16, 4, 16, torch.float32)
+    assert ring_block(q, k, v, torch.ones((2, 16), dtype=torch.uint8), *ring_state(2, 16, 4, 16, "cpu"),
+                      finalize=True).shape == q.shape
+
+
+def test_walked_ring_tiles_follow_the_whole_sequence():
+    L = 2048  # 32 key tiles
+    mask = torch.zeros((4, L), dtype=torch.uint8)
+    mask[0] = 1
+    mask[1, 100:140] = 1     # tiles 1 and 2
+    # row 2: its present keys are in another block; row 3: none anywhere
+    any_key = torch.tensor([1, 1, 1, 0], dtype=torch.uint8)
+    assert walked_ring_tiles(mask, any_key).tolist() == [32, 2, 0, 32]
+    # without the sequence's flags (or all zero) every tile is walked
+    assert walked_ring_tiles(mask).tolist() == [32] * 4
+    assert walked_ring_tiles(mask, torch.zeros(4, dtype=torch.uint8)).tolist() == [32] * 4
+    # one block of 8,192 keys: 128 tiles; a partial last tile counts
+    long = torch.zeros((2, 8192 - 5), dtype=torch.uint8)
+    long[0, -1] = 1
+    long[1, 64 * 7] = 1
+    assert walked_ring_tiles(long, torch.ones(2, dtype=torch.uint8)).tolist() == [1, 1]
+    assert walked_ring_tiles(long, torch.tensor([0, 1], dtype=torch.uint8)).tolist() == [128, 1]
+
+
+def _walked_step(q, k, v, mask, any_key, o, m, l):
+    """The plain step arithmetic of ring_block_plain over only the key
+    tiles the kernel walks (walked_ring_tiles's: present tiles where
+    any_key, else all), batch row by batch row; a row with no walked tile
+    keeps its state."""
+    B, L, H, D = q.shape
+    for b in range(B):
+        tiles = [t for t in range(-(-L // 64))
+                 if not any_key[b] or bool(mask[b, t * 64:(t + 1) * 64].any())]
+        if not tiles:
+            continue
+        keep = torch.cat([torch.arange(t * 64, min(L, t * 64 + 64)) for t in tiles])
+        st = (o[b:b + 1].clone(), m[b:b + 1].clone(), l[b:b + 1].clone())
+        ring_block_plain(q[b:b + 1], k[b:b + 1, keep], v[b:b + 1, keep], mask[b:b + 1, keep], *st)
+        o[b], m[b], l[b] = st[0][0], st[1][0], st[2][0]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_skipping_tiles_is_exact_across_ring_steps(seed):
+    # the kernel's walk in the plain arithmetic, step after step, gives the
+    # output of ring_block_plain over every key: rows whose present keys lie
+    # in later blocks (masked blocks first), in one block only, in none
+    n, B, lb, H, D = 4, 6, 256, 2, 16
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((n, B, lb, H, D), generator=g) for _ in range(3))
+    mask = (torch.rand((n, B, lb), generator=g) < 0.3).to(torch.uint8)
+    mask[:, :, 64:192] = 0         # the middle tiles of every block are masked
+    mask[:3, 1] = 0                # row 1: present keys only in the last block
+    mask[:, 2] = 0                 # row 2: none anywhere (the uniform average of v)
+    mask[1:, 3] = 0                # row 3: present keys only in the first block
+    mask[:, 4] = 0
+    mask[2, 4, 250] = 1            # row 4: one present key, in block 2
+    any_key = mask.amax(dim=(0, 2))
+    assert any_key.tolist() == [1, 1, 0, 1, 1, 1]
+    want = [ring_state(B, lb, H, D, "cpu") for _ in range(n)]
+    got = [ring_state(B, lb, H, D, "cpu") for _ in range(n)]
+    for s in range(n):
+        last = s == n - 1
+        for i in range(n):
+            src = (i - s) % n
+            out_w = ring_block_plain(q[i], k[src], v[src], mask[src], *want[i], finalize=last)
+            if not last:
+                _walked_step(q[i], k[src], v[src], mask[src], any_key, *got[i])
+                continue
+            o, m, l = (t.clone() for t in got[i])
+            _walked_step(q[i], k[src], v[src], mask[src], any_key, o, m, l)
+            out_g = (o / torch.clamp(l, min=1e-30)[..., None]).transpose(1, 2)
+            torch.testing.assert_close(out_g, out_w, rtol=0, atol=1e-6)
+    # the walk visited far fewer tiles than the whole sequence holds
+    walked = sum(int(walked_ring_tiles(mask[j], any_key).sum()) for j in range(n))
+    assert walked < n * B * (lb // 64) // 2
+
+
+def test_any_keys_meet_on_the_first_device():
+    masks = [torch.zeros((3, 8), dtype=torch.uint8) for _ in range(4)]
+    masks[0][0, 3] = 1
+    masks[2][1, 7] = 1
+    whole = any_keys(masks)
+    assert len(whole) == 4 and all(w.tolist() == [1, 1, 0] for w in whole)
+    assert all(w.dtype == torch.uint8 for w in whole)
+
+
+def test_ring_attention_matches_jax_when_a_row_has_no_key_in_its_own_block():
+    rng = np.random.default_rng(5)
+    b, l, h, d = 3, 64, 2, 16  # 8 blocks of 8 keys
+    q, k, v = (rng.normal(size=(b, l, h, d)).astype(np.float32) for _ in range(3))
+    mask = np.ones((b, l), np.int32)
+    mask[0, :] = 0
+    mask[0, 40:44] = 1  # row 0: present keys only in block 5
+    mask[1, 8:] = 0     # row 1: only in block 0
+    jmesh = jax_make_mesh()
+    want = np.asarray(jax.jit(lambda q, k, v, m: jax_ring.ring_attention(q, k, v, m, mesh=jmesh))(
+        *map(jnp.asarray, (q, k, v, mask))))
+    mesh = make_mesh({"data": 8}, CPU8)
+    got = ring_attention(*map(torch.from_numpy, (q, k, v, mask)), mesh=mesh)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got.numpy(), local_attention(*map(torch.from_numpy, (q, k, v, mask))).numpy(),
+                               rtol=2e-4, atol=2e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -367,6 +502,19 @@ class _Block:
     def record_stream(self, stream) -> None:
         pass
 
+    def _op(self, *read) -> "_Block":
+        """An operation on this card's current stream that reads ``read``."""
+        stamp = self.cards.current_stream(self.device).op()
+        for t in read:
+            assert t.device == self.device and _before(t.written, stamp), "a block was read before it arrived"
+        return _Block(self.device, "any_key", stamp)
+
+    def amax(self, dim):
+        return self._op(self)
+
+    def __or__(self, other):
+        return self._op(self, other)
+
 
 @pytest.mark.parametrize("cards", [[0, 1, 2], [0, 1, 2, 3], [0, 0, 1, 1], [0, 0, 0]])
 def test_ring_hand_on_waits_for_each_block_and_overlaps_the_step(cards, monkeypatch):
@@ -394,20 +542,27 @@ def test_ring_hand_on_waits_for_each_block_and_overlaps_the_step(cards, monkeypa
 
     def copy(block, device):
         moved = real_copy(block, device)
-        copies.append((len(launches) // n, block.device, device, moved.written))
+        kv = isinstance(block.origin, int)  # a K/V/mask block, not a part of any_key
+        copies.append((len(launches) // n, block.device, device, kv or None, moved.written))
         return moved
 
     sim.copy = copy
 
-    def step(q, k, v, mask, finalize=False):
+    def step(q, k, v, mask, finalize=False, any_key=None):
         stamp = sim.current_stream(q.device).op()
-        for t in (k, v, mask):
+        for t in (k, v, mask, any_key):  # any_key: the batch rows with a present key anywhere
+            assert t.device == q.device
             assert _before(t.written, stamp), "a step read its block before the copy had brought it"
         launches.append((q.device, k.origin, stamp))
         return q
 
     ring_mod.ring_attention_blocks(*blocks, step=step)
     assert [origin for _, origin, _ in launches] == [(i - s) % n for s in range(n) for i in range(n)]
+    # any_key's parts meet on the first card and go back to the others, before the first step
+    flags = [c for c in copies if c[3] is None]
+    copies = [c[:3] + (c[4],) for c in copies if c[3] is not None]
+    assert len(flags) == sum(c != cards[0] for c in cards) + len(set(cards) - {cards[0]})
+    assert all(s == 0 for s, *_ in flags)
     assert len(copies) == 3 * sum(cards[i] != cards[i - 1] for i in range(n)) * (n - 1)  # k, v, mask
     for s, src, dst, stamp in copies:  # issued before step s's launches
         for dev, _, launched in launches[s * n : (s + 1) * n]:

@@ -1,4 +1,4 @@
-"""The arithmetic of K10 and K11's 3xTF32 tensor-core products
+"""The arithmetic of K3, K10 and K11's 3xTF32 tensor-core products
 (``pathway_tpu_torch/kernels/csrc/tf32x3.cuh``), emulated in plain torch
 on the CPU, against the JAX programs the kernels replace.
 
@@ -19,7 +19,13 @@ Held against, on the same seeded numpy inputs:
     than ``ASSIGN_ATOL`` (1e-5) pick the same centroid, and no row's pick
     scores more than 1e-5 below the best;
   - ``img @ txt.T * jnp.exp(s) + b`` (``pathway_tpu/models/vision.py:120``)
-    within ``LOGIT_ATOL`` (1e-5).
+    within ``LOGIT_ATOL`` (1e-5);
+  - K3's tiled pass (slab rows as A, queries as B, 16 values of d a stage):
+    ``jax.lax.top_k`` of the f32 ``q @ slab.T``, the JAX search program's
+    dot scores, at 32 queries over 65,536 unit rows of 768, with the gate of
+    ``chip_smoke.compare_topk``: values within ``TOPK_ATOL`` (1e-5), and
+    every slot the f32 top-k ranks clear of its k-th value by more than
+    that is in the list.
 A single TF32 pass (``hi.hi``) fails each of those gates on the same data:
 the case that shows the tests can tell.  The K11 data are unit mixture
 rows against centroids in close pairs, so many rows' top-2 margins lie
@@ -31,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -39,6 +46,7 @@ from pathway_tpu.parallel import ivf_knn as jax_ivf
 
 ASSIGN_ATOL = chip_smoke.ASSIGN_ATOL
 LOGIT_ATOL = chip_smoke.LOGIT_ATOL
+TOPK_ATOL = chip_smoke.TOPK_ATOL
 SPLIT = 8  # K10's blocks a cluster
 STEP = 16  # values of d a stage
 
@@ -206,3 +214,34 @@ def test_dual_logits_one_tf32_pass_misses_the_logit_gate():
     got = dual_logits_tf32(torch.from_numpy(img), torch.from_numpy(txt), torch.tensor(2.3), torch.tensor(-0.5),
                            passes=1)
     assert np.abs(got.numpy() - want).max() > LOGIT_ATOL
+
+
+def _knn_data(seed: int = 3, n: int = 65536, nq: int = 32, d: int = 768):
+    rng = np.random.default_rng(seed)
+    return _unit(rng.normal(size=(n, d)).astype(np.float32)), _unit(rng.normal(size=(nq, d)).astype(np.float32))
+
+
+def _topk_gate(vals: np.ndarray, ids: np.ndarray, want_vals: np.ndarray, want_ids: np.ndarray) -> tuple[float, int]:
+    """``chip_smoke.compare_topk``'s numbers: the largest value difference,
+    and how many slots ranked clear of the k-th value by more than
+    TOPK_ATOL are missing from the list."""
+    err = float(np.abs(vals - want_vals).max())
+    missing = 0
+    for r in range(len(want_ids)):
+        sure = set(want_ids[r][want_vals[r] > want_vals[r, -1] + TOPK_ATOL].tolist())
+        missing += len(sure - set(ids[r].tolist()))
+    return err, missing
+
+
+@pytest.mark.parametrize("passes", [3, 1], ids=["3xtf32", "one_tf32_pass"])
+def test_knn_tiled_pass_3xtf32_keeps_the_topk_gate(passes):
+    slab, q = _knn_data()
+    jv, ji = jax.lax.top_k(jnp.asarray(q) @ jnp.asarray(slab).T, 10)
+    scores = mm_tf32(torch.from_numpy(slab), torch.from_numpy(q), passes).T
+    vals, ids = torch.topk(scores, 10)
+    err, missing = _topk_gate(vals.numpy(), ids.numpy(), np.asarray(jv), np.asarray(ji))
+    if passes == 3:
+        assert err <= TOPK_ATOL and missing == 0, (err, missing)
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(ji))  # no near-tie at this seed
+    else:  # one pass misses it on the same data
+        assert err > TOPK_ATOL, err
