@@ -128,22 +128,36 @@ Phases, each fatal on failure:
     (d) the flagship tiny f32 config through the 4-block sequence axis
     and on one device, within 1e-5 of its plain forward.
 
+11. the shape repairs C6 and C7 (``phase_shape_repairs``, after phase
+    2): K1 at L = 576, 1,024 and 8,192 and at head dims 128 and 80, K14 at
+    head dim 128, and K2, K3, K11 and K12 over 262,144 rows of d = 1,536,
+    3,072 and 770 (stored with their pitch rounded up), each against its
+    plain version;
+12. the contrastive train step (B15, ``phase_train``, last) at BGE-base
+    widths in f32: 64 rows (32 pairs), 128 tokens, ragged masks, 5 Adam
+    steps; K15-K19 against their plain versions at the step's shapes, the
+    first step's loss and gradients against the plain versions' autograd
+    on the card, ms a step, tokens/s, peak memory, the profiled step's idle
+    share and split, its share of the f32 peak; then
+    ``train.dryrun_multichip(4)`` on a mesh that repeats the card.
+
 Phase 8 runs right after phase 4, while phase 3's index is alive, and
-phase 10 after it; phases 5, 6 and 9 follow.  The second-to-last line of
-output is a JSON object with one entry per kernel wrapper (K1-K14; K1 and
+phase 10 after it; phases 5, 6, 9 and 12 follow.  The second-to-last line of
+output is a JSON object with one entry per kernel wrapper (K1-K19; K1 and
 K4-K7 with their f32 forms); the last is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device the script exits 1 and prints no result.
 
 ``python3 chip_smoke.py --against-parent DIR`` runs instead, on one card,
-only K14, K3's tiled pass and K1 of this tree beside the same kernels
+only K14, K3's row-streaming pass and K1 of this tree beside the same kernels
 built from the sources under ``DIR`` (another commit, unpacked), timed in
 turns (``phase_against_parent``).
 
 ``python3 chip_smoke.py --distinct-cards`` runs instead, on four cards,
 only what a mesh that repeats one card cannot show: ring attention and
 the sequence-parallel encoder over four cards, tensor parallelism over
-two and four, each against the same mesh on one card, and each card's
-bytes (``phase_distinct_cards``).
+two and four, the sharded index (B12), the data-parallel encoder's
+replicas and the data-parallel train step, each against the same mesh on
+one card, and each card's bytes (``phase_distinct_cards``).
 """
 
 from __future__ import annotations
@@ -273,6 +287,18 @@ SHARD_ATOL = 3e-6  # sharded against unsharded scores over the same rows
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, bf16, TF32 and f32
 # (FMA units) FLOP/s
+# C6/C7 on the card and the train step (B15)
+C7_ROWS = 262_144  # unit rows a C7 width is checked over
+TRAIN_B, TRAIN_L = 64, 128  # rows (32 pairs) and tokens of the train step
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-4
+TRAIN_REDRAW = 0.15  # tokens of a pair's second row redrawn
+BWD_RTOL = 1e-5  # K15-K19 against their plain versions, of max|ref| (f32 sums in another order)
+TRAIN_LOSS_RTOL = 1e-5  # the first step's loss against the plain step's
+TRAIN_GRAD_RTOL = 1e-4  # its gradients, each of its tensor's max|g| (12 layers of f32 rounding)
+TRAIN_KERNELS = ("attention", "bias_act", "add_layer_norm", "embed_ln", "pool_normalize", "attention_bwd",
+                 "bias_act_bwd", "layer_norm_bwd", "embed_ln_bwd", "contrastive_loss", "pool_normalize_bwd", "adam")
+
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
@@ -1626,7 +1652,7 @@ def synthetic_docs(np, n: int, seed: int) -> list[str]:
     return docs
 
 
-def profile_call(torch, fn, rows: int) -> dict:
+def profile_call(torch, fn, rows: int, keep_all: bool = False) -> dict:
     """Device time by kernel over one call of ``fn`` (``rows`` inputs), and
     the share of the call's wall time the device was busy (one stream, so
     kernels do not overlap).  Once earlier windows have run in the process,
@@ -1672,6 +1698,7 @@ def profile_call(torch, fn, rows: int) -> dict:
         "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
         "warmup_seen": warmup_seen,
         "top": [{"name": k[:80], "ms": us / 1e3, "calls": n} for us, k, n in ranked[:15]],
+        **({"all": [{"name": k, "ms": us / 1e3, "calls": n} for us, k, n in ranked]} if keep_all else {}),
     }
 
 
@@ -3344,13 +3371,94 @@ def phase_distinct_cards(torch, cards: list) -> dict:
         most = max(res["tp"][name]["weights_gb_per_card"])
         if not (np.isfinite(out["apart"]).all() and err <= TP_ATOL and most < 0.75 * one_bytes / 1e9):
             fail(f"TP {name} over distinct cards: {res['tp'][name]} (one device holds {one_bytes / 1e9} GB)")
+    res.update(phase_distinct_data(torch, cards, sync_all))
+    return res
+
+
+def phase_distinct_data(torch, cards: list, sync_all) -> dict:
+    """``--distinct-cards``' data-parallel part: the sharded index (B12:
+    K3 on each shard's card, the lists copied to the first card and
+    merged), the data-parallel encoder's replicas and the data-parallel
+    train step, each over ``{"data": 4}`` on four cards against the same
+    mesh on card 0.  The index and the encoder run the same kernels on the
+    same rows: equal to the bit.  The train step sums four replicas'
+    gradients in order on the first card where one card's single replica
+    adds them up in autograd's order: its parameters within 1e-6 (a key
+    bias, whose exact gradient is 0, within 2 lr)."""
+    import numpy as np
+
+    from pathway_tpu_torch import BGE_BASE, TorchEncoder, make_mesh, train
+    from pathway_tpu_torch.models import TextEncoderModel
+    from pathway_tpu_torch.parallel import ShardedKnnIndex
+
+    res: dict = {}
+    meshes = {"apart": list(cards), "same": [cards[0]] * 4}
+    rng = np.random.default_rng(SEED + 31)
+    vecs = rng.standard_normal((8192, HIDDEN)).astype(np.float32)
+    qv = vecs[:32] + 0.01 * rng.standard_normal((32, HIDDEN)).astype(np.float32)
+    got = {}
+    for where, devs in meshes.items():
+        idx = ShardedKnnIndex(HIDDEN, metric="cos", capacity=1 << 18, mesh=make_mesh({"data": 4}, devs))
+        idx.add_batch(list(range(len(vecs))), vecs)
+        idx.remove(list(range(0, 64, 7)))
+        got[where] = [idx.search(qv, K), idx.search(qv[:8], SELECT_K)]
+        t0 = time.perf_counter()
+        idx.search(qv, K)
+        sync_all()
+        got[where].append(time.perf_counter() - t0)
+        del idx
+    res["sharded_index"] = {"equal": got["apart"][:2] == got["same"][:2],
+                            "search_s": {w: got[w][2] for w in got}}
+    log(f"B12 over distinct cards: {json.dumps(res['sharded_index'])}")
+    if not res["sharded_index"]["equal"]:
+        fail("the sharded index over four cards answers otherwise than the same mesh on one card")
+
+    texts = synthetic_docs(np, 512, SEED + 32)
+    emb = {}
+    for where, devs in meshes.items():
+        enc = TorchEncoder(BGE_BASE, seed=SEED, mesh=make_mesh({"data": 4}, devs), max_batch=256)
+        emb[where] = enc.encode(texts)
+        sync_all()
+        del enc
+        torch.cuda.empty_cache()
+    res["dp_encoder"] = {"max_abs_err": float(np.abs(emb["apart"] - emb["same"]).max()),
+                         "equal": bool(np.array_equal(emb["apart"], emb["same"]))}
+    log(f"DP encoder over distinct cards: {json.dumps(res['dp_encoder'])}")
+    if not res["dp_encoder"]["equal"]:
+        fail(f"the DP encoder over four cards differs from the same mesh on one card: {res['dp_encoder']}")
+
+    cfg = dataclasses.replace(BGE_BASE, dtype=torch.float32)
+    ids_np, mask_np = synthetic_pairs(np, 16, 64, cfg.vocab_size, SEED + 33)
+    params, losses = {}, {}
+    for where, devs in meshes.items():
+        mesh = make_mesh({"data": 4}, devs)
+        model = TextEncoderModel(cfg, device=devs[0], seed=SEED)
+        opt = train.Adam(train.trainable(model, mesh), lr=TRAIN_LR)
+        ids, mask = torch.from_numpy(ids_np).to(devs[0]), torch.from_numpy(mask_np).to(devs[0])
+        losses[where] = float(train.train_step(model, opt, ids, mask, mesh))
+        sync_all()
+        params[where] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        del model, opt
+        torch.cuda.empty_cache()
+    worst = 0.0
+    for name, p in params["apart"].items():
+        e = float((p - params["same"][name]).abs().max())
+        bound = 2 * TRAIN_LR if name.endswith("attention.key.bias") else 1e-6
+        if e > bound:
+            fail(f"DP train step over distinct cards: {name} differs by {e} > {bound}")
+        if not name.endswith("attention.key.bias"):
+            worst = max(worst, e)
+    res["dp_train"] = {"losses": losses, "param_max_abs_err": worst}
+    log(f"DP train step over distinct cards: {json.dumps(res['dp_train'])}")
+    if abs(losses["apart"] - losses["same"]) > 1e-6 * abs(losses["same"]):
+        fail(f"DP train step losses over distinct cards: {losses}")
     return res
 
 
 def phase_against_parent(torch, dev, parent: str) -> dict:
-    """``--against-parent DIR``: K14 (bf16 and f32), K3's tiled pass (nq 32
-    and 64, k 10 and 256; k=128 at nq 32 over the slab and over the IVF's
-    centroids) and K1 (bf16 and f32) of this tree against the
+    """``--against-parent DIR``: K14 (bf16 and f32), K3's row-streaming pass
+    (nq 1 and 4, k=10) and K1 (bf16 and f32 at B=256 L=256 D=64, the
+    serving shape) of this tree against the
     same kernels built from the sources under ``DIR`` (an unpacked ``git
     archive`` of another commit), on one card, timed in turns (parent,
     this tree, this tree, parent) by CUDA events and by the profiler's
@@ -3365,7 +3473,6 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
     import torch.nn.functional as F
 
     from pathway_tpu_torch.kernels import (
-        MAX_K,
         attention,
         attention_plain,
         knn_topk,
@@ -3373,7 +3480,6 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
         ring_block,
         ring_block_plain,
         ring_state,
-        topk_select,
     )
     from pathway_tpu_torch.kernels._launch import launch
     from pathway_tpu_torch.kernels.knn_topk import merge_partials
@@ -3389,24 +3495,23 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
     p_knn = pb.library("knn_topk")
     p_attn = pb.library("attention").pw_attention
 
-    def parent_ring(q, k, v, mask, o, m, l, any_key):  # the parent's step walks every tile
+    def parent_ring(q, k, v, mask, o, m, l, any_key):  # the parent's step, its tile skip included
         B, L, H, D = q.shape
         launch("parent ring_block", p_ring, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-               o.data_ptr(), m.data_ptr(), l.data_ptr(), None, B, L, H, D, 1.0 / math.sqrt(D),
-               int(q.dtype == torch.float32), 0)
+               any_key.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(), None, B, L, H, D,
+               1.0 / math.sqrt(D), int(q.dtype == torch.float32), 0)
 
     def parent_knn(q, slab, valid, k):
-        """The parent's tiled pass 1 (a list a tile of 256 rows, or every
-        score above MAX_K), then this tree's merge passes or K13, which
-        this change leaves as they were."""
+        """The parent's row-streaming pass 1 (fewer than
+        TILED_MIN_QUERIES queries: the pass C7 cut into slices of 1,024
+        dims), then this tree's merge passes."""
         cap, d = slab.shape
         nq = q.shape[0]
-        kk = 0 if k > MAX_K else k
-        vals = torch.empty((nq, cap if kk == 0 else -(-cap // 256) * kk), device=dev)
-        idx = vals if kk == 0 else torch.empty(vals.shape, dtype=torch.int32, device=dev)
-        launch("parent knn_topk", p_knn.pw_knn_partial_tiled, dev, q.data_ptr(), slab.data_ptr(),
-               valid.data_ptr(), vals.data_ptr(), idx.data_ptr(), nq, d, cap, 0, kk, 0, 0)
-        return topk_select(vals, k) if kk == 0 else merge_partials(vals, idx, k)
+        vals = torch.empty((nq, -(-cap // 256) * k), device=dev)
+        idx = torch.empty(vals.shape, dtype=torch.int32, device=dev)
+        launch("parent knn_topk", p_knn.pw_knn_partial, dev, q.data_ptr(), slab.data_ptr(), valid.data_ptr(),
+               vals.data_ptr(), idx.data_ptr(), nq, d, cap, 0, min(nq, 32), k, 0, 0)
+        return merge_partials(vals, idx, k)
 
     def parent_attention(q, k, v, mask):
         B, L, H, D = q.shape
@@ -3471,19 +3576,13 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
         del q, k0, v0, k1, v1, st0, ref, sp, st, qt, kt, vt
         torch.cuda.empty_cache()
 
-    # ---- K3's tiled pass: nq 32 and 64, k 10 and 256; k=128 at nq 32 over
-    # the slab and over the IVF's 1,024 centroids (phase 6's probe at
-    # nprobe 128; all valid)
+    # ---- K3's row-streaming pass at nq 1 and 4, k=10, over the 1M f32 slab
     slab = torch.randn((CAPACITY, HIDDEN), generator=g, device=dev)
     slab /= slab.norm(dim=1, keepdim=True)
     valid = (torch.rand((CAPACITY,), generator=g, device=dev) >= 0.1).float()
     qs = torch.randn((64, HIDDEN), generator=g, device=dev)
     qs /= qs.norm(dim=1, keepdim=True)
-    cents = torch.randn((IVF_NLIST, HIDDEN), generator=g, device=dev)
-    cents /= cents.norm(dim=1, keepdim=True)
-    cases = [(nq, k, slab, valid, "") for nq in (32, 64) for k in (K, SELECT_K)]
-    cases += [(32, MAX_K, slab, valid, ""), (32, IVF_NPROBE, cents, torch.ones((IVF_NLIST,), device=dev),
-                                             f" probe over [{IVF_NLIST},{HIDDEN}] centroids")]
+    cases = [(nq, K, slab, valid, "") for nq in (1, 4)]
     for nq, k, rows, flags, where in cases:
         q = qs[:nq]
         pv, pi = knn_topk_plain(q, rows, flags, k, "dot")
@@ -3505,7 +3604,7 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
             "library": library(lambda q=q, k=k, rows=rows: torch.topk(torch.matmul(q, rows.T), k), 5),
         }
         log(f"{name}: {json.dumps(res[name])}")
-    del slab, valid, cents, cases, rows, flags
+    del slab, valid, cases, rows, flags
     torch.cuda.empty_cache()
 
     # ---- K1: bf16 and f32 at the embed path's shape
@@ -3532,6 +3631,474 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
         }
         log(f"{name}: {json.dumps(res[name])}")
     return res
+
+
+# ---------------------------------------------------------------------------
+# C6 and C7 on the card, then the train step (B15)
+
+
+def phase_shape_repairs(torch, dev) -> dict:
+    """C6 and C7 on the card, each kernel against its plain version.  C6:
+    K1 at L = 576 (B=2), 1,024 and 8,192 (B=1), at head dims 128 and 80
+    (B=2, L=512), bf16 and f32, masks with holes and a row with no present
+    key (K1's tolerances: bf16 ATTN_ATOL + ATTN_RTOL |ref|, f32 F32_ATOL);
+    K14 at D = 128, a middle step from a carried state (the state relative
+    to l, RING_STATE_RTOL).  C7: over C7_ROWS unit rows stored with their
+    pitch rounded up (``kernels/_pitch.py``) at d = 1,536, 3,072 and 770,
+    f32 and bf16: K3 at nq 1 and 32, k=10, and K12 over 64 cells of 4,096
+    rows, each held as phases 2 and 6 hold them (scores within TOPK_ATOL,
+    f32 sums of unit rows in another order; slots equal but near-ties; the
+    largest differences are printed),
+    K2 without normalising bit for bit and with it within SCATTER_ATOL (the
+    norm summed in another order), K11 on the rows (decided equal).  Also
+    K3 at nq=32, k=128 over the 1M slab and over phase 6's 1,024
+    centroids, timed beside its plain version and ``topk(matmul)``."""
+    from pathway_tpu_torch import kernels
+    from pathway_tpu_torch.kernels import attention, attention_plain, ivf_scan_plain, knn_topk_plain
+    from pathway_tpu_torch.kernels._pitch import pitched, pitched_zeros
+    from pathway_tpu_torch.kernels.ring_block import ring_block, ring_block_plain, ring_state
+
+    res: dict = {"attention": {}, "ring_block": {}, "knn_topk": {}, "ivf_scan": {}, "slab_scatter": {},
+                 "ivf_assign": {}}
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    bf16, f32 = torch.bfloat16, torch.float32
+    for B, L, H, D in ((2, 576, 12, 64), (1, 1024, 12, 64), (1, 8192, 12, 64), (2, 512, 12, 128),
+                       (2, 512, 12, 80)):
+        for dt in (bf16, f32):
+            q, k, v = (torch.randn((B, L, H, D), generator=g, device=dev).to(dt) for _ in range(3))
+            # B=2: row 0 keeps every key, row 1 none (the uniform average of
+            # v); B=1: a row of holes (present runs between masked tiles)
+            mask = holes_mask(torch, g, dev, max(B, 4), L)[:B] if B > 1 else holes_mask(torch, g, dev, 4, L)[2:3]
+            tag = f"{'f32' if dt == f32 else 'bf16'} B={B} L={L} H={H} D={D}"
+            got = attention(q, k, v, mask)
+            ref = attention_plain(q, k, v, mask)
+            atol, rtol = (F32_ATOL, 0.0) if dt == f32 else (ATTN_ATOL, ATTN_RTOL)
+            err = check_attention_case(torch, f"C6 {tag}", v, mask, got, ref, atol, rtol)
+            res["attention"][tag] = {"max_abs_err": err,
+                                     "ms": time_ms(torch, lambda: attention(q, k, v, mask), 5)}
+            del q, k, v, got, ref
+    for dt in (bf16, f32):
+        B, L, H, D = 4, 2048, 12, 128
+        q, k, v = (torch.randn((B, L, H, D), generator=g, device=dev).to(dt) for _ in range(3))
+        mask = holes_mask(torch, g, dev, B, L)
+        any_key = (mask.sum(1) > 0).to(torch.uint8)
+        st = ring_state(B, L, H, D, dev)
+        ring_block_plain(q, k, v, mask, *st)  # a carried state
+        mine = tuple(t.clone() for t in st)
+        ref = tuple(t.clone() for t in st)
+        ring_block(q, k, v, mask, *mine, any_key=any_key)
+        ring_block_plain(q, k, v, mask, *ref)
+        state_err, m_err = ring_state_err(mine, ref)
+        tag = f"{'f32' if dt == f32 else 'bf16'} B={B} L={L} H={H} D={D}"
+        res["ring_block"][tag] = {"state_rel_err": state_err, "m_rel_err": m_err}
+        log(f"C6 K14 {tag}: state err {state_err:.3e} (relative to l), running max {m_err:.3e}")
+        if not (state_err <= RING_STATE_RTOL and m_err <= RING_STATE_RTOL):
+            fail(f"C6 K14 {tag}: state {state_err}, running max {m_err} > {RING_STATE_RTOL}")
+        del q, k, v, st, mine, ref
+    torch.cuda.empty_cache()
+
+    # K3 at k=128 and nq=32, with its bound and plain time: over the 1M f32
+    # slab, and phase 6's probe (1,024 centroids, all valid)
+    slab = torch.randn((CAPACITY, HIDDEN), generator=g, device=dev)
+    slab /= slab.norm(dim=1, keepdim=True)
+    valid = (torch.rand((CAPACITY,), generator=g, device=dev) >= 0.1).float()
+    qs = torch.randn((32, HIDDEN), generator=g, device=dev)
+    qs /= qs.norm(dim=1, keepdim=True)
+    cents = slab[:IVF_NLIST].clone()
+    res["knn_topk_k128"] = {}
+    for where, rows, flags in (("slab", slab, valid), ("probe", cents, torch.ones((IVF_NLIST,), device=dev))):
+        live = int(flags.sum())
+        kv, ki = kernels.knn_topk(qs, rows, flags, 128, "dot")
+        pv, pi = knn_topk_plain(qs, rows, flags, 128, "dot")
+        b_ms, by = bound(live * HIDDEN * 4 + 32 * HIDDEN * 4 + 32 * 128 * 8, 2 * 32 * live * HIDDEN,
+                         PEAK_F32_PRODUCT)
+        res["knn_topk_k128"][where] = {
+            "max_abs_err": compare_topk(kv, ki, pv, pi, TOPK_ATOL),
+            "ms": time_ms(torch, lambda rows=rows, flags=flags: kernels.knn_topk(qs, rows, flags, 128, "dot"), 10),
+            "plain_ms": time_ms(torch, lambda rows=rows, flags=flags: knn_topk_plain(qs, rows, flags, 128, "dot"), 5),
+            "library_ms": time_ms(torch, lambda rows=rows: torch.topk(torch.matmul(qs, rows.T), 128), 10),
+            "bound_ms": b_ms, "bound_by": by, "rows": int(rows.shape[0])}
+        log(f"K3 nq=32 k=128 over the {where} ({rows.shape[0]} rows): {json.dumps(res['knn_topk_k128'][where])}")
+    del slab, valid, cents
+    torch.cuda.empty_cache()
+
+    for d in (1536, 3072, 770):
+        for dt in (f32, bf16):
+            tag = f"{'f32' if dt == f32 else 'bf16'} d={d}"
+            rows = torch.randn((C7_ROWS, d), generator=g, device=dev)
+            rows /= rows.norm(dim=1, keepdim=True)
+            slab = pitched(rows.to(dt))
+            valid = (torch.rand((C7_ROWS,), generator=g, device=dev) >= 0.1).float()
+            qs = torch.randn((32, d), generator=g, device=dev)
+            qs /= qs.norm(dim=1, keepdim=True)
+            res["knn_topk"][tag] = {}
+            for nq in (1, 32):
+                kv, ki = kernels.knn_topk(qs[:nq], slab, valid, K, "dot")
+                pv, pi = knn_topk_plain(qs[:nq], slab, valid, K, "dot")
+                err = compare_topk(kv, ki, pv, pi, TOPK_ATOL)
+                res["knn_topk"][tag][f"nq{nq}"] = {
+                    "max_abs_err": err, "ms": time_ms(torch, lambda nq=nq: kernels.knn_topk(qs[:nq], slab, valid, K, "dot"), 5)}
+            cells = slab[: 64 * 4096].view(64, 4096, d) if d % 8 == 0 else pitched(rows[: 64 * 4096].to(dt).view(64, 4096, d))
+            cvalid = valid[: 64 * 4096].view(64, 4096)
+            probe = torch.randint(0, 64, (32, 8), generator=g, device=dev).to(torch.int32)
+            kv, ki = kernels.ivf_scan(qs, probe, cells, cvalid, K)
+            pv, pi = ivf_scan_plain(qs, probe, cells, cvalid, K)
+            err = compare_topk(kv, ki, pv, pi, TOPK_ATOL)
+            res["ivf_scan"][tag] = {"max_abs_err": err}
+            raw = torch.randn((4096, d), generator=g, device=dev)
+            slots = torch.randperm(C7_ROWS, generator=g, device=dev)[:4096].to(torch.int32)
+            errs = {}
+            for normalize in (False, True):
+                s1, s2 = pitched_zeros((C7_ROWS, d), dt, dev), pitched_zeros((C7_ROWS, d), dt, dev)
+                v1, v2 = torch.zeros((C7_ROWS,), device=dev), torch.zeros((C7_ROWS,), device=dev)
+                kernels.slab_scatter(s1, v1, slots, raw, normalize)
+                kernels.slab_scatter_plain(s2, v2, slots, raw, normalize)
+                e = (s1.float() - s2.float()).abs().max().item()
+                errs["normalized" if normalize else "copied"] = e
+                tol = (SCATTER_ATOL if dt == f32 else 2.0**-8) if normalize else 0.0
+                if e > tol or not torch.equal(v1, v2):
+                    fail(f"C7 K2 {tag} normalize={normalize}: {e} > {tol}")
+                del s1, s2
+            res["slab_scatter"][tag] = errs
+            if dt == f32:
+                c = rows[:1024].contiguous() if d % 4 == 0 else rows[:1024].clone()
+                got = kernels.ivf_assign(rows[:65536], c, True)
+                want = kernels.ivf_assign_plain(rows[:65536], c, True)
+                res["ivf_assign"][tag] = {"disagree": int((got != want).sum())}
+                if not torch.equal(got, want):
+                    check_assign(torch, rows[:65536], c, True, got, f"C7 ivf_assign {tag}")
+            log(f"C7 {tag}: K3 {json.dumps(res['knn_topk'][tag])} K12 {json.dumps(res['ivf_scan'][tag])} "
+                f"K2 {json.dumps(errs)}")
+            del rows, slab, valid, cells, raw
+            torch.cuda.empty_cache()
+    return res
+
+
+def synthetic_pairs(np, B: int, L: int, vocab: int, seed: int):
+    """``B // 2`` positive pairs: row 2i random ids over a ragged length,
+    row 2i + 1 the same row with TRAIN_REDRAW of its tokens redrawn; a pair
+    shares its mask."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1000, vocab, (B, L)).astype(np.int32)
+    lens = rng.integers(L // 4, L + 1, B // 2)
+    lens[0] = L
+    for i in range(B // 2):
+        redraw = rng.random(L) < TRAIN_REDRAW
+        ids[2 * i + 1] = np.where(redraw, rng.integers(1000, vocab, L), ids[2 * i])
+    mask = (np.arange(L)[None] < np.repeat(lens, 2)[:, None]).astype(np.int32)
+    return ids, mask
+
+
+def plain_train_loss(model, ids, mask):
+    """The contrastive loss of ``model`` through the kernels' plain versions
+    only, out of place, differentiable on whatever device the parameters
+    are: the reference the train step is held to.  Nothing on the path
+    calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch.kernels import (
+        add_layer_norm_plain,
+        attention_plain,
+        contrastive_loss_plain,
+        embed_ln_plain,
+        pool_normalize_plain,
+    )
+    from pathway_tpu_torch.kernels.bias_act import _activate
+
+    cfg = model.cfg
+    mask = mask.to(torch.uint8)
+    emb = model.embeddings
+    types = None if emb.token_type is None else emb.token_type.weight
+    x = embed_ln_plain(ids, None, emb.word.weight, emb.position.weight, types, emb.ln.weight, emb.ln.bias,
+                       emb.ln.eps, cfg.dtype)
+    B, L, _ = x.shape
+
+    def dense(h, lin, act="none"):
+        return _activate(F.linear(h, lin.weight) + lin.bias, act)
+
+    for block in model.blocks():
+        att = block.attention
+        heads = (B, L, cfg.heads, cfg.head_dim)
+        q, k, v = (dense(x, lin).view(heads) for lin in (att.query, att.key, att.value))
+        a = dense(attention_plain(q, k, v, mask).reshape(B, L, cfg.hidden), att.out)
+        x = add_layer_norm_plain(x, a, block.attention_ln.weight, block.attention_ln.bias, cfg.ln_eps)
+        h = dense(x, block.mlp_up, "gelu_tanh" if cfg.gelu_approx else "gelu_erf")
+        x = add_layer_norm_plain(x, dense(h, block.mlp_down), block.mlp_ln.weight, block.mlp_ln.bias, cfg.ln_eps)
+    e = pool_normalize_plain(x, mask, cfg.pool, cfg.normalize)
+    return contrastive_loss_plain(e @ e.T)[0]
+
+
+def grad_errors(torch, named_a, named_b) -> dict:
+    """Per tensor, the largest difference of two models' gradients over the
+    largest |g| of the second's.  A key bias's exact gradient is 0 (the
+    softmax is unchanged when q . b_k is added to every logit of a row):
+    both hold rounding noise, read against the key weight's gradient."""
+    b = dict(named_b)
+    out = {}
+    for name, p in named_a:
+        ref = b[name].grad
+        scale = b[name.replace(".bias", ".weight")].grad if name.endswith("attention.key.bias") else ref
+        out[name] = float((p.grad - ref).abs().max()) / max(float(scale.abs().max()), 1e-30)
+    return out
+
+
+def phase_train(torch, dev) -> dict:
+    """The contrastive train step (B15) at BGE-base widths in f32 (12
+    layers, hidden 768, 12 heads of 64, MLP 3,072, tanh GELU, CLS), B =
+    TRAIN_B rows (pairs from ``synthetic_pairs``), L = TRAIN_L, ragged
+    masks, TRAIN_STEPS Adam steps at lr TRAIN_LR, all on one card.
+    Gates: K15-K19 each within BWD_RTOL of max|ref| of its plain version at
+    the step's shapes; the first step's loss within TRAIN_LOSS_RTOL of the
+    plain step's (the plain versions' autograd on the card, same weights)
+    and every gradient within TRAIN_GRAD_RTOL of its tensor's max|g|; all
+    losses finite and the last below the first; K1, K4-K7 and K15-K19
+    launched during the steps; every tensor of the step on the card.  Then
+    ``train.dryrun_multichip(4)`` on a mesh that repeats the card."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch import BGE_BASE, kernels, train
+    from pathway_tpu_torch.kernels import (
+        attention,
+        attention_bwd_plain,
+        bias_act_bwd_plain,
+        contrastive_loss_plain,
+        embed_ln_bwd_plain,
+        layer_norm_bwd_plain,
+        pool_normalize_bwd_plain,
+    )
+    from pathway_tpu_torch.kernels.adam import adam_step_plain
+    from pathway_tpu_torch.models import TextEncoderModel
+
+    res: dict = {"kernels": {}}
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(BGE_BASE, dtype=torch.float32)
+    ids_np, mask_np = synthetic_pairs(np, TRAIN_B, TRAIN_L, cfg.vocab_size, SEED + 21)
+    ids = torch.from_numpy(ids_np).to(dev)
+    mask = torch.from_numpy(mask_np).to(dev)
+    umask = mask.to(torch.uint8)
+    valid_tokens = int(mask_np.sum())
+    model = TextEncoderModel(cfg, device=dev, seed=SEED)
+    ref_model = TextEncoderModel(cfg, device=dev, seed=None)
+    ref_model.load_state_dict(model.state_dict())
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    M, H, F_, heads, D = TRAIN_B * TRAIN_L, cfg.hidden, cfg.mlp_dim, cfg.heads, cfg.head_dim
+
+    def gate(name, got, want):
+        """Each of ``got`` within BWD_RTOL of max|want| of its partner."""
+        worst = 0.0
+        for a, b in zip(got, want):
+            if b is None:
+                continue
+            e = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            worst = max(worst, e)
+        if not worst <= BWD_RTOL:
+            fail(f"{name} against its plain version: {worst} of max|ref| > {BWD_RTOL}")
+        return worst
+
+    def entry(name, err, ms, plain_ms, nbytes, flops, peak, library_ms, shape):
+        b_ms, by = bound(nbytes, flops, peak)
+        res["kernels"][name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                                "bound_by": by, "library_ms": library_ms, "shape": shape}
+        log(f"{name} at the train step: {json.dumps(res['kernels'][name])}")
+
+    # ---- K15: attention backward at [64, 128, 12, 64], the batch's masks
+    q, k, v, do = (torch.randn((TRAIN_B, TRAIN_L, heads, D), generator=g, device=dev) for _ in range(4))
+    out, lse = attention(q, k, v, umask, with_lse=True)
+    got = kernels.attention_bwd(q, k, v, out, do, umask, lse)
+    want = attention_bwd_plain(q, k, v, out, do, umask, lse)
+    err = gate("K15 attention_bwd", got, want)
+    keys = float(umask.sum(1).float().sum()) * TRAIN_L  # query rows x their present keys
+    qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    sd = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=umask.bool()[:, None, None, :])
+    dos = do.transpose(1, 2)
+    entry("attention_bwd", err, time_ms(torch, lambda: kernels.attention_bwd(q, k, v, out, do, umask, lse), 10),
+          time_ms(torch, lambda: attention_bwd_plain(q, k, v, out, do, umask, lse), 5),
+          8 * M * H * 4 + 2 * TRAIN_B * heads * TRAIN_L * 4, 10 * heads * keys * D, PEAK_F32,
+          time_ms(torch, lambda: torch.autograd.grad(sd, (qs, ks, vs), dos, retain_graph=True), 10),
+          [TRAIN_B, TRAIN_L, heads, D])
+    del q, k, v, do, out, lse, got, want, qs, ks, vs, sd, dos
+    # ---- K16: the mlp_up GELU and a plain bias
+    # (the mlp_up GELU is the entry; the plain bias of the other five dense
+    # layers rides beside it: dx is dy there, only db is computed)
+    for n, act in ((H, "none"), (F_, "gelu_tanh")):
+        y, dy = (torch.randn((M, n), generator=g, device=dev) for _ in range(2))
+        bias = torch.randn((n,), generator=g, device=dev)
+        got = kernels.bias_act_bwd(dy, y, bias, act)
+        err = gate(f"K16 bias_act_bwd {act}", got, bias_act_bwd_plain(dy, y, bias, act))
+        nbytes = (3 if act != "none" else 1) * M * n * 4 + 2 * n * 4
+        none = res["kernels"].pop("bias_act_bwd", None)
+        entry("bias_act_bwd", err, time_ms(torch, lambda: kernels.bias_act_bwd(dy, y, bias, act), 10),
+              time_ms(torch, lambda: bias_act_bwd_plain(dy, y, bias, act), 10), nbytes, 20 * M * n, PEAK_F32,
+              None, [M, n])
+        if none is not None:
+            res["kernels"]["bias_act_bwd"]["act_none"] = none
+        del y, dy, bias, got
+    # ---- K17: the residual LayerNorm and the embeddings' with their tables
+    x, r, dy = (torch.randn((M, H), generator=g, device=dev) for _ in range(3))
+    gamma = 1 + 0.1 * torch.randn((H,), generator=g, device=dev)
+    got = kernels.layer_norm_bwd(dy, x, r, gamma, cfg.ln_eps)
+    err = gate("K17 layer_norm_bwd", got, layer_norm_bwd_plain(dy, x + r, gamma, cfg.ln_eps))
+    s = (x + r).requires_grad_()
+    w, b = gamma.clone().requires_grad_(), torch.zeros((H,), device=dev, requires_grad=True)
+    ln = F.layer_norm(s, (H,), w, b, cfg.ln_eps)
+    entry("layer_norm_bwd", err, time_ms(torch, lambda: kernels.layer_norm_bwd(dy, x, r, gamma, cfg.ln_eps), 10),
+          time_ms(torch, lambda: layer_norm_bwd_plain(dy, x + r, gamma, cfg.ln_eps), 10), 4 * M * H * 4 + 3 * H * 4,
+          15 * M * H, PEAK_F32,
+          time_ms(torch, lambda: torch.autograd.grad(ln, (s, w, b), dy, retain_graph=True), 10), [M, H])
+    del x, r, s, w, b, ln, got
+    emb = model.embeddings
+    tables = (emb.word.weight.detach(), emb.position.weight.detach(), emb.token_type.weight.detach())
+    ids16 = ids.to(torch.int16)
+    got = kernels.embed_ln_bwd(dy, ids16, None, tables[0], tables[1], tables[2], gamma, cfg.ln_eps)
+    want = embed_ln_bwd_plain(dy, ids16, None, tables[0], tables[1], tables[2], gamma, cfg.ln_eps)
+    err = gate("K17 embed_ln_bwd", got, want)
+    distinct = int(torch.unique(ids).numel())
+    entry("embed_ln_bwd", err,
+          time_ms(torch, lambda: kernels.embed_ln_bwd(dy, ids16, None, *tables, gamma, cfg.ln_eps), 10),
+          time_ms(torch, lambda: embed_ln_bwd_plain(dy, ids16, None, *tables, gamma, cfg.ln_eps), 5),
+          2 * M * H * 4 + 2 * (distinct + TRAIN_L + 1) * H * 4 + M * 2, 15 * M * H, PEAK_F32, None, [M, H])
+    del dy, got, want
+    # ---- K18: the loss of a [64, 64] product, and K7's backward
+    e = F.normalize(torch.randn((TRAIN_B, H), generator=g, device=dev), dim=1)
+    raw = e @ e.T
+    got = kernels.contrastive_loss(raw)
+    err = gate("K18 contrastive_loss", got, contrastive_loss_plain(raw))
+    entry("contrastive_loss", err, time_ms(torch, lambda: kernels.contrastive_loss(raw), 20),
+          time_ms(torch, lambda: contrastive_loss_plain(raw), 20), 2 * TRAIN_B * TRAIN_B * 4,
+          10 * TRAIN_B * TRAIN_B, PEAK_F32, None, [TRAIN_B, TRAIN_B])
+    xh = torch.randn((TRAIN_B, TRAIN_L, H), generator=g, device=dev)
+    gg = torch.randn((TRAIN_B, H), generator=g, device=dev)
+    got = kernels.pool_normalize_bwd(xh, umask, gg, cfg.pool, True)
+    err = gate("K18 pool_normalize_bwd", (got,), (pool_normalize_bwd_plain(xh, umask, gg, cfg.pool, True),))
+    entry("pool_normalize_bwd", err, time_ms(torch, lambda: kernels.pool_normalize_bwd(xh, umask, gg, cfg.pool, True), 20),
+          time_ms(torch, lambda: pool_normalize_bwd_plain(xh, umask, gg, cfg.pool, True), 20),
+          (M * H + 2 * TRAIN_B * H) * 4 + M, 6 * TRAIN_B * H, PEAK_F32, None, [TRAIN_B, TRAIN_L, H])
+    del xh, gg, got, e, raw
+    # ---- K19: Adam over copies of every parameter, random gradients
+    ps = [p.detach().clone() for p in model.parameters()]
+    gs = [torch.randn(p.shape, generator=g, device=dev) * 1e-3 for p in ps]
+    ms = [torch.zeros_like(p) for p in ps]
+    vs = [torch.zeros_like(p) for p in ps]
+    cp = [[t.clone() for t in ts] for ts in (ps, ms, vs)]
+    kernels.adam_step(ps, gs, ms, vs, 1, TRAIN_LR)
+    adam_step_plain(cp[0], gs, cp[1], cp[2], 1, TRAIN_LR)
+    err = gate("K19 adam", ps + ms + vs, cp[0] + cp[1] + cp[2])
+    n_params = sum(p.numel() for p in ps)
+    lib_ps = [p.clone().requires_grad_() for p in cp[0]]
+    lib = torch.optim.Adam(lib_ps, lr=TRAIN_LR, fused=True)
+    for p, gr in zip(lib_ps, gs):
+        p.grad = gr
+    lib.step()
+    entry("adam", err, time_ms(torch, lambda: kernels.adam_step(ps, gs, ms, vs, 2, TRAIN_LR), 10),
+          time_ms(torch, lambda: adam_step_plain(cp[0], gs, cp[1], cp[2], 2, TRAIN_LR), 3),
+          28 * n_params, 12 * n_params, PEAK_F32, time_ms(torch, lib.step, 10), [n_params, len(ps)])
+    res["params"] = n_params
+    del ps, gs, ms, vs, cp, lib, lib_ps
+    torch.cuda.empty_cache()
+
+    # ---- the first step against the plain step, same weights and batch
+    opt = train.Adam(model.named_parameters(), lr=TRAIN_LR)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = train.contrastive_loss(model, ids, mask)
+    loss.backward()
+    ref_loss = plain_train_loss(ref_model, ids, mask)
+    ref_loss.backward()
+    res["first_step"] = {"loss": float(loss), "plain_loss": float(ref_loss),
+                         "loss_rel_err": abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))}
+    errs = grad_errors(torch, list(model.named_parameters()), list(ref_model.named_parameters()))
+    worst = max(errs, key=errs.get)
+    res["first_step"]["grad_rel_err_max"] = errs[worst]
+    res["first_step"]["grad_rel_err_worst_tensor"] = worst
+    res["first_step"]["grad_rel_err"] = {k2: v2 for k2, v2 in sorted(errs.items(), key=lambda kv: -kv[1])[:8]}
+    log(f"train step 1 against the plain step: {json.dumps(res['first_step'])}")
+    if not res["first_step"]["loss_rel_err"] <= TRAIN_LOSS_RTOL:
+        fail(f"train step 1 loss {float(loss)} against the plain step's {float(ref_loss)}")
+    if not errs[worst] <= TRAIN_GRAD_RTOL:
+        fail(f"train step 1 gradient of {worst}: {errs[worst]} of max|g| > {TRAIN_GRAD_RTOL}")
+    del ref_model, ref_loss
+    opt.step()
+    opt.zero_grad()
+    losses = [float(loss)]
+    torch.cuda.synchronize()
+    step_s = [time.perf_counter() - t0]
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    step_ms = []
+    for _ in range(TRAIN_STEPS - 2):
+        start.record()
+        losses.append(float(train.train_step(model, opt, ids, mask)))
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    prof = profile_call(torch, lambda: losses.append(float(train.train_step(model, opt, ids, mask))), TRAIN_B,
+                        keep_all=True)
+    res["launches"] = kernels.launch_counts()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    on_card = {str(t.device) for t in (*model.parameters(), *opt.mu, *opt.nu, ids, mask)}
+    flops = train_flops(cfg, TRAIN_B, TRAIN_L)
+    ms = sum(step_ms) / len(step_ms)
+    res.update({
+        "losses": losses, "step_ms": step_ms, "ms_per_step": ms, "tokens_per_s": valid_tokens / (ms / 1e3),
+        "rows_per_s": TRAIN_B / (ms / 1e3), "valid_tokens": valid_tokens, "flops_per_step": flops,
+        "f32_peak_share": flops / (ms / 1e3) / PEAK_F32, "profile": prof, "split": step_split(prof),
+        "devices": sorted(on_card),
+    })
+    log(f"train: losses {losses}, {ms:.2f} ms a step (CUDA events), {res['tokens_per_s']:.0f} valid tokens/s, "
+        f"peak {res['peak_mem_gb']:.2f} GB, f32 peak share {res['f32_peak_share']:.3f}, "
+        f"idle {prof['device_idle_share']:.3f}, split {json.dumps(res['split'])}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train losses {losses}: not finite, or the last not below the first")
+    if on_card != {str(dev)}:
+        fail(f"train step tensors on {on_card}, want only {dev}")
+    zero = [n for n in TRAIN_KERNELS if res["launches"][n] == 0]
+    if zero:
+        fail(f"kernels not launched on the train path: {zero}")
+    del model, opt
+    torch.cuda.empty_cache()
+
+    # ---- dryrun_multichip(4) on a mesh that repeats the card
+    kernels.reset_launch_counts()
+    res["dryrun"] = train.dryrun_multichip(4, device=dev)
+    res["dryrun_launches"] = kernels.launch_counts()
+    res["wall_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def train_flops(cfg, B: int, L: int) -> float:
+    """Operations of one contrastive step: the dense products forward (2
+    flops a multiply-add) and backward (twice that), attention's two
+    products forward and five backward over every key, and the loss's two
+    [B, B] products."""
+    M = B * L
+    dense = 2 * M * (4 * cfg.hidden**2 + 2 * cfg.hidden * cfg.mlp_dim) * cfg.layers
+    attn = 2 * B * cfg.heads * L * L * cfg.head_dim * 7 * cfg.layers
+    return 3 * dense + attn + 3 * 2 * B * B * cfg.hidden
+
+
+def step_split(prof: dict) -> dict:
+    """A profiled step's device time by kind: the dense products (cuBLAS),
+    the port's kernels (by source), the rest, and the idle share."""
+    kinds = {"gemm": 0.0, "forward_kernels": 0.0, "backward_kernels_K15_K18": 0.0, "adam_K19": 0.0, "other": 0.0}
+    fwd = ("wgmma_kernel", "tf32_kernel", "bias_act", "add_ln", "embed_ln", "pool_norm")
+    bwd = ("dq_kernel", "dkv_kernel", "dx_kernel", "colsum", "ln_bwd", "loss_kernel", "pool_bwd")
+    for row in prof.pop("all"):
+        n = row["name"]
+        if "gemm" in n or "sm90_xmma" in n or "cutlass" in n or "Kernel2" in n:
+            kinds["gemm"] += row["ms"]
+        elif "adam_kernel" in n:
+            kinds["adam_K19"] += row["ms"]
+        elif any(s in n for s in bwd):
+            kinds["backward_kernels_K15_K18"] += row["ms"]
+        elif any(s in n for s in fwd):
+            kinds["forward_kernels"] += row["ms"]
+        else:
+            kinds["other"] += row["ms"]
+    kinds["idle_share"] = prof["device_idle_share"]
+    kinds["wall_ms"] = prof["wall_ms"]
+    return kinds
 
 
 def main() -> int:
@@ -3606,6 +4173,10 @@ def main() -> int:
         k_out[name]["f32"] = row
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
+    repairs = phase_shape_repairs(torch, dev)
+    repairs["wall_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
     s_out, ctx = phase_slice(torch, dev, compared_widths)
     wall = {"embed_s": time.perf_counter() - t_phase}
     t_phase = time.perf_counter()
@@ -3634,6 +4205,10 @@ def main() -> int:
     wall["checkpoint_s"] = ck_out["wall_s"]
     k_out.update(ivf_out.pop("kernels"))
     ivf_scan_nq32 = k_out["ivf_scan"].pop("_nq32")
+    torch.cuda.empty_cache()
+    tr_out = phase_train(torch, dev)
+    wall["train_s"] = tr_out["wall_s"]
+    k_out.update(tr_out.pop("kernels"))
 
     csrc = "pathway_tpu_torch/kernels/csrc/"
     sources = {
@@ -3652,6 +4227,13 @@ def main() -> int:
         "ivf_scan": ("ivf_scan.cu", "pathway_tpu/parallel/ivf_knn.py:316"),
         "topk_select": ("topk_select.cu", "pathway_tpu/parallel/sharded_knn.py:364"),
         "ring_block": ("ring_block.cu", "pathway_tpu/ops/ring_attention.py:47"),
+        "attention_bwd": ("attention_bwd.cu", "__graft_entry__.py:128"),
+        "bias_act_bwd": ("bias_act_bwd.cu", "__graft_entry__.py:128"),
+        "layer_norm_bwd": ("layer_norm_bwd.cu", "__graft_entry__.py:128"),
+        "embed_ln_bwd": ("layer_norm_bwd.cu", "__graft_entry__.py:128"),
+        "contrastive_loss": ("contrastive_loss.cu", "__graft_entry__.py:117"),
+        "pool_normalize_bwd": ("contrastive_loss.cu", "__graft_entry__.py:128"),
+        "adam": ("adam.cu", "__graft_entry__.py:129"),
     }
     entries = []
     for name, (src, replaces) in sources.items():
@@ -3660,14 +4242,15 @@ def main() -> int:
                    "image": i_out["launches"][name], "ivf": ivf_out["launches"][name],
                    "ivf_defaults": c3_out["launches"][name], "sharded": sh_out["launches"][name],
                    "checkpoint": ck_out["launches"][name],
-                   **{path: counts[name] for path, counts in p10_out["launches"].items()}}
+                   **{path: counts[name] for path, counts in p10_out["launches"].items()},
+                   "train": tr_out["launches"][name], "dryrun": tr_out["dryrun_launches"][name]}
         entries.append({
             "name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"], "shape": m["shape"],
-            **{key: m[key] for key in ("device_ms", "f32", "launches_per_call") if key in m},
+            **{key: m[key] for key in ("device_ms", "f32", "launches_per_call", "act_none") if key in m},
         })
     summary = {
         "card": smi,
@@ -3698,6 +4281,8 @@ def main() -> int:
         "parallel": p10_out,
         "ivf_scan_nq32": ivf_scan_nq32,
         "ivf_assign_lloyd": {key: k_out["ivf_assign"][f"lloyd_{key}"] for key in ("ms", "library_ms", "bound_ms")},
+        "shape_repairs": repairs,
+        "train": {key: val for key, val in tr_out.items() if key not in ("launches", "dryrun_launches")},
         "phase_wall_s": wall,
     }
     log("summary: " + json.dumps(summary))

@@ -27,6 +27,7 @@ NAMES = (
     "bias_act", "add_layer_norm", "embed_ln", "pool_normalize",
     "patchify", "vision_head", "dual_logits",
     "ivf_assign", "ivf_scan", "topk_select", "ring_block",
+    "attention_bwd", "bias_act_bwd", "layer_norm_bwd", "contrastive_loss", "adam",
 )
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -118,9 +119,9 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 
 _SIGNATURES = {
-    "attention": {"pw_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]},
+    "attention": {"pw_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]},
     "slab_scatter": {
-        "pw_slab_scatter": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _P],
+        "pw_slab_scatter": [_P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I, _P],
         "pw_slab_clear": [_P, _P, _I, _LL, _P],
     },
     "knn_topk": {
@@ -146,6 +147,17 @@ _SIGNATURES = {
     "ring_block": {
         "pw_ring_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     },
+    "attention_bwd": {"pw_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, _F, _P]},
+    "bias_act_bwd": {"pw_bias_act_bwd": [_P] * 6 + [_I, _I, _I, _I, _P]},
+    "layer_norm_bwd": {
+        "pw_layer_norm_bwd": [_P] * 8 + [_I, _I, _F, _I, _P],
+        "pw_embed_ln_bwd": [_P, _I, _P, _I, _P, _I, _P, _P, _I, _I] + [_P] * 8 + [_I, _I, _F, _I, _P],
+    },
+    "contrastive_loss": {
+        "pw_contrastive_loss": [_P, _P, _P, _I, _F, _F, _P],
+        "pw_pool_normalize_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    },
+    "adam": {"pw_adam": [_P, _P, _I, _I] + [_F] * 8 + [_P]},
 }
 
 

@@ -25,7 +25,7 @@ from pathway_tpu_torch.kernels._launch import check_cuda, launch
 
 __all__ = [
     "add_layer_norm", "add_layer_norm_plain", "check_add_layer_norm", "layer_norm_plain",
-    "MAX_HIDDEN", "DTYPES",
+    "MAX_HIDDEN", "DTYPES", "layer_norm_bwd", "layer_norm_bwd_plain", "AddLayerNormFunction",
 ]
 
 MAX_HIDDEN = 1024
@@ -100,3 +100,86 @@ def add_layer_norm(
 
 #: launches of the CUDA kernel in this process
 add_layer_norm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K17: the backward (csrc/layer_norm_bwd.cu), and K5's autograd Function
+
+#: blocks of the backward's row pass (2 an SM of an H100); each writes one
+#: partial row of dgamma and dbeta
+BWD_BLOCKS = 264
+
+
+def layer_norm_bwd_plain(
+    dy: torch.Tensor, s: torch.Tensor, gamma: torch.Tensor, eps: float
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(ds, dgamma, dbeta)`` of LayerNorm over the last dim of ``s`` (f32),
+    the statistics taken again from ``s`` as the forward takes them."""
+    h = s.shape[-1]
+    mean = s.mean(-1, keepdim=True)
+    var = ((s - mean) ** 2).mean(-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (s - mean) * rstd
+    g = dy * gamma
+    ds = rstd * (g - g.mean(-1, keepdim=True) - xhat * (g * xhat).mean(-1, keepdim=True))
+    return ds, (dy * xhat).reshape(-1, h).sum(0), dy.reshape(-1, h).sum(0)
+
+
+def layer_norm_bwd(
+    dy: torch.Tensor, x: torch.Tensor, r: torch.Tensor | None, gamma: torch.Tensor, eps: float
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5's backward: ``(ds, dgamma, dbeta)`` of ``LayerNorm(x + r)``, ds the
+    gradient of both x and r; the kernel on a card (two launches: the rows
+    with the blocks' partial sums, then their sum), the plain version for
+    CPU tensors."""
+    if dy.device.type == "cpu":
+        return layer_norm_bwd_plain(dy, x if r is None else x + r, gamma, eps)
+    tensors = {"dy": dy, "x": x, "gamma": gamma} | ({} if r is None else {"r": r})
+    device = check_cuda("layer_norm_bwd", **tensors)
+    h = x.shape[-1]
+    m = x.numel() // h
+    if any(t.dtype != torch.float32 for t in tensors.values()) or dy.shape != x.shape or \
+            (r is not None and r.shape != x.shape) or gamma.shape != (h,):
+        raise ValueError(f"layer_norm_bwd: f32 dy, x, r {tuple(x.shape)} and gamma [{h}]")
+    if h % 8 or not 0 < h <= MAX_HIDDEN or any(t.data_ptr() % 16 for t in tensors.values()):
+        raise ValueError(f"layer_norm_bwd: hidden {h} must divide by 8 and be at most {MAX_HIDDEN}, 16-byte aligned")
+    ds = torch.empty_like(x)
+    d_gamma = torch.empty((h,), dtype=torch.float32, device=device)
+    d_beta = torch.empty((h,), dtype=torch.float32, device=device)
+    if m == 0:
+        return ds, d_gamma.zero_(), d_beta.zero_()
+    blocks = min(BWD_BLOCKS, -(-m // 8))
+    partial = torch.empty((2, blocks, h), dtype=torch.float32, device=device)
+    launch(
+        "layer_norm_bwd", _build.library("layer_norm_bwd").pw_layer_norm_bwd, device,
+        x.data_ptr(), None if r is None else r.data_ptr(), dy.data_ptr(), gamma.data_ptr(), ds.data_ptr(),
+        partial.data_ptr(), d_gamma.data_ptr(), d_beta.data_ptr(), m, h, float(eps), blocks,
+    )
+    layer_norm_bwd.launches += 2
+    return ds, d_gamma, d_beta
+
+
+#: launches of the CUDA kernels in this process (two a call)
+layer_norm_bwd.launches = 0
+
+
+class AddLayerNormFunction(torch.autograd.Function):
+    """K5 forward, K17 backward.  The forward keeps its inputs x and r (the
+    backward takes the statistics again from x + r).  Training runs in
+    f32: a bf16 call runs K5 and its backward raises."""
+
+    @staticmethod
+    def forward(ctx, x, r, scale, bias, eps):
+        ctx.eps = eps
+        ctx.trained = x.dtype == torch.float32
+        if ctx.trained:
+            ctx.save_for_backward(x, r, scale)
+        return add_layer_norm(x, r, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dout):
+        if not ctx.trained:
+            raise NotImplementedError("add_layer_norm: the backward kernels take f32; bf16 is not trained")
+        x, r, scale = ctx.saved_tensors
+        ds, d_gamma, d_beta = layer_norm_bwd(dout.contiguous(), x, r, scale, ctx.eps)
+        return ds, ds, d_gamma, d_beta, None

@@ -23,13 +23,18 @@ is the identity, as flax ``Dense(dtype=f32)`` has it.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from pathway_tpu_torch.kernels import _build
 from pathway_tpu_torch.kernels._launch import check_cuda, launch
 
-__all__ = ["bias_act", "bias_act_plain", "check_bias_act", "ACTS", "DTYPES"]
+__all__ = [
+    "bias_act", "bias_act_plain", "check_bias_act", "ACTS", "DTYPES",
+    "bias_act_bwd", "bias_act_bwd_plain", "act_grad", "BiasActFunction",
+]
 
 #: activation name -> the kernel's code
 ACTS = {"none": 0, "gelu_tanh": 1, "gelu_erf": 2, "tanh": 3}
@@ -124,3 +129,95 @@ def bias_act(
 
 #: launches of the CUDA kernel in this process
 bias_act.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K16: the backward (csrc/bias_act_bwd.cu), and K4's autograd Function
+
+#: blocks the backward's first pass aims for (8 an SM of an H100)
+_BWD_BLOCKS = 1056
+
+
+def act_grad(s: torch.Tensor, act: str) -> torch.Tensor:
+    """The derivative of ``act`` at ``s`` (f32), as the kernel takes it."""
+    if act == "gelu_tanh":
+        k0, k1 = 0.7978845608028654, 0.044715
+        t = torch.tanh(k0 * (s + k1 * s * s * s))
+        return 0.5 * (1.0 + t) + 0.5 * s * (1.0 - t * t) * k0 * (1.0 + 3.0 * k1 * s * s)
+    if act == "gelu_erf":
+        return 0.5 * (1.0 + torch.erf(s / math.sqrt(2.0))) + s * torch.exp(-0.5 * s * s) / math.sqrt(2.0 * math.pi)
+    if act == "tanh":
+        t = torch.tanh(s)
+        return 1.0 - t * t
+    return torch.ones_like(s)
+
+
+def bias_act_bwd_plain(
+    dy: torch.Tensor, y: torch.Tensor | None, bias: torch.Tensor, act: str
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, db)``: ``dx = dy * act'(y + bias)`` (``dy`` itself for act
+    none, where ``y`` is not read), ``db`` its sum over the rows."""
+    dx = dy if act == "none" else dy * act_grad(y + bias, act)
+    return dx, dx.reshape(-1, dx.shape[-1]).sum(0)
+
+
+def bias_act_bwd(
+    dy: torch.Tensor, y: torch.Tensor | None, bias: torch.Tensor, act: str
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's backward from the product before the bias ``y`` (f32); the
+    kernel on a card (two launches: dx and the blocks' partial db, then
+    their sum), the plain version for CPU tensors."""
+    if act not in ACTS:
+        raise ValueError(f"bias_act_bwd: act {act!r} not in {sorted(ACTS)}")
+    if dy.device.type == "cpu":
+        return bias_act_bwd_plain(dy, y, bias, act)
+    tensors = {"dy": dy, "bias": bias} if act == "none" else {"dy": dy, "y": y, "bias": bias}
+    device = check_cuda("bias_act_bwd", **tensors)
+    n = dy.shape[-1]
+    m = dy.numel() // n if n else 0
+    if any(t.dtype != torch.float32 for t in tensors.values()) or bias.shape != (n,) or \
+            (act != "none" and y.shape != dy.shape):
+        raise ValueError(f"bias_act_bwd: f32 dy {tuple(dy.shape)}, y and bias [{n}]")
+    if n % 8 or any(t.data_ptr() % 16 for t in tensors.values()):
+        raise ValueError("bias_act_bwd: N must divide by 8 and the tensors be 16-byte aligned")
+    dx = dy if act == "none" else torch.empty_like(dy)
+    db = torch.empty((n,), dtype=torch.float32, device=device)
+    chunks = max(1, min(m, 65535, _BWD_BLOCKS // -(-n // 128)))
+    partial = torch.empty((chunks, n), dtype=torch.float32, device=device)
+    launch(
+        "bias_act_bwd", _build.library("bias_act_bwd").pw_bias_act_bwd, device,
+        dy.data_ptr(), None if act == "none" else y.data_ptr(), bias.data_ptr(),
+        None if act == "none" else dx.data_ptr(), partial.data_ptr(), db.data_ptr(), m, n, ACTS[act], chunks,
+    )
+    bias_act_bwd.launches += 2
+    return dx, db
+
+
+#: launches of the CUDA kernels in this process (two a call)
+bias_act_bwd.launches = 0
+
+
+class BiasActFunction(torch.autograd.Function):
+    """K4 forward (in place, as :func:`bias_act`), K16 backward.  K4
+    overwrites ``y``, so the forward copies the product first where the
+    backward needs it (an activation); with act none it keeps nothing but
+    the bias.  Training runs in f32: a bf16 call runs K4 and its backward
+    raises."""
+
+    @staticmethod
+    def forward(ctx, y, bias, act):
+        ctx.act = act
+        ctx.trained = y.dtype == torch.float32
+        pre = y.clone() if ctx.trained and act != "none" else None
+        ctx.save_for_backward(pre, bias)
+        bias_act(y, bias, act)
+        ctx.mark_dirty(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        if not ctx.trained:
+            raise NotImplementedError("bias_act: the backward kernels take f32; bf16 is not trained")
+        pre, bias = ctx.saved_tensors
+        dx, db = bias_act_bwd(dy.contiguous(), pre, bias, ctx.act)
+        return dx, db, None

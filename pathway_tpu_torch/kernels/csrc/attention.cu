@@ -52,19 +52,26 @@
 //    by cp.async.  p.v takes p straight from the logit accumulators: its k
 //    index t of a key octet stands for key 2t and t + 4 for key 2t + 1, and
 //    v's rows are read in the same order.
-// Head dims 16, 32 and 64; L <= 512.
+// Head dims: any multiple of 8 up to 128, run in the instantiation of 16,
+// 32, 64 or 128 at or above it with the padding columns zero in the tiles
+// (attn_block.cuh).  Lengths up to 524,288 (kMaxRingLen): up to 512 keys
+// the additive bias of every key sits in a shared array (4 bytes a key,
+// the form that kept K1's time at the serving shapes); above, each tile's
+// bias is made from its two mask words, as K14 makes it.  With lse, the
+// row's log-sum-exp goes out too (the attention backward, K15, reads it).
 
 #include "attn_block.cuh"
 
 // q, k, v, out: [B, L, H, D] bf16 (f32 = 0) or f32 (f32 = 1), contiguous, 16-byte
-// aligned; mask: [B, L] uint8 (1 = key present).  D is 16, 32 or 64, 1 <= L <=
-// 512.  Returns a cudaError_t (0 on success); shapes are checked by the Python
-// wrapper.
+// aligned; mask: [B, L] uint8 (1 = key present); lse: [B, H, L] f32 or null.
+// D is a multiple of 8 up to 128, 1 <= L <= 524,288.  Returns a cudaError_t
+// (0 on success); shapes are checked by the Python wrapper.
 extern "C" int pw_attention(const void* q, const void* k, const void* v, const void* mask,
-                            void* out, int B, int L, int H, int D, float scale, int f32,
+                            void* out, void* lse, int B, int L, int H, int D, float scale, int f32,
                             void* stream) {
   if (B == 0) return 0;
-  if (L < 1 || L > pw_attn::kMaxLen) return (int)cudaErrorInvalidValue;
+  pw_attn::Ring ring{};
+  ring.lse = static_cast<float*>(lse);
   return pw_attn::dispatch<false>(q, k, v, static_cast<const uint8_t*>(mask), out, B, L, H, D, scale, f32,
-                                  pw_attn::Ring{}, static_cast<cudaStream_t>(stream));
+                                  ring, static_cast<cudaStream_t>(stream));
 }

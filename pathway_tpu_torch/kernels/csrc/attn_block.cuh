@@ -1,7 +1,7 @@
 // The attention block of K1 (attention.cu) and K14 (ring_block.cu): one
 // block of 64 query rows walks the key tiles (64 keys) of its batch row
 // with a running softmax, flash style.  Two forms, each templated on the
-// head dim (16, 32 or 64) and on kRing:
+// head dim D (16, 32, 64 or 128), on kRing and on kWords:
 //
 //  - bf16 (wgmma_kernel): one consumer warpgroup (4 warps, 16 query rows
 //    each) runs both products with wgmma (m64n64k16 for q.k^T from shared
@@ -13,6 +13,10 @@
 //    through a 4-D tensor map over [B, L, H, D] with a box of [1, 64, 1, D],
 //    so a partial last tile is zero-filled inside its own batch row; rows of
 //    128, 64 or 32 bytes (D = 64, 32, 16) use the swizzle of that width.
+//    At D = 128 a tile is two halves of 64 columns, each a tile of the D = 64
+//    layout (128-byte rows, 128-byte swizzle) with its own TMA load: q.k^T
+//    walks the 8 k16 steps over both halves, and p.v runs as two m64n64k16
+//    products into the two halves of the accumulator.
 //  - f32 (tf32_kernel): both products as 3xTF32 on the tensor cores
 //    (mma.sync m16n8k8, tf32x3.cuh), 4 warps of 16 query rows, k and v
 //    tiles double-buffered in shared memory by cp.async.  p.v takes p
@@ -33,8 +37,24 @@
 //    probabilities; K14 keeps p f32 as the JAX ring step does: p is split
 //    into a bf16 high part and the bf16 rounding of the rest, two wgmma
 //    products carrying ~16 bits of p (v is exact in bf16);
-//  - the length: K1 takes L <= 512; K14 up to kMaxRingLen (the walk's
-//    shared memory grows with L, 10 bytes a tile).
+//  - the length: both take L up to kMaxRingLen (the walk's shared memory
+//    grows with L, 10 bytes a tile).
+//
+// kWords (K14 always; K1 above kBiasLen keys): the additive bias of a key
+// is made from the tile's mask words (key_bias).  K1 up to kBiasLen keys
+// keeps a shared array of every key's bias (4 bytes a key), which held
+// its time at the serving shapes.  The two give the same bits.
+//
+// Head dims.  The block is built for D in {16, 32, 64, 128}; a head dim Dr
+// that is a multiple of 8 below one of them runs in the next one up, its
+// columns Dr .. D - 1 zero inside the tiles (TMA fills them, or the f32
+// loads write zeros): zero columns add nothing to q.k^T, and the output's
+// columns past Dr are never written.  Rows of q, k, v and out are Dr wide
+// in device memory; the caller passes 1 / sqrt(Dr).
+//
+// K1's optional lse [B, H, L] f32 (the training path's attention
+// backward reads it): the log of the row's softmax denominator in
+// natural units, m + log(l), written where lse is not null.
 //
 // The walk (key_walk).  A block reads its batch row's mask into one bit a
 // key (two words a tile) and lists the tiles it walks, in order, in shared
@@ -75,8 +95,8 @@ using namespace pw_sm90;
 using namespace pw_tf32x3;
 
 constexpr int kTile = 64;  // query rows per block and keys per tile
-constexpr int kMaxLen = 512;            // K1
-constexpr int kMaxRingLen = 1 << 19;    // K14: 8,192 tiles, 80 KB of walk
+constexpr int kBiasLen = 512;           // K1's per-key bias array up to this length
+constexpr int kMaxRingLen = 1 << 19;    // K1 and K14: 8,192 tiles, 80 KB of walk
 constexpr float kMaskBias = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -87,6 +107,7 @@ struct Ring {
   float* l;  // [B, H, L]
   const uint8_t* any_key;  // [B]: 1 where the batch row has a present key in some block
   int finalize;
+  float* lse;  // K1: [B, H, L], m + log(l) in natural units, or null
 };
 
 // Shared memory of the walk for a length L: two mask words and a list
@@ -192,8 +213,11 @@ constexpr int kWgThreads = kConsumers + 32;    // and the producer warp
 
 template <int D>
 struct WgLayout {
-  static constexpr int kRowBytes = D * 2;  // 128, 64 or 32: the swizzle width
-  static constexpr int kTileBytes = kTile * kRowBytes;
+  static constexpr int kHalf = D > 64 ? 64 : D;     // columns of one TMA box and swizzle row
+  static constexpr int kHalves = D / kHalf;         // 2 at D = 128, else 1
+  static constexpr int kRowBytes = kHalf * 2;       // 128, 64 or 32: the swizzle width
+  static constexpr int kHalfBytes = kTile * kRowBytes;
+  static constexpr int kTileBytes = kHalves * kHalfBytes;
   static constexpr int kMode = swizzle_mode(kRowBytes);
   static constexpr uint32_t kSbo = 8 * kRowBytes;  // 8-row groups
   static constexpr int kQ = 0;                     // two buffers; every tile 1024-byte aligned
@@ -207,15 +231,25 @@ struct WgLayout {
   static constexpr int bytes(int L, bool bias) { return kWalk + walk_bytes(L, bias) + 1024; }
 };
 
+// The tile's k16 step kk of a K-major operand: 32 bytes into its half.
+template <int D>
+__device__ __forceinline__ uint64_t k_step(unsigned char* tile, int kk) {
+  using S = WgLayout<D>;
+  constexpr int kSteps = S::kHalf / 16;
+  return wgmma_desc(tile + (kk / kSteps) * S::kHalfBytes, 16, S::kSbo, S::kMode) + 2 * (kk % kSteps);
+}
+
 // One block: 64 query rows of batch row b, heads h0 .. h0 + kHeads - 1 in
-// turn.  K1 writes out [B, L, H, D] bf16 (scale in log2 units); K14
+// turn.  K1 writes out [B, L, H, Dr] bf16 (scale in log2 units); K14
 // updates the ring's state or, with finalize, writes out.
-template <int D, bool kRing>
+template <int D, bool kRing, bool kWords, bool kPad>
 __global__ void __launch_bounds__(kWgThreads)
 wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
              const __grid_constant__ CUtensorMap v_map, const uint8_t* __restrict__ mask,
-             __nv_bfloat16* __restrict__ out, int L, int H, float scale, Ring ring) {
+             __nv_bfloat16* __restrict__ out, int L, int H, int Dr, float scale, Ring ring) {
   using S = WgLayout<D>;
+  constexpr bool kArray = !kRing && !kWords;  // K1's per-key bias array
+  const int dr = kPad ? Dr : D;  // the head's columns: a constant unless padded
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBars);
@@ -224,9 +258,10 @@ wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
   uint64_t* q_empty = q_full + 2;
   int* s_count = reinterpret_cast<int*>(smem + S::kCount);
   const int n_tiles = (L + kTile - 1) / kTile;
-  float* bias_s = kRing ? nullptr : reinterpret_cast<float*>(smem + S::kWalk);  // K1: in log2 units
-  uint32_t* words = reinterpret_cast<uint32_t*>(smem + S::kWalk + (kRing ? 0 : n_tiles * kTile * 4));
+  float* bias_s = kArray ? reinterpret_cast<float*>(smem + S::kWalk) : nullptr;  // K1: in log2 units
+  uint32_t* words = reinterpret_cast<uint32_t*>(smem + S::kWalk + (kArray ? n_tiles * kTile * 4 : 0));
   uint16_t* list = reinterpret_cast<uint16_t*>(words + 2 * n_tiles);
+  const float mask_bias = kRing ? kMaskBias : kMaskBias * kLog2e;
 
   const int q0 = blockIdx.x * kTile;
   const int h0 = blockIdx.y * kHeads;
@@ -247,7 +282,7 @@ wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
     fence_barrier_init();
   }
   const int count = key_walk<kWgThreads>(mask + (size_t)b * L, L, kRing ? ring.any_key + b : nullptr,
-                                         words, list, s_count, bias_s, kMaskBias * kLog2e);
+                                         words, list, s_count, bias_s, mask_bias);
 
   if (warp == kConsumers / 32) {  // the producer warp: one lane issues every load
     if (lane == 0) {
@@ -256,14 +291,20 @@ wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
         const int h = h0 + hi;
         if (hi >= 2) mbar_wait(&q_empty[hi & 1], ((hi >> 1) - 1) & 1);
         mbar_expect_tx(&q_full[hi & 1], S::kTileBytes);
-        tma_load_4d(smem + S::kQ + (hi & 1) * S::kTileBytes, &q_map, &q_full[hi & 1], 0, h, q0, b);
+        for (int x = 0; x < S::kHalves; ++x)
+          tma_load_4d(smem + S::kQ + (hi & 1) * S::kTileBytes + x * S::kHalfBytes, &q_map, &q_full[hi & 1],
+                      x * S::kHalf, h, q0, b);
         for (int i = 0; i < count; ++i, ++j) {
           const int t = list[i];
           const int s = j % kStages;
           if (j >= kStages) mbar_wait(&empty[s], (j / kStages - 1) & 1);
           mbar_expect_tx(&full[s], 2 * S::kTileBytes);
-          tma_load_4d(smem + S::kK + s * S::kTileBytes, &k_map, &full[s], 0, h, t * kTile, b);
-          tma_load_4d(smem + S::kV + s * S::kTileBytes, &v_map, &full[s], 0, h, t * kTile, b);
+          for (int x = 0; x < S::kHalves; ++x) {
+            tma_load_4d(smem + S::kK + s * S::kTileBytes + x * S::kHalfBytes, &k_map, &full[s], x * S::kHalf, h,
+                        t * kTile, b);
+            tma_load_4d(smem + S::kV + s * S::kTileBytes + x * S::kHalfBytes, &v_map, &full[s], x * S::kHalf, h,
+                        t * kTile, b);
+          }
         }
       }
     }
@@ -272,13 +313,15 @@ wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
 
   // The consumer warpgroup.  This thread's rows of the tile are r and r + 8
   // (r = 16 warp + lane / 4); its accumulator columns 8 n + c0 and + 1.
+  // Column octets n < dr / 8 are the head's; the rest are the padding.
   const int r = 16 * warp + lane / 4;
   const int c0 = 2 * (lane % 4);
+  const int n_real = dr / 8;
   int j = 0;
   for (int hi = 0; hi < n_heads; ++hi) {
     const int h = h0 + hi;
     const size_t state_row = ((size_t)b * H + h) * L;  // the state's row of query 0
-    const uint64_t q_desc = wgmma_desc(smem + S::kQ + (hi & 1) * S::kTileBytes, 16, S::kSbo, S::kMode);
+    unsigned char* q_tile = smem + S::kQ + (hi & 1) * S::kTileBytes;
     float o[D / 2];
     float m_run[2], l_run[2];  // l_run: this thread's part of the row sums
 #pragma unroll
@@ -289,8 +332,9 @@ wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
       l_run[i] = in && lane % 4 == 0 ? ring.l[state_row + row] : 0.0f;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
-        const float2 s2 = in ? *reinterpret_cast<const float2*>(ring.o + (state_row + row) * D + 8 * n + c0)
-                             : make_float2(0.0f, 0.0f);
+        const float2 s2 = in && n < n_real
+                              ? *reinterpret_cast<const float2*>(ring.o + (state_row + row) * dr + 8 * n + c0)
+                              : make_float2(0.0f, 0.0f);
         o[4 * n + 2 * i] = s2.x;
         o[4 * n + 2 * i + 1] = s2.y;
       }
@@ -304,19 +348,21 @@ wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
 
       // logits: 64 rows x 64 keys
       float sc[32];
-      const uint64_t k_desc = wgmma_desc(smem + S::kK + s * S::kTileBytes, 16, S::kSbo, S::kMode);
+      unsigned char* k_tile = smem + S::kK + s * S::kTileBytes;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) wgmma_m64n64k16_ss(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n64k16_ss(sc, k_step<D>(q_tile, kk), k_step<D>(k_tile, kk), kk);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
 
-      // online softmax (K1 in log2 units, K14 in natural ones).  K1 reads
-      // the bias; K14 makes it from the tile's mask words.  On a K14 tile of
-      // present keys only there is no bias, and the scale is folded into
-      // the exponent: max(x) = max(x_raw) * scale, and p = 2^(x_raw * scale
-      // * log2(e) - m * log2(e)) in one FMA
+      // online softmax (K1 in log2 units, K14 in natural ones).  K1 up to
+      // kBiasLen keys reads the bias array; otherwise the bias is made from
+      // the tile's mask words.  On a K14 tile of present keys only there is
+      // no bias, and the scale is folded into the exponent: max(x) =
+      // max(x_raw) * scale, and p = 2^(x_raw * scale * log2(e) - m * log2(e))
+      // in one FMA
       float alpha[2];
       uint32_t ph[4][4], pl[4][4];  // p as bf16 A operands of p.v; K14: ph + pl
       float sum[2] = {0.0f, 0.0f};
@@ -337,9 +383,9 @@ wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
             } else {
 #pragma unroll
               for (int h = 0; h < 2; ++h) {
-                x[h] = kRing ? fmaf(round_bf16(sc[4 * n + e + h]), scale,
-                                    key_bias(w0, w1, n, c0 + h, lim, kMaskBias))
-                             : fmaf(sc[4 * n + e + h], scale, bias_s[t * kTile + 8 * n + c0 + h]);
+                const float bias = kArray ? bias_s[t * kTile + 8 * n + c0 + h]
+                                          : key_bias(w0, w1, n, c0 + h, lim, mask_bias);
+                x[h] = fmaf(kRing ? round_bf16(sc[4 * n + e + h]) : sc[4 * n + e + h], scale, bias);
               }
             }
             sc[4 * n + e] = x[0];
@@ -394,16 +440,21 @@ wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
         o[4 * n + 3] *= alpha[1];
       }
 
-      // o += p . v (K14: the small part first)
-      const uint64_t v_desc =
-          wgmma_desc(smem + S::kV + s * S::kTileBytes, S::kSbo, S::kSbo, S::kMode);
+      // o += p . v (K14: the small part first), one product a half of the
+      // columns
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t vk = v_desc + ((kk * 16 * S::kRowBytes) >> 4);
-        if constexpr (kRing) wgmma_rs_tb<D>(o, pl[kk], vk);
-        wgmma_rs_tb<D>(o, ph[kk], vk);
+      for (int x = 0; x < S::kHalves; ++x) {
+        float(&ox)[S::kHalf / 2] = *reinterpret_cast<float(*)[S::kHalf / 2]>(o + x * (S::kHalf / 2));
+        const uint64_t v_desc = wgmma_desc(smem + S::kV + s * S::kTileBytes + x * S::kHalfBytes, S::kSbo,
+                                           S::kSbo, S::kMode);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t vk = v_desc + ((kk * 16 * S::kRowBytes) >> 4);
+          if constexpr (kRing) wgmma_rs_tb<S::kHalf>(ox, pl[kk], vk);
+          wgmma_rs_tb<S::kHalf>(ox, ph[kk], vk);
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -420,58 +471,76 @@ wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
       const int row = q0 + r + 8 * i;
       if (row >= L) continue;
       if (kRing && !ring.finalize) {
-        float* st = ring.o + (state_row + row) * D + c0;
+        float* st = ring.o + (state_row + row) * dr + c0;
 #pragma unroll
         for (int n = 0; n < D / 8; ++n)
-          *reinterpret_cast<float2*>(st + 8 * n) = make_float2(o[4 * n + 2 * i], o[4 * n + 2 * i + 1]);
+          if (n < n_real)
+            *reinterpret_cast<float2*>(st + 8 * n) = make_float2(o[4 * n + 2 * i], o[4 * n + 2 * i + 1]);
         if (lane % 4 == 0) {
           ring.m[state_row + row] = m_run[i];
           ring.l[state_row + row] = l;
         }
         continue;
       }
+      if (!kRing && ring.lse != nullptr && lane % 4 == 0)
+        ring.lse[state_row + row] = (m_run[i] + log2f(l)) * 0.6931471805599453f;
       const float inv = 1.0f / (kRing ? fmaxf(l, 1e-30f) : l);
-      __nv_bfloat16* dst = out + ((size_t)b * L + row) * H * D + (size_t)h * D + c0;
+      __nv_bfloat16* dst = out + ((size_t)b * L + row) * H * dr + (size_t)h * dr + c0;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
-            __floats2bfloat162_rn(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
+        if (n < n_real)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+              __floats2bfloat162_rn(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
     }
   }
 }
 
-// The tensor map of a [B, L, H, D] bf16 tensor, a box of [1, 64, 1, D]
-// (innermost first: D, H, L, B) with the swizzle of D * 2 bytes.
-inline int tensor_map(CUtensorMap* map, const void* base, int B, int L, int H, int D) {
+// The tensor map of a [B, L, H, Dr] bf16 tensor, a box of [1, 64, 1, kHalf]
+// (innermost first: Dr, H, L, B) with the swizzle of kHalf * 2 bytes; the
+// box's columns past Dr read zeros.
+template <int D>
+inline int tensor_map(CUtensorMap* map, const void* base, int B, int L, int H, int Dr) {
+  using S = WgLayout<D>;
   const EncodeTiled encode = encode_tiled();
   if (!encode) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2, (cuuint64_t)L * H * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)D, 1, kTile, 1};
+  const cuuint64_t dims[4] = {(cuuint64_t)Dr, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)Dr * 2, (cuuint64_t)H * Dr * 2, (cuuint64_t)L * H * Dr * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)S::kHalf, 1, kTile, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = D == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapSwizzle swizzle = S::kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : S::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                          : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
                               strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int D, bool kRing>
+// The shared memory a launch needs at length L, and the most any launch
+// of the kernel asks for (set once with allow_smem).
+template <typename S, bool kRing, bool kWords>
+constexpr int smem_bytes(int L) {
+  return S::bytes(L, !kRing && !kWords);
+}
+template <typename S, bool kRing, bool kWords>
+constexpr int smem_max() {
+  return smem_bytes<S, kRing, kWords>(kRing || kWords ? kMaxRingLen : kBiasLen);
+}
+
+template <int D, bool kRing, bool kWords, bool kPad>
 int launch_wgmma(const void* q, const void* k, const void* v, const uint8_t* mask, void* out, int B,
-                 int L, int H, float scale, const Ring& ring, cudaStream_t stream) {
+                 int L, int H, int Dr, float scale, const Ring& ring, cudaStream_t stream) {
   using S = WgLayout<D>;
   static std::atomic<unsigned> done{0};
-  int err = allow_smem(wgmma_kernel<D, kRing>, done, S::bytes(kRing ? kMaxRingLen : kMaxLen, !kRing));
+  int err = allow_smem(wgmma_kernel<D, kRing, kWords, kPad>, done, smem_max<S, kRing, kWords>());
   CUtensorMap maps[3];
-  if (!err) err = tensor_map(&maps[0], q, B, L, H, D);
-  if (!err) err = tensor_map(&maps[1], k, B, L, H, D);
-  if (!err) err = tensor_map(&maps[2], v, B, L, H, D);
+  if (!err) err = tensor_map<D>(&maps[0], q, B, L, H, Dr);
+  if (!err) err = tensor_map<D>(&maps[1], k, B, L, H, Dr);
+  if (!err) err = tensor_map<D>(&maps[2], v, B, L, H, Dr);
   if (err) return err;
   const dim3 grid((L + kTile - 1) / kTile, (H + kHeads - 1) / kHeads, B);
-  wgmma_kernel<D, kRing><<<grid, kWgThreads, S::bytes(L, !kRing), stream>>>(
-      maps[0], maps[1], maps[2], mask, static_cast<__nv_bfloat16*>(out), L, H,
+  wgmma_kernel<D, kRing, kWords, kPad><<<grid, kWgThreads, smem_bytes<S, kRing, kWords>(L), stream>>>(
+      maps[0], maps[1], maps[2], mask, static_cast<__nv_bfloat16*>(out), L, H, Dr,
       kRing ? scale : scale * kLog2e, ring);
   return (int)cudaGetLastError();
 }
@@ -492,19 +561,25 @@ struct TfLayout {
   static constexpr int bytes(int L, bool bias) { return kWalk + walk_bytes(L, bias); }
 };
 
-template <int D, bool kRing>
-__global__ void __launch_bounds__(kTfThreads)
+// K1's serving form (the bias array, D <= 64) is held to 3 blocks an SM,
+// the occupancy it had before the lse output and the padded forms came in
+// (without the bound ptxas gave D = 64 197 registers, 2 blocks an SM, and
+// it ran 5% slower on an H100).
+template <int D, bool kRing, bool kWords, bool kPad>
+__global__ void __launch_bounds__(kTfThreads, !kRing && !kWords && D <= 64 ? 3 : 1)
 tf32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-            const uint8_t* __restrict__ mask, float* __restrict__ out, int L, int H, float scale,
+            const uint8_t* __restrict__ mask, float* __restrict__ out, int L, int H, int Dr, float scale,
             Ring ring) {
   using S = TfLayout<D>;
   constexpr int kLd = S::kLd;
   constexpr int kKSteps = D / 8;  // k-steps of q.k^T, and output column octets
+  constexpr bool kArray = !kRing && !kWords;
+  const int dr = kPad ? Dr : D;  // the head's columns: a constant unless padded
   extern __shared__ __align__(16) unsigned char smem[];
   int* s_count = reinterpret_cast<int*>(smem + S::kCount);
   const int n_tiles = (L + kTile - 1) / kTile;
-  float* bias_s = kRing ? nullptr : reinterpret_cast<float*>(smem + S::kWalk);  // K1
-  uint32_t* words = reinterpret_cast<uint32_t*>(smem + S::kWalk + (kRing ? 0 : n_tiles * kTile * 4));
+  float* bias_s = kArray ? reinterpret_cast<float*>(smem + S::kWalk) : nullptr;  // K1
+  uint32_t* words = reinterpret_cast<uint32_t*>(smem + S::kWalk + (kArray ? n_tiles * kTile * 4 : 0));
   uint16_t* list = reinterpret_cast<uint16_t*>(words + 2 * n_tiles);
   auto k_buf = [&](int i) { return reinterpret_cast<float*>(smem + S::kK + i * S::kTileBytes); };
   auto v_buf = [&](int i) { return reinterpret_cast<float*>(smem + S::kV + i * S::kTileBytes); };
@@ -516,15 +591,16 @@ tf32_kernel(const float* __restrict__ q, const float* __restrict__ k, const floa
   const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int row_stride = H * D;
-  const size_t head_base = (size_t)b * L * row_stride + (size_t)h * D;
+  const int row_stride = H * dr;
+  const int n_real = dr / 8;  // the head's column octets; the rest are the padding
+  const size_t head_base = (size_t)b * L * row_stride + (size_t)h * dr;
   const size_t state_row = ((size_t)b * H + h) * L;
 
   const int count = key_walk<kTfThreads>(mask + (size_t)b * L, L, kRing ? ring.any_key + b : nullptr,
                                          words, list, s_count, bias_s, kMaskBias);
   auto stage = [&](int t, int buf) {
-    load_tile<float, D, S::kLd, kTfThreads>(k_buf(buf), k + head_base, t * kTile, L, row_stride);
-    load_tile<float, D, S::kLd, kTfThreads>(v_buf(buf), v + head_base, t * kTile, L, row_stride);
+    load_tile<float, D, S::kLd, kTfThreads>(k_buf(buf), k + head_base, t * kTile, L, row_stride, dr);
+    load_tile<float, D, S::kLd, kTfThreads>(v_buf(buf), v + head_base, t * kTile, L, row_stride, dr);
   };
   if (count > 0) {
     stage(list[0], 0);
@@ -539,7 +615,8 @@ tf32_kernel(const float* __restrict__ q, const float* __restrict__ k, const floa
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = rows[e & 1];
-      const float x = row < L ? q[head_base + (size_t)row * row_stride + 8 * kk + tq + 4 * (e >> 1)] : 0.0f;
+      const int col = 8 * kk + tq + 4 * (e >> 1);
+      const float x = row < L && col < dr ? q[head_base + (size_t)row * row_stride + col] : 0.0f;
       split_tf32(x, qh[kk][e], ql[kk][e]);
     }
   }
@@ -552,8 +629,9 @@ tf32_kernel(const float* __restrict__ q, const float* __restrict__ k, const floa
     l_run[i] = in && tq == 0 ? ring.l[state_row + rows[i]] : 0.0f;
 #pragma unroll
     for (int n = 0; n < kKSteps; ++n) {
-      const float2 s2 = in ? *reinterpret_cast<const float2*>(ring.o + (state_row + rows[i]) * D + 8 * n + 2 * tq)
-                           : make_float2(0.0f, 0.0f);
+      const float2 s2 = in && n < n_real
+                            ? *reinterpret_cast<const float2*>(ring.o + (state_row + rows[i]) * dr + 8 * n + 2 * tq)
+                            : make_float2(0.0f, 0.0f);
       o[n][2 * i] = s2.x;
       o[n][2 * i + 1] = s2.y;
     }
@@ -587,7 +665,8 @@ tf32_kernel(const float* __restrict__ q, const float* __restrict__ k, const floa
     }
 
     // online softmax over this tile, rows r (s[n][0..1]) and r + 8
-    // (s[n][2..3]); K1 reads the bias, K14 makes it from the mask words
+    // (s[n][2..3]); K1 up to kBiasLen keys reads the bias array, otherwise
+    // the bias is made from the mask words
     float mx[2] = {-INFINITY, -INFINITY};
     const uint32_t w0 = words[2 * t], w1 = words[2 * t + 1];
     const int lim = L - t * kTile;
@@ -596,7 +675,7 @@ tf32_kernel(const float* __restrict__ q, const float* __restrict__ k, const floa
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = 2 * tq + (e & 1);
-        s[n][e] = s[n][e] * scale + (kRing ? key_bias(w0, w1, n, c, lim, kMaskBias) : bias_s[t * kTile + 8 * n + c]);
+        s[n][e] = s[n][e] * scale + (kArray ? bias_s[t * kTile + 8 * n + c] : key_bias(w0, w1, n, c, lim, kMaskBias));
         mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
       }
     }
@@ -672,53 +751,83 @@ tf32_kernel(const float* __restrict__ q, const float* __restrict__ k, const floa
     const int row = rows[i];
     if (row >= L) continue;
     if (kRing && !ring.finalize) {
-      float* st = ring.o + (state_row + row) * D + 2 * tq;
+      float* st = ring.o + (state_row + row) * dr + 2 * tq;
 #pragma unroll
       for (int n = 0; n < kKSteps; ++n)
-        *reinterpret_cast<float2*>(st + 8 * n) = make_float2(o[n][2 * i], o[n][2 * i + 1]);
+        if (n < n_real) *reinterpret_cast<float2*>(st + 8 * n) = make_float2(o[n][2 * i], o[n][2 * i + 1]);
       if (tq == 0) {
         ring.m[state_row + row] = m_run[i];
         ring.l[state_row + row] = l;
       }
       continue;
     }
+    if (!kRing && ring.lse != nullptr && tq == 0) ring.lse[state_row + row] = m_run[i] + logf(l);
     const float inv = 1.0f / (kRing ? fmaxf(l, 1e-30f) : l);
     float* dst = out + head_base + (size_t)row * row_stride + 2 * tq;
 #pragma unroll
     for (int n = 0; n < kKSteps; ++n)
-      *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+      if (n < n_real) *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
   }
 }
 
-template <int D, bool kRing>
+template <int D, bool kRing, bool kWords, bool kPad>
 int launch_tf32(const void* q, const void* k, const void* v, const uint8_t* mask, void* out, int B,
-                int L, int H, float scale, const Ring& ring, cudaStream_t stream) {
+                int L, int H, int Dr, float scale, const Ring& ring, cudaStream_t stream) {
   using S = TfLayout<D>;
   static std::atomic<unsigned> done{0};
-  const int err = allow_smem(tf32_kernel<D, kRing>, done, S::bytes(kRing ? kMaxRingLen : kMaxLen, !kRing));
+  const int err = allow_smem(tf32_kernel<D, kRing, kWords, kPad>, done, smem_max<S, kRing, kWords>());
   if (err) return err;
   const dim3 grid((L + kTile - 1) / kTile, H, B);
-  tf32_kernel<D, kRing><<<grid, kTfThreads, S::bytes(L, !kRing), stream>>>(
+  tf32_kernel<D, kRing, kWords, kPad><<<grid, kTfThreads, smem_bytes<S, kRing, kWords>(L), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), mask,
-      static_cast<float*>(out), L, H, scale, ring);
+      static_cast<float*>(out), L, H, Dr, scale, ring);
   return (int)cudaGetLastError();
 }
 
-// The kernel for head dim D (16, 32 or 64) and the element type.  Returns
-// a cudaError_t.
+// The instantiation a head dim runs in: the least of 16, 32, 64 and 128 at
+// or above it (0 when none is: Dr must be a multiple of 8 up to 128).
+constexpr int head_tile(int Dr) {
+  return Dr < 8 || Dr % 8 ? 0 : Dr <= 16 ? 16 : Dr <= 32 ? 32 : Dr <= 64 ? 64 : Dr <= 128 ? 128 : 0;
+}
+
+// kPad: the head dim is below the instantiation's (its padding columns
+// are guarded at run time); the common head dim, equal to it, runs with
+// every column count a constant.
+template <int D, bool kRing, bool kWords>
+int launch(const void* q, const void* k, const void* v, const uint8_t* mask, void* out, int B, int L, int H,
+           int Dr, float scale, int f32, const Ring& ring, cudaStream_t s) {
+  if (Dr == D)
+    return f32 ? launch_tf32<D, kRing, kWords, false>(q, k, v, mask, out, B, L, H, Dr, scale, ring, s)
+               : launch_wgmma<D, kRing, kWords, false>(q, k, v, mask, out, B, L, H, Dr, scale, ring, s);
+  return f32 ? launch_tf32<D, kRing, kWords, true>(q, k, v, mask, out, B, L, H, Dr, scale, ring, s)
+             : launch_wgmma<D, kRing, kWords, true>(q, k, v, mask, out, B, L, H, Dr, scale, ring, s);
+}
+
+// The kernel for head dim Dr (a multiple of 8 up to 128) and the element
+// type; K1 (kRing = false) above kBiasLen keys makes its bias from the mask
+// words.  Returns a cudaError_t.
 template <bool kRing>
 int dispatch(const void* q, const void* k, const void* v, const uint8_t* mask, void* out, int B, int L,
-             int H, int D, float scale, int f32, const Ring& ring, cudaStream_t s) {
-  if (f32) {
-    if (D == 64) return launch_tf32<64, kRing>(q, k, v, mask, out, B, L, H, scale, ring, s);
-    if (D == 32) return launch_tf32<32, kRing>(q, k, v, mask, out, B, L, H, scale, ring, s);
-    if (D == 16) return launch_tf32<16, kRing>(q, k, v, mask, out, B, L, H, scale, ring, s);
-  } else {
-    if (D == 64) return launch_wgmma<64, kRing>(q, k, v, mask, out, B, L, H, scale, ring, s);
-    if (D == 32) return launch_wgmma<32, kRing>(q, k, v, mask, out, B, L, H, scale, ring, s);
-    if (D == 16) return launch_wgmma<16, kRing>(q, k, v, mask, out, B, L, H, scale, ring, s);
+             int H, int Dr, float scale, int f32, const Ring& ring, cudaStream_t s) {
+  if (L < 1 || L > kMaxRingLen) return (int)cudaErrorInvalidValue;
+  if constexpr (!kRing) {
+    if (L <= kBiasLen) {
+      switch (head_tile(Dr)) {
+        case 16: return launch<16, false, false>(q, k, v, mask, out, B, L, H, Dr, scale, f32, ring, s);
+        case 32: return launch<32, false, false>(q, k, v, mask, out, B, L, H, Dr, scale, f32, ring, s);
+        case 64: return launch<64, false, false>(q, k, v, mask, out, B, L, H, Dr, scale, f32, ring, s);
+        case 128: return launch<128, false, false>(q, k, v, mask, out, B, L, H, Dr, scale, f32, ring, s);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    }
   }
-  return (int)cudaErrorInvalidValue;
+  switch (head_tile(Dr)) {
+    case 16: return launch<16, kRing, true>(q, k, v, mask, out, B, L, H, Dr, scale, f32, ring, s);
+    case 32: return launch<32, kRing, true>(q, k, v, mask, out, B, L, H, Dr, scale, f32, ring, s);
+    case 64: return launch<64, kRing, true>(q, k, v, mask, out, B, L, H, Dr, scale, f32, ring, s);
+    case 128: return launch<128, kRing, true>(q, k, v, mask, out, B, L, H, Dr, scale, f32, ring, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace pw_attn

@@ -47,7 +47,7 @@ constexpr int kTile = kThreads;      // slots per tile: one valid flag per threa
 constexpr int kMaxK = 128;           // knn_topk.MAX_K
 constexpr int kCand = kTile + kMaxK; // a tile's scores and the running list
 constexpr int kPer = kCand / 32;     // candidates per lane in a merge
-constexpr int kMaxElems = 32;        // row elements per lane: d <= 1024
+constexpr int kMaxElems = 32;        // row elements per lane in one slice of 1024 dims
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -75,7 +75,8 @@ scan_kernel(const float* __restrict__ q, const int32_t* __restrict__ probe,
     i_s[kTile + j] = kPadIdx;
   }
 
-  const int nchunks = d / kVec;
+  constexpr int kSlice = kMaxElems * 32;  // dims a lane's registers hold at once
+  const int nchunks = min(d, kSlice) / kVec;
   float qr[kMaxElems];
 #pragma unroll
   for (int j = 0; j < kChunks; ++j) {
@@ -103,6 +104,8 @@ scan_kernel(const float* __restrict__ q, const int32_t* __restrict__ probe,
       } else if (f_s[r] == 0.0f) {
         v = kNegInf;
       } else {
+        // the first 1,024 dims against the query in registers, wider rows
+        // slice by slice against the query read from memory (L1-resident)
         const T* src = cells + (base + slot) * d;
         float x[kMaxElems];
         float dot = 0.0f;
@@ -113,6 +116,19 @@ scan_kernel(const float* __restrict__ q, const int32_t* __restrict__ probe,
             Row<T>::load(src, c, x + j * kVec);
 #pragma unroll
             for (int e = 0; e < kVec; ++e) dot = fmaf(x[j * kVec + e], qr[j * kVec + e], dot);
+          }
+        }
+        for (int d0 = kSlice; d0 < d; d0 += kSlice) {
+          const int nc = min(d - d0, kSlice) / kVec;
+          const float* qs = q + (size_t)qi * d + d0;
+#pragma unroll
+          for (int j = 0; j < kChunks; ++j) {
+            const int c = lane + 32 * j;
+            if (c < nc) {
+              Row<T>::load(src + d0, c, x + j * kVec);
+#pragma unroll
+              for (int e = 0; e < kVec; ++e) dot = fmaf(x[j * kVec + e], __ldg(qs + c * kVec + e), dot);
+            }
           }
         }
 #pragma unroll
@@ -195,11 +211,11 @@ extern "C" int pw_ivf_scan(const void* q, const void* probe, const void* cells,
   if (k < 0 || k > kMaxK || splits < 1 || cap < 1 || nq > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cells_bf16) {
-    if (d % 8 != 0 || d > kMaxElems * 32) return (int)cudaErrorInvalidValue;
+    if (d % 8 != 0) return (int)cudaErrorInvalidValue;
     return launch<__nv_bfloat16>(q, probe, cells, valid, out_vals, out_idx, nq, nprobe, d, nlist,
                                  cap, splits, k, s);
   }
-  if (d % 4 != 0 || d > kMaxElems * 32) return (int)cudaErrorInvalidValue;
+  if (d % 4 != 0) return (int)cudaErrorInvalidValue;
   return launch<float>(q, probe, cells, valid, out_vals, out_idx, nq, nprobe, d, nlist, cap,
                        splits, k, s);
 }

@@ -19,8 +19,10 @@
 //    tile of 256 slab rows and a group of up to 32 queries, which sit in
 //    shared memory; each warp streams one row at a time into registers
 //    (16-byte loads) and dots it with every query (f32 FMA, warp-shuffle
-//    reduction).  Rows flagged invalid are skipped without being read.
-//    One query reaches the byte bound.
+//    reduction), in slices of 1,024 dims for wider rows (the group of
+//    queries shrinks so that it still fits shared memory: 32 queries up to
+//    d = 1,024, 10 at 3,072).  Rows flagged invalid are skipped without
+//    being read.  One query reaches the byte bound.
 //  - tiled over an f32 slab (score_tc_kernel): the product on the tensor
 //    cores in 3xTF32 (tf32x3.cuh).  A pre-pass splits the queries once a
 //    call into TF32 hi and lo parts and their squared norms (scratch of
@@ -44,6 +46,11 @@
 //    memory and an 8-row x 4-query block of scores a thread on the FMA
 //    units; the queries are rounded to bf16 by the caller, so every
 //    product is exact in f32.
+// Rows of any width d that is a multiple of 4 (f32) or 8 (bf16), which
+// keeps them 16-byte strided for TMA: an index stores a slab of another
+// width with its row pitch rounded up and zero columns (the wrapper passes
+// that pitch as d and pads the queries with zeros, which leaves every
+// score as it is).
 // Slot ids carry an offset, a shard's first global slot (the `li +
 // axis_index * shard_rows` of the mesh search, sharded_knn.py:358).  For
 // k above 128 (knn_topk.MAX_K) the k rounds would cost more than a
@@ -76,7 +83,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 256;          // slab rows per pass-1 block
 constexpr int kMaxGroup = 32;       // queries per pass-1 block
-constexpr int kMaxElems = 32;       // row elements per lane: d <= 1024
+constexpr int kMaxElems = 32;       // row elements per lane in one slice of 1024 dims
 
 // Write the best kk (<= kRows) of each of `group` arrays of kRows (value,
 // index) pairs in shared memory to out[(g0 + qi) * ntiles + tile][0..kk),
@@ -157,7 +164,9 @@ score_partial_kernel(const float* __restrict__ q, const SlabT* __restrict__ slab
   }
   __syncthreads();
 
-  const int nchunks = d / kVec;
+  // the row in slices of kMaxElems * 32 values (one slice for d <= 1024):
+  // a slice sits in registers, and lane qi keeps query qi's running dot
+  constexpr int kSlice = kMaxElems * 32;
   for (int r = warp; r < kRows; r += kWarps) {
     const int64_t row = (int64_t)tile * kRows + r;
     if (row >= capacity || valid[row] == 0.0f) {
@@ -167,47 +176,52 @@ score_partial_kernel(const float* __restrict__ q, const SlabT* __restrict__ slab
       }
       continue;
     }
-    const SlabT* src = slab + row * d;
-    float x[kMaxElems];
+    float mine = 0.0f;  // lane qi: query qi's dot with the row
     float cc = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kChunks; ++j) {
-      const int c = lane + 32 * j;
-      if (c < nchunks) {
-        Row<SlabT>::load(src, c, x + j * kVec);
-      } else {
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) x[j * kVec + e] = 0.0f;
-      }
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) cc += x[j * kVec + e] * x[j * kVec + e];
-    }
-    if (l2sq) {
-      for (int off = 16; off > 0; off >>= 1) cc += __shfl_xor_sync(0xffffffffu, cc, off);
-    }
-    for (int qi = 0; qi < group; ++qi) {
-      const float* qrow = q_s + qi * d;
-      float dot = 0.0f;
+    for (int d0 = 0; d0 < d; d0 += kSlice) {
+      const SlabT* src = slab + row * d + d0;
+      const int nchunks = min(d - d0, kSlice) / kVec;
+      float x[kMaxElems];
 #pragma unroll
       for (int j = 0; j < kChunks; ++j) {
         const int c = lane + 32 * j;
         if (c < nchunks) {
+          Row<SlabT>::load(src, c, x + j * kVec);
+        } else {
 #pragma unroll
-          for (int e4 = 0; e4 < kVec / 4; ++e4) {
-            const float4 qv = reinterpret_cast<const float4*>(qrow + c * kVec)[e4];
-            const float* xe = x + j * kVec + e4 * 4;
-            dot += xe[0] * qv.x;
-            dot += xe[1] * qv.y;
-            dot += xe[2] * qv.z;
-            dot += xe[3] * qv.w;
+          for (int e = 0; e < kVec; ++e) x[j * kVec + e] = 0.0f;
+        }
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) cc += x[j * kVec + e] * x[j * kVec + e];
+      }
+      for (int qi = 0; qi < group; ++qi) {
+        const float* qrow = q_s + qi * d + d0;
+        float dot = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kChunks; ++j) {
+          const int c = lane + 32 * j;
+          if (c < nchunks) {
+#pragma unroll
+            for (int e4 = 0; e4 < kVec / 4; ++e4) {
+              const float4 qv = reinterpret_cast<const float4*>(qrow + c * kVec)[e4];
+              const float* xe = x + j * kVec + e4 * 4;
+              dot += xe[0] * qv.x;
+              dot += xe[1] * qv.y;
+              dot += xe[2] * qv.z;
+              dot += xe[3] * qv.w;
+            }
           }
         }
+        for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        if (lane == qi) mine += dot;
       }
-      for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      if (lane == 0) {
-        v_s[qi * kRows + r] = l2sq ? -fmaxf(qq_s[qi] - 2.0f * dot + cc, 0.0f) : dot;
-        i_s[qi * kRows + r] = (int)(row + offset);
-      }
+    }
+    if (l2sq) {
+      for (int off = 16; off > 0; off >>= 1) cc += __shfl_xor_sync(0xffffffffu, cc, off);
+    }
+    if (lane < group) {
+      v_s[lane * kRows + r] = l2sq ? -fmaxf(qq_s[lane] - 2.0f * mine + cc, 0.0f) : mine;
+      i_s[lane * kRows + r] = (int)(row + offset);
     }
   }
   __syncthreads();
@@ -748,6 +762,7 @@ int launch_partial(const void* q, const void* slab, const void* valid, void* out
   static std::atomic<unsigned> done{0};
   const int err = allow_smem(kernel, done, (int)partial_smem(kMaxGroup, kMaxElems * 32));
   if (err) return err;
+  if (bytes > partial_smem(kMaxGroup, kMaxElems * 32)) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)((capacity + kRows - 1) / kRows), (nq + group - 1) / group);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const SlabT*>(slab),
@@ -777,7 +792,8 @@ int launch_tiled(const void* q, const void* slab, const void* valid, void* out_v
 
 // Pass 1.  q: [nq, d] f32 (rounded to the slab's type by the caller);
 // slab: [capacity, d] f32 (slab_bf16 = 0) or bf16 (1); valid: [capacity]
-// f32; group <= 32.  With 1 <= kk <= 256, out_vals/out_idx: [nq,
+// f32; group <= 32, and group * d <= 32,768 (the queries in shared
+// memory).  With 1 <= kk <= 256, out_vals/out_idx: [nq,
 // ceil(capacity / 256), kk] f32/int32, each tile's best kk, the slot ids
 // offset by `offset` (a shard's first global slot).  With kk = 0, the
 // score-only pass: out_vals [nq, capacity] f32, every slot's score
@@ -788,12 +804,13 @@ extern "C" int pw_knn_partial(const void* q, const void* slab, const void* valid
                               int l2sq, long long offset, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (group < 1 || group > kMaxGroup || kk < 0 || kk > kRows) return (int)cudaErrorInvalidValue;
+  if ((long long)group * d > kMaxGroup * kMaxElems * 32) return (int)cudaErrorInvalidValue;
   if (slab_bf16) {
-    if (d % 8 != 0 || d > kMaxElems * 32) return (int)cudaErrorInvalidValue;
+    if (d % 8 != 0) return (int)cudaErrorInvalidValue;
     return launch_partial<__nv_bfloat16>(q, slab, valid, out_vals, out_idx, nq, d, capacity,
                                          group, kk, l2sq, offset, s);
   }
-  if (d % 4 != 0 || d > kMaxElems * 32) return (int)cudaErrorInvalidValue;
+  if (d % 4 != 0) return (int)cudaErrorInvalidValue;
   return launch_partial<float>(q, slab, valid, out_vals, out_idx, nq, d, capacity, group, kk,
                                l2sq, offset, s);
 }

@@ -32,17 +32,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Async copy of rows [row0, row0 + 64) of one head of a [B, L, H, D]
-// tensor of T (row_stride = H * D) into a shared tile of pitch kLd
-// elements, by the block's kThreads threads; rows past L are zero.
+// Async copy of rows [row0, row0 + 64) of one head of a [B, L, H, cols]
+// tensor of T (row_stride = H * cols) into a shared tile of D columns and
+// pitch kLd elements, by the block's kThreads threads; rows past L and
+// columns past cols (a multiple of 16 bytes, at most D) are zero.
 template <typename T, int D, int kLd, int kThreads>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0, int L, int row_stride) {
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0, int L, int row_stride,
+                                          int cols = D) {
   constexpr int kPer = 16 / sizeof(T);  // elements per 16-byte chunk
   constexpr int kChunks = D / kPer;     // chunks per row
   for (int c = threadIdx.x; c < 64 * kChunks; c += kThreads) {
     const int r = c / kChunks;
     const int col = (c % kChunks) * kPer;
-    const bool in = row0 + r < L;
+    const bool in = row0 + r < L && col < cols;
     const T* s = in ? src + (size_t)(row0 + r) * row_stride + col : src;
     cp_async16(dst + r * kLd + col, s, in ? 16 : 0);
   }

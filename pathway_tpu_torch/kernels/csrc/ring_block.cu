@@ -45,7 +45,8 @@
 // present key in some block of the sequence; 0 walks every tile); o:
 // [B, H, L, D], m, l: [B, H, L] f32, updated in place unless finalize;
 // out: [B, L, H, D] in q's type, written only with finalize (then the
-// state is left as it was).  D is 16, 32 or 64; all contiguous.  Returns a
+// state is left as it was).  D is a multiple of 8 up to 128 (run in the
+// instantiation of 16, 32, 64 or 128 at or above it); all contiguous.  Returns a
 // cudaError_t (0 on success); shapes are checked by the Python wrapper.
 extern "C" int pw_ring_block(const void* q, const void* k, const void* v, const void* mask,
                              const void* any_key, void* o, void* m, void* l, void* out, int B, int L,
@@ -53,7 +54,7 @@ extern "C" int pw_ring_block(const void* q, const void* k, const void* v, const 
   if (B == 0 || L == 0) return 0;
   if (L > pw_attn::kMaxRingLen) return (int)cudaErrorInvalidValue;
   const pw_attn::Ring ring{static_cast<float*>(o), static_cast<float*>(m), static_cast<float*>(l),
-                           static_cast<const uint8_t*>(any_key), finalize};
+                           static_cast<const uint8_t*>(any_key), finalize, nullptr};
   return pw_attn::dispatch<true>(q, k, v, static_cast<const uint8_t*>(mask), out, B, L, H, D, scale, f32,
                                  ring, static_cast<cudaStream_t>(stream));
 }

@@ -18,6 +18,10 @@
 // flags): one block per row reads the row once into registers, reduces
 // its squared norm across the block, and writes the cast row straight
 // into its slot, in place.  Pad rows (slot == capacity) return at once.
+// Rows wider than 2,048 values keep their first 2,048 in registers and
+// read the rest twice (norm, then write).  The slab's rows may lie a pitch
+// apart that is wider than d (an index keeps its rows 16-byte strided that
+// way, the padding columns zero).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -26,7 +30,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxPerThread = 8;  // d <= 2048
+constexpr int kMaxPerThread = 8;  // values a thread holds: 2,048 a row, wider rows read twice
 
 __device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* dst, float x) {
@@ -41,11 +45,13 @@ template <typename SlabT, typename ValT>
 __global__ void __launch_bounds__(kThreads)
 scatter_kernel(SlabT* __restrict__ slab, float* __restrict__ valid,
                const int32_t* __restrict__ slots, const ValT* __restrict__ vals,
-               int d, int64_t capacity, int normalize) {
+               int d, int64_t pitch, int64_t capacity, int normalize) {
   const int i = blockIdx.x;
   const int64_t slot = slots[i];
   if (slot < 0 || slot >= capacity) return;  // dropped, as mode="drop"
   const ValT* row = vals + (size_t)i * d;
+  SlabT* dst = slab + (size_t)slot * pitch;
+  constexpr int kHeld = kThreads * kMaxPerThread;  // values held in registers
 
   float x[kMaxPerThread];
   float ss = 0.0f;
@@ -54,6 +60,11 @@ scatter_kernel(SlabT* __restrict__ slab, float* __restrict__ valid,
     int c = threadIdx.x + j * kThreads;
     x[j] = c < d ? load(row + c) : 0.0f;
     ss += x[j] * x[j];
+  }
+  // a row wider than the registers hold: the rest of its squared norm
+  for (int c = kHeld + threadIdx.x; c < d; c += kThreads) {
+    const float y = load(row + c);
+    ss += y * y;
   }
 
   float denom = 1.0f;
@@ -68,11 +79,14 @@ scatter_kernel(SlabT* __restrict__ slab, float* __restrict__ valid,
     denom = fmaxf(sqrtf(total), 1e-30f);
   }
 
-  SlabT* dst = slab + (size_t)slot * d;
 #pragma unroll
   for (int j = 0; j < kMaxPerThread; ++j) {
     int c = threadIdx.x + j * kThreads;
     if (c < d) store(dst + c, normalize ? x[j] / denom : x[j]);
+  }
+  for (int c = kHeld + threadIdx.x; c < d; c += kThreads) {
+    const float y = load(row + c);
+    store(dst + c, normalize ? y / denom : y);
   }
   if (threadIdx.x == 0) valid[slot] = 1.0f;
 }
@@ -87,33 +101,34 @@ __global__ void clear_kernel(float* __restrict__ valid, const int32_t* __restric
 
 template <typename SlabT, typename ValT>
 int launch(void* slab, void* valid, const void* slots, const void* vals, int n, int d,
-           int64_t capacity, int normalize, cudaStream_t stream) {
+           int64_t pitch, int64_t capacity, int normalize, cudaStream_t stream) {
   scatter_kernel<SlabT, ValT><<<n, kThreads, 0, stream>>>(
       static_cast<SlabT*>(slab), static_cast<float*>(valid),
-      static_cast<const int32_t*>(slots), static_cast<const ValT*>(vals), d, capacity,
+      static_cast<const int32_t*>(slots), static_cast<const ValT*>(vals), d, pitch, capacity,
       normalize);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// slab: [capacity, d] f32 (slab_bf16 = 0) or bf16 (1); valid: [capacity]
-// f32; slots: [n] int32; vals: [n, d] f32 (vals_bf16 = 0) or bf16 (1).
-// Returns a cudaError_t (0 on success).
+// slab: [capacity, d] rows pitch elements apart (pitch >= d; the columns
+// past d are never written) f32 (slab_bf16 = 0) or bf16 (1); valid:
+// [capacity] f32; slots: [n] int32; vals: [n, d] f32 (vals_bf16 = 0) or
+// bf16 (1), contiguous.  Returns a cudaError_t (0 on success).
 extern "C" int pw_slab_scatter(void* slab, void* valid, const void* slots,
-                               const void* vals, int n, int d, long long capacity,
+                               const void* vals, int n, int d, long long pitch, long long capacity,
                                int slab_bf16, int vals_bf16, int normalize,
                                void* stream) {
   if (n == 0) return 0;
-  if (d > kThreads * kMaxPerThread) return (int)cudaErrorInvalidValue;
+  if (d < 1 || pitch < d) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!slab_bf16 && !vals_bf16)
-    return launch<float, float>(slab, valid, slots, vals, n, d, capacity, normalize, s);
+    return launch<float, float>(slab, valid, slots, vals, n, d, pitch, capacity, normalize, s);
   if (!slab_bf16 && vals_bf16)
-    return launch<float, __nv_bfloat16>(slab, valid, slots, vals, n, d, capacity, normalize, s);
+    return launch<float, __nv_bfloat16>(slab, valid, slots, vals, n, d, pitch, capacity, normalize, s);
   if (slab_bf16 && !vals_bf16)
-    return launch<__nv_bfloat16, float>(slab, valid, slots, vals, n, d, capacity, normalize, s);
-  return launch<__nv_bfloat16, __nv_bfloat16>(slab, valid, slots, vals, n, d, capacity,
+    return launch<__nv_bfloat16, float>(slab, valid, slots, vals, n, d, pitch, capacity, normalize, s);
+  return launch<__nv_bfloat16, __nv_bfloat16>(slab, valid, slots, vals, n, d, pitch, capacity,
                                                normalize, s);
 }
 

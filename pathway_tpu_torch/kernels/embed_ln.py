@@ -28,9 +28,17 @@ import torch.nn.functional as F
 
 from pathway_tpu_torch.kernels import _build
 from pathway_tpu_torch.kernels._launch import check_cuda, launch
-from pathway_tpu_torch.kernels.add_layer_norm import DTYPES, check_norm_params, layer_norm_plain
+from pathway_tpu_torch.kernels.add_layer_norm import (
+    BWD_BLOCKS,
+    DTYPES,
+    check_norm_params,
+    layer_norm_bwd_plain,
+    layer_norm_plain,
+)
 
-__all__ = ["embed_ln", "embed_ln_plain", "check_embed_ln"]
+__all__ = [
+    "embed_ln", "embed_ln_plain", "check_embed_ln", "embed_ln_bwd", "embed_ln_bwd_plain", "EmbedLnFunction",
+]
 
 #: index dtype -> the kernel's code for it
 _INDEX_KINDS = {torch.uint8: 1, torch.int16: 2, torch.int32: 3, torch.int64: 4}
@@ -125,3 +133,118 @@ def embed_ln(
 
 #: launches of the CUDA kernel in this process
 embed_ln.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K17's embedding form (csrc/layer_norm_bwd.cu), and K6's autograd Function
+
+
+def _rows(table: torch.Tensor, ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each id's table row (wrapped as flax wraps it) and whether it is in
+    range (an id out of range gathered a NaN row, and gets no gradient)."""
+    n = table.shape[0]
+    ids = torch.where(ids < 0, ids + n, ids)
+    ok = (ids >= 0) & (ids < n)
+    return ids.clamp(0, n - 1), ok
+
+
+def embed_ln_bwd_plain(
+    dy: torch.Tensor, ids: torch.Tensor, type_ids: torch.Tensor | None, word: torch.Tensor,
+    position: torch.Tensor, type_table: torch.Tensor | None, scale: torch.Tensor, eps: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None, torch.Tensor, torch.Tensor]:
+    """``(d_word, d_position, d_type, dgamma, dbeta)`` of K6's f32 forward:
+    LayerNorm's backward on the sums, each row's ds added into the rows it
+    gathered."""
+    B, L = ids.shape
+    h = word.shape[1]
+    wi, ok = _rows(word, ids.long())
+    s = word[wi] + position[:L][None]
+    ti = None
+    if type_table is not None:
+        ti, tok = _rows(type_table, torch.zeros_like(wi) if type_ids is None else type_ids.long())
+        ok = ok & tok
+        s = s + type_table[ti]
+    s = torch.where(ok[..., None], s, torch.full_like(s, float("nan")))
+    ds, d_gamma, d_beta = layer_norm_bwd_plain(dy.reshape(B, L, h), s, scale, eps)
+    keep = ok.reshape(-1)
+    rows = ds.reshape(-1, h)[keep]
+    d_word = torch.zeros_like(word).index_add_(0, wi.reshape(-1)[keep], rows)
+    pos = torch.arange(L, device=ids.device).expand(B, L).reshape(-1)[keep]
+    d_position = torch.zeros_like(position).index_add_(0, pos, rows)
+    d_type = None if ti is None else torch.zeros_like(type_table).index_add_(0, ti.reshape(-1)[keep], rows)
+    return d_word, d_position, d_type, d_gamma, d_beta
+
+
+def embed_ln_bwd(
+    dy: torch.Tensor, ids: torch.Tensor, type_ids: torch.Tensor | None, word: torch.Tensor,
+    position: torch.Tensor, type_table: torch.Tensor | None, scale: torch.Tensor, eps: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None, torch.Tensor, torch.Tensor]:
+    """K6's backward, the sums gathered again from the ids and tables; the
+    kernel on a card (two launches: the rows, whose ds are added into the
+    tables by f32 atomics, with the blocks' partial dgamma and dbeta, then
+    their sum), the plain version for CPU tensors."""
+    if dy.device.type == "cpu":
+        return embed_ln_bwd_plain(dy, ids, type_ids, word, position, type_table, scale, eps)
+    check_embed_ln(ids, type_ids, word, position, type_table, scale, scale, torch.float32)
+    tables = {"word": word, "position": position, "scale": scale, "dy": dy}
+    if type_table is not None:
+        tables["type_table"] = type_table
+    if type_ids is not None:
+        tables["type_ids"] = type_ids
+    device = check_cuda("embed_ln_bwd", ids=ids, **tables)
+    B, L = ids.shape
+    h = word.shape[1]
+    if dy.dtype != torch.float32 or dy.numel() != B * L * h:
+        raise ValueError(f"embed_ln_bwd: dy must be f32 [{B}, {L}, {h}]")
+    d_word = torch.zeros_like(word)
+    d_position = torch.zeros_like(position)
+    d_type = None if type_table is None else torch.zeros_like(type_table)
+    d_gamma = torch.zeros((h,), dtype=torch.float32, device=device)
+    d_beta = torch.zeros((h,), dtype=torch.float32, device=device)
+    m = B * L
+    if m == 0:
+        return d_word, d_position, d_type, d_gamma, d_beta
+    blocks = min(BWD_BLOCKS, -(-m // 8))
+    partial = torch.empty((2, blocks, h), dtype=torch.float32, device=device)
+    launch(
+        "embed_ln_bwd", _build.library("layer_norm_bwd").pw_embed_ln_bwd, device,
+        ids.data_ptr(), _INDEX_KINDS[ids.dtype],
+        None if type_ids is None else type_ids.data_ptr(),
+        0 if type_ids is None else _INDEX_KINDS[type_ids.dtype],
+        word.data_ptr(), word.shape[0], position.data_ptr(),
+        None if type_table is None else type_table.data_ptr(),
+        0 if type_table is None else type_table.shape[0], L,
+        d_word.data_ptr(), d_position.data_ptr(), None if d_type is None else d_type.data_ptr(),
+        dy.data_ptr(), scale.data_ptr(), partial.data_ptr(), d_gamma.data_ptr(), d_beta.data_ptr(),
+        m, h, float(eps), blocks,
+    )
+    embed_ln_bwd.launches += 2
+    return d_word, d_position, d_type, d_gamma, d_beta
+
+
+#: launches of the CUDA kernels in this process (two a call)
+embed_ln_bwd.launches = 0
+
+
+class EmbedLnFunction(torch.autograd.Function):
+    """K6 forward, K17 backward into the word, position and type tables
+    and the LayerNorm's scale and bias.  The forward keeps the ids and the
+    tables (the backward gathers the sums again).  Training runs in f32:
+    a bf16 call runs K6 and its backward raises."""
+
+    @staticmethod
+    def forward(ctx, ids, type_ids, word, position, type_table, scale, bias, eps, dtype):
+        ctx.eps = eps
+        ctx.trained = dtype == torch.float32
+        if ctx.trained:
+            ctx.save_for_backward(ids, type_ids, word, position, type_table, scale)
+        return embed_ln(ids, type_ids, word, position, type_table, scale, bias, eps, dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        if not ctx.trained:
+            raise NotImplementedError("embed_ln: the backward kernels take f32; bf16 is not trained")
+        ids, type_ids, word, position, type_table, scale = ctx.saved_tensors
+        d_word, d_position, d_type, d_gamma, d_beta = embed_ln_bwd(
+            dout.contiguous(), ids, type_ids, word, position, type_table, scale, ctx.eps)
+        return None, None, d_word, d_position, d_type, d_gamma, d_beta, None, None

@@ -7,9 +7,12 @@ Replaces ``_assign_ip`` (``pathway_tpu/parallel/ivf_knn.py:44-47``),
 ``[n]`` int32; ``half_norm`` selects the Lloyd step's score.  Ties go to
 the lower centroid, as ``jnp.argmax`` and ``torch.argmax`` give them.
 
-For CUDA tensors the wrapper launches the kernel (d divisible by 4,
-16-byte aligned rows), which never writes the ``[n, nlist]`` scores to
-device memory, and raises on anything else; for CPU tensors it runs
+For CUDA tensors the wrapper launches the kernel (16-byte aligned rows
+16 bytes apart: rows of another width are taken over their row pitch,
+:mod:`~pathway_tpu_torch.kernels._pitch`, or copied with zero columns up
+to a multiple of 4, which leaves every score as it is), which never
+writes the ``[n, nlist]`` scores to device memory, and raises on anything
+else; for CPU tensors it runs
 :func:`ivf_assign_plain`.  The kernel takes the product on the tensor
 cores in three TF32 passes (f32 accuracy, ``csrc/tf32x3.cuh``); a call is
 two launches, the centroids' split into TF32 parts (into scratch the
@@ -22,6 +25,7 @@ import torch
 
 from pathway_tpu_torch.kernels import _build
 from pathway_tpu_torch.kernels._launch import check_cuda, launch
+from pathway_tpu_torch.kernels._pitch import widen
 
 __all__ = ["ivf_assign", "ivf_assign_plain"]
 
@@ -33,6 +37,16 @@ def ivf_assign_plain(x: torch.Tensor, c: torch.Tensor, half_norm: bool) -> torch
     return torch.argmax(scores, dim=1).to(torch.int32)
 
 
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` over its whole row pitch when that is a multiple of 4, else a
+    copy with zero columns up to one."""
+    try:
+        return widen(t, 4, "ivf_assign")
+    except ValueError:
+        d = t.shape[1]
+        return torch.nn.functional.pad(t, (0, -d % 4))
+
+
 def ivf_assign(x: torch.Tensor, c: torch.Tensor, half_norm: bool) -> torch.Tensor:
     """Index of each row's best centroid: ``x . c`` (minus ``0.5 ||c||^2``
     when ``half_norm``)."""
@@ -40,12 +54,13 @@ def ivf_assign(x: torch.Tensor, c: torch.Tensor, half_norm: bool) -> torch.Tenso
         raise ValueError(f"ivf_assign: x {tuple(x.shape)}, c {tuple(c.shape)}")
     if x.device.type == "cpu":
         return ivf_assign_plain(x, c, half_norm)
-    device = check_cuda("ivf_assign", x=x, c=c)
-    n, d = x.shape
     if x.dtype != torch.float32 or c.dtype != torch.float32:
         raise ValueError(f"ivf_assign: the kernel takes f32 rows and centroids, got {x.dtype}, {c.dtype}")
-    if d % 4 or x.data_ptr() % 16 or c.data_ptr() % 16:
-        raise ValueError("ivf_assign: the kernel takes a width divisible by 4 and 16-byte aligned rows")
+    x, c = _rows(x), _rows(c)
+    device = check_cuda("ivf_assign", x=x, c=c)
+    n, d = x.shape
+    if x.data_ptr() % 16 or c.data_ptr() % 16:
+        raise ValueError("ivf_assign: the kernel takes 16-byte aligned rows")
     nlist = c.shape[0]
     out = torch.empty((n,), dtype=torch.int32, device=device)
     if n == 0:

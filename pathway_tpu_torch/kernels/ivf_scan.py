@@ -10,8 +10,10 @@ cap] == 0`` score ``NEG_INF``.  Returns ``(vals [nq, k] f32, flat [nq, k]
 int32)``, best first, where ``flat = cell * cap + slot``; where fewer
 than k slots are valid the rest come back as ``NEG_INF`` sentinels.
 
-For CUDA tensors the wrapper launches the scan (d <= 1024) and raises on
-anything else: up to :data:`~pathway_tpu_torch.kernels.knn_topk.MAX_K`
+For CUDA tensors the wrapper launches the scan (any d whose rows lie 16
+bytes apart: cells of another width are stored with their row pitch
+rounded up, :mod:`~pathway_tpu_torch.kernels._pitch`, and scanned over the
+whole pitch against zero-padded queries) and raises on anything else: up to :data:`~pathway_tpu_torch.kernels.knn_topk.MAX_K`
 each block keeps its best k and K3's merge passes reduce them
 (:func:`~pathway_tpu_torch.kernels.knn_topk.merge_partials`); above it,
 the scan writes every probed slot's score and K13
@@ -27,11 +29,12 @@ import torch
 
 from pathway_tpu_torch.kernels import _build
 from pathway_tpu_torch.kernels._launch import check_cuda, launch
+from pathway_tpu_torch.kernels._pitch import widen
 from pathway_tpu_torch.kernels.knn_topk import MAX_K, merge_partials
 from pathway_tpu_torch.kernels.topk_select import topk_select
 from pathway_tpu_torch.ops.topk import NEG_INF
 
-__all__ = ["ivf_scan", "ivf_scan_plain"]
+__all__ = ["ivf_scan", "ivf_scan_plain", "check_ivf_scan"]
 
 _TILE = 256  # slots per tile (csrc/ivf_scan.cu kTile)
 #: blocks a scan aims for: with fewer (query, cell) pairs than this, each
@@ -78,12 +81,42 @@ def ivf_scan(
         raise ValueError(f"ivf_scan: k={k} outside 1..{nprobe * cap} (nprobe * cap)")
     if q.device.type == "cpu":
         return ivf_scan_plain(q, probe, cells, valid, k, query_block)
-    device = check_cuda("ivf_scan", q=q, probe=probe, cells=cells, valid=valid)
+    check_ivf_scan(q, probe, cells, valid)
+    wide = widen(cells, 4 if cells.dtype == torch.float32 else 8, "ivf_scan")
+    device = check_cuda("ivf_scan", q=q, probe=probe, cells=wide, valid=valid)
+    if nq == 0:
+        return torch.empty((0, k), device=device), torch.empty((0, k), dtype=torch.int32, device=device)
+    qr = q.to(cells.dtype).float() if cells.dtype != torch.float32 else q
+    if wide.shape[2] > d:  # zero columns up to the cells' pitch
+        qr = torch.nn.functional.pad(qr, (0, wide.shape[2] - d))
+    d = wide.shape[2]
+    splits = min(-(-cap // _TILE), max(1, _TARGET_BLOCKS // (nq * nprobe)))
+    kept = 0 if k > MAX_K else k  # 0: the score-only scan, for K13
+    width = nprobe * cap if kept == 0 else nprobe * splits * k
+    vals = torch.empty((nq, width), device=device)
+    idx = torch.empty((nq, width), dtype=torch.int32, device=device)
+    launch(
+        "ivf_scan", _build.library("ivf_scan").pw_ivf_scan, device,
+        qr.data_ptr(), probe.data_ptr(), wide.data_ptr(), valid.data_ptr(),
+        vals.data_ptr(), idx.data_ptr(), nq, nprobe, d, nlist, cap, splits, kept,
+        int(cells.dtype == torch.bfloat16),
+    )
+    ivf_scan.launches += 1
+    if kept == 0:
+        return topk_select(vals, k, idx)
+    return merge_partials(vals, idx, k)
+
+
+def check_ivf_scan(q: torch.Tensor, probe: torch.Tensor, cells: torch.Tensor, valid: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless the scan takes these arguments; reads
+    shapes, types and strides only, on any device."""
+    nlist, cap, d = cells.shape
+    nq = probe.shape[0]
     if cells.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"ivf_scan: cells must be f32 or bf16, got {cells.dtype}")
-    vec = 4 if cells.dtype == torch.float32 else 8
-    if d % vec or d > 1024 or cells.data_ptr() % 16:
-        raise ValueError(f"ivf_scan: dim {d} must divide by {vec} and be <= 1024, rows 16-byte aligned")
+    widen(cells, 4 if cells.dtype == torch.float32 else 8, "ivf_scan")
+    if cells.data_ptr() % 16:
+        raise ValueError("ivf_scan: cells must be 16-byte aligned")
     if q.dtype != torch.float32 or q.shape[1] != d:
         raise ValueError(f"ivf_scan: q must be f32 [nq, {d}]")
     if probe.dtype != torch.int32:
@@ -92,24 +125,6 @@ def ivf_scan(
         raise ValueError(f"ivf_scan: valid must be f32 [{nlist}, {cap}]")
     if nlist * cap >= 2**31 or nq > 65535:
         raise ValueError(f"ivf_scan: {nlist} x {cap} slots or {nq} queries past the kernel's int32 ids / grid")
-    if nq == 0:
-        return torch.empty((0, k), device=device), torch.empty((0, k), dtype=torch.int32, device=device)
-    qr = q.to(cells.dtype).float() if cells.dtype != torch.float32 else q
-    splits = min(-(-cap // _TILE), max(1, _TARGET_BLOCKS // (nq * nprobe)))
-    kept = 0 if k > MAX_K else k  # 0: the score-only scan, for K13
-    width = nprobe * cap if kept == 0 else nprobe * splits * k
-    vals = torch.empty((nq, width), device=device)
-    idx = torch.empty((nq, width), dtype=torch.int32, device=device)
-    launch(
-        "ivf_scan", _build.library("ivf_scan").pw_ivf_scan, device,
-        qr.data_ptr(), probe.data_ptr(), cells.data_ptr(), valid.data_ptr(),
-        vals.data_ptr(), idx.data_ptr(), nq, nprobe, d, nlist, cap, splits, kept,
-        int(cells.dtype == torch.bfloat16),
-    )
-    ivf_scan.launches += 1
-    if kept == 0:
-        return topk_select(vals, k, idx)
-    return merge_partials(vals, idx, k)
 
 
 #: launches of the scan kernel in this process (the merge passes count

@@ -14,8 +14,11 @@ to every slot id: a shard's first global slot, so that a shard's search
 returns global slots (the mesh search's ``li + axis_index * shard_rows``,
 ``sharded_knn.py:358``).
 
-For CUDA tensors the wrapper launches the kernels (d <= 1024; what they
-take is :func:`check_knn_topk`'s) and raises on anything else: up to
+For CUDA tensors the wrapper launches the kernels (any d whose rows lie
+16 bytes apart: a slab of another width is stored with its row pitch
+rounded up, :mod:`~pathway_tpu_torch.kernels._pitch`, and the wrapper
+scores the whole pitch against zero-padded queries; what they take is
+:func:`check_knn_topk`'s) and raises on anything else: up to
 :data:`MAX_K`, pass 1 keeps each tile's best k and the merge passes
 reduce them; above it, pass 1 writes every score and K13
 (:mod:`~pathway_tpu_torch.kernels.topk_select`) selects the k.  For
@@ -29,8 +32,11 @@ from __future__ import annotations
 
 import torch
 
+import torch.nn.functional as F
+
 from pathway_tpu_torch.kernels import _build
 from pathway_tpu_torch.kernels._launch import check_cuda, launch
+from pathway_tpu_torch.kernels._pitch import widen
 from pathway_tpu_torch.kernels.topk_select import topk_select, topk_select_plain
 from pathway_tpu_torch.ops.distances import dot_scores, l2sq_distances
 from pathway_tpu_torch.ops.topk import masked_top_k
@@ -46,6 +52,7 @@ MAX_K = 128
 METRICS = ("dot", "l2sq")
 _ROWS = 256  # slab rows per pass-1 block (csrc/knn_topk.cu kRows)
 _GROUP = 32  # queries per pass-1 block (kMaxGroup)
+_GROUP_DIMS = 32 * 1024  # queries x dims the row pass keeps in shared memory
 _SEGMENT = 1024  # candidates per pass-2 block
 #: from this many queries on, pass 1 scores tiles of 256 rows as a matrix
 #: product (3xTF32 on the tensor cores for an f32 slab); below it, each
@@ -73,9 +80,7 @@ def check_knn_topk(queries: torch.Tensor, slab: torch.Tensor, valid: torch.Tenso
     cap, d = slab.shape
     if slab.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"knn_topk: slab must be f32 or bf16, got {slab.dtype}")
-    vec = 4 if slab.dtype == torch.float32 else 8
-    if d % vec or d > 1024:
-        raise ValueError(f"knn_topk: dim {d} must divide by {vec} and be <= 1024")
+    widen(slab, 4 if slab.dtype == torch.float32 else 8, "knn_topk")
     if queries.dtype != torch.float32 or queries.dim() != 2 or queries.shape[1] != d:
         raise ValueError(f"knn_topk: queries must be f32 [nq, {d}]")
     if valid.dtype != torch.float32 or valid.shape != (cap,):
@@ -109,13 +114,16 @@ def knn_topk(
         raise ValueError(f"knn_topk: k={k} outside 1..{cap} (slab rows)")
     if queries.device.type == "cpu":
         return knn_topk_plain(queries, slab, valid, k, metric, offset)
-    device = check_cuda("knn_topk", queries=queries, slab=slab, valid=valid)
     check_knn_topk(queries, slab, valid, offset)
+    wide = widen(slab, 4 if slab.dtype == torch.float32 else 8, "knn_topk")
+    device = check_cuda("knn_topk", queries=queries, slab=wide, valid=valid)
     nq = queries.shape[0]
     if nq == 0:
         return (torch.empty((0, k), device=device), torch.empty((0, k), dtype=torch.int32, device=device))
     q = queries.to(slab.dtype).float() if slab.dtype != torch.float32 else queries
-    return _launch(q, slab, valid, k, metric, nq >= TILED_MIN_QUERIES, offset)
+    if wide.shape[1] > d:  # zero columns up to the slab's pitch
+        q = F.pad(q, (0, wide.shape[1] - d))
+    return _launch(q, wide, valid, k, metric, nq >= TILED_MIN_QUERIES, offset)
 
 
 def _launch(
@@ -163,9 +171,10 @@ def _launch(
             blocks,
         )
     else:
+        group = min(nq, _GROUP, max(1, _GROUP_DIMS // d))
         launch(
             "knn_topk", lib.pw_knn_partial, device,
-            *ptrs, nq, d, cap, bf16, min(nq, _GROUP), kk, l2sq, offset,
+            *ptrs, nq, d, cap, bf16, group, kk, l2sq, offset,
         )
     knn_topk.launches += 1
     if k > MAX_K:

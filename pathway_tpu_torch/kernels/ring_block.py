@@ -12,7 +12,8 @@ l ``[B, H, L]``, all f32 (:func:`ring_state` makes the first one: m at
 :func:`ring_block` updates ``(o, m, l)`` in place; with ``finalize=True``
 it runs the step and returns ``o / max(l, 1e-30)`` as ``[B, L, H, D]`` in
 q's type, leaving the state as it was.  For CUDA tensors it launches the
-kernel (bf16 or f32 q/k/v, uint8 mask, head_dim 16, 32 or 64, L up to
+kernel (bf16 or f32 q/k/v, uint8 mask, a head_dim that is a multiple of
+8 up to 128, run zero-padded in the next of 16, 32, 64 and 128, L up to
 :data:`MAX_RING_LEN`) and raises on anything else (:func:`check_ring_block`
 says what it takes); for CPU tensors it runs :func:`ring_block_plain`.
 
@@ -35,7 +36,7 @@ import torch
 
 from pathway_tpu_torch.kernels import _build
 from pathway_tpu_torch.kernels._launch import check_cuda, launch
-from pathway_tpu_torch.kernels.attention import DTYPES, HEAD_DIMS, KEY_TILE
+from pathway_tpu_torch.kernels.attention import DTYPES, KEY_TILE, MAX_LEN, check_head_dim
 
 __all__ = [
     "ring_block", "ring_block_plain", "check_ring_block", "ring_state", "walked_ring_tiles",
@@ -45,8 +46,8 @@ __all__ = [
 #: the additive bias of a masked key, and the running max's start
 NEG = -1e30
 #: the longest block the kernel takes (its walk keeps 10 bytes of shared
-#: memory per 64-key tile)
-MAX_RING_LEN = 1 << 19
+#: memory per 64-key tile), K1's limit too
+MAX_RING_LEN = MAX_LEN
 
 
 def ring_state(
@@ -114,8 +115,7 @@ def check_ring_block(
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"ring_block: the kernel takes bf16 or f32 q, k and v of one type, "
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"ring_block: head_dim {D} not in {HEAD_DIMS}")
+    check_head_dim("ring_block", D)
     if o.shape != (B, H, L, D) or m.shape != (B, H, L) or l.shape != (B, H, L):
         raise ValueError(f"ring_block: state o {tuple(o.shape)}, m {tuple(m.shape)}, "
                          f"l {tuple(l.shape)} for q {tuple(q.shape)}")

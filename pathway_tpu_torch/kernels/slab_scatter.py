@@ -8,8 +8,11 @@ Both functions update ``slab`` and ``valid`` in place; slots outside
 optional normalise divides by ``max(||row||, 1e-30)`` in f32: that is the
 ingest epsilon of the JAX package, not the 1e-12 of ``ops.normalize``.
 
-For CUDA tensors the wrappers launch the kernels and raise on what they
-do not take; for CPU tensors they run the plain versions.
+``slab`` may be a view of rows a pitch apart (``[capacity, d]`` of
+``[capacity, pitch]`` storage, :mod:`~pathway_tpu_torch.kernels._pitch`):
+the kernel writes the d columns of a row and leaves the rest.  For CUDA
+tensors the wrappers launch the kernels (any d) and raise on what they do
+not take; for CPU tensors they run the plain versions.
 """
 
 from __future__ import annotations
@@ -54,8 +57,12 @@ def slab_scatter(
     """``slab[slots[i]] = cast(normalize?(vals[i]))``, ``valid[slots[i]] = 1``."""
     if slab.device.type == "cpu":
         return slab_scatter_plain(slab, valid, slots, vals, normalize)
-    device = check_cuda("slab_scatter", slab=slab, valid=valid, slots=slots, vals=vals)
     cap, d = slab.shape
+    if slab.dim() != 2 or slab.stride(1) != 1 or slab.stride(0) < d:
+        raise ValueError(f"slab_scatter: slab {tuple(slab.shape)} strides {slab.stride()}: rows of a pitch >= d")
+    pitch = slab.stride(0)
+    wide = torch.as_strided(slab, (cap, pitch), (pitch, 1))
+    device = check_cuda("slab_scatter", slab=wide, valid=valid, slots=slots, vals=vals)
     n = slots.shape[0]
     if slab.dtype not in _TYPES or vals.dtype not in _TYPES:
         raise ValueError(f"slab_scatter: slab {slab.dtype} / vals {vals.dtype} not f32 or bf16")
@@ -65,14 +72,12 @@ def slab_scatter(
         raise ValueError("slab_scatter: slots must be int32 [n]")
     if vals.shape != (n, d):
         raise ValueError(f"slab_scatter: vals {tuple(vals.shape)} != {(n, d)}")
-    if d > 2048:
-        raise ValueError(f"slab_scatter: dim {d} > 2048")
     if n == 0:
         return
     launch(
         "slab_scatter", _build.library("slab_scatter").pw_slab_scatter, device,
         slab.data_ptr(), valid.data_ptr(), slots.data_ptr(), vals.data_ptr(),
-        n, d, cap, int(slab.dtype == torch.bfloat16), int(vals.dtype == torch.bfloat16),
+        n, d, pitch, cap, int(slab.dtype == torch.bfloat16), int(vals.dtype == torch.bfloat16),
         int(bool(normalize)),
     )
     slab_scatter.launches += 1

@@ -71,6 +71,9 @@ __all__ = [
     "config_from_hf",
     "convert_bert_checkpoint",
     "load_encoder",
+    "state_dict_to_flax",
+    "adam_state_from_optax",
+    "adam_state_to_optax",
 ]
 
 StateDict = dict[str, torch.Tensor]
@@ -137,6 +140,78 @@ def state_dict_from_flax(
         _dense(out, "pooler", p["pooler"])
         _dense(out, "classifier", p["classifier"])
     return out
+
+
+def _torch_name(path: tuple[str, ...]) -> tuple[str, bool]:
+    """The port's parameter name for the text encoder's flax leaf at
+    ``path`` (without the outer ``params``), and whether it is a kernel
+    (stored transposed)."""
+    *mods, leaf = path
+    if mods[0] == "embeddings":
+        if mods[1] == "ln":
+            return f"embeddings.ln.{'weight' if leaf == 'scale' else 'bias'}", False
+        return f"embeddings.{'token_type' if mods[1] == 'type' else mods[1]}.weight", False
+    prefix = ".".join(mods)
+    if leaf == "kernel":
+        return f"{prefix}.weight", True
+    return f"{prefix}.{'weight' if leaf == 'scale' else 'bias'}", False
+
+
+def state_dict_to_flax(state: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict:
+    """The inverse of :func:`state_dict_from_flax` for a text encoder or
+    cross-encoder: a flax tree shaped as ``like`` (a parameter tree, or
+    one of the same structure, such as an optax moment) holding
+    ``state``'s tensors as f32 numpy arrays."""
+
+    def walk(node: Mapping[str, Any], path: tuple[str, ...]) -> dict:
+        out = {}
+        for key, child in node.items():
+            if isinstance(child, Mapping):
+                out[key] = walk(child, path + (key,))
+                continue
+            name, kernel = _torch_name(path + (key,))
+            arr = state[name].detach().cpu().numpy().astype(np.float32)
+            out[key] = (arr.T if kernel else arr).reshape(np.shape(child))
+        return out
+
+    if "params" in like:
+        return {"params": walk(like["params"], ())}
+    return walk(like, ())
+
+
+def _adam_leaf(opt_state: Any) -> Any:
+    """optax's ``ScaleByAdamState`` inside an ``optax.adam`` state."""
+    for part in opt_state if isinstance(opt_state, tuple) and not hasattr(opt_state, "mu") else (opt_state,):
+        if hasattr(part, "mu") and hasattr(part, "nu") and hasattr(part, "count"):
+            return part
+    raise ValueError("no ScaleByAdamState (count, mu, nu) in the optax state")
+
+
+def adam_state_from_optax(opt_state: Any, cfg: EncoderConfig, *, cross: bool | None = None) -> dict:
+    """``optax.adam``'s state (count, mu, nu over a text encoder's
+    parameter tree) as :meth:`pathway_tpu_torch.train.Adam.state_dict`
+    gives it: ``{"count": int, "mu": state dict, "nu": state dict}``."""
+    adam = _adam_leaf(opt_state)
+    return {
+        "count": int(np.asarray(adam.count)),
+        "mu": state_dict_from_flax(adam.mu, cfg, cross=cross),
+        "nu": state_dict_from_flax(adam.nu, cfg, cross=cross),
+    }
+
+
+def adam_state_to_optax(state: Mapping[str, Any], like: Any) -> Any:
+    """:meth:`~pathway_tpu_torch.train.Adam.state_dict`'s state as an
+    ``optax.adam`` state of ``like``'s structure (e.g. ``opt.init(params)``):
+    its ``ScaleByAdamState`` replaced, the other parts kept."""
+    adam = _adam_leaf(like)
+    new = adam._replace(
+        count=np.asarray(state["count"], np.int32),
+        mu=state_dict_to_flax(state["mu"], adam.mu),
+        nu=state_dict_to_flax(state["nu"], adam.nu),
+    )
+    if not isinstance(like, tuple) or hasattr(like, "mu"):
+        return new
+    return type(like)(new if part is adam else part for part in like)
 
 
 def vision_state_dict_from_flax(params: Mapping[str, Any], cfg: VisionConfig) -> StateDict:

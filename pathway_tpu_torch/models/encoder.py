@@ -23,6 +23,17 @@ dense layer's bias, the GELU and the cross-encoder pooler's tanh), K5
 ``F.linear`` without bias (cuBLAS), as the JAX package leaves them to
 XLA.
 
+Training (``pathway_tpu_torch.train``): where grad is enabled and an
+input or parameter requires it, each kernel call goes through its
+autograd Function, whose backward is a kernel too (K15 for attention,
+K16 for K4, K17 for K5 and K6, K18's pool backward for K7); in f32 a
+weight's ``.to(x.dtype)`` is the parameter itself, so ``F.linear``'s
+autograd reaches it.  Under ``inference_mode`` or ``no_grad`` (the
+executor) the calls are the kernels themselves, as before: the same
+launches, in place.  Only f32 is trained: a bf16 backward raises.
+Sequence-parallel attention (K14) has no backward: a ring over CUDA
+tensors with grad enabled raises.
+
 A model runs on a grid of devices (:meth:`_EncoderStack.place`): row
 ``b`` holds block ``b`` of the sequence, column ``j`` shard ``j`` of the
 heads and MLP width (:func:`encoder_param_specs`, the JAX package's
@@ -49,11 +60,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from pathway_tpu_torch._device import resolve_device
-from pathway_tpu_torch.kernels.add_layer_norm import add_layer_norm
-from pathway_tpu_torch.kernels.attention import attention
-from pathway_tpu_torch.kernels.bias_act import bias_act
-from pathway_tpu_torch.kernels.embed_ln import embed_ln
-from pathway_tpu_torch.kernels.pool_normalize import pool_normalize
+from pathway_tpu_torch.kernels.add_layer_norm import AddLayerNormFunction, add_layer_norm
+from pathway_tpu_torch.kernels.attention import AttentionFunction, attention
+from pathway_tpu_torch.kernels.bias_act import BiasActFunction, bias_act
+from pathway_tpu_torch.kernels.embed_ln import EmbedLnFunction, embed_ln
+from pathway_tpu_torch.kernels.pool_normalize import PoolNormalizeFunction, pool_normalize
 from pathway_tpu_torch.ops.ring_attention import ring_attention_blocks
 
 __all__ = [
@@ -139,16 +150,38 @@ def init_weights(model: nn.Module, seed: int, extra: tuple[nn.Parameter, ...] = 
         draw(w)
 
 
+def _trains(*tensors: torch.Tensor | None) -> bool:
+    """Whether a kernel call must go through its autograd Function: grad
+    is enabled and one of ``tensors`` requires it."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def _bias_act(y: torch.Tensor, bias: torch.Tensor, act: str = "none") -> torch.Tensor:
+    """K4 on ``y`` in place (its Function when training)."""
+    if _trains(y, bias):
+        return BiasActFunction.apply(y, bias, act)
+    return bias_act(y, bias, act)
+
+
 def _dense(x: torch.Tensor, layer: nn.Linear, act: str = "none") -> torch.Tensor:
     """flax ``Dense(dtype=x.dtype)`` (+ activation): the weight cast to the
     activation type, the product rounded to it, then K4 adds the bias and
     applies ``act`` in place."""
-    return bias_act(F.linear(x, layer.weight.to(x.dtype)), layer.bias, act)
+    return _bias_act(F.linear(x, layer.weight.to(x.dtype)), layer.bias, act)
 
 
 def _add_layer_norm(x: torch.Tensor, r: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     """flax ``LayerNorm(dtype=x.dtype)(x + r)`` through K5."""
+    if _trains(x, r, ln.weight, ln.bias):
+        return AddLayerNormFunction.apply(x, r, ln.weight, ln.bias, ln.eps)
     return add_layer_norm(x, r, ln.weight, ln.bias, ln.eps)
+
+
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """K1 (its Function when training)."""
+    if _trains(q, k, v):
+        return AttentionFunction.apply(q, k, v, mask)
+    return attention(q, k, v, mask)
 
 
 class SelfAttention(nn.Module):
@@ -211,7 +244,7 @@ class EncoderBlock(nn.Module):
         a = partials[0]
         for p in partials[1:]:
             a = a + p.to(a.device)
-        return _add_layer_norm(x, bias_act(a, layer.bias), ln)
+        return _add_layer_norm(x, _bias_act(a, layer.bias), ln)
 
     @staticmethod
     def complete(shards: list["EncoderBlock"], x: torch.Tensor, ctx: list) -> torch.Tensor:
@@ -226,7 +259,7 @@ class EncoderBlock(nn.Module):
         return first.finish(x, parts, first.mlp_down, first.mlp_ln)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        return self.complete([self], x, [attention(*self.attention.qkv(x), mask)])
+        return self.complete([self], x, [_attention(*self.attention.qkv(x), mask)])
 
 
 class Embeddings(nn.Module):
@@ -246,10 +279,11 @@ class Embeddings(nn.Module):
         tokens sit at positions ``offset``, ``offset + 1``, ... (a block
         of a longer sequence)."""
         types = None if self.token_type is None else self.token_type.weight
-        return embed_ln(
-            ids, type_ids, self.word.weight, self.position.weight[offset:], types,
-            self.ln.weight, self.ln.bias, self.ln.eps, self.cfg.dtype,
-        )
+        args = (ids, type_ids, self.word.weight, self.position.weight[offset:], types,
+                self.ln.weight, self.ln.bias, self.ln.eps, self.cfg.dtype)
+        if _trains(*args[2:7]):
+            return EmbedLnFunction.apply(*args)
+        return embed_ln(*args)
 
 
 class _EncoderStack(nn.Module):
@@ -384,9 +418,12 @@ class _EncoderStack(nn.Module):
             ctx = [[None] * n_tp for _ in range(n_seq)]
             for j in range(n_tp):
                 if self.cfg.seq_mesh is None:
-                    ctx[0][j] = attention(*qkv[0][j], masks[0][j])
+                    ctx[0][j] = _attention(*qkv[0][j], masks[0][j])
                 else:
                     col = [qkv[b][j] for b in range(n_seq)]
+                    if _trains(*col[0]) and col[0][0].device.type != "cpu":
+                        raise NotImplementedError(
+                            "training over a sequence mesh: ring attention (K14) has no backward kernel")
                     outs = ring_attention_blocks(*zip(*col), [masks[b][j] for b in range(n_seq)])
                     for b in range(n_seq):
                         ctx[b][j] = outs[b]
@@ -410,6 +447,8 @@ class TextEncoderModel(_EncoderStack):
         else:
             x = torch.cat([x.to(self.device) for x in xs], dim=1)
             m = torch.cat([m.to(self.device) for m in masks], dim=1)
+        if _trains(x):
+            return PoolNormalizeFunction.apply(x, m, self.cfg.pool, self.cfg.normalize)
         return pool_normalize(x, m, self.cfg.pool, self.cfg.normalize)
 
 

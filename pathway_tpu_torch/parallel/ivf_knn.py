@@ -41,6 +41,7 @@ import torch
 
 from pathway_tpu_torch._device import finish_readback, resolve_device, start_readback, upload
 from pathway_tpu_torch.internals import device_counters as _devctr
+from pathway_tpu_torch.kernels._pitch import flat_rows, pitched, pitched_zeros
 from pathway_tpu_torch.kernels.ivf_assign import ivf_assign
 from pathway_tpu_torch.kernels.ivf_scan import ivf_scan
 from pathway_tpu_torch.kernels.knn_topk import knn_topk
@@ -119,7 +120,8 @@ class IvfKnnIndex:
         self.cell_cap = max(64, bucket_size(4 * max(1, capacity // self.nlist)))
 
         self._centroids: torch.Tensor | None = None  # [nlist, d] f32
-        self._cells = torch.zeros((self.nlist, self.cell_cap, dim), dtype=dtype, device=self.device)
+        # rows 16 bytes apart whatever dim (kernels/_pitch.py); so are the centroids'
+        self._cells = pitched_zeros((self.nlist, self.cell_cap, dim), dtype, self.device)
         self._valid = torch.zeros((self.nlist, self.cell_cap), dtype=torch.float32, device=self.device)
         # host bookkeeping
         self._slot_of: dict[Any, tuple[int, int]] = {}  # key -> (cell, slot)
@@ -175,7 +177,7 @@ class IvfKnnIndex:
             cs, ss = (torch.tensor(a, device=self.device) for a in zip(*self._slot_of.values()))
             rows = self._cells[cs, ss].cpu().float().numpy()
             stored = list(zip(self._slot_of, rows))
-            self._cells = torch.zeros_like(self._cells)
+            self._cells = pitched_zeros(tuple(self._cells.shape), self._cells.dtype, self.device)
             self._valid = torch.zeros_like(self._valid)
             self._slot_of.clear()
             self._key_of.clear()
@@ -186,7 +188,7 @@ class IvfKnnIndex:
         def assign(cents: np.ndarray) -> np.ndarray:
             return ivf_assign(x, self._upload(cents), half_norm=True).cpu().numpy()
 
-        self._centroids = self._upload(_kmeans(sample, self.nlist, assign, seed=self.seed))
+        self._centroids = pitched(self._upload(_kmeans(sample, self.nlist, assign, seed=self.seed)))
         pending, self._pending = self._pending, []
         for keys_vecs in (stored, pending):
             if keys_vecs:
@@ -255,7 +257,7 @@ class IvfKnnIndex:
             self._slot_of[key] = (ci, slot)
             self._key_of[(ci, slot)] = key
         flat = self._upload(self._flat_slots(cells, slots))
-        slab_scatter(self._cells.view(-1, self.dim), self._valid.view(-1), flat, rows, normalize=False)
+        slab_scatter(flat_rows(self._cells), self._valid.view(-1), flat, rows, normalize=False)
 
     def remove(self, keys: Sequence[Any]) -> None:
         cs, ss = [], []
@@ -278,7 +280,7 @@ class IvfKnnIndex:
         amortized); the new cells are of the index's type, as the JAX
         index's are."""
         new_cap = self.cell_cap * 2
-        cells = torch.zeros((self.nlist, new_cap, self.dim), dtype=self.dtype, device=self.device)
+        cells = pitched_zeros((self.nlist, new_cap, self.dim), self.dtype, self.device)
         valid = torch.zeros((self.nlist, new_cap), dtype=torch.float32, device=self.device)
         cells[:, : self.cell_cap] = self._cells
         valid[:, : self.cell_cap] = self._valid
@@ -359,9 +361,9 @@ class IvfKnnIndex:
         self.nlist = state["nlist"]
         self.cell_cap = state["cell_cap"]
         cents = state["centroids"]
-        self._centroids = None if cents is None else torch.from_numpy(
-            np.array(cents, np.float32)).to(self.device)
-        self._cells = torch.from_numpy(cells.astype(np.float32)).to(self.device, _DTYPES[name])
+        self._centroids = None if cents is None else pitched(torch.from_numpy(
+            np.array(cents, np.float32)).to(self.device))
+        self._cells = pitched(torch.from_numpy(cells.astype(np.float32)).to(self.device, _DTYPES[name]))
         self._valid = torch.from_numpy(np.array(state["valid"], np.float32)).to(self.device)
         self._slot_of = dict(state["slot_of"])
         self._key_of = {p: k for k, p in self._slot_of.items()}

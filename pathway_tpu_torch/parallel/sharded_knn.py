@@ -56,6 +56,7 @@ import torch
 from pathway_tpu_torch._device import finish_readback, resolve_device, start_readback, upload
 from pathway_tpu_torch.internals import device_counters as _devctr
 from pathway_tpu_torch.kernels.knn_topk import knn_topk, merge_partials
+from pathway_tpu_torch.kernels._pitch import pitched_zeros
 from pathway_tpu_torch.kernels.slab_scatter import INGEST_EPS, slab_clear, slab_scatter
 from pathway_tpu_torch.ops.bucketing import bucket_size, pad_rows
 from pathway_tpu_torch.ops.distances import normalize
@@ -132,9 +133,10 @@ class ShardedKnnIndex:
         return self.capacity // self.shards
 
     def _zeros(self, capacity: int) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
-        """Zeroed per-shard slabs and flags for ``capacity`` slots."""
+        """Zeroed per-shard slabs and flags for ``capacity`` slots; a slab's
+        rows lie 16 bytes apart whatever ``dim`` (``kernels/_pitch.py``)."""
         rows = capacity // self.shards
-        vecs = [torch.zeros((rows, self.dim), dtype=self.dtype, device=d) for d in self._devices]
+        vecs = [pitched_zeros((rows, self.dim), self.dtype, d) for d in self._devices]
         flags = [torch.zeros((rows,), dtype=torch.float32, device=d) for d in self._devices]
         return vecs, flags
 

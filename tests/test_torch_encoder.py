@@ -202,3 +202,42 @@ def test_seeded_init_is_deterministic():
     c = TextEncoderModel(cfg, device="cpu", seed=4).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["layer_0.mlp_up.weight"], c["layer_0.mlp_up.weight"])
+
+
+# ---------------------------------------------------------------------------
+# C6: K1 takes any length up to 524,288 and any head dim that is a
+# multiple of 8 up to 128 (the checks are device-independent)
+
+
+@pytest.mark.parametrize("shape", [(2, 576, 12, 64), (1, 8192, 12, 64), (2, 16, 4, 128), (2, 16, 4, 80),
+                                   (2, 16, 4, 96), (1, 1 << 19, 1, 16)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_check_attention_takes_long_sequences_and_wide_heads(shape, dtype):
+    from pathway_tpu_torch.kernels.attention import check_attention
+
+    q = torch.empty(shape, dtype=dtype, device="meta")
+    check_attention(q, q, q, torch.empty(shape[:2], dtype=torch.uint8, device="meta"))
+
+
+@pytest.mark.parametrize("D", [136, 20])
+def test_check_attention_names_the_head_dim_limit(D):
+    from pathway_tpu_torch.kernels.attention import check_attention
+
+    q = torch.empty((1, 16, 2, D), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+        check_attention(q, q, q, torch.empty((1, 16), dtype=torch.uint8, device="meta"))
+
+
+def test_encoder_at_max_len_1024_matches_jax_on_a_700_token_row():
+    # a checkpoint with more than 512 positions, no sequence mesh: K1 takes
+    # the whole row (f32, 1e-5)
+    jcfg = dataclasses.replace(graft._flagship_config(tiny=True), max_len=1024)
+    rng = np.random.default_rng(0)
+    L = 700
+    ids = rng.integers(1000, jcfg.vocab_size, (3, L)).astype(np.int32)
+    mask = (np.arange(L)[None] < np.array([L, 600, 17])[:, None]).astype(np.int32)
+    jm, params, tm = both_encoders(jcfg, ids, mask)
+    want = np.asarray(jm.apply(params, jnp.asarray(ids), jnp.asarray(mask)))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)

@@ -503,3 +503,36 @@ def test_empty_index_queries_and_keys():
     assert idx.search(np.zeros((0, 8), np.float32), 3) == []
     rows = idx.search(x[:1], 5)  # trains on the buffer first
     assert idx.trained and [k for k, _ in rows[0]][0] == "a" and len(rows[0]) == 2
+
+
+# ---------------------------------------------------------------------------
+# C7: any width (cells and centroids stored 16 bytes apart,
+# kernels/_pitch.py)
+
+
+@pytest.mark.parametrize("d", [1536, 3072, 770])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ivf_checks_take_wide_and_unaligned_widths(d, dtype):
+    from pathway_tpu_torch.kernels._pitch import pitched_zeros
+    from pathway_tpu_torch.kernels.ivf_scan import check_ivf_scan
+
+    cells = pitched_zeros((4, 32, d), dtype, "cpu")
+    check_ivf_scan(torch.zeros((3, d)), torch.zeros((3, 2), dtype=torch.int32), cells, torch.ones((4, 32)))
+    x = torch.from_numpy(_mixture(40, d, n_clusters=4))
+    c = x[:4].clone()
+    assert torch.equal(ivf_assign(x, c, True), ivf_assign_plain(x, c, True))
+    with pytest.raises(ValueError, match="pitch"):
+        check_ivf_scan(torch.zeros((3, d + 1)), torch.zeros((3, 2), dtype=torch.int32),
+                       torch.zeros((4, 32, d + 1), dtype=dtype), torch.ones((4, 32)))
+
+
+@pytest.mark.parametrize("d", [1536, 770])
+def test_wide_ivf_index_matches_jax(d):
+    jidx, tidx = _pair(d, "f32", metric="cos", capacity=1024, nlist=16, nprobe=4)
+    x = _mixture(1100, d, n_clusters=10, seed=3) / np.sqrt(d)
+    _both(jidx, tidx, "add_batch", range(1100), x)  # auto-trains at 1,024
+    _both(jidx, tidx, "remove", list(range(0, 1100, 3)))
+    q = x[1:7]
+    _same_topk(jidx.search(q, 5), tidx.search(q, 5), jidx.search(q, 6))
+    state = tidx.state_dict()
+    assert state["cells"].shape[-1] == d and state["centroids"].shape == (16, d)

@@ -226,8 +226,12 @@ def test_knn_topk_checks_refuse_what_the_kernels_do_not_take():
         check_knn_topk(torch.zeros((3, 6)), torch.zeros((64, 6)), valid)
     with pytest.raises(ValueError, match="divide by 8"):
         check_knn_topk(torch.zeros((3, 12)), torch.zeros((64, 12), dtype=torch.bfloat16), valid)
-    with pytest.raises(ValueError, match="<= 1024"):
-        check_knn_topk(torch.zeros((3, 1028)), torch.zeros((64, 1028)), valid)
+    # any width whose rows lie 16 bytes apart: 3,072 dims, and 770 stored
+    # with its row pitch rounded up to 776
+    check_knn_topk(torch.zeros((3, 3072)), torch.zeros((64, 3072)), valid)
+    check_knn_topk(torch.zeros((3, 770)), torch.zeros((64, 776))[:, :770], valid)
+    with pytest.raises(ValueError, match="divide by 4"):
+        check_knn_topk(torch.zeros((3, 770)), torch.zeros((64, 770)), valid)
     with pytest.raises(ValueError, match="queries"):
         check_knn_topk(q.double(), slab, valid)
     with pytest.raises(ValueError, match="valid"):
@@ -257,3 +261,40 @@ def test_merge_passes_count_the_launches_of_merge_partials(n_in, k, want):
     # H100), one a tile (4,096 tiles of 256 rows of a 1M slab), and the
     # four blocks of the IVF's 1,024-centroid probe
     assert merge_passes(n_in, k) == want
+
+
+# ---------------------------------------------------------------------------
+# C7: any width.  An index stores rows 16 bytes apart (kernels/_pitch.py);
+# the kernels read the whole pitch, zero columns included
+
+
+@pytest.mark.parametrize("d", [1536, 3072, 770])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_check_knn_topk_takes_wide_and_unaligned_widths(d, dtype):
+    from pathway_tpu_torch.kernels._pitch import pitched_zeros, widen
+    from pathway_tpu_torch.kernels.knn_topk import check_knn_topk
+
+    slab = pitched_zeros((64, d), dtype, "cpu")
+    check_knn_topk(torch.zeros((3, d)), slab, torch.ones(64))
+    wide = widen(slab, 8, "test")
+    assert wide.shape[1] % 8 == 0 and wide.shape[1] - d < 8 and wide.is_contiguous()
+
+
+@pytest.mark.parametrize("d", [1536, 770])
+@pytest.mark.parametrize("metric", ["cos", "l2sq"])
+def test_wide_index_matches_jax(d, metric):
+    jidx = JaxIndex(d, metric=metric, capacity=128, dtype=jnp.float32)
+    tidx = ShardedKnnIndex(d, metric=metric, capacity=128, dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(3)
+    vecs = rng.standard_normal((150, d)).astype(np.float32) / np.sqrt(d)
+    for idx in (jidx, tidx):
+        idx.add_batch(list(range(150)), vecs)  # grows past 128
+        idx.remove([3, 7])
+    q = vecs[:6] + 0.01 * rng.standard_normal((6, d)).astype(np.float32) / np.sqrt(d)
+    _same_results(jidx.search(q, 5), tidx.search(q, 5), 1e-5)
+    assert tidx._vecs[0].shape == (256, d)
+    state = tidx.state_dict()
+    assert state["vectors"].shape == (256, d) and state["dim"] == d
+    back = ShardedKnnIndex(d, metric=metric, capacity=128, dtype=torch.float32, device="cpu")
+    back.load_state_dict(jidx.state_dict())
+    _same_results(jidx.search(q, 5), back.search(q, 5), 1e-5)

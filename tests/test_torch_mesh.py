@@ -35,6 +35,17 @@ from pathway_tpu_torch.parallel import ShardedKnnIndex, TorchEncoder
 from test_torch_encoder import port_config
 from test_torch_slice import _texts
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Torch on one thread: the tier-1 run has several test workers on the
+    host's cores, and this file's small products gain little from more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 DIM = 32
 TOL = 1e-5
 ENC_TOL = 1e-4

@@ -47,6 +47,17 @@ from pathway_tpu_torch.ops.ring_attention import any_keys, local_attention, ring
 from pathway_tpu_torch.parallel import TorchEncoder
 from test_torch_encoder import port_config
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Torch on one thread: the tier-1 run has several test workers on the
+    host's cores, and this file's small products gain little from more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CPU8 = ["cpu"] * 8
 TINY = dataclasses.replace(graft._flagship_config(tiny=True), dtype=jnp.float32)
 
@@ -148,14 +159,16 @@ def test_attention_tensor_map_strides():
 def test_kernel_checks_still_refuse_what_the_kernels_do_not_take():
     q, k, v = _heads(2, 16, 4, 16, torch.float32)
     mask = torch.ones((2, 16), dtype=torch.uint8)
-    with pytest.raises(ValueError, match="head_dim"):
-        check_attention(*_heads(2, 16, 4, 8, torch.float32), mask)
+    with pytest.raises(ValueError, match="head_dim 20 must be a multiple of 8 up to 128"):
+        check_attention(*_heads(2, 16, 4, 20, torch.float32), mask)
     with pytest.raises(ValueError, match="one type"):
         check_attention(q, k.bfloat16(), v, mask)
     with pytest.raises(ValueError, match="float16|bf16 or f32"):
         check_attention(q.half(), k.half(), v.half(), mask)
+    n = MAX_RING_LEN + 64
+    over = torch.empty((1, n, 1, 16), dtype=torch.float32, device="meta")
     with pytest.raises(ValueError, match="sequence length"):
-        check_attention(*_heads(1, 513, 1, 16, torch.float32), torch.ones((1, 513), dtype=torch.uint8))
+        check_attention(over, over, over, torch.empty((1, n), dtype=torch.uint8, device="meta"))
     o, m, l = ring_state(2, 16, 4, 16, "cpu")
     with pytest.raises(ValueError, match="state"):
         check_ring_block(q, k, v, mask, o.transpose(1, 2), m, l)

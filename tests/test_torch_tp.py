@@ -37,6 +37,17 @@ from pathway_tpu_torch.parallel.mesh import data_devices, encoder_grids
 from test_torch_encoder import port_config
 from test_torch_slice import _texts
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Torch on one thread: the tier-1 run has several test workers on the
+    host's cores, and this file's small products gain little from more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = 1e-5
 CPU8 = ["cpu"] * 8
 TINY = dataclasses.replace(graft._flagship_config(tiny=True), dtype=jnp.float32)
