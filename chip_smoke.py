@@ -138,7 +138,10 @@ Phases, each fatal on failure:
     steps; K15-K19 against their plain versions at the step's shapes, the
     first step's loss and gradients against the plain versions' autograd
     on the card, ms a step, tokens/s, peak memory, the profiled step's idle
-    share and split, its share of the f32 peak; then
+    share and split, its share of the card's f32-accurate product peak
+    (3xTF32, PEAK_F32_PRODUCT); K15 also at the dry run's D = 16, at
+    D = 32, and at D = 80 and 128 over 512 keys, each case with a batch
+    row of no present key; then
     ``train.dryrun_multichip(4)`` on a mesh that repeats the card.
 
 Phase 8 runs right after phase 4, while phase 3's index is alive, and
@@ -294,6 +297,9 @@ TRAIN_STEPS = 5
 TRAIN_LR = 1e-4
 TRAIN_REDRAW = 0.15  # tokens of a pair's second row redrawn
 BWD_RTOL = 1e-5  # K15-K19 against their plain versions, of max|ref| (f32 sums in another order)
+# K15's other forms, (B, L, heads, D): the dry run's model shard, D = 32,
+# the zero-padded D = 80 and D = 128 past one 128-key tile
+K15_CASES = ((4, 16, 2, 16), (4, 64, 2, 32), (2, 512, 4, 80), (2, 512, 4, 128))
 TRAIN_LOSS_RTOL = 1e-5  # the first step's loss against the plain step's
 TRAIN_GRAD_RTOL = 1e-4  # its gradients, each of its tensor's max|g| (12 layers of f32 rounding)
 TRAIN_KERNELS = ("attention", "bias_act", "add_layer_norm", "embed_ln", "pool_normalize", "attention_bwd",
@@ -3903,6 +3909,23 @@ def phase_train(torch, dev) -> dict:
                                 "bound_by": by, "library_ms": library_ms, "shape": shape}
         log(f"{name} at the train step: {json.dumps(res['kernels'][name])}")
 
+    # ---- K15 at the other forms it is built for: the dry run's shard
+    # (D = 16 at L = 16), D = 32, the zero-padded D = 80 and D = 128 at
+    # L = 512; each with a batch row of no present key (p = 1 / L)
+    res["attention_bwd_cases"] = {}
+    for cb, cl, ch, cd in K15_CASES:
+        cm = torch.rand((cb, cl), generator=g, device=dev) < 0.7
+        cm[0] = False
+        cm[1, 0] = True
+        cq, ck, cv, cdo = (torch.randn((cb, cl, ch, cd), generator=g, device=dev) for _ in range(4))
+        cm = cm.to(torch.uint8)
+        cout, clse = attention(cq, ck, cv, cm, with_lse=True)
+        got = kernels.attention_bwd(cq, ck, cv, cout, cdo, cm, clse)
+        name = f"B={cb} L={cl} H={ch} D={cd}"
+        res["attention_bwd_cases"][name] = gate(f"K15 attention_bwd at {name}", got,
+                                                attention_bwd_plain(cq, ck, cv, cout, cdo, cm, clse))
+    log(f"K15 against its plain version, a row of no present key in each: {json.dumps(res['attention_bwd_cases'])}")
+    del cq, ck, cv, cdo, cm, cout, clse, got
     # ---- K15: attention backward at [64, 128, 12, 64], the batch's masks
     q, k, v, do = (torch.randn((TRAIN_B, TRAIN_L, heads, D), generator=g, device=dev) for _ in range(4))
     out, lse = attention(q, k, v, umask, with_lse=True)
@@ -3915,13 +3938,15 @@ def phase_train(torch, dev) -> dict:
     dos = do.transpose(1, 2)
     entry("attention_bwd", err, time_ms(torch, lambda: kernels.attention_bwd(q, k, v, out, do, umask, lse), 10),
           time_ms(torch, lambda: attention_bwd_plain(q, k, v, out, do, umask, lse), 5),
-          8 * M * H * 4 + 2 * TRAIN_B * heads * TRAIN_L * 4, 10 * heads * keys * D, PEAK_F32,
+          8 * M * H * 4 + 2 * TRAIN_B * heads * TRAIN_L * 4, 10 * heads * keys * D, PEAK_F32_PRODUCT,
           time_ms(torch, lambda: torch.autograd.grad(sd, (qs, ks, vs), dos, retain_graph=True), 10),
           [TRAIN_B, TRAIN_L, heads, D])
+    res["kernels"]["attention_bwd"]["cases"] = res.pop("attention_bwd_cases")
     del q, k, v, do, out, lse, got, want, qs, ks, vs, sd, dos
     # ---- K16: the mlp_up GELU and a plain bias
     # (the mlp_up GELU is the entry; the plain bias of the other five dense
-    # layers rides beside it: dx is dy there, only db is computed)
+    # layers rides beside it: dx is dy there, only db is computed, which
+    # one torch call, dy.sum(0), computes too)
     for n, act in ((H, "none"), (F_, "gelu_tanh")):
         y, dy = (torch.randn((M, n), generator=g, device=dev) for _ in range(2))
         bias = torch.randn((n,), generator=g, device=dev)
@@ -3929,9 +3954,16 @@ def phase_train(torch, dev) -> dict:
         err = gate(f"K16 bias_act_bwd {act}", got, bias_act_bwd_plain(dy, y, bias, act))
         nbytes = (3 if act != "none" else 1) * M * n * 4 + 2 * n * 4
         none = res["kernels"].pop("bias_act_bwd", None)
-        entry("bias_act_bwd", err, time_ms(torch, lambda: kernels.bias_act_bwd(dy, y, bias, act), 10),
-              time_ms(torch, lambda: bias_act_bwd_plain(dy, y, bias, act), 10), nbytes, 20 * M * n, PEAK_F32,
-              None, [M, n])
+        entry("bias_act_bwd", err, time_ms(torch, lambda: kernels.bias_act_bwd(dy, y, bias, act), 50),
+              time_ms(torch, lambda: bias_act_bwd_plain(dy, y, bias, act), 50), nbytes, 20 * M * n, PEAK_F32,
+              time_ms(torch, lambda: dy.sum(0), 50) if act == "none" else None, [M, n])
+        # the profiler's device time beside it: at act none a call is two
+        # short launches, and CUDA events read the host's launch rate too
+        res["kernels"]["bias_act_bwd"]["device_ms"] = {
+            "kernel": device_ms(torch, lambda: kernels.bias_act_bwd(dy, y, bias, act)),
+            "plain": device_ms(torch, lambda: bias_act_bwd_plain(dy, y, bias, act)),
+            **({"library": device_ms(torch, lambda: dy.sum(0))} if act == "none" else {}),
+        }
         if none is not None:
             res["kernels"]["bias_act_bwd"]["act_none"] = none
         del y, dy, bias, got
@@ -4043,11 +4075,11 @@ def phase_train(torch, dev) -> dict:
     res.update({
         "losses": losses, "step_ms": step_ms, "ms_per_step": ms, "tokens_per_s": valid_tokens / (ms / 1e3),
         "rows_per_s": TRAIN_B / (ms / 1e3), "valid_tokens": valid_tokens, "flops_per_step": flops,
-        "f32_peak_share": flops / (ms / 1e3) / PEAK_F32, "profile": prof, "split": step_split(prof),
+        "f32_peak_share": flops / (ms / 1e3) / PEAK_F32_PRODUCT, "profile": prof, "split": step_split(prof),
         "devices": sorted(on_card),
     })
     log(f"train: losses {losses}, {ms:.2f} ms a step (CUDA events), {res['tokens_per_s']:.0f} valid tokens/s, "
-        f"peak {res['peak_mem_gb']:.2f} GB, f32 peak share {res['f32_peak_share']:.3f}, "
+        f"peak {res['peak_mem_gb']:.2f} GB, share of the f32 product peak {res['f32_peak_share']:.3f}, "
         f"idle {prof['device_idle_share']:.3f}, split {json.dumps(res['split'])}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"train losses {losses}: not finite, or the last not below the first")
@@ -4250,7 +4282,7 @@ def main() -> int:
             "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"], "shape": m["shape"],
-            **{key: m[key] for key in ("device_ms", "f32", "launches_per_call", "act_none") if key in m},
+            **{key: m[key] for key in ("device_ms", "f32", "launches_per_call", "act_none", "cases") if key in m},
         })
     summary = {
         "card": smi,

@@ -8,7 +8,8 @@ order, all in f32::
     m = (1 - b1) g + b1 m;   v = (1 - b2) g^2 + b2 v
     p = p + (-lr) * ((m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps))
 
-with ``t`` the step count after its increment (an int, as optax's int32
+with b1, b2, eps optax's defaults (:data:`B1`, :data:`B2`, :data:`EPS`),
+``t`` the step count after its increment (an int, as optax's int32
 count), each product and sum rounded on its own.  ``1 - b1`` and
 ``1 - b2`` are the double differences rounded to f32, as optax's weakly
 typed constants are; the bias corrections ``1 - b^t`` are taken in f32.
@@ -28,28 +29,29 @@ import torch
 from pathway_tpu_torch.kernels import _build
 from pathway_tpu_torch.kernels._launch import launch
 
-__all__ = ["adam_step", "adam_step_plain", "adam_constants", "CHUNK"]
+__all__ = ["adam_step", "adam_step_plain", "adam_constants", "B1", "B2", "EPS", "CHUNK"]
 
+#: optax.adam's defaults, the reference's (eps_root 0)
+B1, B2, EPS = 0.9, 0.999, 1e-8
 #: values a block of the kernel updates
 CHUNK = 1 << 16
 
 
-def adam_constants(step: int, lr: float, b1: float, b2: float, eps: float) -> dict[str, np.float32]:
+def adam_constants(step: int, lr: float) -> dict[str, np.float32]:
     """The step's f32 constants as optax computes them."""
     f = np.float32
     return {
-        "b1": f(b1), "b2": f(b2), "one_minus_b1": f(1 - b1), "one_minus_b2": f(1 - b2),
-        "bc1": f(1) - f(b1) ** f(step), "bc2": f(1) - f(b2) ** f(step), "eps": f(eps), "neg_lr": f(-lr),
+        "b1": f(B1), "b2": f(B2), "one_minus_b1": f(1 - B1), "one_minus_b2": f(1 - B2),
+        "bc1": f(1) - f(B1) ** f(step), "bc2": f(1) - f(B2) ** f(step), "eps": f(EPS), "neg_lr": f(-lr),
     }
 
 
 @torch.no_grad()
 def adam_step_plain(
     params: list[torch.Tensor], grads: list[torch.Tensor], exp_avgs: list[torch.Tensor],
-    exp_avg_sqs: list[torch.Tensor], step: int, lr: float, b1: float = 0.9, b2: float = 0.999,
-    eps: float = 1e-8,
+    exp_avg_sqs: list[torch.Tensor], step: int, lr: float,
 ) -> None:
-    c = {k: torch.tensor(v) for k, v in adam_constants(step, lr, b1, b2, eps).items()}
+    c = {k: torch.tensor(v) for k, v in adam_constants(step, lr).items()}
     for p, g, m, v in zip(params, grads, exp_avgs, exp_avg_sqs):
         m.copy_(c["one_minus_b1"] * g + c["b1"] * m)
         v.copy_(c["one_minus_b2"] * (g * g) + c["b2"] * v)
@@ -69,14 +71,13 @@ def _table(device: torch.device, group: list[tuple[torch.Tensor, ...]]) -> tuple
 
 def adam_step(
     params: list[torch.Tensor], grads: list[torch.Tensor], exp_avgs: list[torch.Tensor],
-    exp_avg_sqs: list[torch.Tensor], step: int, lr: float, b1: float = 0.9, b2: float = 0.999,
-    eps: float = 1e-8,
+    exp_avg_sqs: list[torch.Tensor], step: int, lr: float,
 ) -> None:
     """One Adam step in place; ``step`` counts this one (1 on the first)."""
     if not params:
         return
     if params[0].device.type == "cpu":
-        return adam_step_plain(params, grads, exp_avgs, exp_avg_sqs, step, lr, b1, b2, eps)
+        return adam_step_plain(params, grads, exp_avgs, exp_avg_sqs, step, lr)
     groups: dict[torch.device, list] = {}
     for ts in zip(params, grads, exp_avgs, exp_avg_sqs):
         devs = {t.device for t in ts}
@@ -85,7 +86,7 @@ def adam_step(
         if any(t.dtype != torch.float32 or not t.is_contiguous() or t.shape != ts[0].shape for t in ts):
             raise ValueError("adam: parameters, gradients and moments must be contiguous f32 of one shape")
         groups.setdefault(ts[0].device, []).append(ts)
-    c = adam_constants(step, lr, b1, b2, eps)
+    c = adam_constants(step, lr)
     for device, group in groups.items():
         table, order = _table(device, group)
         launch(

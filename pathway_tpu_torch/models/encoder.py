@@ -313,6 +313,7 @@ class _EncoderStack(nn.Module):
             init_weights(self, seed)
         self._placement = None
         self._grid = None
+        self._shards_ahead = False
         if shards == 1:
             seq = cfg.seq_mesh
             if grid is None:
@@ -383,7 +384,31 @@ class _EncoderStack(nn.Module):
         self._placement = [list(row) for row in devices]
         self._grid = grid
 
+    def mark_shards_trained(self) -> None:
+        """Note that the model shards' weights have moved past this model's
+        host copy (a train step updated them): :meth:`state_dict` gathers
+        them back before it reads the copy, so a step itself copies
+        nothing to the host."""
+        self._shards_ahead = len(self.cells()[0]) > 1
+
+    def state_dict(self, *args, **kwargs):
+        if self._shards_ahead:
+            self._gather_shards()
+        return super().state_dict(*args, **kwargs)
+
+    @torch.no_grad()
+    def _gather_shards(self) -> None:
+        """Write the model shards' weights into the host copy: split
+        tensors concatenated, replicated ones from the first shard."""
+        self._shards_ahead = False
+        cells = self.cells()[0]
+        for name, spec in encoder_param_specs(self).items():
+            dims = [d for d, axis in enumerate(spec) if axis is not None]
+            parts = [cell.get_parameter(name).cpu() for cell in cells]
+            self.get_parameter(name).copy_(torch.cat(parts, dims[0]) if dims else parts[0])
+
     def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
+        self._shards_ahead = False
         result = super().load_state_dict(state_dict, strict, assign)
         if self._placement is not None:
             self.place(self._placement)

@@ -19,8 +19,10 @@
   along ``"model"``), the embeddings are gathered on the first device for
   the loss, the replicas' gradients are summed on the first replica, the
   Adam step runs there shard by shard (the ``"model"`` shards stay apart),
-  and the other replicas copy its parameters.  A mesh may repeat a device;
-  parts that share a replica add their gradients into it.
+  and the other replicas copy its parameters.  Cut into model shards, the
+  model's host copy is brought up to date from them only when its
+  ``state_dict`` is read: a step moves nothing to the host.  A mesh may
+  repeat a device; parts that share a replica add their gradients into it.
 - :func:`entry`: the BGE-base forward at ``[8, 128]``, as ``entry()``
   (``__graft_entry__.py:42-59``).
 - :func:`dryrun_multichip`: ``dryrun_multichip()``'s steps on the port's
@@ -47,12 +49,11 @@ import torch
 from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch.kernels.adam import adam_step
 from pathway_tpu_torch.kernels.contrastive_loss import in_batch_loss
-from pathway_tpu_torch.models.encoder import BGE_BASE, EncoderConfig, TextEncoderModel, encoder_param_specs
+from pathway_tpu_torch.models.encoder import BGE_BASE, EncoderConfig, TextEncoderModel
 from pathway_tpu_torch.parallel.mesh import Mesh, encoder_grids, make_mesh
 
 __all__ = [
-    "flagship_config", "contrastive_loss", "Adam", "trainable", "gathered_state_dict", "train_step", "entry",
-    "dryrun_multichip",
+    "flagship_config", "contrastive_loss", "Adam", "trainable", "train_step", "entry", "dryrun_multichip",
 ]
 
 
@@ -77,12 +78,11 @@ class Adam:
     device.  Parameters without a gradient at a step are left as they are.
     """
 
-    def __init__(self, params: Iterable, lr: float = 1e-4, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8):
+    def __init__(self, params: Iterable, lr: float = 1e-4):
         named = [p if isinstance(p, tuple) else (str(i), p) for i, p in enumerate(params)]
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
-        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+        self.lr = lr
         self.mu = [torch.zeros_like(p, memory_format=torch.contiguous_format) for p in self.params]
         self.nu = [torch.zeros_like(p, memory_format=torch.contiguous_format) for p in self.params]
         self.count = 0  # optax's int32 step count
@@ -92,8 +92,7 @@ class Adam:
         live = [i for i, p in enumerate(self.params) if p.grad is not None]
         self.count += 1
         adam_step([self.params[i] for i in live], [self.params[i].grad.contiguous() for i in live],
-                  [self.mu[i] for i in live], [self.nu[i] for i in live], self.count, self.lr,
-                  self.b1, self.b2, self.eps)
+                  [self.mu[i] for i in live], [self.nu[i] for i in live], self.count, self.lr)
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -155,24 +154,6 @@ def trainable(model: TextEncoderModel, mesh: Mesh | None = None) -> list[tuple[s
     return _shard_params(_replicas(model, mesh)[0])
 
 
-@torch.no_grad()
-def gathered_state_dict(model: TextEncoderModel) -> dict[str, torch.Tensor]:
-    """The full parameters of a model cut into model shards, put together
-    from the shards (split tensors concatenated, replicated ones from the
-    first shard), on the CPU; the model's own state when it is one cell."""
-    cells = model.cells()[0]
-    if len(cells) == 1:
-        return {k: v.detach().cpu() for k, v in cells[0].state_dict().items()}
-    specs = encoder_param_specs(model)
-    states = [cell.state_dict() for cell in cells]
-    out = {}
-    for name, spec in specs.items():
-        dims = [d for d, axis in enumerate(spec) if axis is not None]
-        parts = [s[name].detach().cpu() for s in states]
-        out[name] = torch.cat(parts, dims[0]) if dims else parts[0]
-    return out
-
-
 def train_step(
     model: TextEncoderModel, opt: Adam, ids: torch.Tensor, mask: torch.Tensor, mesh: Mesh | None = None
 ) -> torch.Tensor:
@@ -208,9 +189,7 @@ def train_step(
                 p.copy_(p0)
                 p.grad = None
         opt.zero_grad()
-        if len(model.cells()[0]) > 1:  # the host copy the shards were cut from
-            for name, t in gathered_state_dict(model).items():
-                model.get_parameter(name).copy_(t)
+    model.mark_shards_trained()  # state_dict gathers the shards when asked
     return loss.detach()
 
 

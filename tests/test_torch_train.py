@@ -251,14 +251,22 @@ def test_step_on_a_data_and_model_mesh_matches_one_device(reference):
         # the shards' partial products sum in another order; the logits'
         # x20 carries the embeddings' f32 differences into the loss
         assert abs(float(l1) - float(l2)) <= 1e-5 * abs(float(l1))
-    got = train.gathered_state_dict(meshed)
+    # the steps left the host copy the shards were cut from as it was;
+    # state_dict gathers the shards into it
+    stale = {name: p.detach().clone() for name, p in meshed.named_parameters()}
+    got = meshed.state_dict()
     for name, p in one.named_parameters():
         # the key biases' gradient is rounding noise (check_grads), which
         # Adam turns into steps of up to lr of either sign
         bound = 2 * 2 * LR if name.endswith("attention.key.bias") else 1e-6
         assert float((got[name] - p.detach()).abs().max()) <= bound, name
-        # the host copy the shards were cut from follows them
         assert float((meshed.get_parameter(name).detach() - got[name]).abs().max()) == 0.0, name
+    assert any(float((stale[n] - got[n]).abs().max()) > 0 for n in stale)
+    # a model loaded from it runs as the meshed one does
+    again = port_model(reference["params"])
+    again.load_state_dict(got)
+    with torch.no_grad():
+        assert float((again(ids, mask) - meshed(ids, mask)).abs().max()) <= 1e-6
 
 
 def test_data_replicas_on_distinct_devices_sum_their_gradients(reference):
