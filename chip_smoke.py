@@ -74,7 +74,10 @@ Phases, each fatal on failure:
    65,536, the documents with the first chunk, whose 73,728 buffered rows
    train the index; then 1,024 documents re-embedded and upserted, 256
    rows removed and re-added, and queries answered at nq=1 and nq=32.
-   Gates: K11 and K12 against their plain versions on the path's data;
+   Gates: K11 and K12 (both its forms, query-major and cell-major, at nq
+   in SCAN_NQ) against their plain versions on the path's data, each
+   form's time printed by nq beside the union-bytes bound and K3's brute
+   force over the same rows; K12 at nq=32 faster than that brute force;
    the search against its plain search (K3's and K12's plain versions
    over the same tensors) at nq in {1, 8, 32}; recall@10 >= 0.95 for 256
    mixture queries against exact f32 brute force; self-retrieval of the
@@ -132,7 +135,9 @@ Phases, each fatal on failure:
     2): K1 at L = 576, 1,024 and 8,192 and at head dims 128 and 80, K14 at
     head dim 128, and K2, K3, K11 and K12 over 262,144 rows of d = 1,536,
     3,072 and 770 (stored with their pitch rounded up), each against its
-    plain version;
+    plain version; K12's cell-major plan at the shapes it must take and
+    refuse, and K12 in both forms at nq=1,024 where every query probes one
+    cell and three probe entries lie out of range;
 12. the contrastive train step (B15, ``phase_train``, last) at BGE-base
     widths in f32: 64 rows (32 pairs), 128 tokens, ragged masks, 5 Adam
     steps; K15-K19 against their plain versions at the step's shapes, the
@@ -141,7 +146,8 @@ Phases, each fatal on failure:
     share and split, its share of the card's f32-accurate product peak
     (3xTF32, PEAK_F32_PRODUCT); K15 also at the dry run's D = 16, at
     D = 32, and at D = 80 and 128 over 512 keys, each case with a batch
-    row of no present key; then
+    row of no present key; K16 with act none one launch a call and, by
+    CUDA events, no slower than ``dy.sum(0)``; then
     ``train.dryrun_multichip(4)`` on a mesh that repeats the card.
 
 Phase 8 runs right after phase 4, while phase 3's index is alive, and
@@ -151,9 +157,11 @@ K4-K7 with their f32 forms); the last is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device the script exits 1 and prints no result.
 
 ``python3 chip_smoke.py --against-parent DIR`` runs instead, on one card,
-only K14, K3's row-streaming pass and K1 of this tree beside the same kernels
-built from the sources under ``DIR`` (another commit, unpacked), timed in
-turns (``phase_against_parent``).
+only K14, K3's row-streaming pass, K1, K12 and K16 of this tree beside the
+same kernels built from the sources under ``DIR`` (another commit,
+unpacked) and launched through its launch helper, timed in turns, each
+within PARENT_RATIO of the parent (K12 at nq=1 and K16 act none by device
+time, ``phase_against_parent``).
 
 ``python3 chip_smoke.py --distinct-cards`` runs instead, on four cards,
 only what a mesh that repeats one card cannot show: ring attention and
@@ -240,6 +248,7 @@ IVF_QUERIES = 256  # mixture queries (seed 1): recall and latency
 IVF_CHECKED = 64  # of them, held against the plain search
 IVF_SELF = 256  # documents queried for self-retrieval
 IVF_RECALL = 0.95  # the JAX package's recall@10 contract (tests/test_ivf.py)
+SCAN_NQ = (1, 4, 8, 16, 32, 64)  # K12's forms are timed at these query counts
 # K11 decides a row where its top-2 scores differ by more than this (f32
 # dots of unit rows over 768 dims summed in another order)
 ASSIGN_ATOL = 1e-5
@@ -287,6 +296,13 @@ TP_SEEDS = (SEED, SEED + 1, SEED + 2)
 # once (the embeddings and head once per shard), no full copy beside them
 TP_WEIGHTS_RATIO = 1.5
 SHARD_ATOL = 3e-6  # sharded against unsharded scores over the same rows
+# --against-parent: this tree's time (CUDA events; DEVICE_GATED, device
+# time) at most this many times the parent's, in the same call
+PARENT_RATIO = 1.05
+# ... by the profiler's device time: the short calls whose CUDA-event means
+# read host stalls (K12 at nq=1, ~0.2 ms; K16 act none, ~0.02 ms): on an
+# H100 two builds of K12 at equal device time read 9-28% apart by events
+DEVICE_GATED = ("K12 nq=1 ", "K16 none ")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, bf16, TF32 and f32
 # (FMA units) FLOP/s
@@ -852,6 +868,8 @@ def phase_fused(torch, dev) -> dict:
     """Phase 2, continued: K4-K7 against their plain versions at the shapes
     of the embed path (M = DOC_BATCH x 256 rows) and the rerank path
     (M = RERANK_BATCH x 512 rows, the pooler at M = RERANK_BATCH)."""
+    import torch.nn.functional as F
+
     from pathway_tpu_torch.kernels import (
         add_layer_norm,
         add_layer_norm_plain,
@@ -1017,12 +1035,15 @@ def phase_fused(torch, dev) -> dict:
             "ms": time_ms(torch, lambda: pool_normalize(x, mask, pool, True), 50),
             "plain_ms": time_ms(torch, lambda: pool_normalize_plain(x, mask, pool, True), 20),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None,  # no single torch call pools and normalises
+            # CLS: F.normalize of the first token in f32 is the same function
+            # (eps 1e-12); no single torch call takes a masked mean
+            "library_ms": time_ms(torch, lambda: F.normalize(x[:, 0].float(), dim=-1), 50) if pool == "cls" else None,
         }
         if pool == "cls":
             row["device_ms"] = {
                 "kernel": device_ms(torch, lambda: pool_normalize(x, mask, pool, True)),
                 "plain": device_ms(torch, lambda: pool_normalize_plain(x, mask, pool, True)),
+                "library": device_ms(torch, lambda: F.normalize(x[:, 0].float(), dim=-1)),
             }
         k7[pool] = row
         log(f"K7 pool_normalize: {json.dumps(row)}")
@@ -2269,6 +2290,8 @@ def phase_ivf(torch, dev) -> dict:
     from pathway_tpu_torch.kernels import (
         ivf_assign, ivf_assign_plain, ivf_scan, ivf_scan_plain, knn_topk, slab_scatter, slab_scatter_plain,
     )
+    from pathway_tpu_torch.kernels.ivf_scan import _launch as scan_launch
+    from pathway_tpu_torch.kernels.ivf_scan import scan_form
     from pathway_tpu_torch.ops.topk import NEG_INF
     from pathway_tpu_torch.parallel import ivf_knn
 
@@ -2491,22 +2514,39 @@ def phase_ivf(torch, dev) -> dict:
     log(f"K2 slab_scatter on the flat cell view: {json.dumps(scatter_row)}")
     del x, flat, flat_long
 
-    # (e) K12 against its plain version on the index's cells, and its times
-    # at nq=1 and nq=32 beside K3's brute force over the same rows (f32)
+    # (e) K12 against its plain version on the index's cells, in both forms
+    # (query-major and cell-major, each with K3's merge) at nq in SCAN_NQ,
+    # timed beside the union-bytes bound and K3's brute force over the same
+    # rows (f32); the public wrapper's row at nq=1 and nq=32
     ones_c = torch.ones((index.nlist,), device=dev)
-    scan_err, scan_rows = 0.0, {}
-    for nq in (1, 32):
+    scan_err, scan_rows, forms = 0.0, {}, {}
+    for nq in SCAN_NQ:
         q = qn[:nq].contiguous()
         probe = knn_topk(q, cents, ones_c, index.nprobe, "dot")[1]
-        kv, ki = ivf_scan(q, probe, index._cells, index._valid, K)
+        qr = q.to(index.dtype).float().contiguous()
         pv_, pi_ = ivf_scan_plain(q, probe, index._cells, index._valid, K, query_block=1)
-        scan_err = max(scan_err, compare_topk(kv, ki, pv_, pi_, TOPK_ATOL))
+        errs = {}
+        for form in ("query", "cell"):
+            kv, ki = scan_launch(qr, probe, index._cells, index._valid, K, form == "cell", dev)
+            errs[form] = compare_topk(kv, ki, pv_, pi_, TOPK_ATOL)
+        scan_err = max(scan_err, *errs.values())
         cells_used = torch.unique(probe.long())
         live_union = int(index._valid[cells_used].sum())
         live_per_q = int(index._valid[probe.long()].sum())
         nb = (live_union * dim * 2 + cells_used.numel() * index.cell_cap * 4 + q.numel() * 4
               + probe.numel() * 4 + nq * K * 8)
         b_ms, b_by = bound(nb, 2 * live_per_q * dim, PEAK_F32_PRODUCT)
+        forms[nq] = {
+            "form": scan_form(nq), "max_abs_err": errs,
+            "query_ms": time_ms(torch, lambda: scan_launch(qr, probe, index._cells, index._valid, K, False, dev), 10),
+            "cell_ms": time_ms(torch, lambda: scan_launch(qr, probe, index._cells, index._valid, K, True, dev), 10),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "brute_force_ms": time_ms(torch, lambda: knn_topk(q, slab, ones, K, "dot"), 5),
+            "live_rows": {"union": live_union, "over_queries": live_per_q},
+        }
+        log(f"K12 both forms at nq={nq}: {json.dumps(forms[nq])}")
+        if nq not in (1, 32):
+            continue
         sub_q = q[0].to(index.dtype)
         p0 = probe[0].long()
 
@@ -2514,17 +2554,25 @@ def phase_ivf(torch, dev) -> dict:
             s = torch.einsum("pcd,d->pc", index._cells[p0], sub_q)
             return torch.topk(torch.where(index._valid[p0].bool(), s.float(), NEG_INF).view(-1), K)
 
+        before = ivf_scan.launches
+        ivf_scan(q, probe, index._cells, index._valid, K)
         scan_rows[nq] = {
             "shape": f"nq={nq} k={K}, {index.nprobe} of {index.nlist} cells of {index.cell_cap} bf16 slots, "
-                     f"{live_union} live rows in the probed cells ({live_per_q} over the queries)",
+                     f"{live_union} live rows in the probed cells ({live_per_q} over the queries), "
+                     f"{scan_form(nq)}-major",
+            "launches_per_call": ivf_scan.launches - before,
             "ms": time_ms(torch, lambda: ivf_scan(q, probe, index._cells, index._valid, K), 10),
             "plain_ms": time_ms(torch, lambda: ivf_scan_plain(q, probe, index._cells, index._valid, K, 1), 3),
             "library_ms": time_ms(torch, library, 10) if nq == 1 else None,
             "bound_ms": b_ms, "bound_by": b_by,
             "probe_ms": time_ms(torch, lambda: knn_topk(q, cents, ones_c, index.nprobe, "dot"), 10),
-            "brute_force_ms": time_ms(torch, lambda: knn_topk(q, slab, ones, K, "dot"), 5),
+            "brute_force_ms": forms[nq]["brute_force_ms"],
         }
         log(f"K12 ivf_scan: {json.dumps(scan_rows[nq])}")
+    if not scan_rows[32]["ms"] < scan_rows[32]["brute_force_ms"]:
+        fail(f"K12 at nq=32 ({scan_form(32)}-major) takes {scan_rows[32]['ms']:.4f} ms, not below exact K3 over "
+             f"the same rows ({scan_rows[32]['brute_force_ms']:.4f} ms)")
+    res["ivf_scan_forms"] = forms
     scan_row = {**scan_rows[1], "max_abs_err": max(scan_err, search_err), "_nq32": scan_rows[32]}
     del slab, ones
     lap("kernels_s")
@@ -3463,76 +3511,93 @@ def phase_distinct_data(torch, cards: list, sync_all) -> dict:
 
 def phase_against_parent(torch, dev, parent: str) -> dict:
     """``--against-parent DIR``: K14 (bf16 and f32), K3's row-streaming pass
-    (nq 1 and 4, k=10) and K1 (bf16 and f32 at B=256 L=256 D=64, the
-    serving shape) of this tree against the
-    same kernels built from the sources under ``DIR`` (an unpacked ``git
-    archive`` of another commit), on one card, timed in turns (parent,
+    (nq 1 and 4, k=10), K1 (bf16 and f32 at B=256 L=256 D=64, the serving
+    shape), K12 (nq 1 and 32 over a 1M-row IVF at phase 6's shape) and K16
+    (act none at [8,192, 768], GELU at [8,192, 3,072]) of this tree against
+    the same kernels built from the sources under ``DIR`` (an unpacked
+    ``git archive`` of another commit), on one card, timed in turns (parent,
     this tree, this tree, parent) by CUDA events and by the profiler's
     device time, beside the one PyTorch call that computes the same
-    function.  Both builds must pass phase 2's gates on the same inputs:
-    K14 a middle step at B=8, 2,048 keys, 12 heads of 64 (state against the
-    plain version's), K3 over 1,048,576 x 768 unit f32 rows with 10%
-    invalid (TOPK_ATOL against the plain version), K1 at B=256 L=256 H=12
-    D=64 with 64-256 present keys."""
+    function.  The parent's side is the parent's own wrapper modules (their
+    checks, allocations and launch helper, ``kernels/_launch.py``), this
+    tree's its wrappers; a kernel whose sources are unchanged is one binary,
+    launched both ways.  Both
+    builds must pass phase 2's gates on the same inputs: K14 a middle step
+    at B=8, 2,048 keys, 12 heads of 64 (state against the plain version's),
+    K3 over 1,048,576 x 768 unit f32 rows with 10% invalid (TOPK_ATOL
+    against the plain version), K1 at B=256 L=256 H=12 D=64 with 64-256
+    present keys, K12 TOPK_ATOL against its plain version, K16 BWD_RTOL.
+    Gates: this tree within PARENT_RATIO of the parent by CUDA events for
+    K1, K3, K14 and K16 GELU; K12 at nq=1 within PARENT_RATIO of the
+    parent's device time; K12 at nq=32 by CUDA events and K16 act none by
+    device time no slower than the parent.  Each side's ``ms_spread`` is
+    the gap between its two event turns over their mean."""
     import importlib.util
+    import types
 
     import torch.nn.functional as F
 
     from pathway_tpu_torch.kernels import (
         attention,
         attention_plain,
+        bias_act_bwd,
+        bias_act_bwd_plain,
+        ivf_scan,
+        ivf_scan_plain,
         knn_topk,
         knn_topk_plain,
         ring_block,
         ring_block_plain,
         ring_state,
     )
-    from pathway_tpu_torch.kernels._launch import launch
-    from pathway_tpu_torch.kernels.knn_topk import merge_partials
+    from pathway_tpu_torch.kernels import _build
 
-    spec = importlib.util.spec_from_file_location(
-        "parent_build", os.path.join(parent, "pathway_tpu_torch", "kernels", "_build.py"))
-    pb = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(pb)
+    def parent_module(name):
+        spec = importlib.util.spec_from_file_location(
+            f"parent_{name}", os.path.join(parent, "pathway_tpu_torch", "kernels", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    pb = parent_module("_build")
+    # a kernel whose source and headers are unchanged since the parent is
+    # the same binary (the same build name): the parent's side launches
+    # this tree's build of it (a second copy of one library fails to
+    # launch), through the parent's launch path
+    names = ("ring_block", "knn_topk", "attention", "ivf_scan", "bias_act_bwd")
+    same = [n for n in names if pb._target(n).name == _build._target(n).name]
     t0 = time.perf_counter()
-    pb.build_all(("ring_block", "knn_topk", "attention"))
-    log(f"parent kernels built from {parent}: {time.perf_counter() - t0:.1f} s")
-    p_ring = pb.library("ring_block").pw_ring_block
-    p_knn = pb.library("knn_topk")
-    p_attn = pb.library("attention").pw_attention
+    pb.build_all(tuple(n for n in names if n not in same))
+    log(f"parent kernels built from {parent}: {time.perf_counter() - t0:.1f} s; unchanged, built once: {same}")
+    builds = types.SimpleNamespace(library=lambda name: (_build if name in same else pb).library(name))
+    parent_launch = parent_module("_launch").launch
 
-    def parent_ring(q, k, v, mask, o, m, l, any_key):  # the parent's step, its tile skip included
-        B, L, H, D = q.shape
-        launch("parent ring_block", p_ring, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-               any_key.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(), None, B, L, H, D,
-               1.0 / math.sqrt(D), int(q.dtype == torch.float32), 0)
+    def parent_wrappers(module):
+        """The parent's wrapper module: its host path and checks, its
+        launch helper, its kernels."""
+        mod = parent_module(module)
+        mod._build, mod.launch = builds, parent_launch
+        return mod
 
-    def parent_knn(q, slab, valid, k):
-        """The parent's row-streaming pass 1 (fewer than
-        TILED_MIN_QUERIES queries: the pass C7 cut into slices of 1,024
-        dims), then this tree's merge passes."""
-        cap, d = slab.shape
-        nq = q.shape[0]
-        vals = torch.empty((nq, -(-cap // 256) * k), device=dev)
-        idx = torch.empty(vals.shape, dtype=torch.int32, device=dev)
-        launch("parent knn_topk", p_knn.pw_knn_partial, dev, q.data_ptr(), slab.data_ptr(), valid.data_ptr(),
-               vals.data_ptr(), idx.data_ptr(), nq, d, cap, 0, min(nq, 32), k, 0, 0)
-        return merge_partials(vals, idx, k)
-
-    def parent_attention(q, k, v, mask):
-        B, L, H, D = q.shape
-        out = torch.empty_like(q)
-        launch("parent attention", p_attn, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-               out.data_ptr(), B, L, H, D, 1.0 / math.sqrt(D), int(q.dtype == torch.float32))
-        return out
+    p_knn_mod = parent_wrappers("knn_topk")
+    p_scan_mod = parent_wrappers("ivf_scan")
+    p_scan_mod.merge_partials = p_knn_mod.merge_partials
+    parent_ring = parent_wrappers("ring_block").ring_block
+    parent_knn = p_knn_mod.knn_topk
+    parent_attention = parent_wrappers("attention").attention
+    parent_scan = p_scan_mod.ivf_scan
+    parent_bias_bwd = parent_wrappers("bias_act").bias_act_bwd
 
     def turns(parent_fn, fn, iters: int) -> dict:
-        """Events and device ms of both in turns: parent, tree, tree, parent."""
+        """Events and device ms of both in turns: parent, tree, tree, parent;
+        ``iters`` calls a turn, enough for about 5 ms or more of device
+        time, so that one stall of the host moves a mean by little."""
         t = {"parent": [], "tree": []}
         for who in ("parent", "tree", "tree", "parent"):
             f = parent_fn if who == "parent" else fn
             t[who].append({"ms": time_ms(torch, f, iters), "device_ms": device_ms(torch, f, iters)})
         return {who: {"ms": sum(r["ms"] for r in rs) / 2, "device_ms": sum(r["device_ms"] for r in rs) / 2,
+                      "ms_spread": abs(rs[0]["ms"] - rs[1]["ms"]) * 2 / (rs[0]["ms"] + rs[1]["ms"]),
                       "turns": rs} for who, rs in t.items()}
 
     def library(fn, iters: int) -> dict:
@@ -3575,7 +3640,7 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
         res[name] = {
             "state_err": err,
             **turns(lambda: parent_ring(q, k1, v1, m1, *sp, any_key=any_key),
-                    lambda: ring_block(q, k1, v1, m1, *st, any_key=any_key), 10),
+                    lambda: ring_block(q, k1, v1, m1, *st, any_key=any_key), 20),
             "library": library(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bmask), 10),
         }
         log(f"{name}: {json.dumps(res[name])}")
@@ -3594,7 +3659,7 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
         pv, pi = knn_topk_plain(q, rows, flags, k, "dot")
 
         def parent_fn(q=q, k=k, rows=rows, flags=flags):
-            return parent_knn(q, rows, flags, k)
+            return parent_knn(q, rows, flags, k, "dot")
 
         def tree_fn(q=q, k=k, rows=rows, flags=flags):
             return knn_topk(q, rows, flags, k, "dot")
@@ -3632,10 +3697,75 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
         name = f"K1 {tag} B={B} L={L} H={H} D={D}"
         res[name] = {
             "max_abs_err": err,
-            **turns(lambda: parent_attention(q, k, v, mask), lambda: attention(q, k, v, mask), 10),
+            **turns(lambda: parent_attention(q, k, v, mask), lambda: attention(q, k, v, mask), 30),
             "library": library(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask), 10),
         }
         log(f"{name}: {json.dumps(res[name])}")
+    torch.cuda.empty_cache()
+
+    # ---- K12: a 1M-row IVF at phase 6's shape (1,024 bf16 cells of 16,384
+    # slots, 500-1,500 live rows each and one crowded cell of 9,000 that
+    # every other query probes), queries at nq 1 and 32
+    nlist, cap = IVF_NLIST, 4 * IVF_CELL_CAP
+    cells = torch.zeros((nlist, cap, HIDDEN), dtype=bf16, device=dev)
+    cvalid = torch.zeros((nlist, cap), device=dev)
+    fill = torch.randint(500, 1500, (nlist,), generator=torch.Generator().manual_seed(SEED)).tolist()
+    fill[7] = 9000
+    for c, n in enumerate(fill):
+        x = torch.randn((n, HIDDEN), generator=g, device=dev)
+        cells[c, :n] = (x / x.norm(dim=1, keepdim=True)).to(bf16)
+        cvalid[c, :n] = 1.0
+    cents = torch.randn((nlist, HIDDEN), generator=g, device=dev)
+    cents /= cents.norm(dim=1, keepdim=True)
+    for nq in (1, 32):
+        q = qs[:nq].contiguous()
+        probe = knn_topk(q, cents, torch.ones((nlist,), device=dev), IVF_NPROBE, "dot")[1]
+        probe[::2, 5] = 7
+        pv, pi = ivf_scan_plain(q, probe, cells, cvalid, K, query_block=1)
+        err = {}
+        for who, fn in (("parent", parent_scan), ("tree", ivf_scan)):
+            kv, ki = fn(q, probe, cells, cvalid, K)
+            err[who] = compare_topk(kv, ki, pv, pi, TOPK_ATOL)
+        name = f"K12 nq={nq} k={K}"
+        res[name] = {"max_abs_err": err, **turns(lambda: parent_scan(q, probe, cells, cvalid, K),
+                                                  lambda: ivf_scan(q, probe, cells, cvalid, K), 40 if nq == 1 else 10)}
+        log(f"{name}: {json.dumps(res[name])}")
+    del cells, cvalid, qs
+    torch.cuda.empty_cache()
+
+    # ---- K16: act none (db only) and the mlp_up GELU, at the train step's shapes
+    M = TRAIN_B * TRAIN_L
+    for n, act in ((HIDDEN, "none"), (4 * HIDDEN, "gelu_tanh")):
+        y, dy = (torch.randn((M, n), generator=g, device=dev) for _ in range(2))
+        bias = torch.randn((n,), generator=g, device=dev)
+        want = bias_act_bwd_plain(dy, y, bias, act)
+        err = {}
+        for who, fn in (("parent", parent_bias_bwd), ("tree", bias_act_bwd)):
+            got = fn(dy, y, bias, act)
+            torch.cuda.synchronize()
+            err[who] = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(got, want))
+            if not err[who] <= BWD_RTOL:
+                fail(f"{who} bias_act_bwd {act}: {err[who]} of max|ref| > {BWD_RTOL}")
+        name = f"K16 {act} [{M}, {n}]"
+        iters = 200 if act == "none" else 50
+        res[name] = {"max_rel_err": err, **turns(lambda: parent_bias_bwd(dy, y, bias, act),
+                                                  lambda: bias_act_bwd(dy, y, bias, act), iters)}
+        if act == "none":
+            res[name]["library"] = library(lambda: dy.sum(0), iters)
+        log(f"{name}: {json.dumps(res[name])}")
+        del y, dy, bias, want
+
+    # ---- gates: unchanged kernels keep their time through the new launch
+    # path; the redesigned ones lose none
+    slow = []
+    for name, row in res.items():
+        by = "device_ms" if name.startswith(DEVICE_GATED) else "ms"
+        parent_ms, tree_ms = row["parent"][by], row["tree"][by]
+        limit = 1.0 if name.startswith(("K12 nq=32 ", "K16 none ")) else PARENT_RATIO
+        if not tree_ms <= limit * parent_ms:
+            slow.append(f"{name}: {tree_ms:.4f} ms ({by}) against the parent's {parent_ms:.4f}")
+    if slow:
+        fail("slower than the parent: " + "; ".join(slow))
     return res
 
 
@@ -3777,6 +3907,92 @@ def phase_shape_repairs(torch, dev) -> dict:
                 f"K2 {json.dumps(errs)}")
             del rows, slab, valid, cells, raw
             torch.cuda.empty_cache()
+    res["ivf_scan_plan"] = check_scan_plan()
+    res["ivf_scan_crowded"] = check_crowded_scan(torch, dev, g)
+    return res
+
+
+# K12's cell-major plan at the shapes it must take and refuse: (d, bf16,
+# k, cap) and the pairs a group (0: the query-major form runs)
+SCAN_PLANS = (
+    ((768, 1, 10, 16384), 16),  # phase 6: bf16 rows of 768, k=10
+    ((768, 0, 128, 4096), 16),  # f32 rows, k = MAX_K
+    ((3072, 0, 10, 4096), 8),  # f32 rows of 3,072: 16 queries do not fit
+    ((776, 1, 10, 4096), 16),  # a pitch of 776 (d = 770)
+    ((768, 1, 129, 4096), 0),  # past MAX_K: the score-only scan
+    ((768, 1, 10, 4098), 0),  # flags not 16 bytes apart
+    ((768, 1, 10, 1 << 17), 0),  # more than four rounds of flags
+    ((16384, 0, 10, 4096), 0),  # a row past the shared memory
+)
+
+
+def check_scan_plan() -> dict:
+    """``pw_ivf_scan_cells_plan`` at SCAN_PLANS, with 1,024 cells and
+    32 x 128 probe entries (phase 6's): the groups, and the scratch it asks
+    for (four shares' lists of k a pair; tickets a cell and a pad group)."""
+    import ctypes
+
+    from pathway_tpu_torch.kernels import _build
+
+    lib = _build.library("ivf_scan")
+    got = {}
+    for (d, bf16, k, cap), want in SCAN_PLANS:
+        scratch = (ctypes.c_longlong * 2)()
+        groups = lib.pw_ivf_scan_cells_plan(d, bf16, k, IVF_NLIST, cap, 32 * IVF_NPROBE, scratch)
+        tag = f"d={d} {'bf16' if bf16 else 'f32'} k={k} cap={cap}"
+        got[tag] = {"groups": groups, "scratch": list(scratch) if groups else None}
+        if groups != want or (groups and list(scratch) != [32 * IVF_NPROBE * 4 * k, (IVF_NLIST + 1) * 17]):
+            fail(f"K12 cell-major plan at {tag}: {got[tag]}, expected {want} pairs a group")
+    log(f"K12 cell-major plans: {json.dumps(got)}")
+    return got
+
+
+def check_crowded_scan(torch, dev, g) -> dict:
+    """K12 at nq=1,024 over 64 cells of 4,096 slots (90% valid, d=768), bf16
+    and f32, where every query probes cell 5 (1,024 pairs: past the 512 a
+    cell-major block buffers between flushes) and three probe entries lie
+    outside [0, 64): both forms and the wrapper against ``ivf_scan_plain``
+    (TOPK_ATOL).  The plain version, which cannot take such an entry, sees
+    it as a 65th cell with no valid slot: it adds nothing to a row's best k,
+    as the kernels' pads add nothing."""
+    from pathway_tpu_torch.kernels import ivf_scan, ivf_scan_plain
+    from pathway_tpu_torch.kernels.ivf_scan import _launch as scan_launch
+
+    nlist, cap, d, nq, nprobe = 64, 4096, HIDDEN, 1024, 8
+    rows = torch.randn((nlist + 1, cap, d), generator=g, device=dev)
+    rows /= rows.norm(dim=2, keepdim=True)
+    valid = (torch.rand((nlist + 1, cap), generator=g, device=dev) >= 0.1).float()
+    valid[nlist] = 0.0
+    q = torch.randn((nq, d), generator=g, device=dev)
+    q /= q.norm(dim=1, keepdim=True)
+    # cell 5 first in every row, then 7 distinct others
+    others = torch.tensor([c for c in range(nlist) if c != 5], device=dev)
+    rest = others[torch.rand((nq, nlist - 1), generator=g, device=dev).argsort(1)[:, : nprobe - 1]]
+    probe = torch.cat([torch.full((nq, 1), 5, device=dev), rest], 1).to(torch.int32)
+    bad = [(7, 2, -1), (9, 4, nlist), (600, 7, 1 << 20)]
+    ref_probe = probe.clone()
+    for r, c, cell in bad:
+        probe[r, c], ref_probe[r, c] = cell, nlist
+    if not bool((probe == 5).sum(1).eq(1).all()):
+        fail("K12 crowded case: cell 5 not probed once by every query")
+    res = {}
+    for dt in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
+        cells = rows.to(dt)
+        qr = q.to(dt).float().contiguous()
+        pv, pi = ivf_scan_plain(q, ref_probe, cells, valid, K)
+        errs = {}
+        for form, fn in (("query", lambda: scan_launch(qr, probe, cells[:nlist], valid[:nlist], K, False, dev)),
+                         ("cell", lambda: scan_launch(qr, probe, cells[:nlist], valid[:nlist], K, True, dev)),
+                         ("wrapper", lambda: ivf_scan(q, probe, cells[:nlist], valid[:nlist], K))):
+            kv, ki = fn()
+            errs[form] = compare_topk(kv, ki, pv, pi, TOPK_ATOL)
+        res[tag] = errs
+        log(f"K12 nq={nq}, cell 5 probed by every query, {len(bad)} entries out of range, {tag}: "
+            f"{json.dumps(errs)}")
+        del cells
+    del rows, valid
+    torch.cuda.empty_cache()
     return res
 
 
@@ -3946,26 +4162,52 @@ def phase_train(torch, dev) -> dict:
     # ---- K16: the mlp_up GELU and a plain bias
     # (the mlp_up GELU is the entry; the plain bias of the other five dense
     # layers rides beside it: dx is dy there, only db is computed, which
-    # one torch call, dy.sum(0), computes too)
+    # one torch call, dy.sum(0), computes too).  Gates beside the plain
+    # version's: act none is one launch a call and, by CUDA events, no
+    # slower than dy.sum(0) in this run
     for n, act in ((H, "none"), (F_, "gelu_tanh")):
         y, dy = (torch.randn((M, n), generator=g, device=dev) for _ in range(2))
         bias = torch.randn((n,), generator=g, device=dev)
+        before = kernels.bias_act_bwd.launches
         got = kernels.bias_act_bwd(dy, y, bias, act)
+        per_call = kernels.bias_act_bwd.launches - before
         err = gate(f"K16 bias_act_bwd {act}", got, bias_act_bwd_plain(dy, y, bias, act))
         nbytes = (3 if act != "none" else 1) * M * n * 4 + 2 * n * 4
         none = res["kernels"].pop("bias_act_bwd", None)
-        entry("bias_act_bwd", err, time_ms(torch, lambda: kernels.bias_act_bwd(dy, y, bias, act), 50),
+        kern = lambda: kernels.bias_act_bwd(dy, y, bias, act)  # noqa: E731
+        lib = lambda: dy.sum(0)  # noqa: E731
+        # act none against dy.sum(0) in turns (kernel, library, library,
+        # kernel; 50 calls each): both are host-bound, and the host's speed
+        # drifts over a run
+        turns = None
+        if act == "none":
+            turns = {"kernel": [], "library": []}
+            for who in ("kernel", "library", "library", "kernel"):
+                turns[who].append(time_ms(torch, kern if who == "kernel" else lib, 50))
+        entry("bias_act_bwd", err,
+              sum(turns["kernel"]) / 2 if turns else time_ms(torch, kern, 50),
               time_ms(torch, lambda: bias_act_bwd_plain(dy, y, bias, act), 50), nbytes, 20 * M * n, PEAK_F32,
-              time_ms(torch, lambda: dy.sum(0), 50) if act == "none" else None, [M, n])
-        # the profiler's device time beside it: at act none a call is two
-        # short launches, and CUDA events read the host's launch rate too
-        res["kernels"]["bias_act_bwd"]["device_ms"] = {
-            "kernel": device_ms(torch, lambda: kernels.bias_act_bwd(dy, y, bias, act)),
+              sum(turns["library"]) / 2 if turns else None, [M, n])
+        row = res["kernels"]["bias_act_bwd"]
+        if turns:
+            row["turns_ms"] = turns
+        row["launches_per_call"] = per_call
+        # the profiler's device time beside it: a call at act none is one
+        # short launch, and CUDA events read the host's launch rate too
+        row["device_ms"] = {
+            "kernel": device_ms(torch, kern),
             "plain": device_ms(torch, lambda: bias_act_bwd_plain(dy, y, bias, act)),
-            **({"library": device_ms(torch, lambda: dy.sum(0))} if act == "none" else {}),
+            **({"library": device_ms(torch, lib)} if act == "none" else {}),
         }
+        log(f"K16 {act}: {per_call} launches a call, device ms {json.dumps(row['device_ms'])}")
+        if act == "none":
+            if per_call != 1:
+                fail(f"K16 act none made {per_call} launches a call, not 1")
+            if not row["ms"] <= row["library_ms"]:
+                fail(f"K16 act none takes {row['ms']:.4f} ms by CUDA events, slower than dy.sum(0) "
+                     f"({row['library_ms']:.4f} ms)")
         if none is not None:
-            res["kernels"]["bias_act_bwd"]["act_none"] = none
+            row["act_none"] = none
         del y, dy, bias, got
     # ---- K17: the residual LayerNorm and the embeddings' with their tables
     x, r, dy = (torch.randn((M, H), generator=g, device=dev) for _ in range(3))
@@ -4133,6 +4375,23 @@ def step_split(prof: dict) -> dict:
     return kinds
 
 
+def check_stream_handles(torch) -> None:
+    """The launch helper's stream handle (read without a ``torch.cuda.Stream``)
+    is PyTorch's current stream on the card, on the default stream and
+    inside a side stream."""
+    from pathway_tpu_torch.kernels._launch import stream_of
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    side = torch.cuda.Stream()
+    got = [stream_of(dev)]
+    with torch.cuda.stream(side):
+        got.append(stream_of(dev))
+    want = [torch.cuda.current_stream(dev).cuda_stream, side.cuda_stream]
+    if got != want:
+        fail(f"launch helper's stream handles {got} are not PyTorch's {want}")
+    log(f"stream handles: {got} equal PyTorch's current streams")
+
+
 def main() -> int:
     import torch
 
@@ -4154,6 +4413,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    check_stream_handles(torch)
     for name in _build.NAMES:
         for line in _build.ptxas_report(name).splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line or "smem" in line:

@@ -2,7 +2,10 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes``
-(no PyTorch headers, so a build takes seconds, not minutes).  Libraries
+(no PyTorch headers, so a build takes seconds, not minutes).  A library
+is loaded as a ``ctypes.PyDLL``: its functions only check arguments and
+enqueue work on a stream, so a call keeps the GIL instead of releasing
+and taking it back around every launch.  Libraries
 go into ``kernels/_build/`` (git-ignored), named by a hash of their
 source and of the shared headers (``csrc/*.cuh``), so an edited source
 is rebuilt and an unchanged one is reused.
@@ -95,7 +98,7 @@ def build_all(names=NAMES) -> None:
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
         for name in todo:
-            _libs[name] = _declare(name, ctypes.CDLL(str(_target(name))))
+            _libs[name] = _declare(name, ctypes.PyDLL(str(_target(name))))
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -139,7 +142,11 @@ _SIGNATURES = {
     "vision_head": {"pw_vision_head": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]},
     "dual_logits": {"pw_dual_logits": [_P, _P, _P, _P, _P, _I, _I, _I, _P]},
     "ivf_assign": {"pw_ivf_assign": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
-    "ivf_scan": {"pw_ivf_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
+    "ivf_scan": {
+        "pw_ivf_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        "pw_ivf_scan_cells_plan": [_I, _I, _I, _I, _I, _LL, ctypes.POINTER(_LL)],
+        "pw_ivf_scan_cells": [_P] * 9 + [_I] * 7 + [_P],
+    },
     "topk_select": {
         "pw_topk_select": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _P],
         "pw_topk_select_launches": [],
@@ -148,7 +155,7 @@ _SIGNATURES = {
         "pw_ring_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     },
     "attention_bwd": {"pw_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, _F, _P]},
-    "bias_act_bwd": {"pw_bias_act_bwd": [_P] * 6 + [_I, _I, _I, _I, _P]},
+    "bias_act_bwd": {"pw_bias_act_bwd": [_P] * 6 + [_I, _I, _I, _I, _P], "pw_bias_sum": [_P, _P, _I, _I, _P]},
     "layer_norm_bwd": {
         "pw_layer_norm_bwd": [_P] * 8 + [_I, _I, _F, _I, _P],
         "pw_embed_ln_bwd": [_P, _I, _P, _I, _P, _I, _P, _P, _I, _I] + [_P] * 8 + [_I, _I, _F, _I, _P],

@@ -21,22 +21,30 @@ def check_cuda(name: str, **tensors: torch.Tensor) -> torch.device:
     return device
 
 
+#: PyTorch's getters of the current device and of a device's current
+#: stream handle (the value of ``torch.cuda.current_stream(device).cuda_stream``),
+#: read without building a ``torch.cuda.Stream``; None where the installed
+#: PyTorch has no CUDA, and then no kernel launches (``check_cuda`` raises)
+_current_device = getattr(torch._C, "_cuda_getDevice", None)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_of(device: torch.device) -> int:
     """Handle of PyTorch's current stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def raise_on_error(name: str, err: int) -> None:
-    """Raise when a launch function returned a CUDA error code."""
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+    return _raw_stream(device.index)
 
 
 def launch(name: str, fn, device: torch.device, *args) -> None:
     """Call the C launch function ``fn(*args, stream)`` on ``device``'s
-    current stream and raise on a CUDA error.  ``device`` is made the
-    thread's current device for the call: each library carries its own
-    CUDA runtime, which launches on the current device."""
-    with torch.cuda.device(device):
-        err = fn(*args, stream_of(device))
-    raise_on_error(name, err)
+    current stream and raise on a CUDA error.  Each library carries its own
+    CUDA runtime, which launches on the thread's current device: ``device``
+    (a CUDA device with its index, as a tensor's) is made current for the
+    call where it is not already."""
+    index = device.index
+    if index == _current_device():
+        err = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, _raw_stream(index))
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")

@@ -28,7 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from pathway_tpu_torch.kernels import _build
+from pathway_tpu_torch.kernels import _build, _launch
 from pathway_tpu_torch.kernels._launch import check_cuda, launch
 
 __all__ = [
@@ -161,39 +161,75 @@ def bias_act_bwd_plain(
     return dx, dx.reshape(-1, dx.shape[-1]).sum(0)
 
 
+#: act none's ``db`` comes from blocks of this many rows (see :func:`_db_row`)
+_DB_ROWS = 64
+#: (card, stream handle, N) -> the rows of its newest block not yet handed out
+_db_rows: dict[tuple[int, int, int], list[torch.Tensor]] = {}
+
+
+def _db_row(device: torch.device, n: int) -> torch.Tensor:
+    """A new ``[n]`` f32 tensor for act none's ``db``: one row of a
+    ``[_DB_ROWS, n]`` block allocated on the current stream, the next block
+    once the rows are spent.  An allocation takes longer on the host than
+    act none's column sum on the card, so it is made once for 64 calls.
+    Each row is handed out once; the block is freed with its last row."""
+    key = (device.index, _launch._raw_stream(device.index), n)
+    rows = _db_rows.get(key)
+    if not rows:
+        rows = _db_rows[key] = list(torch.empty((_DB_ROWS, n), device=device).unbind(0))
+    return rows.pop()
+
+
 def bias_act_bwd(
     dy: torch.Tensor, y: torch.Tensor | None, bias: torch.Tensor, act: str
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K4's backward from the product before the bias ``y`` (f32); the
-    kernel on a card (two launches: dx and the blocks' partial db, then
-    their sum), the plain version for CPU tensors."""
+    kernel on a card, the plain version for CPU tensors.  Act none is one
+    launch that writes ``db`` alone (``dx`` is ``dy``) into a row from
+    :func:`_db_row`; an activation two: dx and the blocks' partial db, then
+    their sum."""
     if act not in ACTS:
         raise ValueError(f"bias_act_bwd: act {act!r} not in {sorted(ACTS)}")
-    if dy.device.type == "cpu":
+    if dy.is_cpu:
         return bias_act_bwd_plain(dy, y, bias, act)
-    tensors = {"dy": dy, "bias": bias} if act == "none" else {"dy": dy, "y": y, "bias": bias}
-    device = check_cuda("bias_act_bwd", **tensors)
     n = dy.shape[-1]
+    if act == "none":  # 60 of the train step's 72 calls: the host path kept short
+        if not (dy.is_cuda and bias.is_cuda and bias.get_device() == dy.get_device() and dy.is_contiguous()
+                and bias.is_contiguous()):
+            check_cuda("bias_act_bwd", dy=dy, bias=bias)  # raises, naming the fault
+        if dy.dtype != torch.float32 or bias.dtype != torch.float32 or bias.shape != (n,):
+            raise ValueError(f"bias_act_bwd: f32 dy {tuple(dy.shape)} and bias [{n}]")
+        ptr = dy.data_ptr()
+        if not n or n % 8 or ptr % 16:
+            raise ValueError("bias_act_bwd: N must be a positive multiple of 8 and dy 16-byte aligned")
+        device = dy.device
+        db = _db_row(device, n)
+        launch("bias_act_bwd", _build.library("bias_act_bwd").pw_bias_sum, device, ptr, db.data_ptr(),
+               dy.numel() // n, n)
+        bias_act_bwd.launches += 1
+        return dy, db
     m = dy.numel() // n if n else 0
-    if any(t.dtype != torch.float32 for t in tensors.values()) or bias.shape != (n,) or \
-            (act != "none" and y.shape != dy.shape):
+    tensors = {"dy": dy, "y": y, "bias": bias}
+    device = check_cuda("bias_act_bwd", **tensors)
+    if any(t.dtype != torch.float32 for t in tensors.values()) or bias.shape != (n,) or y.shape != dy.shape:
         raise ValueError(f"bias_act_bwd: f32 dy {tuple(dy.shape)}, y and bias [{n}]")
     if n % 8 or any(t.data_ptr() % 16 for t in tensors.values()):
         raise ValueError("bias_act_bwd: N must divide by 8 and the tensors be 16-byte aligned")
-    dx = dy if act == "none" else torch.empty_like(dy)
-    db = torch.empty((n,), dtype=torch.float32, device=device)
+    db = torch.empty_like(bias)
+    dx = torch.empty_like(dy)
     chunks = max(1, min(m, 65535, _BWD_BLOCKS // -(-n // 128)))
     partial = torch.empty((chunks, n), dtype=torch.float32, device=device)
     launch(
         "bias_act_bwd", _build.library("bias_act_bwd").pw_bias_act_bwd, device,
-        dy.data_ptr(), None if act == "none" else y.data_ptr(), bias.data_ptr(),
-        None if act == "none" else dx.data_ptr(), partial.data_ptr(), db.data_ptr(), m, n, ACTS[act], chunks,
+        dy.data_ptr(), y.data_ptr(), bias.data_ptr(), dx.data_ptr(), partial.data_ptr(), db.data_ptr(),
+        m, n, ACTS[act], chunks,
     )
     bias_act_bwd.launches += 2
     return dx, db
 
 
-#: launches of the CUDA kernels in this process (two a call)
+#: launches of the CUDA kernels in this process (one a call with act none,
+#: two with an activation)
 bias_act_bwd.launches = 0
 
 
