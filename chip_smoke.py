@@ -145,10 +145,20 @@ Phases, each fatal on failure:
     on the card, ms a step, tokens/s, peak memory, the profiled step's idle
     share and split, its share of the card's f32-accurate product peak
     (3xTF32, PEAK_F32_PRODUCT); K15 also at the dry run's D = 16, at
-    D = 32, and at D = 80 and 128 over 512 keys, each case with a batch
-    row of no present key; K16 with act none one launch a call and, by
-    CUDA events, no slower than ``dy.sum(0)``; then
-    ``train.dryrun_multichip(4)`` on a mesh that repeats the card.
+    D = 32, in the cluster form over 2 and 4 blocks (D = 64, 24, 40), and
+    in the two-pass form at D = 80 and 128 over 512 keys (K15_CASES), each
+    case with a batch row of no present key and rows whose keys lie in one
+    block, the same bits on a second call, its form (``bwd_form``) and
+    launches a call (1 in the cluster form, 2 in the two-pass form); K15
+    at the train shape in one launch, the same bits on a second call and
+    on K15_REPEATS more, and by device time (``queued_ms``) no slower
+    than SDPA's f32 backward; K19 in one launch a
+    step and by device time (CUDA events queued behind a sleep kernel,
+    ``queued_ms``) no slower than ``torch.optim.Adam(fused=True)`` (its
+    CUDA-event ms, the host's launch path included, beside it); K16 (run
+    first) with act none one launch a call and, by CUDA events, no slower
+    than ``dy.sum(0)``; then ``train.dryrun_multichip(4)`` on a mesh that
+    repeats the card.
 
 Phase 8 runs right after phase 4, while phase 3's index is alive, and
 phase 10 after it; phases 5, 6, 9 and 12 follow.  The second-to-last line of
@@ -157,11 +167,14 @@ K4-K7 with their f32 forms); the last is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device the script exits 1 and prints no result.
 
 ``python3 chip_smoke.py --against-parent DIR`` runs instead, on one card,
-only K14, K3's row-streaming pass, K1, K12 and K16 of this tree beside the
-same kernels built from the sources under ``DIR`` (another commit,
-unpacked) and launched through its launch helper, timed in turns, each
-within PARENT_RATIO of the parent (K12 at nq=1 and K16 act none by device
-time, ``phase_against_parent``).
+only K14, K3's row-streaming pass, K1, K12, K16, K15 and K19 of this tree
+beside the same kernels built from the sources under ``DIR`` (another
+commit, unpacked) and launched through its launch helper, timed in turns,
+each within PARENT_RATIO of the parent where both sides run the parent's
+code and no slower at all where this tree runs code the parent does not
+(K12 at nq=1, K16 act none, K15 and K19 by device time, ``queued_ms``;
+K19 the same bits as the parent's after two steps;
+``phase_against_parent``).
 
 ``python3 chip_smoke.py --distinct-cards`` runs instead, on four cards,
 only what a mesh that repeats one card cannot show: ring attention and
@@ -297,12 +310,18 @@ TP_SEEDS = (SEED, SEED + 1, SEED + 2)
 TP_WEIGHTS_RATIO = 1.5
 SHARD_ATOL = 3e-6  # sharded against unsharded scores over the same rows
 # --against-parent: this tree's time (CUDA events; DEVICE_GATED, device
-# time) at most this many times the parent's, in the same call
+# time) at most this many times the parent's, in the same call, where both
+# sides run the parent's code (one binary, or the same form of a rebuilt
+# one): a strict gate would read noise.  Where this tree runs code the
+# parent does not (a library rebuilt from changed sources, in a form the
+# parent's wrapper does not run at that shape), no slower at all
 PARENT_RATIO = 1.05
-# ... by the profiler's device time: the short calls whose CUDA-event means
+# ... by device time (``queued_ms``): the short calls whose CUDA-event means
 # read host stalls (K12 at nq=1, ~0.2 ms; K16 act none, ~0.02 ms): on an
-# H100 two builds of K12 at equal device time read 9-28% apart by events
-DEVICE_GATED = ("K12 nq=1 ", "K16 none ")
+# H100 two builds of K12 at equal device time read 9-28% apart by events;
+# and K15 and K19, whose parents' wrappers spend host time the kernels'
+# speed does not measure (K19's parent uploads its tables every step)
+DEVICE_GATED = ("K12 nq=1 ", "K16 none ", "K15 ", "K19 ")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, bf16, TF32 and f32
 # (FMA units) FLOP/s
@@ -314,8 +333,13 @@ TRAIN_LR = 1e-4
 TRAIN_REDRAW = 0.15  # tokens of a pair's second row redrawn
 BWD_RTOL = 1e-5  # K15-K19 against their plain versions, of max|ref| (f32 sums in another order)
 # K15's other forms, (B, L, heads, D): the dry run's model shard, D = 32,
-# the zero-padded D = 80 and D = 128 past one 128-key tile
-K15_CASES = ((4, 16, 2, 16), (4, 64, 2, 32), (2, 512, 4, 80), (2, 512, 4, 128))
+# the cluster form over 2 and 4 blocks of 128 keys (D = 64, 24 and 40, the
+# last two zero-padded), and the two-pass form at the zero-padded D = 80
+# and at D = 128 past 128 keys
+K15_CASES = ((4, 16, 2, 16), (4, 64, 2, 32), (4, 512, 4, 64), (4, 200, 2, 24), (4, 448, 2, 40),
+             (2, 512, 4, 80), (2, 512, 4, 128))
+# calls of K15 at the train shape held to the first call's bits
+K15_REPEATS = 1000
 TRAIN_LOSS_RTOL = 1e-5  # the first step's loss against the plain step's
 TRAIN_GRAD_RTOL = 1e-4  # its gradients, each of its tensor's max|g| (12 layers of f32 rounding)
 TRAIN_KERNELS = ("attention", "bias_act", "add_layer_norm", "embed_ln", "pool_normalize", "attention_bwd",
@@ -367,8 +391,8 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
 
 def device_ms(torch, fn, iters: int = 50) -> float:
     """Mean device time of ``fn`` in ms: the kernel time the profiler saw
-    over ``iters`` calls.  For launches too small to hide the host's launch
-    cost, where CUDA events measure the launch rate instead.  As in
+    over ``iters`` calls, launch gaps left out; recorded beside the gates,
+    which read ``queued_ms``.  As in
     ``profile_call``, 32 small kernels run first inside the window (once
     earlier windows have run, a window's trace can lack its first device
     events), and only device events that start during the calls count."""
@@ -391,9 +415,36 @@ def device_ms(torch, fn, iters: int = 50) -> float:
 
     events = prof.events()
     start = next(e for e in events if e.name == "device_ms" and not on_device(e)).time_range.start
+    # a ``record_function`` range inside ``fn`` (torch.optim's step has one)
+    # shows on the device too, spanning the kernels it holds: not counted
     total = sum(e.time_range.elapsed_us() for e in events
-                if on_device(e) and e.name != "device_ms" and e.time_range.start >= start)
+                if on_device(e) and not getattr(e, "is_user_annotation", False) and e.name != "device_ms"
+                and e.time_range.start >= start)
     return total / 1e3 / iters
+
+
+def queued_ms(torch, fn, iters: int = 10) -> float:
+    """Mean device time of ``fn`` in ms by CUDA events, with the host kept
+    ahead of the card: a sleep kernel holds the stream while the calls are
+    enqueued behind it, so the events time them back to back on the device
+    (launch gaps included, host time not).  Unlike the profiler's trace,
+    which late in a long process has read a library call's kernels short,
+    it cannot lose a kernel.  ``fn``'s host time for ``iters`` calls must
+    stay under the sleep (about 85 ms on an H100).  Every device-time gate
+    of this script reads it: the profiler's trace has read fused Adam at
+    0.989 ms a step over ten steps against 1.102 in one step's trace of the
+    same run, and one turn of a kernel at 0.0 ms."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(150_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def compare_topk(kv, ki, pv, pi, tol: float) -> float:
@@ -3512,8 +3563,10 @@ def phase_distinct_data(torch, cards: list, sync_all) -> dict:
 def phase_against_parent(torch, dev, parent: str) -> dict:
     """``--against-parent DIR``: K14 (bf16 and f32), K3's row-streaming pass
     (nq 1 and 4, k=10), K1 (bf16 and f32 at B=256 L=256 D=64, the serving
-    shape), K12 (nq 1 and 32 over a 1M-row IVF at phase 6's shape) and K16
-    (act none at [8,192, 768], GELU at [8,192, 3,072]) of this tree against
+    shape), K12 (nq 1 and 32 over a 1M-row IVF at phase 6's shape), K16
+    (act none at [8,192, 768], GELU at [8,192, 3,072]), K15 (the train
+    step's [64, 128, 12, 64] and [2, 512, 4, 128], a row of no present key
+    in each) and K19 (over copies of every BGE-base parameter) of this tree against
     the same kernels built from the sources under ``DIR`` (an unpacked
     ``git archive`` of another commit), on one card, timed in turns (parent,
     this tree, this tree, parent) by CUDA events and by the profiler's
@@ -3526,19 +3579,26 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
     at B=8, 2,048 keys, 12 heads of 64 (state against the plain version's),
     K3 over 1,048,576 x 768 unit f32 rows with 10% invalid (TOPK_ATOL
     against the plain version), K1 at B=256 L=256 H=12 D=64 with 64-256
-    present keys, K12 TOPK_ATOL against its plain version, K16 BWD_RTOL.
-    Gates: this tree within PARENT_RATIO of the parent by CUDA events for
-    K1, K3, K14 and K16 GELU; K12 at nq=1 within PARENT_RATIO of the
-    parent's device time; K12 at nq=32 by CUDA events and K16 act none by
-    device time no slower than the parent.  Each side's ``ms_spread`` is
-    the gap between its two event turns over their mean."""
+    present keys, K12 TOPK_ATOL against its plain version, K16 and K15
+    BWD_RTOL, K19 the same bits as the parent's K19 for p, m and v after
+    two steps.  Gates: DEVICE_GATED rows (K12 at nq=1, K16 act none, K15,
+    K19) by device time (``queued_ms``), the others (K1, K3, K14, K12 at
+    nq=32, K16 GELU) by CUDA events; each row no slower than the parent
+    where this tree runs code the parent does not (``"strict"``: a library
+    rebuilt from changed sources, in the form the parent's wrapper also
+    runs there or not), else within PARENT_RATIO.  Each side's
+    ``ms_spread`` is the gap between its two event turns over their
+    mean."""
     import importlib.util
     import types
 
     import torch.nn.functional as F
 
     from pathway_tpu_torch.kernels import (
+        adam_step,
         attention,
+        attention_bwd,
+        attention_bwd_plain,
         attention_plain,
         bias_act_bwd,
         bias_act_bwd_plain,
@@ -3551,6 +3611,7 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
         ring_state,
     )
     from pathway_tpu_torch.kernels import _build
+    from pathway_tpu_torch.kernels.attention import bwd_form
 
     def parent_module(name):
         spec = importlib.util.spec_from_file_location(
@@ -3564,7 +3625,7 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
     # the same binary (the same build name): the parent's side launches
     # this tree's build of it (a second copy of one library fails to
     # launch), through the parent's launch path
-    names = ("ring_block", "knn_topk", "attention", "ivf_scan", "bias_act_bwd")
+    names = ("ring_block", "knn_topk", "attention", "ivf_scan", "bias_act_bwd", "attention_bwd", "adam")
     same = [n for n in names if pb._target(n).name == _build._target(n).name]
     t0 = time.perf_counter()
     pb.build_all(tuple(n for n in names if n not in same))
@@ -3584,24 +3645,34 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
     p_scan_mod.merge_partials = p_knn_mod.merge_partials
     parent_ring = parent_wrappers("ring_block").ring_block
     parent_knn = p_knn_mod.knn_topk
-    parent_attention = parent_wrappers("attention").attention
+    p_attention_mod = parent_wrappers("attention")
+    parent_attention = p_attention_mod.attention
+    parent_attention_bwd = p_attention_mod.attention_bwd
+    # a parent without K15's form choice runs the two-pass form at every shape
+    parent_bwd_form = getattr(p_attention_mod, "bwd_form", lambda L, D: "two_pass")
+    parent_adam = parent_wrappers("adam").adam_step
     parent_scan = p_scan_mod.ivf_scan
     parent_bias_bwd = parent_wrappers("bias_act").bias_act_bwd
 
-    def turns(parent_fn, fn, iters: int) -> dict:
-        """Events and device ms of both in turns: parent, tree, tree, parent;
-        ``iters`` calls a turn, enough for about 5 ms or more of device
-        time, so that one stall of the host moves a mean by little."""
+    def turns(parent_fn, fn, iters: int, lib: str, strict: bool | None = None) -> dict:
+        """Events, queued and profiled device ms of both in turns: parent,
+        tree, tree, parent; ``iters`` calls a turn, enough for about 5 ms
+        or more of device time, so that one stall of the host moves a mean
+        by little.  ``strict``: this tree runs code the parent does not
+        (by default, when ``lib`` was rebuilt from changed sources)."""
         t = {"parent": [], "tree": []}
         for who in ("parent", "tree", "tree", "parent"):
             f = parent_fn if who == "parent" else fn
-            t[who].append({"ms": time_ms(torch, f, iters), "device_ms": device_ms(torch, f, iters)})
-        return {who: {"ms": sum(r["ms"] for r in rs) / 2, "device_ms": sum(r["device_ms"] for r in rs) / 2,
-                      "ms_spread": abs(rs[0]["ms"] - rs[1]["ms"]) * 2 / (rs[0]["ms"] + rs[1]["ms"]),
-                      "turns": rs} for who, rs in t.items()}
+            t[who].append({"ms": time_ms(torch, f, iters), "queued_ms": queued_ms(torch, f, iters),
+                           "device_ms": device_ms(torch, f, iters)})
+        out = {who: {key: sum(r[key] for r in rs) / 2 for key in ("ms", "queued_ms", "device_ms")}
+               | {"ms_spread": abs(rs[0]["ms"] - rs[1]["ms"]) * 2 / (rs[0]["ms"] + rs[1]["ms"]), "turns": rs}
+               for who, rs in t.items()}
+        return out | {"strict": lib not in same if strict is None else strict}
 
     def library(fn, iters: int) -> dict:
-        return {"ms": time_ms(torch, fn, iters), "device_ms": device_ms(torch, fn, iters)}
+        return {"ms": time_ms(torch, fn, iters), "queued_ms": queued_ms(torch, fn, iters),
+                "device_ms": device_ms(torch, fn, iters)}
 
     res: dict = {}
     g = torch.Generator(device=dev).manual_seed(SEED + 12)
@@ -3640,7 +3711,7 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
         res[name] = {
             "state_err": err,
             **turns(lambda: parent_ring(q, k1, v1, m1, *sp, any_key=any_key),
-                    lambda: ring_block(q, k1, v1, m1, *st, any_key=any_key), 20),
+                    lambda: ring_block(q, k1, v1, m1, *st, any_key=any_key), 20, "ring_block"),
             "library": library(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bmask), 10),
         }
         log(f"{name}: {json.dumps(res[name])}")
@@ -3671,7 +3742,7 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
         name = f"K3 nq={nq} k={k}{where}"
         res[name] = {
             "max_abs_err": err,
-            **turns(parent_fn, tree_fn, 5),
+            **turns(parent_fn, tree_fn, 5, "knn_topk"),
             "library": library(lambda q=q, k=k, rows=rows: torch.topk(torch.matmul(q, rows.T), k), 5),
         }
         log(f"{name}: {json.dumps(res[name])}")
@@ -3697,7 +3768,7 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
         name = f"K1 {tag} B={B} L={L} H={H} D={D}"
         res[name] = {
             "max_abs_err": err,
-            **turns(lambda: parent_attention(q, k, v, mask), lambda: attention(q, k, v, mask), 30),
+            **turns(lambda: parent_attention(q, k, v, mask), lambda: attention(q, k, v, mask), 30, "attention"),
             "library": library(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask), 10),
         }
         log(f"{name}: {json.dumps(res[name])}")
@@ -3728,7 +3799,8 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
             err[who] = compare_topk(kv, ki, pv, pi, TOPK_ATOL)
         name = f"K12 nq={nq} k={K}"
         res[name] = {"max_abs_err": err, **turns(lambda: parent_scan(q, probe, cells, cvalid, K),
-                                                  lambda: ivf_scan(q, probe, cells, cvalid, K), 40 if nq == 1 else 10)}
+                                                  lambda: ivf_scan(q, probe, cells, cvalid, K), 40 if nq == 1 else 10,
+                                                  "ivf_scan")}
         log(f"{name}: {json.dumps(res[name])}")
     del cells, cvalid, qs
     torch.cuda.empty_cache()
@@ -3749,19 +3821,79 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
         name = f"K16 {act} [{M}, {n}]"
         iters = 200 if act == "none" else 50
         res[name] = {"max_rel_err": err, **turns(lambda: parent_bias_bwd(dy, y, bias, act),
-                                                  lambda: bias_act_bwd(dy, y, bias, act), iters)}
+                                                  lambda: bias_act_bwd(dy, y, bias, act), iters, "bias_act_bwd")}
         if act == "none":
             res[name]["library"] = library(lambda: dy.sum(0), iters)
         log(f"{name}: {json.dumps(res[name])}")
         del y, dy, bias, want
 
-    # ---- gates: unchanged kernels keep their time through the new launch
-    # path; the redesigned ones lose none
+    # ---- K15 at the train step's shape and at D = 128 over 512 keys, a
+    # batch row of no present key in each; both builds within BWD_RTOL of
+    # the plain version
+    for B, L, H, D in ((TRAIN_B, TRAIN_L, 12, 64), (2, 512, 4, 128)):
+        m = torch.rand((B, L), generator=g, device=dev) < 0.7
+        m[1] = False
+        m = m.to(torch.uint8)
+        q, k, v, do = (torch.randn((B, L, H, D), generator=g, device=dev) for _ in range(4))
+        out, lse = attention(q, k, v, m, with_lse=True)
+        want = attention_bwd_plain(q, k, v, out, do, m, lse)
+        err = {}
+        for who, fn in (("parent", parent_attention_bwd), ("tree", attention_bwd)):
+            got = fn(q, k, v, out, do, m, lse)
+            torch.cuda.synchronize()
+            err[who] = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(got, want))
+            if not err[who] <= BWD_RTOL:
+                fail(f"{who} attention_bwd at {(B, L, H, D)}: {err[who]} of max|ref| > {BWD_RTOL}")
+        name = f"K15 {bwd_form(L, D)} B={B} L={L} H={H} D={D}"
+        # K15 picks its form by shape: where both sides run the same form of
+        # a rebuilt library, this tree runs the parent's code
+        changed = "attention_bwd" not in same and bwd_form(L, D) != parent_bwd_form(L, D)
+        res[name] = {"max_rel_err": err, **turns(lambda: parent_attention_bwd(q, k, v, out, do, m, lse),
+                                                  lambda: attention_bwd(q, k, v, out, do, m, lse), 20,
+                                                  "attention_bwd", changed)}
+        log(f"{name}: {json.dumps(res[name])}")
+        del q, k, v, do, out, lse, want, got
+
+    # ---- K19 over copies of every BGE-base parameter (f32): the same bits
+    # as the parent's K19 for p, m and v after two steps on the same inputs
+    from pathway_tpu_torch import BGE_BASE
+    from pathway_tpu_torch.models import TextEncoderModel
+
+    model = TextEncoderModel(dataclasses.replace(BGE_BASE, dtype=f32), device=dev, seed=SEED)
+    ps = [p.detach().clone() for p in model.parameters()]
+    del model
+    gs = [torch.randn(p.shape, generator=g, device=dev) * 1e-3 for p in ps]
+    sides = {who: [[t.clone() for t in ps], [torch.zeros_like(t) for t in ps], [torch.zeros_like(t) for t in ps]]
+             for who in ("parent", "tree")}
+    for step in (1, 2):
+        for who, fn in (("parent", parent_adam), ("tree", adam_step)):
+            p, m, v = sides[who]
+            fn(p, gs, m, v, step, TRAIN_LR)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for xs, ys in zip(sides["parent"], sides["tree"]) for a, b in zip(xs, ys))
+    if not equal:
+        fail("K19 gives other bits than the parent's K19 after two steps on the same inputs")
+    name = f"K19 {sum(p.numel() for p in ps)} params in {len(ps)} tensors"
+    count = {"parent": 2, "tree": 2}
+
+    def adam_turn(who, fn):
+        def call():
+            count[who] += 1
+            fn(sides[who][0], gs, sides[who][1], sides[who][2], count[who], TRAIN_LR)
+        return call
+
+    res[name] = {"bit_equal_after_two_steps": equal,
+                 **turns(adam_turn("parent", parent_adam), adam_turn("tree", adam_step), 10, "adam")}
+    log(f"{name}: {json.dumps(res[name])}")
+    del ps, gs, sides
+
+    # ---- gates: the parent's code keeps its time through this tree's
+    # wrappers; code this tree changed loses none
     slow = []
     for name, row in res.items():
-        by = "device_ms" if name.startswith(DEVICE_GATED) else "ms"
+        by = "queued_ms" if name.startswith(DEVICE_GATED) else "ms"
         parent_ms, tree_ms = row["parent"][by], row["tree"][by]
-        limit = 1.0 if name.startswith(("K12 nq=32 ", "K16 none ")) else PARENT_RATIO
+        limit = 1.0 if row["strict"] else PARENT_RATIO
         if not tree_ms <= limit * parent_ms:
             slow.append(f"{name}: {tree_ms:.4f} ms ({by}) against the parent's {parent_ms:.4f}")
     if slow:
@@ -4075,7 +4207,13 @@ def phase_train(torch, dev) -> dict:
     plain step's (the plain versions' autograd on the card, same weights)
     and every gradient within TRAIN_GRAD_RTOL of its tensor's max|g|; all
     losses finite and the last below the first; K1, K4-K7 and K15-K19
-    launched during the steps; every tensor of the step on the card.  Then
+    launched during the steps; every tensor of the step on the card; K15
+    at each K15_CASES shape its form's launches and the same bits twice,
+    at the train shape one launch, the same bits over K15_REPEATS + 1 more
+    calls and by device time (``queued_ms``) no slower than SDPA's
+    backward; K19 one launch and by device time no slower than fused
+    Adam; K16 act none one launch and by CUDA
+    events no slower than ``dy.sum(0)``.  Then
     ``train.dryrun_multichip(4)`` on a mesh that repeats the card."""
     import numpy as np
     import torch.nn.functional as F
@@ -4091,6 +4229,7 @@ def phase_train(torch, dev) -> dict:
         pool_normalize_bwd_plain,
     )
     from pathway_tpu_torch.kernels.adam import adam_step_plain
+    from pathway_tpu_torch.kernels.attention import bwd_form
     from pathway_tpu_torch.models import TextEncoderModel
 
     res: dict = {"kernels": {}}
@@ -4125,41 +4264,10 @@ def phase_train(torch, dev) -> dict:
                                 "bound_by": by, "library_ms": library_ms, "shape": shape}
         log(f"{name} at the train step: {json.dumps(res['kernels'][name])}")
 
-    # ---- K15 at the other forms it is built for: the dry run's shard
-    # (D = 16 at L = 16), D = 32, the zero-padded D = 80 and D = 128 at
-    # L = 512; each with a batch row of no present key (p = 1 / L)
-    res["attention_bwd_cases"] = {}
-    for cb, cl, ch, cd in K15_CASES:
-        cm = torch.rand((cb, cl), generator=g, device=dev) < 0.7
-        cm[0] = False
-        cm[1, 0] = True
-        cq, ck, cv, cdo = (torch.randn((cb, cl, ch, cd), generator=g, device=dev) for _ in range(4))
-        cm = cm.to(torch.uint8)
-        cout, clse = attention(cq, ck, cv, cm, with_lse=True)
-        got = kernels.attention_bwd(cq, ck, cv, cout, cdo, cm, clse)
-        name = f"B={cb} L={cl} H={ch} D={cd}"
-        res["attention_bwd_cases"][name] = gate(f"K15 attention_bwd at {name}", got,
-                                                attention_bwd_plain(cq, ck, cv, cout, cdo, cm, clse))
-    log(f"K15 against its plain version, a row of no present key in each: {json.dumps(res['attention_bwd_cases'])}")
-    del cq, ck, cv, cdo, cm, cout, clse, got
-    # ---- K15: attention backward at [64, 128, 12, 64], the batch's masks
-    q, k, v, do = (torch.randn((TRAIN_B, TRAIN_L, heads, D), generator=g, device=dev) for _ in range(4))
-    out, lse = attention(q, k, v, umask, with_lse=True)
-    got = kernels.attention_bwd(q, k, v, out, do, umask, lse)
-    want = attention_bwd_plain(q, k, v, out, do, umask, lse)
-    err = gate("K15 attention_bwd", got, want)
-    keys = float(umask.sum(1).float().sum()) * TRAIN_L  # query rows x their present keys
-    qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
-    sd = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=umask.bool()[:, None, None, :])
-    dos = do.transpose(1, 2)
-    entry("attention_bwd", err, time_ms(torch, lambda: kernels.attention_bwd(q, k, v, out, do, umask, lse), 10),
-          time_ms(torch, lambda: attention_bwd_plain(q, k, v, out, do, umask, lse), 5),
-          8 * M * H * 4 + 2 * TRAIN_B * heads * TRAIN_L * 4, 10 * heads * keys * D, PEAK_F32_PRODUCT,
-          time_ms(torch, lambda: torch.autograd.grad(sd, (qs, ks, vs), dos, retain_graph=True), 10),
-          [TRAIN_B, TRAIN_L, heads, D])
-    res["kernels"]["attention_bwd"]["cases"] = res.pop("attention_bwd_cases")
-    del q, k, v, do, out, lse, got, want, qs, ks, vs, sd, dos
-    # ---- K16: the mlp_up GELU and a plain bias
+    # ---- K16: the mlp_up GELU and a plain bias (first: act none's event
+    # gate reads the host's launch path, which every profiler session run
+    # before it in the process makes dearer, and K15's and K19's gates
+    # below run the profiler)
     # (the mlp_up GELU is the entry; the plain bias of the other five dense
     # layers rides beside it: dx is dy there, only db is computed, which
     # one torch call, dy.sum(0), computes too).  Gates beside the plain
@@ -4209,6 +4317,99 @@ def phase_train(torch, dev) -> dict:
         if none is not None:
             row["act_none"] = none
         del y, dy, bias, got
+    # ---- K15 at the other forms it is built for (K15_CASES).  Masks: row
+    # 0 has no present key (p = 1 / L), row 1 keys at random, row 2 keys
+    # only among the first 128 and row 3 only among the last 64 (in the
+    # cluster form over several blocks, blocks whose keys no row attends
+    # write zero dK and dV and still join dQ's sum).  Each case within
+    # BWD_RTOL of the plain version, the same bits on a second call, and
+    # its form (kernels.attention.bwd_form) in its launches a call (1 in
+    # the cluster form, 2 in the two-pass form)
+    res["attention_bwd_cases"] = {}
+    for cb, cl, ch, cd in K15_CASES:
+        cm = torch.rand((cb, cl), generator=g, device=dev) < 0.7
+        cm[0] = False
+        cm[1, 0] = True
+        if cb > 2:
+            cm[2, 128:] = False
+            cm[2, min(5, cl - 1)] = True
+        if cb > 3:
+            cm[3, :max(cl - 64, 0)] = False
+            cm[3, cl - 1] = True
+        cq, ck, cv, cdo = (torch.randn((cb, cl, ch, cd), generator=g, device=dev) for _ in range(4))
+        cm = cm.to(torch.uint8)
+        cout, clse = attention(cq, ck, cv, cm, with_lse=True)
+        before = kernels.attention_bwd.launches
+        got = kernels.attention_bwd(cq, ck, cv, cout, cdo, cm, clse)
+        per_call = kernels.attention_bwd.launches - before
+        form = bwd_form(cl, cd)
+        name = f"B={cb} L={cl} H={ch} D={cd}"
+        if per_call != (1 if form == "cluster" else 2):
+            fail(f"K15 at {name} ({form} form) made {per_call} launches a call")
+        again = kernels.attention_bwd(cq, ck, cv, cout, cdo, cm, clse)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"K15 at {name} ({form} form) gave other bits on a second call on the same inputs")
+        res["attention_bwd_cases"][name] = {
+            "max_rel_err": gate(f"K15 attention_bwd at {name}", got,
+                                attention_bwd_plain(cq, ck, cv, cout, cdo, cm, clse)),
+            "form": form, "launches_per_call": per_call, "same_bits_twice": True,
+        }
+    log(f"K15 against its plain version, a row of no present key in each: {json.dumps(res['attention_bwd_cases'])}")
+    del cq, ck, cv, cdo, cm, cout, clse, got, again
+    # ---- K15: attention backward at [64, 128, 12, 64], the batch's masks
+    # and a batch row of no present key: within BWD_RTOL of the plain
+    # version, one launch (the cluster form), the same bits on a second
+    # call and on K15_REPEATS more (no atomics; the warps of a block meet
+    # before a tile's loads overwrite what the last one read), and by
+    # device time (queued_ms) no slower than SDPA's f32 backward
+    q, k, v, do = (torch.randn((TRAIN_B, TRAIN_L, heads, D), generator=g, device=dev) for _ in range(4))
+    kmask = umask.clone()
+    kmask[1] = 0
+    out, lse = attention(q, k, v, kmask, with_lse=True)
+    before = kernels.attention_bwd.launches
+    got = kernels.attention_bwd(q, k, v, out, do, kmask, lse)
+    per_call = kernels.attention_bwd.launches - before
+    want = attention_bwd_plain(q, k, v, out, do, kmask, lse)
+    err = gate("K15 attention_bwd", got, want)
+    again = kernels.attention_bwd(q, k, v, out, do, kmask, lse)
+    same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+    differ = torch.zeros((), dtype=torch.bool, device=dev)
+    for _ in range(K15_REPEATS):
+        for a, b in zip(got, kernels.attention_bwd(q, k, v, out, do, kmask, lse)):
+            differ |= (a != b).any()
+    same_bits_repeated = not bool(differ)
+    present = kmask.sum(1)
+    # query rows x the keys they attend (all L in a row of no present key)
+    keys = float(torch.where(present > 0, present, TRAIN_L).sum()) * TRAIN_L
+    qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    sd = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=kmask.bool()[:, None, None, :])
+    dos = do.transpose(1, 2)
+    kern = lambda: kernels.attention_bwd(q, k, v, out, do, kmask, lse)  # noqa: E731
+    lib = lambda: torch.autograd.grad(sd, (qs, ks, vs), dos, retain_graph=True)  # noqa: E731
+    entry("attention_bwd", err, time_ms(torch, kern, 10),
+          time_ms(torch, lambda: attention_bwd_plain(q, k, v, out, do, kmask, lse), 5),
+          8 * M * H * 4 + TRAIN_B * heads * TRAIN_L * 4 + TRAIN_B * TRAIN_L, 10 * heads * keys * D,
+          PEAK_F32_PRODUCT, time_ms(torch, lib, 10), [TRAIN_B, TRAIN_L, heads, D])
+    row = res["kernels"]["attention_bwd"]
+    row["cases"] = res.pop("attention_bwd_cases")
+    row["form"] = bwd_form(TRAIN_L, D)
+    row["launches_per_call"] = per_call
+    row["same_bits_twice"] = same_bits
+    row["same_bits_repeated"] = {"calls": K15_REPEATS, "equal": same_bits_repeated}
+    row["queued_ms"] = {"kernel": queued_ms(torch, kern, 20), "library": queued_ms(torch, lib, 20)}
+    row["device_ms"] = {"kernel": device_ms(torch, kern, 20), "library": device_ms(torch, lib, 20)}
+    log(f"K15 at the train step: {row['form']} form, {per_call} launch(es) a call, same bits twice: {same_bits}, "
+        f"over {K15_REPEATS} more calls: {same_bits_repeated}, queued ms {json.dumps(row['queued_ms'])}, "
+        f"device ms {json.dumps(row['device_ms'])}")
+    if per_call != 1 or row["form"] != "cluster":
+        fail(f"K15 at the train shape ran the {row['form']} form in {per_call} launches, not one cluster launch")
+    if not (same_bits and same_bits_repeated):
+        fail(f"K15 gave other bits on a later call on the same inputs (second call equal: {same_bits}; "
+             f"{K15_REPEATS} more equal: {same_bits_repeated})")
+    if not row["queued_ms"]["kernel"] <= row["queued_ms"]["library"]:
+        fail(f"K15 takes {row['queued_ms']['kernel']:.4f} ms of device time, slower than SDPA's f32 backward "
+             f"({row['queued_ms']['library']:.4f} ms)")
+    del q, k, v, do, out, lse, got, want, again, qs, ks, vs, sd, dos, kern, lib, kmask, present
     # ---- K17: the residual LayerNorm and the embeddings' with their tables
     x, r, dy = (torch.randn((M, H), generator=g, device=dev) for _ in range(3))
     gamma = 1 + 0.1 * torch.randn((H,), generator=g, device=dev)
@@ -4250,13 +4451,18 @@ def phase_train(torch, dev) -> dict:
           time_ms(torch, lambda: pool_normalize_bwd_plain(xh, umask, gg, cfg.pool, True), 20),
           (M * H + 2 * TRAIN_B * H) * 4 + M, 6 * TRAIN_B * H, PEAK_F32, None, [TRAIN_B, TRAIN_L, H])
     del xh, gg, got, e, raw
-    # ---- K19: Adam over copies of every parameter, random gradients
+    # ---- K19: Adam over copies of every parameter, random gradients:
+    # within BWD_RTOL of the plain version, one launch a step, and by
+    # device time (queued_ms) no slower than torch.optim.Adam(fused=True);
+    # the CUDA-event ms a call (the host's launch path included) beside it
     ps = [p.detach().clone() for p in model.parameters()]
     gs = [torch.randn(p.shape, generator=g, device=dev) * 1e-3 for p in ps]
     ms = [torch.zeros_like(p) for p in ps]
     vs = [torch.zeros_like(p) for p in ps]
     cp = [[t.clone() for t in ts] for ts in (ps, ms, vs)]
+    before = kernels.adam_step.launches
     kernels.adam_step(ps, gs, ms, vs, 1, TRAIN_LR)
+    per_step = kernels.adam_step.launches - before
     adam_step_plain(cp[0], gs, cp[1], cp[2], 1, TRAIN_LR)
     err = gate("K19 adam", ps + ms + vs, cp[0] + cp[1] + cp[2])
     n_params = sum(p.numel() for p in ps)
@@ -4265,11 +4471,26 @@ def phase_train(torch, dev) -> dict:
     for p, gr in zip(lib_ps, gs):
         p.grad = gr
     lib.step()
-    entry("adam", err, time_ms(torch, lambda: kernels.adam_step(ps, gs, ms, vs, 2, TRAIN_LR), 10),
+    kern = lambda: kernels.adam_step(ps, gs, ms, vs, 2, TRAIN_LR)  # noqa: E731
+    entry("adam", err, time_ms(torch, kern, 10),
           time_ms(torch, lambda: adam_step_plain(cp[0], gs, cp[1], cp[2], 2, TRAIN_LR), 3),
           28 * n_params, 12 * n_params, PEAK_F32, time_ms(torch, lib.step, 10), [n_params, len(ps)])
+    row = res["kernels"]["adam"]
+    row["launches_per_call"] = per_step
+    row["device_ms"] = {"kernel": device_ms(torch, kern, 10), "library": device_ms(torch, lib.step, 10)}
+    row["queued_ms"] = {"kernel": queued_ms(torch, kern, 10), "library": queued_ms(torch, lib.step, 10)}
+    # the library step's kernels as the profiler sees one call of it
+    row["library_kernels"] = profile_call(torch, lib.step, 1)["top"]
+    log(f"K19: {per_step} launch a step, device ms {json.dumps(row['device_ms'])}, queued ms "
+        f"{json.dumps(row['queued_ms'])}, host ms a call by CUDA events {row['ms']:.4f}; fused Adam's kernels "
+        f"{json.dumps(row['library_kernels'])}")
+    if per_step != 1:
+        fail(f"K19 made {per_step} launches a step, not 1")
+    if not row["queued_ms"]["kernel"] <= row["queued_ms"]["library"]:
+        fail(f"K19 takes {row['queued_ms']['kernel']:.4f} ms of device time, slower than "
+             f"torch.optim.Adam(fused=True) ({row['queued_ms']['library']:.4f} ms)")
     res["params"] = n_params
-    del ps, gs, ms, vs, cp, lib, lib_ps
+    del ps, gs, ms, vs, cp, lib, lib_ps, kern
     torch.cuda.empty_cache()
 
     # ---- the first step against the plain step, same weights and batch
@@ -4357,7 +4578,7 @@ def step_split(prof: dict) -> dict:
     the port's kernels (by source), the rest, and the idle share."""
     kinds = {"gemm": 0.0, "forward_kernels": 0.0, "backward_kernels_K15_K18": 0.0, "adam_K19": 0.0, "other": 0.0}
     fwd = ("wgmma_kernel", "tf32_kernel", "bias_act", "add_ln", "embed_ln", "pool_norm")
-    bwd = ("dq_kernel", "dkv_kernel", "dx_kernel", "colsum", "ln_bwd", "loss_kernel", "pool_bwd")
+    bwd = ("bwd_kernel", "dq_kernel", "dkv_kernel", "dx_kernel", "colsum", "ln_bwd", "loss_kernel", "pool_bwd")
     for row in prof.pop("all"):
         n = row["name"]
         if "gemm" in n or "sm90_xmma" in n or "cutlass" in n or "Kernel2" in n:
@@ -4542,7 +4763,8 @@ def main() -> int:
             "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"], "shape": m["shape"],
-            **{key: m[key] for key in ("device_ms", "f32", "launches_per_call", "act_none", "cases") if key in m},
+            **{key: m[key] for key in ("device_ms", "queued_ms", "f32", "launches_per_call", "act_none", "cases",
+                                       "form", "same_bits_twice") if key in m},
         })
     summary = {
         "card": smi,

@@ -7,14 +7,16 @@ is loaded as a ``ctypes.PyDLL``: its functions only check arguments and
 enqueue work on a stream, so a call keeps the GIL instead of releasing
 and taking it back around every launch.  Libraries
 go into ``kernels/_build/`` (git-ignored), named by a hash of their
-source and of the shared headers (``csrc/*.cuh``), so an edited source
-is rebuilt and an unchanged one is reused.
+source, of the shared headers (``csrc/*.cuh``) and of the constants a
+source takes from its wrapper as ``-D`` flags, so an edited source is
+rebuilt and an unchanged one is reused.
 :func:`build_all` starts one ``nvcc`` per source at once and waits for
 all of them.  A failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
 
+import ast
 import ctypes
 import hashlib
 import os
@@ -55,10 +57,31 @@ def _nvcc() -> str:
     )
 
 
+#: constants a source takes from its wrapper module as ``-D`` flags: K15's
+#: cluster-form limits, which ``attention.bwd_form`` also reads
+_DEFINES = {"attention_bwd": ("attention.py", ("BWD_CLUSTER_MAX_LEN", "BWD_CLUSTER_MAX_HEAD_DIM"))}
+
+
+def _defines(name: str) -> list[str]:
+    """``-DPW_<NAME>=<value>`` for each constant ``name`` takes, read from
+    the wrapper's source beside this file rather than imported, so that a
+    copy of these modules loaded by path (another commit's) builds with its
+    own wrapper's numbers."""
+    if name not in _DEFINES:
+        return []
+    module, wanted = _DEFINES[name]
+    tree = ast.parse((Path(__file__).resolve().parent / module).read_text())
+    values = {t.id: node.value.value for node in tree.body if isinstance(node, ast.Assign)
+              for t in node.targets if isinstance(t, ast.Name) and t.id in wanted}
+    return [f"-DPW_{key}={values[key]}" for key in wanted]
+
+
 def _target(name: str) -> Path:
     digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes() + _ARCH.encode())
     for header in sorted(_CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
+    for flag in _defines(name):
+        digest.update(flag.encode())
     return _BUILD / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -78,7 +101,7 @@ def build_all(names=NAMES) -> None:
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [
                 _nvcc(), "-gencode", _ARCH, "-std=c++17", "-O3", "-shared",
-                "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+                "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo", *_defines(name),
                 "-o", str(tmp), str(_CSRC / f"{name}.cu"),
             ]
             procs[name] = (
@@ -154,7 +177,7 @@ _SIGNATURES = {
     "ring_block": {
         "pw_ring_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     },
-    "attention_bwd": {"pw_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, _F, _P]},
+    "attention_bwd": {"pw_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, _F, _I, _P]},
     "bias_act_bwd": {"pw_bias_act_bwd": [_P] * 6 + [_I, _I, _I, _I, _P], "pw_bias_sum": [_P, _P, _I, _I, _P]},
     "layer_norm_bwd": {
         "pw_layer_norm_bwd": [_P] * 8 + [_I, _I, _F, _I, _P],
@@ -164,7 +187,7 @@ _SIGNATURES = {
         "pw_contrastive_loss": [_P, _P, _P, _I, _F, _F, _P],
         "pw_pool_normalize_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     },
-    "adam": {"pw_adam": [_P, _P, _I, _I] + [_F] * 8 + [_P]},
+    "adam": {"pw_adam": [_P, _P, _I, _P, _I] + [_F] * 8 + [_P]},
 }
 
 

@@ -32,7 +32,7 @@ from pathway_tpu_torch.kernels._launch import check_cuda, launch
 __all__ = [
     "attention", "attention_plain", "check_attention", "check_head_dim",
     "walked_key_tiles", "MAX_LEN", "BIAS_LEN", "HEAD_DIMS", "MAX_HEAD_DIM", "DTYPES", "KEY_TILE",
-    "attention_bwd", "attention_bwd_plain", "AttentionFunction",
+    "attention_bwd", "attention_bwd_plain", "bwd_form", "AttentionFunction",
 ]
 
 #: the longest sequence the kernel takes (its walk keeps 10 bytes of shared
@@ -169,13 +169,34 @@ def attention_bwd_plain(
     return dq, dk, dv
 
 
+#: K15's one-launch cluster form takes up to this many keys (4 blocks of 128
+#: keys, a portable cluster) ...
+BWD_CLUSTER_MAX_LEN = 512
+#: ... and head dims up to this (its K, V, Q and dO split into TF32 parts in
+#: shared memory, 209 KB at 64).  Both are compiled into
+#: ``csrc/attention_bwd.cu`` (``_build`` passes them as ``-D`` flags), whose
+#: entry refuses the cluster form past them: one owner of the limits.
+BWD_CLUSTER_MAX_HEAD_DIM = 64
+
+
+def bwd_form(L: int, D: int) -> str:
+    """The form of K15 that runs ``[B, L, H, D]``: ``"cluster"``, one launch
+    (a thread block cluster of the ceil(L / 128) blocks of 128 keys of a
+    batch row and head, on the tensor cores), up to
+    :data:`BWD_CLUSTER_MAX_LEN` keys and head dim
+    :data:`BWD_CLUSTER_MAX_HEAD_DIM`; else ``"two_pass"``, two launches
+    (dq, then dk and dv) on the FMA units."""
+    return "cluster" if L <= BWD_CLUSTER_MAX_LEN and D <= BWD_CLUSTER_MAX_HEAD_DIM else "two_pass"
+
+
 def attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, dout: torch.Tensor,
     mask: torch.Tensor, lse: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """dq, dk, dv of K1's f32 attention from its output ``o``, the output's
-    gradient ``dout`` and K1's ``lse``; the kernel on a card (two launches),
-    the plain version for CPU tensors."""
+    gradient ``dout`` and K1's ``lse``; the kernel on a card in the form
+    :func:`bwd_form` picks (one launch or two), the plain version for CPU
+    tensors."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, o, dout, mask, lse)
     device = check_cuda("attention_bwd", q=q, k=k, v=v, o=o, dout=dout, mask=mask, lse=lse)
@@ -188,19 +209,22 @@ def attention_bwd(
     if B > 65535 or H > 65535:
         raise ValueError(f"attention_bwd: B={B} H={H} outside the kernel's grid")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    delta = torch.empty((B, H, L), dtype=torch.float32, device=device)
+    cluster = bwd_form(L, D) == "cluster"
     if B > 0:
+        # the two-pass form's first kernel leaves delta = rowsum(dO * o) for the second
+        delta = None if cluster else torch.empty((B, H, L), dtype=torch.float32, device=device)
         launch(
             "attention_bwd", _build.library("attention_bwd").pw_attention_bwd, device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(), mask.data_ptr(),
-            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-            B, L, H, D, 1.0 / math.sqrt(D),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), None if cluster else delta.data_ptr(),
+            B, L, H, D, 1.0 / math.sqrt(D), int(cluster),
         )
-        attention_bwd.launches += 2
+        attention_bwd.launches += 1 if cluster else 2
     return dq, dk, dv
 
 
-#: launches of the CUDA kernels in this process (two a call: dq, then dk/dv)
+#: launches of the CUDA kernels in this process (one a call in the cluster
+#: form, two in the two-pass form: dq, then dk/dv)
 attention_bwd.launches = 0
 
 

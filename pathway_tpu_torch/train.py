@@ -91,7 +91,8 @@ class Adam:
     def step(self) -> None:
         live = [i for i, p in enumerate(self.params) if p.grad is not None]
         self.count += 1
-        adam_step([self.params[i] for i in live], [self.params[i].grad.contiguous() for i in live],
+        grads = [self.params[i].grad for i in live]
+        adam_step([self.params[i] for i in live], [g if g.is_contiguous() else g.contiguous() for g in grads],
                   [self.mu[i] for i in live], [self.nu[i] for i in live], self.count, self.lr)
 
     def zero_grad(self) -> None:
