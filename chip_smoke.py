@@ -24,8 +24,8 @@ Phases, each fatal on failure:
    once walking every tile, the two bit-equal, timed beside SDPA over the
    same block and mask (and, named apart, over the whole 8,192-token
    sequence); K3 at nq 32 and 64 in one pass over the slab (4 launches a
-   call: the queries' split, the pass, two merges); the ptxas lines of
-   K1, K3 and K14.
+   call: the queries' split, the pass, two merges); K9 also at B = 1 and
+   13 (one launch each); the ptxas lines of K1, K3 and K14.
    K1 also, in bf16 and f32, at B=256 L=512 with masks with holes
    (present key tiles between fully masked ones) and rows with no present
    key, whose output must be the uniform average of v, and at L=196 with
@@ -157,8 +157,12 @@ Phases, each fatal on failure:
     ``queued_ms``) no slower than ``torch.optim.Adam(fused=True)`` (its
     CUDA-event ms, the host's launch path included, beside it); K16 (run
     first) with act none one launch a call and, by CUDA events, no slower
-    than ``dy.sum(0)``; then ``train.dryrun_multichip(4)`` on a mesh that
-    repeats the card.
+    than ``dy.sum(0)``; K17 (second) with its residual form one launch a
+    call and the same bits twice, its embedding form at most two launches
+    a call and ``d_position``, dgamma and dbeta the same bits twice, at
+    random ids, at all-ones ids (the reference's own train input) and at
+    the tokenizer's ids over phase 3's documents (CLS, SEP, PAD tails);
+    then ``train.dryrun_multichip(4)`` on a mesh that repeats the card.
 
 Phase 8 runs right after phase 4, while phase 3's index is alive, and
 phase 10 after it; phases 5, 6, 9 and 12 follow.  The second-to-last line of
@@ -167,12 +171,14 @@ K4-K7 with their f32 forms); the last is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device the script exits 1 and prints no result.
 
 ``python3 chip_smoke.py --against-parent DIR`` runs instead, on one card,
-only K14, K3's row-streaming pass, K1, K12, K16, K15 and K19 of this tree
+only K14, K3's row-streaming pass, K1, K12, K16, K15, K19, K17 (both
+forms; the embedding form at random and all-ones ids) and K9 of this tree
 beside the same kernels built from the sources under ``DIR`` (another
 commit, unpacked) and launched through its launch helper, timed in turns,
 each within PARENT_RATIO of the parent where both sides run the parent's
 code and no slower at all where this tree runs code the parent does not
-(K12 at nq=1, K16 act none, K15 and K19 by device time, ``queued_ms``;
+(K12 at nq=1, K16 act none, K15, K19, K17 and K9 by device time,
+``queued_ms``;
 K19 the same bits as the parent's after two steps;
 ``phase_against_parent``).
 
@@ -320,8 +326,10 @@ PARENT_RATIO = 1.05
 # read host stalls (K12 at nq=1, ~0.2 ms; K16 act none, ~0.02 ms): on an
 # H100 two builds of K12 at equal device time read 9-28% apart by events;
 # and K15 and K19, whose parents' wrappers spend host time the kernels'
-# speed does not measure (K19's parent uploads its tables every step)
-DEVICE_GATED = ("K12 nq=1 ", "K16 none ", "K15 ", "K19 ")
+# speed does not measure (K19's parent uploads its tables every step);
+# K17 and K9, redesigned for their device time (the parents' K17 makes two
+# launches a call)
+DEVICE_GATED = ("K12 nq=1 ", "K16 none ", "K15 ", "K19 ", "K17 ", "K9 ")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, bf16, TF32 and f32
 # (FMA units) FLOP/s
@@ -1187,6 +1195,19 @@ def phase_vision_kernels(torch, dev) -> dict:
     err = (got - ref).abs().max().item()
     if not err <= HEAD_ATOL or not bool(got.isfinite().all()):
         fail(f"vision_head: max err {err} > {HEAD_ATOL}")
+    # a batch of one image and one that is not a multiple of the kernel's
+    # cluster of 8: its blocks past the last image load nothing and still
+    # project; one launch a call
+    head_cases = {}
+    for nb in (1, 13):
+        before = vision_head.launches
+        got = vision_head(x[:nb], weight, hbias)
+        per_call = vision_head.launches - before
+        e = (got - vision_head_plain(x[:nb], weight, hbias)).abs().max().item()
+        if not e <= HEAD_ATOL or not bool(got.isfinite().all()) or got.shape != (nb, HIDDEN) or per_call != 1:
+            fail(f"vision_head at B={nb}: max err {e} > {HEAD_ATOL}, shape {tuple(got.shape)}, {per_call} launches")
+        head_cases[f"B={nb}"] = {"max_abs_err": e, "launches_per_call": per_call}
+    log(f"K9 vision_head at small batches: {json.dumps(head_cases)}")
     nbytes = rows * HIDDEN * 2 + HIDDEN * HIDDEN * 4 + HIDDEN * 4 + B * HIDDEN * 4
     b_ms, b_by = bound(nbytes, rows * HIDDEN + 2 * B * HIDDEN * HIDDEN + 3 * B * HIDDEN, PEAK_F32)
     out["vision_head"] = {
@@ -1198,6 +1219,8 @@ def phase_vision_kernels(torch, dev) -> dict:
         "library_ms": None,  # no single torch call pools, projects and normalises
         "device_ms": {"kernel": device_ms(torch, lambda: vision_head(x, weight, hbias)),
                       "plain": device_ms(torch, lambda: vision_head_plain(x, weight, hbias))},
+        "queued_ms": {"kernel": queued_ms(torch, lambda: vision_head(x, weight, hbias), 20)},
+        "cases": head_cases,
     }
     log(f"K9 vision_head: {json.dumps(out['vision_head'])}")
     del x
@@ -3581,8 +3604,11 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
     against the plain version), K1 at B=256 L=256 H=12 D=64 with 64-256
     present keys, K12 TOPK_ATOL against its plain version, K16 and K15
     BWD_RTOL, K19 the same bits as the parent's K19 for p, m and v after
-    two steps.  Gates: DEVICE_GATED rows (K12 at nq=1, K16 act none, K15,
-    K19) by device time (``queued_ms``), the others (K1, K3, K14, K12 at
+    two steps, K17 BWD_RTOL and K9 HEAD_ATOL (K17's residual form at the
+    train step's [8,192, 768], its embedding form at BGE-base's tables and
+    random or all-ones ids, K9 at an image chunk).  Gates: DEVICE_GATED
+    rows (K12 at nq=1, K16 act none, K15, K19, K17, K9) by device time
+    (``queued_ms``), the others (K1, K3, K14, K12 at
     nq=32, K16 GELU) by CUDA events; each row no slower than the parent
     where this tree runs code the parent does not (``"strict"``: a library
     rebuilt from changed sources, in the form the parent's wrapper also
@@ -3602,22 +3628,35 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
         attention_plain,
         bias_act_bwd,
         bias_act_bwd_plain,
+        embed_ln_bwd,
+        embed_ln_bwd_plain,
         ivf_scan,
         ivf_scan_plain,
         knn_topk,
         knn_topk_plain,
+        layer_norm_bwd,
+        layer_norm_bwd_plain,
         ring_block,
         ring_block_plain,
         ring_state,
+        vision_head,
+        vision_head_plain,
     )
     from pathway_tpu_torch.kernels import _build
     from pathway_tpu_torch.kernels.attention import bwd_form
 
-    def parent_module(name):
+    def parent_module(name, imports=None):
+        """The parent's kernels/<name>.py; ``imports`` maps this tree's
+        kernel modules that it imports from to the parent's own copies."""
         spec = importlib.util.spec_from_file_location(
             f"parent_{name}", os.path.join(parent, "pathway_tpu_torch", "kernels", f"{name}.py"))
         mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
+        saved = {key: sys.modules[key] for key in (imports or {})}
+        sys.modules.update(imports or {})
+        try:
+            spec.loader.exec_module(mod)
+        finally:
+            sys.modules.update(saved)
         return mod
 
     pb = parent_module("_build")
@@ -3625,7 +3664,8 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
     # the same binary (the same build name): the parent's side launches
     # this tree's build of it (a second copy of one library fails to
     # launch), through the parent's launch path
-    names = ("ring_block", "knn_topk", "attention", "ivf_scan", "bias_act_bwd", "attention_bwd", "adam")
+    names = ("ring_block", "knn_topk", "attention", "ivf_scan", "bias_act_bwd", "attention_bwd", "adam",
+             "layer_norm_bwd", "vision_head")
     same = [n for n in names if pb._target(n).name == _build._target(n).name]
     t0 = time.perf_counter()
     pb.build_all(tuple(n for n in names if n not in same))
@@ -3633,10 +3673,10 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
     builds = types.SimpleNamespace(library=lambda name: (_build if name in same else pb).library(name))
     parent_launch = parent_module("_launch").launch
 
-    def parent_wrappers(module):
+    def parent_wrappers(module, imports=None):
         """The parent's wrapper module: its host path and checks, its
         launch helper, its kernels."""
-        mod = parent_module(module)
+        mod = parent_module(module, imports)
         mod._build, mod.launch = builds, parent_launch
         return mod
 
@@ -3653,6 +3693,11 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
     parent_adam = parent_wrappers("adam").adam_step
     parent_scan = p_scan_mod.ivf_scan
     parent_bias_bwd = parent_wrappers("bias_act").bias_act_bwd
+    p_ln_mod = parent_wrappers("add_layer_norm")
+    parent_ln_bwd = p_ln_mod.layer_norm_bwd
+    parent_embed_bwd = parent_wrappers(
+        "embed_ln", {"pathway_tpu_torch.kernels.add_layer_norm": p_ln_mod}).embed_ln_bwd
+    parent_vision_head = parent_wrappers("vision_head").vision_head
 
     def turns(parent_fn, fn, iters: int, lib: str, strict: bool | None = None) -> dict:
         """Events, queued and profiled device ms of both in turns: parent,
@@ -3886,6 +3931,69 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
                  **turns(adam_turn("parent", parent_adam), adam_turn("tree", adam_step), 10, "adam")}
     log(f"{name}: {json.dumps(res[name])}")
     del ps, gs, sides
+
+    # ---- K17: the residual form at the train step's [8,192, 768], and the
+    # embedding form at BGE-base's tables, at random ids and at the
+    # reference's all-ones ids; both builds within BWD_RTOL of the plain
+    # versions
+
+    def rel_err(got, want):
+        return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(got, want) if b is not None)
+
+    M = TRAIN_B * TRAIN_L
+    x, r, dy = (torch.randn((M, HIDDEN), generator=g, device=dev) for _ in range(3))
+    gamma = 1 + 0.1 * torch.randn((HIDDEN,), generator=g, device=dev)
+    want = layer_norm_bwd_plain(dy, x + r, gamma, 1e-12)
+    err = {}
+    for who, fn in (("parent", parent_ln_bwd), ("tree", layer_norm_bwd)):
+        err[who] = rel_err(fn(dy, x, r, gamma, 1e-12), want)
+        if not err[who] <= BWD_RTOL:
+            fail(f"{who} layer_norm_bwd: {err[who]} of max|ref| > {BWD_RTOL}")
+    name = f"K17 residual [{M}, {HIDDEN}]"
+    res[name] = {"max_rel_err": err, **turns(lambda: parent_ln_bwd(dy, x, r, gamma, 1e-12),
+                                              lambda: layer_norm_bwd(dy, x, r, gamma, 1e-12), 50, "layer_norm_bwd")}
+    log(f"{name}: {json.dumps(res[name])}")
+    del x, r, want
+    tables = (torch.randn((BGE_BASE.vocab_size, HIDDEN), generator=g, device=dev) * 0.02,
+              torch.randn((BGE_BASE.max_len, HIDDEN), generator=g, device=dev) * 0.02,
+              torch.randn((BGE_BASE.type_vocab, HIDDEN), generator=g, device=dev) * 0.02)
+    for pattern, ids in (
+        ("random", torch.randint(1000, BGE_BASE.vocab_size, (TRAIN_B, TRAIN_L), generator=g, device=dev)),
+        ("all-ones", torch.ones((TRAIN_B, TRAIN_L), dtype=torch.int64, device=dev)),
+    ):
+        ids = ids.to(torch.int16)
+        want = embed_ln_bwd_plain(dy, ids, None, *tables, gamma, 1e-12)
+        err = {}
+        for who, fn in (("parent", parent_embed_bwd), ("tree", embed_ln_bwd)):
+            err[who] = rel_err(fn(dy, ids, None, *tables, gamma, 1e-12), want)
+            if not err[who] <= BWD_RTOL:
+                fail(f"{who} embed_ln_bwd at {pattern} ids: {err[who]} of max|ref| > {BWD_RTOL}")
+        name = f"K17 embedding {pattern} ids [{TRAIN_B}, {TRAIN_L}, {HIDDEN}]"
+        res[name] = {"max_rel_err": err,
+                     **turns(lambda ids=ids: parent_embed_bwd(dy, ids, None, *tables, gamma, 1e-12),
+                             lambda ids=ids: embed_ln_bwd(dy, ids, None, *tables, gamma, 1e-12), 10,
+                             "layer_norm_bwd")}
+        log(f"{name}: {json.dumps(res[name])}")
+        del want
+    del dy, tables
+    torch.cuda.empty_cache()
+
+    # ---- K9 at the image path's chunk: IMAGE_BATCH images of N_PATCH rows
+    xi = torch.randn((IMAGE_BATCH, N_PATCH, HIDDEN), generator=g, device=dev).to(bf16)
+    weight = torch.randn((HIDDEN, HIDDEN), generator=g, device=dev) * 0.02
+    hbias = torch.randn((HIDDEN,), generator=g, device=dev) * 0.1
+    want = vision_head_plain(xi, weight, hbias)
+    err = {}
+    for who, fn in (("parent", parent_vision_head), ("tree", vision_head)):
+        err[who] = float((fn(xi, weight, hbias) - want).abs().max())
+        if not err[who] <= HEAD_ATOL:
+            fail(f"{who} vision_head: max err {err[who]} > {HEAD_ATOL}")
+    name = f"K9 B={IMAGE_BATCH} P={N_PATCH} H={HIDDEN}"
+    res[name] = {"max_abs_err": err, **turns(lambda: parent_vision_head(xi, weight, hbias),
+                                              lambda: vision_head(xi, weight, hbias), 50, "vision_head")}
+    log(f"{name}: {json.dumps(res[name])}")
+    del xi, want
 
     # ---- gates: the parent's code keeps its time through this tree's
     # wrappers; code this tree changed loses none
@@ -4213,7 +4321,10 @@ def phase_train(torch, dev) -> dict:
     calls and by device time (``queued_ms``) no slower than SDPA's
     backward; K19 one launch and by device time no slower than fused
     Adam; K16 act none one launch and by CUDA
-    events no slower than ``dy.sum(0)``.  Then
+    events no slower than ``dy.sum(0)``; K17's residual form one launch a
+    call and the same bits twice, its embedding form at most two launches
+    a call and ``d_position``, dgamma and dbeta the same bits twice, at
+    random, all-ones and tokenizer ids.  Then
     ``train.dryrun_multichip(4)`` on a mesh that repeats the card."""
     import numpy as np
     import torch.nn.functional as F
@@ -4230,7 +4341,7 @@ def phase_train(torch, dev) -> dict:
     )
     from pathway_tpu_torch.kernels.adam import adam_step_plain
     from pathway_tpu_torch.kernels.attention import bwd_form
-    from pathway_tpu_torch.models import TextEncoderModel
+    from pathway_tpu_torch.models import HashTokenizer, TextEncoderModel
 
     res: dict = {"kernels": {}}
     t_phase = time.perf_counter()
@@ -4317,6 +4428,89 @@ def phase_train(torch, dev) -> dict:
         if none is not None:
             row["act_none"] = none
         del y, dy, bias, got
+    # ---- K17, second (as K16: K15's and K19's gates below run the
+    # profiler, which makes every later launch dearer): the residual
+    # LayerNorm at [M, H], then the embeddings' with their tables at three
+    # id patterns.  Gates: each within BWD_RTOL of its plain version; one
+    # launch a call for the residual form, at most two for the embedding
+    # form; the same bits on a second call (the residual form's whole
+    # output; the embedding form's d_position, dgamma and dbeta: its word
+    # and type rows are summed by atomics)
+    x, r, dy = (torch.randn((M, H), generator=g, device=dev) for _ in range(3))
+    gamma = 1 + 0.1 * torch.randn((H,), generator=g, device=dev)
+    before = kernels.layer_norm_bwd.launches
+    got = kernels.layer_norm_bwd(dy, x, r, gamma, cfg.ln_eps)
+    per_call = kernels.layer_norm_bwd.launches - before
+    err = gate("K17 layer_norm_bwd", got, layer_norm_bwd_plain(dy, x + r, gamma, cfg.ln_eps))
+    same_bits = all(torch.equal(a, b) for a, b in zip(got, kernels.layer_norm_bwd(dy, x, r, gamma, cfg.ln_eps)))
+    s = (x + r).requires_grad_()
+    w, b = gamma.clone().requires_grad_(), torch.zeros((H,), device=dev, requires_grad=True)
+    ln = F.layer_norm(s, (H,), w, b, cfg.ln_eps)
+    kern = lambda: kernels.layer_norm_bwd(dy, x, r, gamma, cfg.ln_eps)  # noqa: E731
+    lib = lambda: torch.autograd.grad(ln, (s, w, b), dy, retain_graph=True)  # noqa: E731
+    entry("layer_norm_bwd", err, time_ms(torch, kern, 20),
+          time_ms(torch, lambda: layer_norm_bwd_plain(dy, x + r, gamma, cfg.ln_eps), 10), 4 * M * H * 4 + 3 * H * 4,
+          15 * M * H, PEAK_F32, time_ms(torch, lib, 10), [M, H])
+    row = res["kernels"]["layer_norm_bwd"]
+    row["launches_per_call"] = per_call
+    row["same_bits_twice"] = same_bits
+    row["queued_ms"] = {"kernel": queued_ms(torch, kern, 20), "library": queued_ms(torch, lib, 20)}
+    row["device_ms"] = {"kernel": device_ms(torch, kern, 20)}
+    log(f"K17 residual: {per_call} launch(es) a call, same bits twice: {same_bits}, queued ms "
+        f"{json.dumps(row['queued_ms'])}, device ms {json.dumps(row['device_ms'])}")
+    if per_call != 1:
+        fail(f"K17's residual form made {per_call} launches a call, not 1")
+    if not same_bits:
+        fail("K17's residual form gave other bits on a second call on the same inputs")
+    del x, r, s, w, b, ln, got, kern, lib
+    # the embedding form at phase 12's random ids, at the reference's own
+    # all-ones ids, and at the tokenizer's ids over phase 3's documents
+    # padded to TRAIN_L (CLS at every row's start, SEP, PAD tails; the
+    # tokenizer's type ids, all zero)
+    emb = model.embeddings
+    tables = (emb.word.weight.detach(), emb.position.weight.detach(), emb.token_type.weight.detach())
+    tok_ids, _, tok_types = HashTokenizer(cfg.vocab_size).encode_batch(
+        synthetic_docs(np, TRAIN_B, SEED), max_len=TRAIN_L, bucket_len=False)
+    patterns = {
+        "random": (ids.to(torch.int16), None),
+        "all_ones": (torch.ones_like(ids, dtype=torch.int16), None),
+        "tokenizer": (torch.from_numpy(tok_ids).to(dev, torch.int16), torch.from_numpy(tok_types).to(dev, torch.uint8)),
+    }
+    cases = {}
+    for name, (pids, ptypes) in patterns.items():
+        before = kernels.embed_ln_bwd.launches
+        got = kernels.embed_ln_bwd(dy, pids, ptypes, *tables, gamma, cfg.ln_eps)
+        per_call = kernels.embed_ln_bwd.launches - before
+        err = gate(f"K17 embed_ln_bwd at {name} ids", got,
+                   embed_ln_bwd_plain(dy, pids, ptypes, *tables, gamma, cfg.ln_eps))
+        again = kernels.embed_ln_bwd(dy, pids, ptypes, *tables, gamma, cfg.ln_eps)
+        same_bits = all(torch.equal(got[i], again[i]) for i in (1, 3, 4))
+        distinct = int(torch.unique(pids).numel())
+        nbytes = embed_bwd_bytes(cfg, M, TRAIN_L, distinct, 1, type_bytes=0 if ptypes is None else 1)
+        b_ms, by = bound(nbytes, 15 * M * H, PEAK_F32)
+
+        def kern(pids=pids, ptypes=ptypes):
+            return kernels.embed_ln_bwd(dy, pids, ptypes, *tables, gamma, cfg.ln_eps)
+
+        cases[name] = {"max_abs_err": err, "ms": time_ms(torch, kern, 10), "queued_ms": queued_ms(torch, kern, 10),
+                       "bound_ms": b_ms, "bound_by": by, "distinct_words": distinct,
+                       "launches_per_call": per_call, "same_bits_twice": same_bits}
+        if per_call > 2:
+            fail(f"K17's embedding form made {per_call} launches a call at {name} ids, more than 2")
+        if not same_bits:
+            fail(f"K17's embedding form gave other d_position, dgamma or dbeta bits on a second call at {name} ids")
+        del got, again
+    rand_ids = patterns["random"][0]
+    entry("embed_ln_bwd", max(c["max_abs_err"] for c in cases.values()), cases["random"]["ms"],
+          time_ms(torch, lambda: embed_ln_bwd_plain(dy, rand_ids, None, *tables, gamma, cfg.ln_eps), 5),
+          embed_bwd_bytes(cfg, M, TRAIN_L, cases["random"]["distinct_words"], 1), 15 * M * H, PEAK_F32, None, [M, H])
+    row = res["kernels"]["embed_ln_bwd"]
+    row["cases"] = cases
+    row["launches_per_call"] = max(c["launches_per_call"] for c in cases.values())
+    row["same_bits_twice"] = all(c["same_bits_twice"] for c in cases.values())
+    row["queued_ms"] = {"kernel": cases["random"]["queued_ms"]}
+    log(f"K17 embedding form by id pattern: {json.dumps(cases)}")
+    del dy, patterns, rand_ids, tables
     # ---- K15 at the other forms it is built for (K15_CASES).  Masks: row
     # 0 has no present key (p = 1 / L), row 1 keys at random, row 2 keys
     # only among the first 128 and row 3 only among the last 64 (in the
@@ -4410,31 +4604,6 @@ def phase_train(torch, dev) -> dict:
         fail(f"K15 takes {row['queued_ms']['kernel']:.4f} ms of device time, slower than SDPA's f32 backward "
              f"({row['queued_ms']['library']:.4f} ms)")
     del q, k, v, do, out, lse, got, want, again, qs, ks, vs, sd, dos, kern, lib, kmask, present
-    # ---- K17: the residual LayerNorm and the embeddings' with their tables
-    x, r, dy = (torch.randn((M, H), generator=g, device=dev) for _ in range(3))
-    gamma = 1 + 0.1 * torch.randn((H,), generator=g, device=dev)
-    got = kernels.layer_norm_bwd(dy, x, r, gamma, cfg.ln_eps)
-    err = gate("K17 layer_norm_bwd", got, layer_norm_bwd_plain(dy, x + r, gamma, cfg.ln_eps))
-    s = (x + r).requires_grad_()
-    w, b = gamma.clone().requires_grad_(), torch.zeros((H,), device=dev, requires_grad=True)
-    ln = F.layer_norm(s, (H,), w, b, cfg.ln_eps)
-    entry("layer_norm_bwd", err, time_ms(torch, lambda: kernels.layer_norm_bwd(dy, x, r, gamma, cfg.ln_eps), 10),
-          time_ms(torch, lambda: layer_norm_bwd_plain(dy, x + r, gamma, cfg.ln_eps), 10), 4 * M * H * 4 + 3 * H * 4,
-          15 * M * H, PEAK_F32,
-          time_ms(torch, lambda: torch.autograd.grad(ln, (s, w, b), dy, retain_graph=True), 10), [M, H])
-    del x, r, s, w, b, ln, got
-    emb = model.embeddings
-    tables = (emb.word.weight.detach(), emb.position.weight.detach(), emb.token_type.weight.detach())
-    ids16 = ids.to(torch.int16)
-    got = kernels.embed_ln_bwd(dy, ids16, None, tables[0], tables[1], tables[2], gamma, cfg.ln_eps)
-    want = embed_ln_bwd_plain(dy, ids16, None, tables[0], tables[1], tables[2], gamma, cfg.ln_eps)
-    err = gate("K17 embed_ln_bwd", got, want)
-    distinct = int(torch.unique(ids).numel())
-    entry("embed_ln_bwd", err,
-          time_ms(torch, lambda: kernels.embed_ln_bwd(dy, ids16, None, *tables, gamma, cfg.ln_eps), 10),
-          time_ms(torch, lambda: embed_ln_bwd_plain(dy, ids16, None, *tables, gamma, cfg.ln_eps), 5),
-          2 * M * H * 4 + 2 * (distinct + TRAIN_L + 1) * H * 4 + M * 2, 15 * M * H, PEAK_F32, None, [M, H])
-    del dy, got, want
     # ---- K18: the loss of a [64, 64] product, and K7's backward
     e = F.normalize(torch.randn((TRAIN_B, H), generator=g, device=dev), dim=1)
     raw = e @ e.T
@@ -4562,6 +4731,20 @@ def phase_train(torch, dev) -> dict:
     return res
 
 
+def embed_bwd_bytes(cfg, m: int, seq: int, distinct: int, types_used: int, id_bytes: int = 2,
+                    type_bytes: int = 0) -> int:
+    """Bytes K17's embedding form must move for ``m`` rows: each input read
+    once (dy, the ids and type ids, gamma, and the table rows the rows
+    gathered: ``distinct`` word rows, the ``seq`` position rows,
+    ``types_used`` type rows) and each output written once, the dense
+    gradient tables whole (vocab + max_len + type_vocab rows) beside dgamma
+    and dbeta."""
+    h = cfg.hidden
+    reads = m * h * 4 + m * (id_bytes + type_bytes) + (distinct + seq + types_used) * h * 4 + h * 4
+    writes = (cfg.vocab_size + cfg.max_len + cfg.type_vocab) * h * 4 + 2 * h * 4
+    return reads + writes
+
+
 def train_flops(cfg, B: int, L: int) -> float:
     """Operations of one contrastive step: the dense products forward (2
     flops a multiply-add) and backward (twice that), attention's two
@@ -4578,7 +4761,7 @@ def step_split(prof: dict) -> dict:
     the port's kernels (by source), the rest, and the idle share."""
     kinds = {"gemm": 0.0, "forward_kernels": 0.0, "backward_kernels_K15_K18": 0.0, "adam_K19": 0.0, "other": 0.0}
     fwd = ("wgmma_kernel", "tf32_kernel", "bias_act", "add_ln", "embed_ln", "pool_norm")
-    bwd = ("bwd_kernel", "dq_kernel", "dkv_kernel", "dx_kernel", "colsum", "ln_bwd", "loss_kernel", "pool_bwd")
+    bwd = ("bwd_kernel", "dq_kernel", "dkv_kernel", "dx_kernel", "colsum", "loss_kernel", "pool_bwd")
     for row in prof.pop("all"):
         n = row["name"]
         if "gemm" in n or "sm90_xmma" in n or "cutlass" in n or "Kernel2" in n:

@@ -180,8 +180,9 @@ _SIGNATURES = {
     "attention_bwd": {"pw_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, _F, _I, _P]},
     "bias_act_bwd": {"pw_bias_act_bwd": [_P] * 6 + [_I, _I, _I, _I, _P], "pw_bias_sum": [_P, _P, _I, _I, _P]},
     "layer_norm_bwd": {
+        "pw_layer_norm_bwd_grid": [_I, _I],
         "pw_layer_norm_bwd": [_P] * 8 + [_I, _I, _F, _I, _P],
-        "pw_embed_ln_bwd": [_P, _I, _P, _I, _P, _I, _P, _P, _I, _I] + [_P] * 8 + [_I, _I, _F, _I, _P],
+        "pw_embed_ln_bwd": [_P, _I, _P, _I, _P, _I, _P, _I, _P] + [_I] * 5 + [_P] * 10 + [_I, _F, _I, _P],
     },
     "contrastive_loss": {
         "pw_contrastive_loss": [_P, _P, _P, _I, _F, _F, _P],

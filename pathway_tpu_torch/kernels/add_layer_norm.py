@@ -25,7 +25,7 @@ from pathway_tpu_torch.kernels._launch import check_cuda, launch
 
 __all__ = [
     "add_layer_norm", "add_layer_norm_plain", "check_add_layer_norm", "layer_norm_plain",
-    "MAX_HIDDEN", "DTYPES", "layer_norm_bwd", "layer_norm_bwd_plain", "AddLayerNormFunction",
+    "MAX_HIDDEN", "DTYPES", "layer_norm_bwd", "layer_norm_bwd_plain", "AddLayerNormFunction", "bwd_grid",
 ]
 
 MAX_HIDDEN = 1024
@@ -105,9 +105,26 @@ add_layer_norm.launches = 0
 # ---------------------------------------------------------------------------
 # K17: the backward (csrc/layer_norm_bwd.cu), and K5's autograd Function
 
-#: blocks of the backward's row pass (2 an SM of an H100); each writes one
-#: partial row of dgamma and dbeta
-BWD_BLOCKS = 264
+#: K17's two forms, as ``pw_layer_norm_bwd_grid`` numbers them
+RESIDUAL, EMBEDDING = 0, 1
+#: (card index, form, hidden) -> the most blocks the card holds at once
+_grids: dict[tuple[int, int, int], int] = {}
+
+
+def bwd_grid(form: int, h: int, device: torch.device) -> int:
+    """The most blocks of K17's ``form`` at width ``h`` that ``device``
+    holds at once: the largest grid of its cooperative launch (each block
+    writes one partial row of dgamma and dbeta).  Asked of the library
+    once per card, form and width."""
+    key = (device.index, form, h)
+    blocks = _grids.get(key)
+    if blocks is None:
+        with torch.cuda.device(device.index):
+            blocks = _build.library("layer_norm_bwd").pw_layer_norm_bwd_grid(form, h)
+        if blocks <= 0:
+            raise RuntimeError(f"layer_norm_bwd: no grid for form {form} at hidden {h} (cudaError_t {-blocks})")
+        _grids[key] = blocks
+    return blocks
 
 
 def layer_norm_bwd_plain(
@@ -129,9 +146,9 @@ def layer_norm_bwd(
     dy: torch.Tensor, x: torch.Tensor, r: torch.Tensor | None, gamma: torch.Tensor, eps: float
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K5's backward: ``(ds, dgamma, dbeta)`` of ``LayerNorm(x + r)``, ds the
-    gradient of both x and r; the kernel on a card (two launches: the rows
-    with the blocks' partial sums, then their sum), the plain version for
-    CPU tensors."""
+    gradient of both x and r; the kernel on a card (one cooperative launch:
+    the rows, then the blocks' partial dgamma and dbeta summed in order),
+    the plain version for CPU tensors."""
     if dy.device.type == "cpu":
         return layer_norm_bwd_plain(dy, x if r is None else x + r, gamma, eps)
     tensors = {"dy": dy, "x": x, "gamma": gamma} | ({} if r is None else {"r": r})
@@ -148,18 +165,18 @@ def layer_norm_bwd(
     d_beta = torch.empty((h,), dtype=torch.float32, device=device)
     if m == 0:
         return ds, d_gamma.zero_(), d_beta.zero_()
-    blocks = min(BWD_BLOCKS, -(-m // 8))
+    blocks = min(bwd_grid(RESIDUAL, h, device), -(-m // 8))
     partial = torch.empty((2, blocks, h), dtype=torch.float32, device=device)
     launch(
         "layer_norm_bwd", _build.library("layer_norm_bwd").pw_layer_norm_bwd, device,
         x.data_ptr(), None if r is None else r.data_ptr(), dy.data_ptr(), gamma.data_ptr(), ds.data_ptr(),
         partial.data_ptr(), d_gamma.data_ptr(), d_beta.data_ptr(), m, h, float(eps), blocks,
     )
-    layer_norm_bwd.launches += 2
+    layer_norm_bwd.launches += 1
     return ds, d_gamma, d_beta
 
 
-#: launches of the CUDA kernels in this process (two a call)
+#: launches of the CUDA kernel in this process (one a call)
 layer_norm_bwd.launches = 0
 
 

@@ -29,8 +29,9 @@ import torch.nn.functional as F
 from pathway_tpu_torch.kernels import _build
 from pathway_tpu_torch.kernels._launch import check_cuda, launch
 from pathway_tpu_torch.kernels.add_layer_norm import (
-    BWD_BLOCKS,
     DTYPES,
+    EMBEDDING,
+    bwd_grid,
     check_norm_params,
     layer_norm_bwd_plain,
     layer_norm_plain,
@@ -38,6 +39,7 @@ from pathway_tpu_torch.kernels.add_layer_norm import (
 
 __all__ = [
     "embed_ln", "embed_ln_plain", "check_embed_ln", "embed_ln_bwd", "embed_ln_bwd_plain", "EmbedLnFunction",
+    "bwd_plan", "ITEM_ROWS",
 ]
 
 #: index dtype -> the kernel's code for it
@@ -175,14 +177,31 @@ def embed_ln_bwd_plain(
     return d_word, d_position, d_type, d_gamma, d_beta
 
 
+#: rows of one position that an item of the backward sorts (one a thread
+#: of its block, ``kItemRows`` in csrc/layer_norm_bwd.cu)
+ITEM_ROWS = 256
+
+
+def bwd_plan(batch: int, seq_len: int, grid: int) -> tuple[int, int]:
+    """K17's embedding form walks the rows position by position in items:
+    ``(chunks, rows)``, item ``c * seq_len + l`` holding rows ``b`` in
+    ``[c * rows, min(batch, (c + 1) * rows))`` at position ``l``.  A position
+    is split into ``chunks`` items when the grid has blocks to spare (about
+    ``grid`` items in all) or its rows exceed ITEM_ROWS; no item is empty."""
+    chunks = min(batch, max(1, grid // seq_len, -(-batch // ITEM_ROWS)))
+    rows = -(-batch // chunks)
+    return -(-batch // rows), rows
+
+
 def embed_ln_bwd(
     dy: torch.Tensor, ids: torch.Tensor, type_ids: torch.Tensor | None, word: torch.Tensor,
     position: torch.Tensor, type_table: torch.Tensor | None, scale: torch.Tensor, eps: float,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None, torch.Tensor, torch.Tensor]:
     """K6's backward, the sums gathered again from the ids and tables; the
-    kernel on a card (two launches: the rows, whose ds are added into the
-    tables by f32 atomics, with the blocks' partial dgamma and dbeta, then
-    their sum), the plain version for CPU tensors."""
+    kernel on a card (one cooperative launch: the rows position by
+    position, each position's rows sorted by id so that a repeated id adds
+    into its table row once per block, then dgamma and dbeta summed in
+    order), the plain version for CPU tensors."""
     if dy.device.type == "cpu":
         return embed_ln_bwd_plain(dy, ids, type_ids, word, position, type_table, scale, eps)
     check_embed_ln(ids, type_ids, word, position, type_table, scale, scale, torch.float32)
@@ -196,33 +215,40 @@ def embed_ln_bwd(
     h = word.shape[1]
     if dy.dtype != torch.float32 or dy.numel() != B * L * h:
         raise ValueError(f"embed_ln_bwd: dy must be f32 [{B}, {L}, {h}]")
-    d_word = torch.zeros_like(word)
-    d_position = torch.zeros_like(position)
-    d_type = None if type_table is None else torch.zeros_like(type_table)
-    d_gamma = torch.zeros((h,), dtype=torch.float32, device=device)
-    d_beta = torch.zeros((h,), dtype=torch.float32, device=device)
-    m = B * L
-    if m == 0:
-        return d_word, d_position, d_type, d_gamma, d_beta
-    blocks = min(BWD_BLOCKS, -(-m // 8))
+    if B * L == 0:
+        return (torch.zeros_like(word), torch.zeros_like(position),
+                None if type_table is None else torch.zeros_like(type_table),
+                torch.zeros_like(scale), torch.zeros_like(scale))
+    # the kernel writes every row of the gradient tables
+    d_word = torch.empty_like(word)
+    d_position = torch.empty_like(position)
+    d_type = None if type_table is None else torch.empty_like(type_table)
+    counts = torch.zeros((word.shape[0],), dtype=torch.int32, device=device)
+    d_gamma = torch.empty((h,), dtype=torch.float32, device=device)
+    d_beta = torch.empty((h,), dtype=torch.float32, device=device)
+    grid = bwd_grid(EMBEDDING, h, device)
+    chunks, rows = bwd_plan(B, L, grid)
+    blocks = min(grid, chunks * L)
     partial = torch.empty((2, blocks, h), dtype=torch.float32, device=device)
+    pos_partial = torch.empty((chunks * L, h), dtype=torch.float32, device=device) if chunks > 1 else None
     launch(
         "embed_ln_bwd", _build.library("layer_norm_bwd").pw_embed_ln_bwd, device,
         ids.data_ptr(), _INDEX_KINDS[ids.dtype],
         None if type_ids is None else type_ids.data_ptr(),
         0 if type_ids is None else _INDEX_KINDS[type_ids.dtype],
-        word.data_ptr(), word.shape[0], position.data_ptr(),
+        word.data_ptr(), word.shape[0], position.data_ptr(), position.shape[0],
         None if type_table is None else type_table.data_ptr(),
-        0 if type_table is None else type_table.shape[0], L,
+        0 if type_table is None else type_table.shape[0], B, L, chunks, rows,
         d_word.data_ptr(), d_position.data_ptr(), None if d_type is None else d_type.data_ptr(),
+        None if pos_partial is None else pos_partial.data_ptr(), counts.data_ptr(),
         dy.data_ptr(), scale.data_ptr(), partial.data_ptr(), d_gamma.data_ptr(), d_beta.data_ptr(),
-        m, h, float(eps), blocks,
+        h, float(eps), blocks,
     )
-    embed_ln_bwd.launches += 2
+    embed_ln_bwd.launches += 1
     return d_word, d_position, d_type, d_gamma, d_beta
 
 
-#: launches of the CUDA kernels in this process (two a call)
+#: launches of the CUDA kernel in this process (one a call)
 embed_ln_bwd.launches = 0
 
 

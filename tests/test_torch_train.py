@@ -368,6 +368,39 @@ def test_embed_ln_function_backward(types):
     _assert_grads(got, want)
 
 
+@pytest.mark.parametrize("types", [False, True])
+def test_embed_ln_function_backward_all_ones_ids_matches_jax(types):
+    """The reference train step's all-ones ids (every row gathers word row
+    1: the repeated id K17 adds once per run) against JAX's gradient of
+    ``Embeddings``: the word, position and type tables and the LayerNorm's
+    scale and bias."""
+    from pathway_tpu.models.encoder import EncoderConfig as JaxEncoderConfig
+    from pathway_tpu.models.encoder import Embeddings as JaxEmbeddings
+
+    rng = np.random.default_rng(3)
+    cfg = JaxEncoderConfig(vocab_size=40, hidden=16, max_len=20, type_vocab=2, dtype=jnp.float32)
+    ids = np.ones((3, 8), dtype=np.int32)
+    tids = rng.integers(0, 2, (3, 8)).astype(np.int32) if types else None
+    module = JaxEmbeddings(cfg)
+    params = module.init(jax.random.PRNGKey(0), jnp.asarray(ids), None)["params"]
+    params = jax.tree.map(lambda a: a + 0.1 * jnp.asarray(rng.standard_normal(a.shape), a.dtype), params)
+    dout = rng.standard_normal((3, 8, 16)).astype(np.float32)
+    _, vjp = jax.vjp(lambda p: module.apply({"params": p}, jnp.asarray(ids), None if tids is None else jnp.asarray(tids)),
+                     params)
+    (g,) = vjp(jnp.asarray(dout))
+    want = [torch.from_numpy(np.array(a)) for a in (
+        g["word"]["embedding"], g["position"]["embedding"], g["type"]["embedding"], g["ln"]["scale"], g["ln"]["bias"])]
+    tables = [torch.from_numpy(np.array(a)).requires_grad_() for a in (
+        params["word"]["embedding"], params["position"]["embedding"], params["type"]["embedding"],
+        params["ln"]["scale"], params["ln"]["bias"])]
+    word, pos, ttab, scale, bias = tables
+    out = EmbedLnFunction.apply(torch.from_numpy(ids).to(torch.int16),
+                                None if tids is None else torch.from_numpy(tids).to(torch.uint8),
+                                word, pos, ttab, scale, bias, cfg.ln_eps, torch.float32)
+    got = torch.autograd.grad(out, tables, torch.from_numpy(dout))
+    _assert_grads(got, want)
+
+
 @pytest.mark.parametrize("pool", ["cls", "mean"])
 @pytest.mark.parametrize("normalize", [True, False])
 def test_pool_normalize_function_backward(pool, normalize):
