@@ -25,7 +25,11 @@ Phases, each fatal on failure:
    same block and mask (and, named apart, over the whole 8,192-token
    sequence); K3 at nq 32 and 64 in one pass over the slab (4 launches a
    call: the queries' split, the pass, two merges); K9 also at B = 1 and
-   13 (one launch each); the ptxas lines of K1, K3 and K14.
+   13 (one launch each); the ptxas lines of K1, K3 and K14.  C8's f32
+   forms: K8 writing f32 rows (from uint8 and f32 images, and on padded
+   grids) and K9 reading f32 x, each against its plain version; then
+   the tiny f32 dual encoder (``phase_f32_vision``: 32-pixel images,
+   hidden 64, 2 layers) on the card against its plain path at 1e-5.
    K1 also, in bf16 and f32, at B=256 L=512 with masks with holes
    (present key tiles between fully masked ones) and rows with no present
    key, whose output must be the uniform average of v, and at L=196 with
@@ -164,8 +168,21 @@ Phases, each fatal on failure:
     the tokenizer's ids over phase 3's documents (CLS, SEP, PAD tails);
     then ``train.dryrun_multichip(4)`` on a mesh that repeats the card.
 
-Phase 8 runs right after phase 4, while phase 3's index is alive, and
-phase 10 after it; phases 5, 6, 9 and 12 follow.  The second-to-last line of
+13. the host plane's engine core (``phase_engine``, ROADMAP item 12):
+    the port's own C++ module (``pathway_torch_native``, built from
+    ``pathway_tpu_torch/native/``) must be the one loaded; the groupby
+    first target over 2,000 markdown rows and a join + groupby over
+    100,000 generated rows through ``pathway_tpu_torch.debug``, each
+    equal to a plain-Python computation; phase 3's 8,192 documents
+    through ``table_from_pandas -> select(emb=TorchEncoderEmbedder(
+    config=BGE_BASE, max_batch_size=1024)(text)) -> table_to_dicts``
+    with phase 3's seeded weights, each row within phase 3's gates
+    (cosine 0.999, 2e-2) of ``TorchEncoder.encode``, K1 and K4-K7
+    launched, docs/s beside phase 3's ``encode_into``; the UDF's batch
+    call from a worker thread.
+
+Phase 13 and then phase 8 run right after phase 4, while phase 3's index
+is alive, and phase 10 after them; phases 5, 6, 9 and 12 follow.  The second-to-last line of
 output is a JSON object with one entry per kernel wrapper (K1-K19; K1 and
 K4-K7 with their f32 forms); the last is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device the script exits 1 and prints no result.
@@ -354,6 +371,10 @@ TRAIN_KERNELS = ("attention", "bias_act", "add_layer_norm", "embed_ln", "pool_no
                  "bias_act_bwd", "layer_norm_bwd", "embed_ln_bwd", "contrastive_loss", "pool_normalize_bwd", "adam")
 
 PEAK_BYTES = 3.35e12
+ENGINE_MD_ROWS = 2000  # markdown rows of the engine phase's groupby first target
+ENGINE_ROWS = 100_000  # generated orders the engine phase joins
+ENGINE_CUSTOMERS = 1000
+ENGINE_UDF_BATCH = 1024  # the embedder UDF's max_batch_size in the engine phase
 PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
@@ -1161,7 +1182,30 @@ def phase_vision_kernels(torch, dev) -> dict:
         gh, gw, _, _ = patch_grid(h, w, p)
         if got.shape != (3 * gh * gw, p * p * 3) or not torch.equal(got, patchify_plain(imgs, p, bf16)):
             fail(f"patchify {h}x{w} patch {p} {dt} differs from its plain version")
-    out["patchify"] = k8["uint8"]
+    # the f32 output form (C8: an f32 tower's activations): 4-value rows
+    # stored as f32, from the image path's uint8 upload and from f32 images
+    for label, imgs in (
+        ("uint8 -> f32", torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)),
+        ("f32 -> f32", torch.rand(shape, generator=g, device=dev) * 255.0),
+    ):
+        if not torch.equal(patchify(imgs, PATCH, torch.float32), patchify_plain(imgs, PATCH, torch.float32)):
+            fail(f"patchify ({label}) differs from its plain version")
+        b_ms, b_by = bound(imgs.numel() * imgs.element_size() + rows * cols * 4, rows * cols, PEAK_F32)
+        k8[label] = {
+            "shape": f"B={B} {IMAGE_SIZE}x{IMAGE_SIZE}x3 {label.split()[0]} -> [{rows},{cols}] f32",
+            "max_abs_err": 0.0,
+            "ms": time_ms(torch, lambda: patchify(imgs, PATCH, torch.float32), 20),
+            "plain_ms": time_ms(torch, lambda: patchify_plain(imgs, PATCH, torch.float32), 5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+        }
+        log(f"K8 patchify {label}: {json.dumps(k8[label])}")
+        del imgs
+    for h, w, p, dt in ((200, 210, 16, torch.float32), (30, 27, 8, torch.uint8), (9, 9, 2, torch.float32)):
+        imgs = (torch.rand((3, h, w, 3 if p > 2 else 1), generator=g, device=dev) * 255.0).to(dt)
+        if not torch.equal(patchify(imgs, p, torch.float32), patchify_plain(imgs, p, torch.float32)):
+            fail(f"patchify f32 output {h}x{w} patch {p} {dt} differs from its plain version")
+    out["patchify"] = {**k8["uint8"], "f32": k8["uint8 -> f32"]}
     out["_patchify_shapes"] = k8
 
     # ---- K4 with the position addend: the patch embed's bias + pos
@@ -1223,7 +1267,35 @@ def phase_vision_kernels(torch, dev) -> dict:
         "cases": head_cases,
     }
     log(f"K9 vision_head: {json.dumps(out['vision_head'])}")
-    del x
+    # the f32-x form (C8: an f32 tower's last activations), on the same
+    # values: only the load of the patch rows differs
+    x32 = x.float()
+    got = vision_head(x32, weight, hbias)
+    err32 = (got - vision_head_plain(x32, weight, hbias)).abs().max().item()
+    if not err32 <= HEAD_ATOL or not bool(got.isfinite().all()):
+        fail(f"vision_head f32: max err {err32} > {HEAD_ATOL}")
+    cases32 = {}
+    for nb in (1, 13):
+        before = vision_head.launches
+        got = vision_head(x32[:nb], weight, hbias)
+        per_call = vision_head.launches - before
+        e = (got - vision_head_plain(x32[:nb], weight, hbias)).abs().max().item()
+        if not e <= HEAD_ATOL or not bool(got.isfinite().all()) or per_call != 1:
+            fail(f"vision_head f32 at B={nb}: max err {e} > {HEAD_ATOL}, {per_call} launches")
+        cases32[f"B={nb}"] = {"max_abs_err": e, "launches_per_call": per_call}
+    b_ms, b_by = bound(nbytes + rows * HIDDEN * 2, rows * HIDDEN + 2 * B * HIDDEN * HIDDEN + 3 * B * HIDDEN, PEAK_F32)
+    out["vision_head"]["f32"] = {
+        "shape": f"B={B} P={N_PATCH} H={HIDDEN} f32, projection [{HIDDEN},{HIDDEN}] f32 -> [{B},{HIDDEN}] f32",
+        "max_abs_err": err32,
+        "ms": time_ms(torch, lambda: vision_head(x32, weight, hbias), 20),
+        "plain_ms": time_ms(torch, lambda: vision_head_plain(x32, weight, hbias), 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+        "queued_ms": {"kernel": queued_ms(torch, lambda: vision_head(x32, weight, hbias), 20)},
+        "cases": cases32,
+    }
+    log(f"K9 vision_head f32: {json.dumps(out['vision_head']['f32'])}")
+    del x, x32
 
     # ---- K10 dual_logits: unit rows, a logit scale and bias off their init
     def unit(n):
@@ -4779,6 +4851,195 @@ def step_split(prof: dict) -> dict:
     return kinds
 
 
+def phase_f32_vision(torch, dev) -> dict:
+    """C8 end to end: the tiny f32 dual encoder (32-pixel images in 8-pixel
+    patches, 2 layers, hidden 64, 2 heads, MLP 128, projection to 64; the
+    text tower the same width) on the card, its image embeddings and
+    logits against the same model through the kernels' plain versions
+    (``plain_vision_forward``, ``plain_forward``, ``dual_logits_plain``),
+    at F32_ATOL.  K8 and K9 run in their f32 forms."""
+    import numpy as np
+
+    from pathway_tpu_torch import DualEncoderModel, EncoderConfig, VisionConfig, kernels
+    from pathway_tpu_torch.kernels import dual_logits_plain
+    from pathway_tpu_torch.models import HashTokenizer
+
+    f32 = torch.float32
+    vcfg = VisionConfig(image_size=32, patch=8, hidden=64, layers=2, heads=2, mlp_dim=128, embed_dim=64,
+                        dtype=f32)
+    tcfg = EncoderConfig(hidden=64, layers=2, heads=2, mlp_dim=128, max_len=32, dtype=f32)
+    model = DualEncoderModel(vcfg, tcfg, device=dev, seed=SEED)
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    images = torch.randint(0, 256, (24, 32, 32, 3), generator=g, device=dev, dtype=torch.uint8)
+    tok = HashTokenizer(tcfg.vocab_size)
+    ids, mask, _ = tok.encode_batch(synthetic_docs(np, 16, SEED + 9), max_len=tcfg.max_len)
+    ids, mask = torch.from_numpy(ids).to(dev), torch.from_numpy(mask.astype(np.uint8)).to(dev)
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        img = model.embed_image(images)
+        logits = model(images, ids, mask)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        img_plain = plain_vision_forward(model.vision, images)
+        txt_plain = plain_forward(model.text, ids, mask)
+        logits_plain = dual_logits_plain(img_plain, txt_plain, model.logit_scale, model.logit_bias)
+    res = {
+        "images_max_abs_err": float((img - img_plain).abs().max()),
+        "logits_max_abs_err": float((logits - logits_plain).abs().max()),
+        "launches": launches,
+    }
+    if img.dtype != f32 or img.shape != (24, 64) or logits.shape != (24, 16):
+        fail(f"f32 dual encoder: {img.dtype} {tuple(img.shape)}, logits {tuple(logits.shape)}")
+    if not (bool(img.isfinite().all()) and bool(logits.isfinite().all())
+            and res["images_max_abs_err"] <= F32_ATOL and res["logits_max_abs_err"] <= F32_ATOL):
+        fail(f"f32 dual encoder against its plain path: {res} (tol {F32_ATOL})")
+    path = ("patchify", "vision_head", "bias_act", "attention", "add_layer_norm", "embed_ln", "pool_normalize",
+            "dual_logits")
+    zero = [name for name in path if launches[name] == 0]
+    if zero:
+        fail(f"kernels not launched by the f32 dual encoder: {zero}")
+    log(f"C8, the tiny f32 dual encoder against its plain path: {json.dumps(res)}")
+    return res
+
+
+def phase_engine(torch, dev, ctx: dict, encode_into_docs_per_s: float, smi: str) -> dict:
+    """The host plane's engine core on the card (ROADMAP item 12): (a) the
+    groupby first target and a join over 100,000 generated rows through
+    ``pathway_tpu_torch.debug``, each against a plain-Python computation of
+    the same result, with the port's own native module loaded; (b) phase
+    3's 8,192 documents through ``table_from_pandas -> select(emb=
+    TorchEncoderEmbedder(...)(text)) -> table_to_dicts`` at BGE-base width
+    with phase 3's seeded weights, every row against ``TorchEncoder.encode``
+    of the same text (phase 3's encoder) at phase 3's gates, K1 and K4-K7
+    launched; the UDF's ``__batch__`` also from a worker thread."""
+    import threading
+    from collections import defaultdict
+
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import BGE_BASE, TorchEncoderEmbedder, kernels
+    from pathway_tpu_torch.internals import native
+
+    res: dict = {}
+    t_phase = time.perf_counter()
+    mod = native.load()  # built with g++ from the package's own source at first use
+    load_s = time.perf_counter() - t_phase
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(pw.__file__)), "native", "build")
+    if mod is None or mod.__name__ != native.MODULE_NAME or os.path.dirname(os.path.abspath(mod.__file__)) != build_dir:
+        fail(f"the port's native module is not loaded from its own build: {mod!r}")
+    foreign = sorted(m for m in sys.modules if m == "pathway_native" or m.split(".")[0] in ("jax", "pathway_tpu"))
+    if foreign:
+        fail(f"modules of the JAX package loaded beside the port: {foreign}")
+    res["native"] = {"module": mod.__name__, "file": os.path.relpath(mod.__file__), "load_s": load_s}
+    rng = np.random.default_rng(SEED + 12)
+
+    # ---- (a) the first target: markdown -> groupby -> reduce
+    words = [f"w{int(i)}" for i in rng.integers(0, 50, ENGINE_MD_ROWS)]
+    counts = rng.integers(1, 100, ENGINE_MD_ROWS)
+    md = "word | cnt\n" + "\n".join(f"{w} | {int(c)}" for w, c in zip(words, counts))
+    pw.G.clear()
+    t = pw.debug.table_from_markdown(md)
+    _, cols = pw.debug.table_to_dicts(t.groupby(t.word).reduce(t.word, total=pw.reducers.sum(t.cnt),
+                                                                n=pw.reducers.count()))
+    got = {cols["word"][k]: (cols["total"][k], cols["n"][k]) for k in cols["word"]}
+    want: dict = defaultdict(lambda: (0, 0))
+    for w, c in zip(words, counts):
+        want[w] = (want[w][0] + int(c), want[w][1] + 1)
+    if got != dict(want):
+        fail("the groupby first target differs from its plain-Python result")
+    res["first_target_groups"] = len(got)
+
+    # ---- (a) a join over ENGINE_ROWS generated orders, then a groupby
+    cust = rng.integers(0, ENGINE_CUSTOMERS, ENGINE_ROWS)
+    amount = rng.integers(1, 1000, ENGINE_ROWS)
+    region = {c: f"r{c % 7}" for c in range(ENGINE_CUSTOMERS)}
+    pw.G.clear()
+    t0 = time.perf_counter()
+    orders = pw.debug.table_from_rows(pw.schema_from_types(order=int, customer=int, amount=int),
+                                      [(i, int(c), int(a)) for i, (c, a) in enumerate(zip(cust, amount))])
+    customers = pw.debug.table_from_rows(pw.schema_from_types(customer=int, region=str), list(region.items()))
+    joined = orders.join(customers, orders.customer == customers.customer).select(
+        orders.order, customers.region, orders.amount)
+    by_region = joined.groupby(joined.region).reduce(joined.region, total=pw.reducers.sum(joined.amount),
+                                                     n=pw.reducers.count())
+    t1 = time.perf_counter()
+    (jrows, _), (grows, _) = pw.debug._run_capture(joined, by_region)
+    t2 = time.perf_counter()
+    got_join = {v[0]: (v[1], v[2]) for v in jrows.values()}
+    want_join = {i: (region[int(c)], int(a)) for i, (c, a) in enumerate(zip(cust, amount))}
+    got_groups = {v[0]: (v[1], v[2]) for v in grows.values()}
+    want_groups: dict = defaultdict(lambda: (0, 0))
+    for c, a in zip(cust, amount):
+        r = region[int(c)]
+        want_groups[r] = (want_groups[r][0] + int(a), want_groups[r][1] + 1)
+    if len(jrows) != ENGINE_ROWS or got_join != want_join or got_groups != dict(want_groups):
+        fail("the join over generated rows differs from its plain-Python result")
+    res["join"] = {"rows": ENGINE_ROWS, "customers": ENGINE_CUSTOMERS, "build_s": t1 - t0, "run_s": t2 - t1,
+                   "rows_per_s": ENGINE_ROWS / (t2 - t1)}
+    log(f"engine: join + groupby over {ENGINE_ROWS} rows: {json.dumps(res['join'])}")
+
+    # ---- (b) the embedder as a UDF, through the engine, on the card
+    import pandas as pd
+
+    docs = ctx["docs"]
+    embedder = TorchEncoderEmbedder("bge-base", config=BGE_BASE, max_batch_size=ENGINE_UDF_BATCH, seed=SEED,
+                                    device=dev)
+    pw.G.clear()
+    t0 = time.perf_counter()
+    table = pw.debug.table_from_pandas(pd.DataFrame({"doc_id": np.arange(len(docs)), "text": docs}))
+    out = table.select(table.doc_id, emb=embedder(table.text))
+    t1 = time.perf_counter()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    keys, cols = pw.debug.table_to_dicts(out)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    res["launches"] = kernels.launch_counts()
+    pw.G.clear()
+    got = np.stack([np.asarray(cols["emb"][k], np.float32) for k in sorted(keys, key=lambda k: cols["doc_id"][k])])
+    ref = ctx["embedder"].encoder.encode(docs)
+    cos = (got * ref).sum(1) / np.linalg.norm(got, axis=1) / np.linalg.norm(ref, axis=1)
+    res["udf"] = {
+        "docs": len(keys), "max_batch_size": ENGINE_UDF_BATCH, "table_build_s": t1 - t0, "run_s": t3 - t2,
+        "docs_per_s": len(keys) / (t3 - t2), "encode_into_docs_per_s": encode_into_docs_per_s,
+        "max_abs_err": float(np.abs(got - ref).max()), "min_cos": float(cos.min()),
+    }
+    if got.shape != (len(docs), HIDDEN) or not np.isfinite(got).all():
+        fail(f"embedder UDF: {got.shape} rows or non-finite values")
+    if not (res["udf"]["min_cos"] >= EMBED_COS and res["udf"]["max_abs_err"] <= EMBED_ATOL):
+        fail(f"embedder UDF against TorchEncoder.encode: {res['udf']} (cosine {EMBED_COS}, tol {EMBED_ATOL})")
+    zero = [name for name in ("attention", "bias_act", "add_layer_norm", "embed_ln", "pool_normalize")
+            if res["launches"][name] == 0]
+    if zero:
+        fail(f"kernels not launched by the embedder UDF: {zero}")
+    log(f"engine: {len(keys)} docs through the embedder UDF at {res['udf']['docs_per_s']:.1f} docs/s "
+        f"(phase 3's encode_into: {encode_into_docs_per_s:.1f} docs/s) on {smi}: {json.dumps(res['udf'])}")
+
+    # the UDF's batch call from a worker thread, as the engine's workers
+    # make it: its launches must reach the encoder's card
+    box: dict = {}
+
+    def work():
+        try:
+            box["rows"] = embedder.__batch__(docs[:DOC_BATCH])
+        except BaseException as e:  # noqa: BLE001 - reported on the main thread
+            box["error"] = e
+
+    worker = threading.Thread(target=work)
+    worker.start()
+    worker.join(timeout=300)
+    if worker.is_alive() or "error" in box:
+        fail(f"embedder UDF from a worker thread: {box.get('error', 'timed out')!r}")
+    err = float(np.abs(np.stack(box["rows"]) - got[:DOC_BATCH]).max())
+    if not err <= EMBED_ATOL:
+        fail(f"embedder UDF from a worker thread: {err} > {EMBED_ATOL}")
+    res["udf"]["worker_thread_max_abs_err"] = err
+    res["wall_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def check_stream_handles(torch) -> None:
     """The launch helper's stream handle (read without a ``torch.cuda.Stream``)
     is PyTorch's current stream on the card, on the default stream and
@@ -4859,6 +5120,7 @@ def main() -> int:
     k_out.update(f_out)
     torch.cuda.empty_cache()
     v_out = phase_vision_kernels(torch, dev)
+    fv_out = phase_f32_vision(torch, dev)
     fused_shapes["patchify"] = v_out.pop("_patchify_shapes")
     fused_shapes["bias_act_pos"] = v_out.pop("bias_act_pos")
     k_out.update(v_out)
@@ -4878,6 +5140,10 @@ def main() -> int:
     t_phase = time.perf_counter()
     r_out = phase_rerank(torch, dev, ctx, compared_widths)
     wall["rerank_s"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    en_out = phase_engine(torch, dev, ctx, s_out["embed_docs_per_s"], smi)
+    wall["engine_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
     sh_out = phase_sharded(torch, dev, ctx)
     wall["sharded_s"] = sh_out["wall_s"]
     log(f"embed docs/s: data parallel over {SHARDS} shards {sh_out['dp_embed_docs_per_s']:.1f}, "
@@ -4937,7 +5203,8 @@ def main() -> int:
         by_path = {"embed": s_out["launches"][name], "rerank": r_out["launches"][name],
                    "image": i_out["launches"][name], "ivf": ivf_out["launches"][name],
                    "ivf_defaults": c3_out["launches"][name], "sharded": sh_out["launches"][name],
-                   "checkpoint": ck_out["launches"][name],
+                   "checkpoint": ck_out["launches"][name], "engine": en_out["launches"][name],
+                   "f32_vision": fv_out["launches"][name],
                    **{path: counts[name] for path, counts in p10_out["launches"].items()},
                    "train": tr_out["launches"][name], "dryrun": tr_out["dryrun_launches"][name]}
         entries.append({
@@ -4979,6 +5246,8 @@ def main() -> int:
         "ivf_scan_nq32": ivf_scan_nq32,
         "ivf_assign_lloyd": {key: k_out["ivf_assign"][f"lloyd_{key}"] for key in ("ms", "library_ms", "bound_ms")},
         "shape_repairs": repairs,
+        "engine": {key: val for key, val in en_out.items() if key != "launches"},
+        "f32_vision": {key: val for key, val in fv_out.items() if key != "launches"},
         "train": {key: val for key, val in tr_out.items() if key not in ("launches", "dryrun_launches")},
         "phase_wall_s": wall,
     }

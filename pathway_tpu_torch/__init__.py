@@ -18,8 +18,74 @@ top-k select for k above 128 (:mod:`~pathway_tpu_torch.kernels`).  The package i
 and numpy, never jax or ``pathway_tpu``.  Entry points run on
 ``device="cuda"`` unless the caller passes another device, and raise
 when no card is present.
+
+It also carries the host plane's engine core, the Pathway Table API
+(``Table``, ``this``, ``reducers``, ``udf``/``UDF``, ``Schema``, ``G``,
+``debug``, ...) over the epoch scheduler and the package's own C++
+extension (``pathway_torch_native``), so that a pipeline can drive the
+device plane, as ``TorchEncoderEmbedder`` does as a UDF::
+
+    import pathway_tpu_torch as pw
+
+    t = pw.debug.table_from_markdown("word | n\n a | 1\n b | 2")
+    pw.debug.compute_and_print(t.groupby(t.word).reduce(t.word, total=pw.reducers.sum(t.n)))
+
+The rest of the host plane comes in later slices (ROADMAP queue A): a
+name that belongs to one (``io``, ``stdlib``, ``persistence``,
+``analysis``, ``iterate``, ``sql``, ...) raises an ``AttributeError`` that
+names its item, and :func:`run` raises ``NotImplementedError`` until the
+connectors come (item 16); ``pw.debug`` runs a pipeline meanwhile.
 """
 
+from __future__ import annotations
+
+from typing import Any
+
+from pathway_tpu_torch.internals import api as _api
+from pathway_tpu_torch.internals import dtype as _dt
+from pathway_tpu_torch.internals import udfs
+from pathway_tpu_torch.internals.api import PENDING, PyObjectWrapper, wrap_py_object
+from pathway_tpu_torch.internals.config import set_license_key, set_monitoring_config
+from pathway_tpu_torch.internals.expression import (
+    ColumnExpression,
+    ColumnReference,
+    apply,
+    apply_async,
+    apply_with_type,
+    cast,
+    coalesce,
+    fill_error,
+    if_else,
+    make_tuple,
+    require,
+    unwrap,
+)
+from pathway_tpu_torch.internals.joins import JoinKind, JoinMode, JoinResult
+from pathway_tpu_torch.internals.json import Json
+from pathway_tpu_torch.internals.keys import Pointer
+from pathway_tpu_torch.internals.parse_graph import G, global_error_log
+from pathway_tpu_torch.internals.row_transformer import (
+    ClassArg,
+    input_attribute,
+    input_method,
+    method,
+    output_attribute,
+    transformer,
+)
+from pathway_tpu_torch.internals.run import MonitoringLevel, run, run_all
+from pathway_tpu_torch.internals.schema import (
+    Schema,
+    column_definition,
+    schema_builder,
+    schema_from_dict,
+    schema_from_pandas,
+    schema_from_types,
+)
+from pathway_tpu_torch.internals.table import Table
+from pathway_tpu_torch.internals.thisclass import left, right, this
+from pathway_tpu_torch.internals.udfs import UDF, udf
+
+from pathway_tpu_torch import debug, reducers
 from pathway_tpu_torch import kernels, models, ops, parallel
 from pathway_tpu_torch.models import (
     BGE_BASE,
@@ -50,7 +116,115 @@ from pathway_tpu_torch.xpacks.llm.rerankers import (
     rerank_topk_filter,
 )
 
+#: engine Error value — poisoned cells propagate instead of aborting
+Error = _api.ERROR
+
+DATE_TIME_NAIVE = _dt.DATE_TIME_NAIVE
+DATE_TIME_UTC = _dt.DATE_TIME_UTC
+DURATION = _dt.DURATION
+
+#: names of ``pathway_tpu`` that later slices of the port bring, by the
+#: ROADMAP item that brings them
+_LATER = {
+    **dict.fromkeys(("indexing",), "item 14 (stdlib/indexing)"),
+    **dict.fromkeys(
+        ("io", "demo", "persistence", "PersistenceMode", "testing", "universes", "iterate", "iterate_universe", "enable_interactive_mode", "LiveTable",
+         "live", "export_table", "import_table", "ExportedTable", "sql", "load_yaml"),
+        "item 16 (io, persistence, serving and the rest of internals)",
+    ),
+    **dict.fromkeys(
+        ("stdlib", "temporal", "ml", "graphs", "stateful", "statistical", "ordered", "utils",
+         "viz", "AsyncTransformer"),
+        "item 16 (stdlib beyond indexing)",
+    ),
+    **dict.fromkeys(
+        ("analysis", "analyze", "explain", "estimate_memory", "MemoryReport", "EstimateParams",
+         "Diagnostic", "AnalysisError", "ExecutionPlan"),
+        "item 16 (analysis; its device pass is A11)",
+    ),
+}
+
+
+def __getattr__(name: str) -> Any:
+    if name == "xpacks":
+        import pathway_tpu_torch.xpacks as xpacks
+
+        return xpacks
+    if name == "asynchronous":
+        # deprecated alias kept for parity (reference pathway.asynchronous -> pw.udfs)
+        return udfs
+    if name in ("DateTimeNaive", "DateTimeUtc", "Duration"):
+        return getattr(_dt, name)
+    if name == "declare_type":
+        from pathway_tpu_torch.internals.expression import declare_type
+
+        return declare_type
+    if name == "ConnectorRecoveryPolicy":
+        from pathway_tpu_torch.internals.resilience import ConnectorRecoveryPolicy
+
+        return ConnectorRecoveryPolicy
+    if name == "attach_prober":
+        from pathway_tpu_torch.internals.run import attach_prober
+
+        return attach_prober
+    if name in _LATER:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r} yet: the port brings it with "
+            f"ROADMAP {_LATER[name]}"
+        )
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
+    "Table",
+    "Schema",
+    "Json",
+    "Pointer",
+    "Error",
+    "PENDING",
+    "PyObjectWrapper",
+    "wrap_py_object",
+    "ColumnExpression",
+    "ColumnReference",
+    "this",
+    "left",
+    "right",
+    "JoinKind",
+    "JoinMode",
+    "JoinResult",
+    "apply",
+    "apply_async",
+    "apply_with_type",
+    "cast",
+    "coalesce",
+    "if_else",
+    "require",
+    "unwrap",
+    "fill_error",
+    "make_tuple",
+    "udf",
+    "udfs",
+    "UDF",
+    "run",
+    "run_all",
+    "global_error_log",
+    "ClassArg",
+    "input_attribute",
+    "input_method",
+    "method",
+    "output_attribute",
+    "transformer",
+    "MonitoringLevel",
+    "debug",
+    "reducers",
+    "column_definition",
+    "schema_from_types",
+    "schema_from_dict",
+    "schema_builder",
+    "schema_from_pandas",
+    "set_license_key",
+    "set_monitoring_config",
+    "G",
     "kernels",
     "models",
     "ops",

@@ -161,8 +161,8 @@ _SIGNATURES = {
         "pw_embed_ln": [_P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     },
     "pool_normalize": {"pw_pool_normalize": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
-    "patchify": {"pw_patchify": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
-    "vision_head": {"pw_vision_head": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]},
+    "patchify": {"pw_patchify": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
+    "vision_head": {"pw_vision_head": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P]},
     "dual_logits": {"pw_dual_logits": [_P, _P, _P, _P, _P, _I, _I, _I, _P]},
     "ivf_assign": {"pw_ivf_assign": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "ivf_scan": {

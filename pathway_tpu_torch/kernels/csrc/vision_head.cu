@@ -1,5 +1,5 @@
 // K9: the vision tower's tail: f32 mean over the patches, the f32
-// projection plus its bias, and the L2 normalise (bf16 in, f32 out).
+// projection plus its bias, and the L2 normalise (bf16 or f32 in, f32 out).
 //
 // Replaces: VisionEncoderModel.__call__ in pathway_tpu/models/vision.py:81-87:
 //   pooled = jnp.mean(x.astype(f32), axis=1) over all P patch rows (no
@@ -9,14 +9,15 @@
 //   index ingest).
 //
 // What bounds it on an H100: bytes.  It must read x once (B * P * H * 2
-// bytes), the projection once ([E, H] f32) and write B * E * 4 bytes, for
-// 2 * B * E * H operations of the product: at B = 256, P = 196, H = E = 768,
-// 80 MB in 24 us at 3.35 TB/s against 0.3 GFLOP (4.5 us at the 67 TFLOP/s
-// f32 rate).
+// bytes in bf16, 4 in f32), the projection once ([E, H] f32) and write
+// B * E * 4 bytes, for 2 * B * E * H operations of the product: at B = 256,
+// P = 196, H = E = 768, 80 MB in 24 us at 3.35 TB/s against 0.3 GFLOP
+// (4.5 us at the 67 TFLOP/s f32 rate); an f32 tower's x doubles the bytes.
 //
 // What the design does about it: a thread block cluster of 8 blocks takes
 // 8 images.  Each block means one image (384 threads: 16-byte loads where
-// the width and x's alignment allow, else 8, 4 or 2 bytes; the rows split
+// the width and x's alignment allow, else 8, 4 or 2 bytes (bf16) or 8 or 4
+// (f32); only this load differs between the two types; the rows split
 // over up to 8 groups of threads, four loads in flight a thread, the
 // groups' sums added in order), so 256 blocks stream x at B = 256, three
 // an SM at most (56 registers a thread): every cluster is resident at
@@ -68,7 +69,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // VEC consecutive bf16 values at p (VEC * 2-byte aligned), added to s.
 template <int VEC>
-__device__ __forceinline__ void add_bf16(const __nv_bfloat16* p, float* s) {
+__device__ __forceinline__ void add_row(const __nv_bfloat16* p, float* s) {
   if constexpr (VEC == 8) {
     const uint4 raw = *reinterpret_cast<const uint4*>(p);
     const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -96,6 +97,24 @@ __device__ __forceinline__ void add_bf16(const __nv_bfloat16* p, float* s) {
   }
 }
 
+// VEC consecutive f32 values at p (VEC * 4-byte aligned), added to s.
+template <int VEC>
+__device__ __forceinline__ void add_row(const float* p, float* s) {
+  if constexpr (VEC == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    s[0] += f.x;
+    s[1] += f.y;
+    s[2] += f.z;
+    s[3] += f.w;
+  } else if constexpr (VEC == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    s[0] += f.x;
+    s[1] += f.y;
+  } else {
+    s[0] += *p;
+  }
+}
+
 // x as a TF32 high part (truncated) and the TF32 truncation of the rest,
 // by bit masks and one subtraction (cvt.rna runs at a quarter of the FMA
 // rate, and each weight value is split once): the dropped parts are
@@ -118,9 +137,9 @@ size_t smem_bytes(int h, int ec) {
   return ((size_t)h + 2 * kCluster * pitch(h) + (size_t)kCluster * ec + 2 * kCluster) * sizeof(float);
 }
 
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, kMinBlocks)
-vision_head_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ weight,
+vision_head_kernel(const T* __restrict__ x, const float* __restrict__ weight,
                    const float* __restrict__ bias, float* __restrict__ out, int b_total, int n_rows, int h,
                    int e_dim, int ec, float eps) {
   extern __shared__ __align__(16) float smem[];
@@ -148,9 +167,9 @@ vision_head_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict_
 #pragma unroll
     for (int i = 0; i < VEC; ++i) s[i] = 0.0f;
     if (img < b_total) {
-      const __nv_bfloat16* xs = x + (size_t)img * n_rows * h + vec * VEC;
+      const T* xs = x + (size_t)img * n_rows * h + vec * VEC;
 #pragma unroll 4
-      for (int l = grp; l < n_rows; l += groups) add_bf16<VEC>(xs + (size_t)l * h, s);
+      for (int l = grp; l < n_rows; l += groups) add_row<VEC>(xs + (size_t)l * h, s);
     }
 #pragma unroll
     for (int i = 0; i < VEC; ++i) rows[grp * rp + vec * VEC + i] = s[i];
@@ -251,39 +270,44 @@ vision_head_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict_
   cluster.sync();  // no block leaves while another still reads its sums
 }
 
-template <int VEC>
+template <typename T, int VEC>
 int launch(const void* x, const void* weight, const void* bias, void* out, int b, int n_rows, int h, int e_dim,
            float eps, cudaStream_t stream) {
   const int ec = (e_dim + kCluster - 1) / kCluster;
   const size_t smem = smem_bytes(h, ec);
   if (smem > 48 * 1024) {
-    const int err = (int)cudaFuncSetAttribute(vision_head_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                              (int)smem);
+    const int err = (int)cudaFuncSetAttribute(vision_head_kernel<T, VEC>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err) return err;
   }
   const int clusters = (b + kCluster - 1) / kCluster;
-  vision_head_kernel<VEC><<<clusters * kCluster, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(weight), static_cast<const float*>(bias),
+  vision_head_kernel<T, VEC><<<clusters * kCluster, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(weight), static_cast<const float*>(bias),
       static_cast<float*>(out), b, n_rows, h, e_dim, ec, eps);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x: [b, n_rows, h] bf16; weight: [e_dim, h] f32; bias: [e_dim] f32;
-// out: [b, e_dim] f32.  h % 4 == 0, h <= 2048, h + e_dim <= 11,264;
-// weight 16-byte aligned; x at least 2-byte aligned (its loads are as wide
-// as h and its alignment allow).  One launch.  Returns a cudaError_t (0 on
-// success).
-extern "C" int pw_vision_head(const void* x, const void* weight, const void* bias, void* out,
+// x: [b, n_rows, h], bf16 (x_f32 0) or f32 (x_f32 1); weight: [e_dim, h]
+// f32; bias: [e_dim] f32; out: [b, e_dim] f32.  h % 4 == 0, h <= 2048,
+// h + e_dim <= 11,264; weight 16-byte aligned; x aligned to its element
+// (its loads are as wide as h and its alignment allow).  One launch.
+// Returns a cudaError_t (0 on success).
+extern "C" int pw_vision_head(const void* x, int x_f32, const void* weight, const void* bias, void* out,
                               int b, int n_rows, int h, int e_dim, float eps, void* stream) {
   if (b == 0) return 0;
   if (h % 4 != 0 || h <= 0 || h > 2048 || e_dim <= 0 || n_rows <= 0 || h + e_dim > 11 * 1024)
     return (int)cudaErrorInvalidValue;
   const uintptr_t a = reinterpret_cast<uintptr_t>(x);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (h % 8 == 0 && a % 16 == 0) return launch<8>(x, weight, bias, out, b, n_rows, h, e_dim, eps, s);
-  if (a % 8 == 0) return launch<4>(x, weight, bias, out, b, n_rows, h, e_dim, eps, s);
-  if (a % 4 == 0) return launch<2>(x, weight, bias, out, b, n_rows, h, e_dim, eps, s);
-  return launch<1>(x, weight, bias, out, b, n_rows, h, e_dim, eps, s);
+  if (x_f32) {
+    if (a % 16 == 0) return launch<float, 4>(x, weight, bias, out, b, n_rows, h, e_dim, eps, s);
+    if (a % 8 == 0) return launch<float, 2>(x, weight, bias, out, b, n_rows, h, e_dim, eps, s);
+    return launch<float, 1>(x, weight, bias, out, b, n_rows, h, e_dim, eps, s);
+  }
+  if (h % 8 == 0 && a % 16 == 0) return launch<__nv_bfloat16, 8>(x, weight, bias, out, b, n_rows, h, e_dim, eps, s);
+  if (a % 8 == 0) return launch<__nv_bfloat16, 4>(x, weight, bias, out, b, n_rows, h, e_dim, eps, s);
+  if (a % 4 == 0) return launch<__nv_bfloat16, 2>(x, weight, bias, out, b, n_rows, h, e_dim, eps, s);
+  return launch<__nv_bfloat16, 1>(x, weight, bias, out, b, n_rows, h, e_dim, eps, s);
 }

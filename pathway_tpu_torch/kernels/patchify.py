@@ -11,9 +11,10 @@ times the kernel reshaped to ``[p * p * C, hidden]``.
 
 :func:`patchify` takes NHWC images (the JAX layout) and returns the
 patch rows.  For CUDA tensors it launches the kernel (f32 or uint8
-images, bf16 output, ``patch * patch * C`` divisible by 8) and raises on
-anything else; for CPU tensors it
-runs :func:`patchify_plain`.  :func:`patch_grid` gives the grid and the
+images; bf16 output with ``patch * patch * C`` divisible by 8, or f32
+output with it divisible by 4) and raises on anything else, as
+:func:`check_patchify` says on any device; for CPU tensors it runs
+:func:`patchify_plain`.  :func:`patch_grid` gives the grid and the
 padding of an image size.
 """
 
@@ -25,10 +26,12 @@ import torch.nn.functional as F
 from pathway_tpu_torch.kernels import _build
 from pathway_tpu_torch.kernels._launch import check_cuda, launch
 
-__all__ = ["patchify", "patchify_plain", "patch_grid"]
+__all__ = ["patchify", "patchify_plain", "patch_grid", "check_patchify"]
 
 #: image dtype -> the kernel's code for it
 _IMAGE_KINDS = {torch.float32: 0, torch.uint8: 1}
+#: output dtype -> values in one 16-byte store of the kernel
+_OUT_VEC = {torch.bfloat16: 8, torch.float32: 4}
 
 
 def patch_grid(height: int, width: int, patch: int) -> tuple[int, int, int, int]:
@@ -56,6 +59,26 @@ def patchify_plain(images: torch.Tensor, patch: int, dtype: torch.dtype) -> torc
     return x.reshape(B * gh * gw, patch * patch * C)
 
 
+def check_patchify(images: torch.Tensor, patch: int, dtype: torch.dtype) -> None:
+    """Raise ``ValueError`` unless the kernel takes these arguments; reads
+    shapes, types and alignment only, on any device."""
+    _check(images, patch)
+    if dtype not in _OUT_VEC:
+        raise ValueError(f"patchify: the kernel writes bf16 or f32, asked for {dtype}")
+    if images.dtype not in _IMAGE_KINDS:
+        raise ValueError(f"patchify: the kernel takes f32 or uint8 images, got {images.dtype}")
+    if images.data_ptr() % 16:
+        raise ValueError("patchify: images must be 16-byte aligned")
+    B, H, W, C = images.shape
+    gh, gw, _, _ = patch_grid(H, W, patch)
+    cols, vec = patch * patch * C, _OUT_VEC[dtype]
+    if cols % vec:
+        raise ValueError(f"patchify: the kernel writes {dtype} rows of {vec}-value vectors; "
+                         f"patch {patch} x {C} channels gives {cols}")
+    if B * gh * gw * cols >= 2**31:
+        raise ValueError(f"patchify: [{B * gh * gw}, {cols}] is too large for one launch")
+
+
 def patchify(
     images: torch.Tensor, patch: int, dtype: torch.dtype = torch.bfloat16
 ) -> torch.Tensor:
@@ -64,26 +87,15 @@ def patchify(
     if images.device.type == "cpu":
         return patchify_plain(images, patch, dtype)
     device = check_cuda("patchify", images=images)
-    _check(images, patch)
-    if dtype != torch.bfloat16:
-        raise ValueError(f"patchify: the kernel writes bf16, asked for {dtype}")
-    if images.dtype not in _IMAGE_KINDS:
-        raise ValueError(f"patchify: the kernel takes f32 or uint8 images, got {images.dtype}")
-    if images.data_ptr() % 16:
-        raise ValueError("patchify: images must be 16-byte aligned")
+    check_patchify(images, patch, dtype)
     B, H, W, C = images.shape
     gh, gw, top, left = patch_grid(H, W, patch)
-    cols = patch * patch * C
-    if cols % 8:
-        raise ValueError(f"patchify: the kernel writes rows of 8-value vectors; patch {patch} x {C} channels gives {cols}")
-    out = torch.empty((B * gh * gw, cols), dtype=dtype, device=device)
-    if out.numel() >= 2**31:
-        raise ValueError(f"patchify: {tuple(out.shape)} is too large for one launch")
+    out = torch.empty((B * gh * gw, patch * patch * C), dtype=dtype, device=device)
     if out.numel() == 0:
         return out
     launch(
         "patchify", _build.library("patchify").pw_patchify, device,
-        images.data_ptr(), _IMAGE_KINDS[images.dtype], out.data_ptr(),
+        images.data_ptr(), _IMAGE_KINDS[images.dtype], out.data_ptr(), int(dtype == torch.float32),
         B, H, W, C, patch, gh, gw, top, left,
     )
     patchify.launches += 1

@@ -1,14 +1,14 @@
-"""Embedders: text -> vector (counterpart of
+"""Embedders: text -> vector UDFs (counterpart of
 ``pathway_tpu/xpacks/llm/embedders.py``).
 
 :class:`TorchEncoderEmbedder`, and its reference-named alias
 :class:`SentenceTransformerEmbedder`, runs a BERT-family encoder on the
-card through :class:`~pathway_tpu_torch.parallel.TorchEncoder`, one
-batched call per engine epoch.  It is a plain class for now: the JAX
-package's embedders derive from the host plane's ``UDF`` base class,
-which the port gains with the host-plane slices (ROADMAP queue A).  The
-API embedders (OpenAI, LiteLLM, Gemini) are host plane too and come
-with it.
+card through :class:`~pathway_tpu_torch.parallel.TorchEncoder`.  Like the
+JAX package's embedders it is a :class:`~pathway_tpu_torch.UDF` with a
+``__batch__``: applied to a column, the engine hands it each epoch's
+rows in one call, cut into chunks of at most ``max_batch_size``.  The
+API embedders (OpenAI, LiteLLM, Gemini) come with the rest of ROADMAP
+item 13.
 """
 
 from __future__ import annotations
@@ -19,10 +19,11 @@ from typing import Any
 import numpy as np
 import torch
 
+from pathway_tpu_torch.internals.udfs import UDF
 from pathway_tpu_torch.models import encoder as _enc
 from pathway_tpu_torch.parallel.executor import TorchEncoder
 
-__all__ = ["TorchEncoderEmbedder", "SentenceTransformerEmbedder"]
+__all__ = ["BaseEmbedder", "TorchEncoderEmbedder", "SentenceTransformerEmbedder"]
 
 _PRESETS = {
     "all-minilm-l6-v2": "MINILM_L6",
@@ -42,8 +43,18 @@ def _resolve_config(model: str) -> _enc.EncoderConfig:
     return getattr(_enc, _PRESETS.get(model.lower(), "MINILM_L6"))
 
 
-class TorchEncoderEmbedder:
-    """Sentence encoder on the card; one batched call per epoch.
+class BaseEmbedder(UDF):
+    def get_embedding_dimension(self, **kwargs: Any) -> int:
+        """Probe: embed a short string, report its width (reference
+        ``BaseEmbedder.get_embedding_dimension``)."""
+        return int(np.asarray(self._embed_batch(["."])[0]).reshape(-1).shape[0])
+
+    def _embed_batch(self, texts: list[str]) -> list:
+        raise NotImplementedError
+
+
+class TorchEncoderEmbedder(BaseEmbedder):
+    """Sentence encoder on the card; one batched call per epoch chunk.
 
     ``model`` is a local HF checkpoint directory (weights, config and
     vocabulary; ``config.json`` decides pooling unless ``config`` is
@@ -51,6 +62,10 @@ class TorchEncoderEmbedder:
     whose weights are a seeded random init unless ``params`` (a flax
     parameter tree of the JAX package's encoder) is passed.  ``mesh`` runs
     the encoder data parallel (:class:`~pathway_tpu_torch.parallel.TorchEncoder`).
+    ``max_batch_size`` bounds both the rows the engine hands one
+    ``__batch__`` call and the encoder's chunk; ``call_kwargs`` is accepted
+    and unused, as in the JAX package; other keyword arguments go to
+    :class:`~pathway_tpu_torch.UDF`.
     """
 
     def __init__(
@@ -59,12 +74,15 @@ class TorchEncoderEmbedder:
         *,
         mesh: Any = None,
         max_batch_size: int | None = 1024,
+        call_kwargs: dict | None = None,
         params: Any = None,
         config: _enc.EncoderConfig | None = None,
         sequence_axis: str | None = None,
         seed: int = 0,
         device: str | torch.device = "cuda",
+        **kwargs: Any,
     ):
+        super().__init__(max_batch_size=max_batch_size, **kwargs)
         checkpoint_dir = model if os.path.isdir(model) else None
         if config is None and checkpoint_dir is None:
             config = _resolve_config(model)
@@ -74,10 +92,6 @@ class TorchEncoderEmbedder:
             max_batch=max_batch_size or 1024, checkpoint_dir=checkpoint_dir,
             sequence_axis=sequence_axis, seed=seed, device=device,
         )
-
-    def get_embedding_dimension(self, **kwargs: Any) -> int:
-        """Probe: embed a short string, report its width."""
-        return int(np.asarray(self._embed_batch(["."])[0]).reshape(-1).shape[0])
 
     def _embed_batch(self, texts: list[str]) -> list:
         emb = self.encoder.encode([t if t else "." for t in texts])

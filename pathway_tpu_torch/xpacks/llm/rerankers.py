@@ -6,10 +6,10 @@ cross-encoder on the card through
 batched call per engine epoch; :class:`EncoderReranker` scores with the
 bi-encoder's dot product; :func:`rerank_topk_filter` keeps the k best.
 They are plain classes and a plain function for now: the JAX package's
-derive from the host plane's ``UDF`` base class and ``@udf``, which the
-port gains with the host-plane slices (ROADMAP A13).  ``LLMReranker`` and
-``FlashRankReranker`` need that host plane and an LLM client and come
-with it (ROADMAP A13, A15).
+derive from the ``UDF`` base class and ``@udf``, which the port now has
+(``pathway_tpu_torch.internals.udfs``); making them UDFs is the rest of
+ROADMAP item 13.  ``LLMReranker`` and ``FlashRankReranker`` need an LLM
+client and the servers and come with items 13 and 15.
 """
 
 from __future__ import annotations

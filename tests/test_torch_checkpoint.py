@@ -72,6 +72,16 @@ BF16_COS, BF16_ATOL = 0.999, 2e-2
 _DT = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Torch on one thread: the tier-1 run has several test workers on the
+    host's cores, and this file's small products gain little from more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _save(model, d, safe: bool) -> str:
     model.save_pretrained(str(d), safe_serialization=safe)
     with open(os.path.join(d, "vocab.txt"), "w") as f:

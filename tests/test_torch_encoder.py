@@ -36,6 +36,16 @@ from pathway_tpu_torch.models import (
 _DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Torch on one thread: the tier-1 run has several test workers on the
+    host's cores, and this file's small products gain little from more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def port_config(jcfg) -> EncoderConfig:
     """The port's EncoderConfig with the same fields as a JAX one."""
     fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(EncoderConfig)}

@@ -41,6 +41,16 @@ TIE = 1e-6
 _DT = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Torch on one thread: the tier-1 run has several test workers on the
+    host's cores, and this file's small products gain little from more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _mixture(n, d, n_clusters=64, seed=0):
     """``tests/test_ivf.py``'s clustered data."""
     rng = np.random.default_rng(seed)

@@ -48,6 +48,16 @@ TINY_BI = dataclasses.replace(TINY, num_labels=0, pool="mean", normalize=True)
 TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Torch on one thread: the tier-1 run has several test workers on the
+    host's cores, and this file's small products gain little from more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _texts(n, seed, lo=3, hi=40):
     rng = np.random.default_rng(seed)
     words = [f"w{i}" for i in range(300)] + ["stream", "index", "gpu", "rag"]

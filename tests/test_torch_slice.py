@@ -38,6 +38,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Torch on one thread: the tier-1 run has several test workers on the
+    host's cores, and this file's small products gain little from more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _texts(n, seed):
     rng = np.random.default_rng(seed)
     words = [f"w{i}" for i in range(300)] + ["stream", "index", "tpu", "gpu", "rag"]

@@ -51,6 +51,8 @@ from pathway_tpu_torch.kernels import (
     patchify,
     vision_head,
 )
+from pathway_tpu_torch.kernels.patchify import check_patchify
+from pathway_tpu_torch.kernels.vision_head import check_vision_head
 from pathway_tpu_torch.models import (
     SIGLIP_BASE,
     DualEncoderModel,
@@ -62,6 +64,17 @@ from pathway_tpu_torch.models import (
 from test_torch_encoder import port_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Torch on one thread: the tier-1 run has several test workers on the
+    host's cores, and this file's small products gain little from more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 _DT = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 BF16_RTOL = 2.0**-6
 
@@ -365,6 +378,65 @@ def test_embed_ln_out_of_range_ids_follow_flax_embed(dtype, id_dtype, no_launch)
     live = ~nan_rows
     np.testing.assert_allclose(got[live], want[live], atol=1e-5 if dtype == "f32" else 2e-2,
                                rtol=0 if dtype == "f32" else BF16_RTOL)
+
+
+@pytest.mark.parametrize("image_dtype", [torch.float32, torch.uint8], ids=["f32_images", "uint8_images"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_patchify_check_takes_both_activation_types(dtype, image_dtype):
+    """K8's launch check (C8): the kernel writes the tower's activation type,
+    f32 as well as bf16, at SigLIP-base's and the tiny config's shapes; the
+    check reads shapes, types and alignment only, so it runs on CPU tensors."""
+    check_patchify(torch.zeros((2, 224, 224, 3), dtype=image_dtype), 16, dtype)
+    check_patchify(torch.zeros((2, 30, 27, 3), dtype=image_dtype), 8, dtype)  # "SAME" padding
+    # rows of 4 values (patch 2, one channel) fit the f32 form's 4-value
+    # stores and not the bf16 form's 8-value ones
+    narrow = torch.zeros((1, 8, 8, 1), dtype=image_dtype)
+    if dtype == torch.float32:
+        check_patchify(narrow, 2, dtype)
+    else:
+        with pytest.raises(ValueError, match="8-value"):
+            check_patchify(narrow, 2, dtype)
+    with pytest.raises(ValueError, match="4-value" if dtype == torch.float32 else "8-value"):
+        check_patchify(torch.zeros((1, 9, 9, 1), dtype=image_dtype), 3, dtype)  # 9 columns
+    with pytest.raises(ValueError, match="16-byte"):
+        check_patchify(torch.zeros(4 * 8 * 8 * 3 + 1, dtype=torch.float32)[1:].view(4, 8, 8, 3), 4, dtype)
+    with pytest.raises(ValueError, match="too large"):
+        check_patchify(torch.zeros((1, 1, 1, 8), dtype=image_dtype).expand(2**28, 1, 1, 8), 1, dtype)
+
+
+def test_patchify_check_refuses_what_the_kernel_cannot_write():
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        check_patchify(torch.zeros((1, 16, 16, 3)), 8, torch.float16)
+    with pytest.raises(ValueError, match="f32 or uint8"):
+        check_patchify(torch.zeros((1, 16, 16, 3), dtype=torch.float64), 8, torch.float32)
+    with pytest.raises(ValueError, match=r"\[B, H, W, C\]"):
+        check_patchify(torch.zeros((16, 16, 3)), 8, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_vision_head_check_takes_both_activation_types(dtype):
+    """K9's launch check (C8): x in the tower's activation type, f32 as well
+    as bf16, at SigLIP-base's shape and the tiny config's (the projection to
+    48 columns, not a multiple of the kernel's cluster of 8)."""
+    check_vision_head(torch.zeros((4, 196, 768), dtype=dtype), torch.zeros((768, 768)), torch.zeros(768))
+    check_vision_head(torch.zeros((3, 16, 64), dtype=dtype), torch.zeros((48, 64)), torch.zeros(48))
+    with pytest.raises(ValueError, match="divisible by 4"):
+        check_vision_head(torch.zeros((3, 16, 66), dtype=dtype), torch.zeros((48, 66)), torch.zeros(48))
+    with pytest.raises(ValueError, match="f32 weight"):
+        check_vision_head(torch.zeros((3, 16, 64), dtype=dtype), torch.zeros((48, 64), dtype=torch.bfloat16),
+                          torch.zeros(48))
+    with pytest.raises(ValueError, match="16-byte"):
+        check_vision_head(torch.zeros((3, 16, 64), dtype=dtype), torch.zeros(48 * 64 + 1)[1:].view(48, 64),
+                          torch.zeros(48))
+
+
+def test_vision_head_check_refuses_what_the_kernel_cannot_read():
+    with pytest.raises(ValueError, match="bf16 or f32 x"):
+        check_vision_head(torch.zeros((3, 16, 64), dtype=torch.float16), torch.zeros((48, 64)), torch.zeros(48))
+    with pytest.raises(ValueError, match=r"\[B, P, hidden\]"):
+        check_vision_head(torch.zeros((16, 64)), torch.zeros((48, 64)), torch.zeros(48))
+    with pytest.raises(ValueError, match="P > 0"):
+        check_vision_head(torch.zeros((3, 0, 64)), torch.zeros((48, 64)), torch.zeros(48))
 
 
 def test_vision_wrappers_raise_instead_of_falling_back():
