@@ -38,7 +38,14 @@ Phases, each fatal on failure:
    row (both timed), a row whose chosen bin overflows its candidate
    buffer, rows with fewer live entries than k, signed zeros and k = n,
    each equal to its plain version bit for bit (values and ids), as every
-   K13 case must be;
+   K13 case must be.  K7's CLS and mean forms in bf16 by CUDA events and
+   device time beside their bounds (f32 in ``phase_f32_ring_kernels``), and the
+   ingest tail (``pool_normalize_into``,
+   K7's slab form with K2's scatter in one launch): the embed chunk's
+   hidden state (200 live sequences, 56 pads) into 1M-slot f32 and bf16
+   cosine slabs, CLS and mean, against its plain version and against K7
+   then K2 on the card (1e-6, one bf16 ulp in a bf16 slab; flags equal),
+   its device time beside the pair's;
 3. the live-RAG embed path at BGE-base full width (768 hidden, 12
    layers, 12 heads, MLP 3072, bf16, seeded random weights): a
    1,048,576-slot cosine index bulk-filled with seeded random vectors,
@@ -46,7 +53,9 @@ Phases, each fatal on failure:
    deleted, and queries answered at nq=1 and nq=32; indexed documents
    re-embedded in the same batch must come back as their own top-1 with
    cosine >= 0.999, and the top-k must match a plain matmul + top-k over
-   the same slab.  Every kernel of the path must launch during it;
+   the same slab.  Every kernel of the path must launch during it; each
+   chunk's tail is one ingest-tail launch, with no K7 and no K2 launch
+   (``tail_launches``), in the timed pass and in the profiled one;
 4. the retrieve -> rerank path at BGE-reranker-base full width (the same
    shape, seeded random weights) over phase 3's index: 32 synthetic
    questions retrieve 32 candidates each and the 1,024 pairs are scored
@@ -97,8 +106,9 @@ Phases, each fatal on failure:
 8. the sharded corpus: ``make_mesh({"data": 4}, [card] * 4)``; BGE-base
    data parallel over the mesh embeds phase 3's documents into a
    1,048,576-slot index of four 262,144-row shards, bulk-filled with
-   phase 3's seeded rows; searches at nq 1 and 32, k=10 and k=256 (each
-   document its own top-1).  Gates: every component of the data-parallel
+   phase 3's seeded rows (the ingest K7 then K2, not the ingest tail);
+   searches at nq 1 and 32, k=10 and k=256 (each document its own top-1).
+   Gates: every component of the data-parallel
    embeddings within one bf16 ulp of the single-device one (and cosine
    0.999); with the documents' rows set
    to phase 3's, the sharded answers equal the unsharded index's (scores
@@ -189,12 +199,14 @@ K4-K7 with their f32 forms); the last is ``{"ok": true, "device":
 
 ``python3 chip_smoke.py --against-parent DIR`` runs instead, on one card,
 only K14, K3's row-streaming pass, K1, K12, K16, K15, K19, K17 (both
-forms; the embedding form at random and all-ones ids) and K9 of this tree
+forms; the embedding form at random and all-ones ids), K9, K7 (CLS bf16,
+mean bf16 and f32), K2 (scatter and clear) and the ingest tail (against
+the parent's K7 then K2) of this tree
 beside the same kernels built from the sources under ``DIR`` (another
 commit, unpacked) and launched through its launch helper, timed in turns,
 each within PARENT_RATIO of the parent where both sides run the parent's
 code and no slower at all where this tree runs code the parent does not
-(K12 at nq=1, K16 act none, K15, K19, K17 and K9 by device time,
+(K12 at nq=1, K16 act none, K15, K19, K17, K9 and K7 by device time,
 ``queued_ms``;
 K19 the same bits as the parent's after two steps;
 ``phase_against_parent``).
@@ -242,6 +254,11 @@ N_CAPTIONS = 256  # captions: the first 32 query the index, all 256 make the log
 # stated tolerances
 ATTN_ATOL = ATTN_RTOL = 2e-2  # bf16 output (8 mantissa bits); plain rounds logits to bf16, K1 keeps f32
 SCATTER_ATOL = 1e-6  # f32 norm summed in another order: ~1 ulp of a unit-norm row
+# the ingest tail into a bf16 slab against K7 then K2: one bf16 ulp of the
+# value (plus SCATTER_ATOL); the two normalise f32 rows whose norms are
+# summed in another order, ~1e-7 apart, and the cast may round those to
+# neighbouring bf16 values
+TAIL_BF16_RTOL = 2.0**-7
 TOPK_ATOL = 1e-5  # f32 dot of unit rows over 768 dims, summed in another order
 SELECT_ATOL = 0.0  # K13 copies the values it selects
 SELECT_K = 256  # the k above K3's MAX_K that phases 2, 6 and 8 search at
@@ -345,8 +362,10 @@ PARENT_RATIO = 1.05
 # and K15 and K19, whose parents' wrappers spend host time the kernels'
 # speed does not measure (K19's parent uploads its tables every step);
 # K17 and K9, redesigned for their device time (the parents' K17 makes two
-# launches a call)
-DEVICE_GATED = ("K12 nq=1 ", "K16 none ", "K15 ", "K19 ", "K17 ", "K9 ")
+# launches a call); K7, redesigned for its device time, and K2, whose calls
+# take less device time than the host takes to make them (two equal
+# builds of K2's clear read 17% apart by events on an H100)
+DEVICE_GATED = ("K12 nq=1 ", "K16 none ", "K15 ", "K19 ", "K17 ", "K9 ", "K7 ", "K2 ")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, bf16, TF32 and f32
 # (FMA units) FLOP/s
@@ -947,7 +966,9 @@ def check_bf16(name: str, got, ref) -> float:
 def phase_fused(torch, dev) -> dict:
     """Phase 2, continued: K4-K7 against their plain versions at the shapes
     of the embed path (M = DOC_BATCH x 256 rows) and the rerank path
-    (M = RERANK_BATCH x 512 rows, the pooler at M = RERANK_BATCH)."""
+    (M = RERANK_BATCH x 512 rows, the pooler at M = RERANK_BATCH); the
+    ingest tail (K7's slab form) against its plain version and against K7
+    then K2, CLS and mean into f32 and bf16 slabs, with pad rows."""
     import torch.nn.functional as F
 
     from pathway_tpu_torch.kernels import (
@@ -958,7 +979,10 @@ def phase_fused(torch, dev) -> dict:
         embed_ln,
         embed_ln_plain,
         pool_normalize,
+        pool_normalize_into,
+        pool_normalize_into_plain,
         pool_normalize_plain,
+        slab_scatter,
     )
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -1119,16 +1143,75 @@ def phase_fused(torch, dev) -> dict:
             # (eps 1e-12); no single torch call takes a masked mean
             "library_ms": time_ms(torch, lambda: F.normalize(x[:, 0].float(), dim=-1), 50) if pool == "cls" else None,
         }
-        if pool == "cls":
-            row["device_ms"] = {
-                "kernel": device_ms(torch, lambda: pool_normalize(x, mask, pool, True)),
-                "plain": device_ms(torch, lambda: pool_normalize_plain(x, mask, pool, True)),
-                "library": device_ms(torch, lambda: F.normalize(x[:, 0].float(), dim=-1)),
-            }
+        row["device_ms"] = {
+            "kernel": device_ms(torch, lambda: pool_normalize(x, mask, pool, True)),
+            "plain": device_ms(torch, lambda: pool_normalize_plain(x, mask, pool, True)),
+            **({"library": device_ms(torch, lambda: F.normalize(x[:, 0].float(), dim=-1))} if pool == "cls" else {}),
+        }
         k7[pool] = row
         log(f"K7 pool_normalize: {json.dumps(row)}")
     out["pool_normalize"] = {**k7["cls"], "max_abs_err": max(r["max_abs_err"] for r in k7.values())}
     out["_pool_normalize_shapes"] = k7
+
+    # ---- the ingest tail (K7's slab form, K2's scatter in the same launch):
+    # the embed chunk's last hidden state into a 1M-slot cosine slab, 200
+    # live sequences and 56 pads (dropped unread), CLS (BGE-base) and mean
+    # (E5), f32 and bf16 slabs; held against its plain version and against
+    # K7 then K2 on the card
+    n_live = DOC_BATCH * 25 // 32  # 200 live sequences of 256
+    slots = torch.full((DOC_BATCH,), CAPACITY, dtype=torch.int32, device=dev)
+    slots[:n_live] = torch.randperm(CAPACITY, generator=g, device=dev)[:n_live].int()
+    kept = slots[:n_live].long()
+    tail = {}
+    for pool in ("cls", "mean"):
+        rows = n_live if pool == "cls" else int(mask[:n_live].sum())
+        for slab_dtype in (torch.float32, bf16):
+            tag = f"{pool} {'f32' if slab_dtype == torch.float32 else 'bf16'}"
+            sides = {who: (torch.zeros((CAPACITY, HIDDEN), dtype=slab_dtype, device=dev),
+                           torch.zeros((CAPACITY,), device=dev)) for who in ("kernel", "plain", "pair")}
+
+            def kernel(pool=pool, side=sides["kernel"]):
+                pool_normalize_into(*side, slots, x, mask, pool, True, True)
+
+            def plain(pool=pool, side=sides["plain"]):
+                pool_normalize_into_plain(*side, slots, x, mask, pool, True, True)
+
+            def pair(pool=pool, side=sides["pair"]):
+                slab_scatter(*side, slots, pool_normalize(x, mask, pool, True), True)
+
+            kernel(), plain(), pair()
+            torch.cuda.synchronize()
+            got, want, two = (sides[who][0][kept].float() for who in ("kernel", "plain", "pair"))
+            flags = [sides[who][1] for who in ("kernel", "plain", "pair")]
+            if not (torch.equal(flags[0], flags[1]) and torch.equal(flags[0], flags[2])
+                    and int(flags[0].sum()) == n_live):
+                fail(f"pool_normalize_into {tag}: valid flags differ from the plain version's or K7 + K2's")
+            err = check_bf16(f"pool_normalize_into {tag} against its plain version", got, want)
+            pair_err = (got - two).abs()
+            pair_tol = SCATTER_ATOL + (TAIL_BF16_RTOL * two.abs() if slab_dtype == bf16 else 0.0)
+            if not bool((pair_err <= pair_tol).all()):
+                fail(f"pool_normalize_into {tag}: {pair_err.max().item()} from K7 then K2 on the card")
+            elem = 4 if slab_dtype == torch.float32 else 2
+            # what the function needs: the live sequences' valid rows (and
+            # mask), the slots, the live rows and their flags written
+            nbytes = (rows * HIDDEN * 2 + (0 if pool == "cls" else n_live * 256) + DOC_BATCH * 4
+                      + n_live * (HIDDEN * elem + 4))
+            b_ms, b_by = bound(nbytes, (2 * rows + 7 * n_live) * HIDDEN, PEAK_F32)
+            row = {
+                "shape": f"B={DOC_BATCH} ({n_live} live) L=256 H={HIDDEN} bf16, {pool} + normalise, "
+                         f"into [{CAPACITY},{HIDDEN}] {tag.split()[1]} cos, {rows} rows read",
+                "max_abs_err": err, "pair_max_abs_err": pair_err.max().item(),
+                "ms": time_ms(torch, kernel, 200), "plain_ms": time_ms(torch, plain, 20),
+                "pair_ms": time_ms(torch, pair, 200),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "device_ms": {"kernel": device_ms(torch, kernel), "pair": device_ms(torch, pair),
+                              "plain": device_ms(torch, plain)},
+            }
+            tail[tag] = row
+            log(f"ingest tail pool_normalize_into: {json.dumps(row)}")
+            del sides, kernel, plain, pair, got, want, two, flags
+    out["pool_normalize_into"] = {**tail["cls f32"], "max_abs_err": max(r["max_abs_err"] for r in tail.values())}
+    out["_pool_normalize_into_shapes"] = tail
     return out
 
 
@@ -1489,7 +1572,8 @@ def phase_f32_ring_kernels(torch, dev) -> dict:
                     "max_abs_err": err,
                     "ms": time_ms(torch, lambda: pool_normalize(x, mask, pool, True), 50),
                     "plain_ms": time_ms(torch, lambda: pool_normalize_plain(x, mask, pool, True), 20),
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "device_ms": device_ms(torch, lambda: pool_normalize(x, mask, pool, True))}
     out["pool_normalize"] = {**k7["cls"], "max_abs_err": max(r["max_abs_err"] for r in k7.values()),
                              "mean": k7["mean"]}
     del x, word, position, types
@@ -1897,6 +1981,18 @@ def check_search_against_plain(torch, index, qs) -> None:
             fail(f"search row {r}: scores differ from plain by {err}")
 
 
+def tail_launches(kernels, before: dict, chunks: int, what: str) -> dict:
+    """The ingest tail's and K2's launches since ``before`` (a
+    ``launch_counts()``) over an ``encode_into`` of ``chunks`` chunks into a
+    one-shard index: one tail a chunk, no K2 and no K7."""
+    now = kernels.launch_counts()
+    got = {name: now[name] - before[name] for name in ("pool_normalize_into", "slab_scatter", "pool_normalize")}
+    got["tail_per_chunk"] = got["pool_normalize_into"] / chunks
+    if got["pool_normalize_into"] != chunks or got["slab_scatter"] or got["pool_normalize"]:
+        fail(f"{what}: {json.dumps(got)} over {chunks} chunks; one ingest tail a chunk, no K2 and no K7 expected")
+    return got
+
+
 def phase_slice(torch, dev, compared_widths: set) -> tuple[dict, dict]:
     """Phase 3: the embed path at BGE-base full width; returns its
     measurements and what phase 4 reuses (index, embedder, documents)."""
@@ -1929,6 +2025,7 @@ def phase_slice(torch, dev, compared_widths: set) -> tuple[dict, dict]:
     docs = synthetic_docs(np, N_DOCS, SEED)
     keys = [f"doc-{i}" for i in range(N_DOCS)]
     torch.cuda.synchronize()
+    before = kernels.launch_counts()
     t0 = time.perf_counter()
     n = embedder.encoder.encode_into(index, keys, docs)
     torch.cuda.synchronize()
@@ -1936,6 +2033,7 @@ def phase_slice(torch, dev, compared_widths: set) -> tuple[dict, dict]:
     res["embed_docs_per_s"] = n / dt
     res["encoder_batches"] = -(-N_DOCS // DOC_BATCH)
     log(f"encode_into: {n} docs in {dt:.3f} s = {res['embed_docs_per_s']:.1f} docs/s")
+    res["ingest_tail"] = tail_launches(kernels, before, res["encoder_batches"], "phase 3's encode_into")
     if len(index) != n_bulk + N_DOCS:
         fail(f"index holds {len(index)} keys, expected {n_bulk + N_DOCS}")
     index.remove(keys[-N_REMOVED:])
@@ -1987,12 +2085,17 @@ def phase_slice(torch, dev, compared_widths: set) -> tuple[dict, dict]:
     res["attention_widths"] = sorted(widths)
     if not widths <= compared_widths:
         fail(f"encoder chunk widths {sorted(widths)} outside the shapes phase 2 compared")
+    before = kernels.launch_counts()
     res["profile"] = profile_call(
         torch, lambda: embedder.encoder.encode_into(index, keys[:1024], docs[:1024]), 1024
     )
+    res["profile"]["ingest_tail"] = tail_launches(kernels, before, -(-len(docs[:1024]) // DOC_BATCH),
+                                                  "the profiled encode_into")
+    log(f"profiled encode_into of 1,024 documents: idle {res['profile']['device_idle_share']:.3f}, "
+        f"{json.dumps(res['profile']['ingest_tail'])}")
 
     embed_path = ("attention", "slab_scatter", "slab_clear", "knn_topk", "bias_act", "add_layer_norm",
-                  "embed_ln", "pool_normalize")
+                  "embed_ln", "pool_normalize", "pool_normalize_into")
     zero = [name for name in embed_path if res["launches"][name] == 0]
     if zero:
         fail(f"kernels not launched on the embed path: {zero}")
@@ -2913,6 +3016,10 @@ def phase_sharded(torch, dev, ctx: dict) -> dict:
     n = dp.encode_into(sidx, keys, docs)
     torch.cuda.synchronize()
     res["dp_embed_docs_per_s"] = n / (time.perf_counter() - t0)
+    ingest = kernels.launch_counts()
+    res["ingest"] = {name: ingest[name] for name in ("pool_normalize", "slab_scatter", "pool_normalize_into")}
+    if ingest["pool_normalize_into"] or not (ingest["pool_normalize"] and ingest["slab_scatter"]):
+        fail(f"the sharded ingest must run K7 then K2 (not fused): {json.dumps(res['ingest'])}")
     if n != N_DOCS or len(sidx) != n_bulk + N_DOCS:
         fail(f"sharded index holds {len(sidx)} keys after {n} documents")
     sidx.remove(keys[-N_REMOVED:])
@@ -3661,7 +3768,10 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
     shape), K12 (nq 1 and 32 over a 1M-row IVF at phase 6's shape), K16
     (act none at [8,192, 768], GELU at [8,192, 3,072]), K15 (the train
     step's [64, 128, 12, 64] and [2, 512, 4, 128], a row of no present key
-    in each) and K19 (over copies of every BGE-base parameter) of this tree against
+    in each), K19 (over copies of every BGE-base parameter), K17, K9, K7
+    (CLS bf16, mean bf16 and f32 at B=256 L=256), K2 (scatter and clear at
+    phase 2's shape) and the ingest tail (CLS and mean, against the
+    parent's K7 then K2) of this tree against
     the same kernels built from the sources under ``DIR`` (an unpacked
     ``git archive`` of another commit), on one card, timed in turns (parent,
     this tree, this tree, parent) by CUDA events and by the profiler's
@@ -3708,9 +3818,16 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
         knn_topk_plain,
         layer_norm_bwd,
         layer_norm_bwd_plain,
+        pool_normalize,
+        pool_normalize_into,
+        pool_normalize_into_plain,
+        pool_normalize_plain,
         ring_block,
         ring_block_plain,
         ring_state,
+        slab_clear,
+        slab_scatter,
+        slab_scatter_plain,
         vision_head,
         vision_head_plain,
     )
@@ -3737,7 +3854,7 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
     # this tree's build of it (a second copy of one library fails to
     # launch), through the parent's launch path
     names = ("ring_block", "knn_topk", "attention", "ivf_scan", "bias_act_bwd", "attention_bwd", "adam",
-             "layer_norm_bwd", "vision_head")
+             "layer_norm_bwd", "vision_head", "pool_normalize", "slab_scatter")
     same = [n for n in names if pb._target(n).name == _build._target(n).name]
     t0 = time.perf_counter()
     pb.build_all(tuple(n for n in names if n not in same))
@@ -3770,6 +3887,9 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
     parent_embed_bwd = parent_wrappers(
         "embed_ln", {"pathway_tpu_torch.kernels.add_layer_norm": p_ln_mod}).embed_ln_bwd
     parent_vision_head = parent_wrappers("vision_head").vision_head
+    p_slab_mod = parent_wrappers("slab_scatter")
+    parent_scatter, parent_clear = p_slab_mod.slab_scatter, p_slab_mod.slab_clear
+    parent_pool = parent_wrappers("pool_normalize").pool_normalize
 
     def turns(parent_fn, fn, iters: int, lib: str, strict: bool | None = None) -> dict:
         """Events, queued and profiled device ms of both in turns: parent,
@@ -4066,6 +4186,84 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
                                               lambda: vision_head(xi, weight, hbias), 50, "vision_head")}
     log(f"{name}: {json.dumps(res[name])}")
     del xi, want
+
+    # ---- K7 at the embed chunk's shape (CLS bf16, BGE-base's tail; mean
+    # bf16, E5's; mean f32), each within phase 2's tolerance of the plain
+    # version
+    B, L = DOC_BATCH, 256
+    mask = lengths_mask(B, L, 64)
+    for tag, dt, pool in (("CLS bf16", bf16, "cls"), ("mean bf16", bf16, "mean"), ("mean f32", f32, "mean")):
+        x = torch.randn((B, L, HIDDEN), generator=g, device=dev).to(dt)
+        want = pool_normalize_plain(x, mask, pool, True)
+        tol = F32_ATOL if dt == f32 else BF16_RTOL * want.abs() + FUSED_ATOL
+        err = {}
+        for who, fn in (("parent", parent_pool), ("tree", pool_normalize)):
+            d = (fn(x, mask, pool, True) - want).abs()
+            if not bool((d <= tol).all()):
+                fail(f"{who} pool_normalize {tag}: max err {d.max().item()}")
+            err[who] = d.max().item()
+        name = f"K7 {tag} B={B} L={L} H={HIDDEN}"
+        # the CLS form is the parent's kernel (cls_out_kernel, the same
+        # code in the rebuilt library): held within PARENT_RATIO, as every
+        # row where both sides run the parent's code; the mean form
+        # (rebuilt to be faster) no slower at all
+        res[name] = {"max_abs_err": err, **turns(lambda: parent_pool(x, mask, pool, True),
+                                                  lambda: pool_normalize(x, mask, pool, True),
+                                                  500 if pool == "cls" else 100, "pool_normalize",
+                                                  False if pool == "cls" else None)}
+        log(f"{name}: {json.dumps(res[name])}")
+        del x, want
+
+    # ---- K2 at phase 2's shape: 256 rows (200 live, 56 pads) into a 1M-slot
+    # f32 slab, normalised, and their clear; each side against the plain version
+    n_live = DOC_BATCH * 25 // 32  # 200 live sequences of 256
+    slots = torch.full((B,), CAPACITY, dtype=torch.int32, device=dev)
+    slots[:n_live] = torch.randperm(CAPACITY, generator=g, device=dev)[:n_live].int()
+    kept = slots[:n_live].long()
+    vals = torch.randn((B, HIDDEN), generator=g, device=dev) * 3.0
+    slab_ref, valid_ref = torch.zeros((CAPACITY, HIDDEN), device=dev), torch.zeros((CAPACITY,), device=dev)
+    slab_scatter_plain(slab_ref, valid_ref, slots, vals, True)
+    sides, err = {}, {}
+    for who, fn in (("parent", parent_scatter), ("tree", slab_scatter)):
+        sides[who] = (torch.zeros((CAPACITY, HIDDEN), device=dev), torch.zeros((CAPACITY,), device=dev))
+        fn(*sides[who], slots, vals, True)
+        err[who] = (sides[who][0][kept] - slab_ref[kept]).abs().max().item()
+        if err[who] > SCATTER_ATOL or not torch.equal(sides[who][1], valid_ref):
+            fail(f"{who} slab_scatter: max err {err[who]} or flags differ from the plain version")
+    name = f"K2 scatter b={B} ({n_live} live) into [{CAPACITY},{HIDDEN}] f32"
+    res[name] = {"max_abs_err": err, **turns(lambda: parent_scatter(*sides["parent"], slots, vals, True),
+                                            lambda: slab_scatter(*sides["tree"], slots, vals, True), 500,
+                                            "slab_scatter"),
+                 "library": library(lambda: sides["tree"][0].index_copy_(0, kept, vals[:n_live]), 500)}
+    log(f"{name}: {json.dumps(res[name])}")
+    name = f"K2 clear b={B} ({n_live} live) of [{CAPACITY}] flags"
+    res[name] = turns(lambda: parent_clear(sides["parent"][1], slots), lambda: slab_clear(sides["tree"][1], slots),
+                      500, "slab_scatter")
+    log(f"{name}: {json.dumps(res[name])}")
+
+    # ---- the ingest tail (bf16 hidden state into that f32 cosine slab, CLS
+    # and mean) against the parent's K7 then K2 on the same inputs; both
+    # within phase 2's tolerance of the plain version
+    x = torch.randn((B, L, HIDDEN), generator=g, device=dev).to(bf16)
+    for pool in ("cls", "mean"):
+        pool_normalize_into_plain(slab_ref, valid_ref, slots, x, mask, pool, True, True)
+        pool_normalize_into(*sides["tree"], slots, x, mask, pool, True, True)
+        parent_scatter(*sides["parent"], slots, parent_pool(x, mask, pool, True), True)
+        err = {}
+        for who in ("parent", "tree"):
+            got, want = sides[who][0][kept], slab_ref[kept]
+            d = (got - want).abs()
+            if not (bool((d <= BF16_RTOL * want.abs() + FUSED_ATOL).all()) and torch.equal(sides[who][1], valid_ref)):
+                fail(f"{who} ingest tail {pool}: max err {d.max().item()} or flags differ from the plain version")
+            err[who] = d.max().item()
+        name = f"tail {pool} bf16 into f32 cos B={B} L={L} H={HIDDEN} (parent: K7 then K2)"
+        res[name] = {"max_abs_err": err,
+                     **turns(lambda: parent_scatter(*sides["parent"], slots, parent_pool(x, mask, pool, True), True),
+                             lambda: pool_normalize_into(*sides["tree"], slots, x, mask, pool, True, True),
+                             500 if pool == "cls" else 100, "pool_normalize", True)}
+        log(f"{name}: {json.dumps(res[name])}")
+    del x, slab_ref, valid_ref, sides, vals
+    torch.cuda.empty_cache()
 
     # ---- gates: the parent's code keeps its time through this tree's
     # wrappers; code this tree changed loses none
@@ -5116,7 +5314,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     f_out = phase_fused(torch, dev)
     fused_shapes = {name: f_out.pop(f"_{name}_shapes")
-                    for name in ("bias_act", "add_layer_norm", "embed_ln", "pool_normalize")}
+                    for name in ("bias_act", "add_layer_norm", "embed_ln", "pool_normalize", "pool_normalize_into")}
     k_out.update(f_out)
     torch.cuda.empty_cache()
     v_out = phase_vision_kernels(torch, dev)
@@ -5182,6 +5380,9 @@ def main() -> int:
         "add_layer_norm": ("add_layer_norm.cu", "pathway_tpu/models/encoder.py:135"),
         "embed_ln": ("embed_ln.cu", "pathway_tpu/models/encoder.py:156"),
         "pool_normalize": ("pool_normalize.cu", "pathway_tpu/models/encoder.py:196"),
+        # the ingest tail: K7's pooling and normalise (encoder.py:196) with the
+        # scatter into the slab
+        "pool_normalize_into": ("pool_normalize.cu", "pathway_tpu/parallel/sharded_knn.py:166"),
         "patchify": ("patchify.cu", "pathway_tpu/models/vision.py:60"),
         "vision_head": ("vision_head.cu", "pathway_tpu/models/vision.py:81"),
         "dual_logits": ("dual_logits.cu", "pathway_tpu/models/vision.py:120"),

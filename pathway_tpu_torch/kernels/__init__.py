@@ -10,7 +10,9 @@ K4 bias_act        ``csrc/bias_act.cu``          ``models/encoder.py:88-150,222-
                                                  ``models/vision.py:60-76``
 K5 add_layer_norm  ``csrc/add_layer_norm.cu``    ``models/encoder.py:128-150``
 K6 embed_ln        ``csrc/embed_ln.cu``          ``models/encoder.py:152-176``
-K7 pool_normalize  ``csrc/pool_normalize.cu``    ``models/encoder.py:196-202``
+K7 pool_normalize  ``csrc/pool_normalize.cu``    ``models/encoder.py:196-202``; the
+    pool_normalize_                              ingest tail also K2's scatter
+    into                                         (``parallel/sharded_knn.py:166-176``)
 K8 patchify        ``csrc/patchify.cu``          ``models/vision.py:60-69``
 K9 vision_head     ``csrc/vision_head.cu``       ``models/vision.py:81-87``
 K10 dual_logits    ``csrc/dual_logits.cu``       ``models/vision.py:120``
@@ -68,6 +70,8 @@ from pathway_tpu_torch.kernels.pool_normalize import (
     pool_normalize,
     pool_normalize_bwd,
     pool_normalize_bwd_plain,
+    pool_normalize_into,
+    pool_normalize_into_plain,
     pool_normalize_plain,
 )
 from pathway_tpu_torch.kernels.ring_block import ring_block, ring_block_plain, ring_state
@@ -98,6 +102,8 @@ __all__ = [
     "embed_ln_plain",
     "pool_normalize",
     "pool_normalize_plain",
+    "pool_normalize_into",
+    "pool_normalize_into_plain",
     "patchify",
     "patchify_plain",
     "patch_grid",
@@ -143,6 +149,7 @@ WRAPPERS = {
     "add_layer_norm": add_layer_norm,
     "embed_ln": embed_ln,
     "pool_normalize": pool_normalize,
+    "pool_normalize_into": pool_normalize_into,
     "patchify": patchify,
     "vision_head": vision_head,
     "dual_logits": dual_logits,

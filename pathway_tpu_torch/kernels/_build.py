@@ -160,7 +160,10 @@ _SIGNATURES = {
     "embed_ln": {
         "pw_embed_ln": [_P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     },
-    "pool_normalize": {"pw_pool_normalize": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    "pool_normalize": {
+        "pw_pool_normalize": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "pw_pool_normalize_into": [_P] * 5 + [_I] * 3 + [_LL] * 2 + [_I] * 5 + [_P],
+    },
     "patchify": {"pw_patchify": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "vision_head": {"pw_vision_head": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P]},
     "dual_logits": {"pw_dual_logits": [_P, _P, _P, _P, _P, _I, _I, _I, _P]},

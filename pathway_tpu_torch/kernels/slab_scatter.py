@@ -57,12 +57,15 @@ def slab_scatter(
     """``slab[slots[i]] = cast(normalize?(vals[i]))``, ``valid[slots[i]] = 1``."""
     if slab.device.type == "cpu":
         return slab_scatter_plain(slab, valid, slots, vals, normalize)
-    cap, d = slab.shape
-    if slab.dim() != 2 or slab.stride(1) != 1 or slab.stride(0) < d:
+    if slab.dim() != 2 or slab.stride(1) != 1 or slab.stride(0) < slab.shape[1]:
         raise ValueError(f"slab_scatter: slab {tuple(slab.shape)} strides {slab.stride()}: rows of a pitch >= d")
-    pitch = slab.stride(0)
-    wide = torch.as_strided(slab, (cap, pitch), (pitch, 1))
-    device = check_cuda("slab_scatter", slab=wide, valid=valid, slots=slots, vals=vals)
+    cap, d = slab.shape
+    device = slab.device
+    if device.type != "cuda" or valid.device != device or slots.device != device or vals.device != device:
+        raise ValueError(f"slab_scatter: needs CUDA tensors on one device, got slab {device}, valid "
+                         f"{valid.device}, slots {slots.device}, vals {vals.device}")
+    if not (valid.is_contiguous() and slots.is_contiguous() and vals.is_contiguous()):
+        raise ValueError("slab_scatter: valid, slots and vals must be contiguous")
     n = slots.shape[0]
     if slab.dtype not in _TYPES or vals.dtype not in _TYPES:
         raise ValueError(f"slab_scatter: slab {slab.dtype} / vals {vals.dtype} not f32 or bf16")
@@ -77,7 +80,7 @@ def slab_scatter(
     launch(
         "slab_scatter", _build.library("slab_scatter").pw_slab_scatter, device,
         slab.data_ptr(), valid.data_ptr(), slots.data_ptr(), vals.data_ptr(),
-        n, d, pitch, cap, int(slab.dtype == torch.bfloat16), int(vals.dtype == torch.bfloat16),
+        n, d, slab.stride(0), cap, int(slab.dtype == torch.bfloat16), int(vals.dtype == torch.bfloat16),
         int(bool(normalize)),
     )
     slab_scatter.launches += 1

@@ -463,15 +463,24 @@ class TextEncoderModel(_EncoderStack):
     the first cell's device: the CLS row of the first sequence block, or the
     masked mean over all blocks gathered there."""
 
+    def pool_inputs(
+        self, ids: torch.Tensor, mask: torch.Tensor, type_ids: torch.Tensor | None = None
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """What the tail pools, on the first cell's device: the last
+        block's output ``[B, L, hidden]`` in ``cfg.dtype`` (for CLS only the
+        first sequence block) and its uint8 mask.  :meth:`forward` pools it
+        with K7; ``ShardedKnnIndex.add_pooled_device`` pools it straight into
+        the index (the ingest tail)."""
+        xs, masks = self.hidden_blocks(ids, mask.to(torch.uint8), type_ids)
+        if self.cfg.pool == "cls" or len(xs) == 1:
+            return xs[0].to(self.device), masks[0].to(self.device)
+        return (torch.cat([x.to(self.device) for x in xs], dim=1),
+                torch.cat([m.to(self.device) for m in masks], dim=1))
+
     def forward(
         self, ids: torch.Tensor, mask: torch.Tensor, type_ids: torch.Tensor | None = None
     ) -> torch.Tensor:
-        xs, masks = self.hidden_blocks(ids, mask.to(torch.uint8), type_ids)
-        if self.cfg.pool == "cls" or len(xs) == 1:
-            x, m = xs[0].to(self.device), masks[0].to(self.device)
-        else:
-            x = torch.cat([x.to(self.device) for x in xs], dim=1)
-            m = torch.cat([m.to(self.device) for m in masks], dim=1)
+        x, m = self.pool_inputs(ids, mask, type_ids)
         if _trains(x):
             return PoolNormalizeFunction.apply(x, m, self.cfg.pool, self.cfg.normalize)
         return pool_normalize(x, m, self.cfg.pool, self.cfg.normalize)

@@ -206,12 +206,17 @@ class TorchEncoder:
             for i, grid in enumerate(self._grids)
         ], n
 
-    def _dispatch(self, ids: np.ndarray, mask: np.ndarray, tps: np.ndarray):
+    def _dispatch(self, ids: np.ndarray, mask: np.ndarray, tps: np.ndarray, pooled: bool = True):
         """Upload one padded chunk and enqueue its forward, each part on its
         device; returns (device output on the first device, [b, hidden] or
-        [b] f32, n real rows) without waiting."""
+        [b] f32, n real rows) without waiting.  ``pooled=False`` (one
+        replica) stops before the tail: ((last hidden state, uint8 mask) on
+        the model's first device, n real rows)."""
         parts, n = self._upload_parts(ids, mask, tps)
         with torch.inference_mode():
+            if not pooled:
+                (args,) = parts
+                return self.model.pool_inputs(*args), n
             outs = [model(*args) for model, args in zip(self._replicas, parts)]
             out = outs[0] if len(outs) == 1 else torch.cat([o.to(self.device) for o in outs])
         return out, n
@@ -258,9 +263,14 @@ class TorchEncoder:
         return self._run_pipelined(texts, None)
 
     def encode_into(self, index: Any, keys: Sequence[Any], texts: Sequence[str]) -> int:
-        """Embed ``texts`` and upsert the embeddings into ``index``
-        (``ShardedKnnIndex.add_batch_device``) on the device: token ids go
-        up, no embedding comes down.  Returns the number of rows indexed."""
+        """Embed ``texts`` and upsert the embeddings into ``index`` on the
+        device: token ids go up, no embedding comes down.  With one replica
+        each chunk's last hidden state goes to
+        ``ShardedKnnIndex.add_pooled_device``, which pools it (the ingest
+        tail, one launch, where the index has one shard on the model's
+        device); with several, K7 pools each part and
+        ``ShardedKnnIndex.add_batch_device`` scatters the rows (K2).
+        Returns the number of rows indexed."""
         if self.cross:
             raise TypeError("cross-encoder executor: use score_pairs()")
         texts = list(texts)
@@ -269,9 +279,14 @@ class TorchEncoder:
             raise ValueError("keys and texts must align")
         pos = 0
         for batch in self._chunks(texts):
-            out, n = self._dispatch(*batch)
             # the upsert is enqueued behind the forward on the same stream
-            index.add_batch_device(keys[pos : pos + n], out, n_valid=n)
+            if self._dp == 1:
+                (hidden, mask), n = self._dispatch(*batch, pooled=False)
+                index.add_pooled_device(keys[pos : pos + n], hidden, mask, self.config.pool,
+                                        self.config.normalize, n_valid=n)
+            else:
+                out, n = self._dispatch(*batch)
+                index.add_batch_device(keys[pos : pos + n], out, n_valid=n)
             pos += n
         return pos
 

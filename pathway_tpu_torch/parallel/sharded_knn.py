@@ -7,8 +7,11 @@ The corpus lives on the card as a fixed-capacity slab ``[capacity, dim]``
 
 - slots are assigned on the host (free list + cursor); upserts scatter
   the rows into their slots in place through kernel K2
-  (``kernels/slab_scatter.py``); the pad rows of an encoder's output are
-  sent to an out-of-range slot, which the kernel drops;
+  (``kernels/slab_scatter.py``), or, for an encoder's last hidden state
+  on a one-shard index on its device, through the ingest tail, which
+  pools and scatters in one launch (``add_pooled_device``); the pad rows of an
+  encoder's output are sent to an out-of-range slot, which the kernel
+  drops;
 - capacity grows 2x when full, copying the slab on the device;
 - a query batch is scored against the whole slab, masked and reduced to
   its top k by kernel K3 (``kernels/knn_topk.py``) without the
@@ -57,6 +60,7 @@ from pathway_tpu_torch._device import finish_readback, resolve_device, start_rea
 from pathway_tpu_torch.internals import device_counters as _devctr
 from pathway_tpu_torch.kernels.knn_topk import knn_topk, merge_partials
 from pathway_tpu_torch.kernels._pitch import pitched_zeros
+from pathway_tpu_torch.kernels.pool_normalize import pool_normalize, pool_normalize_into
 from pathway_tpu_torch.kernels.slab_scatter import INGEST_EPS, slab_clear, slab_scatter
 from pathway_tpu_torch.ops.bucketing import bucket_size, pad_rows
 from pathway_tpu_torch.ops.distances import normalize
@@ -271,6 +275,36 @@ class ShardedKnnIndex:
                 self._vecs[s], self._flags[s], self._upload(local, dev), rows,
                 normalize=self.metric == "cos",
             )
+
+    def add_pooled_device(
+        self, keys: Sequence[Any], hidden: torch.Tensor, mask: torch.Tensor, pool: str,
+        normalize: bool, n_valid: int | None = None,
+    ) -> None:
+        """Upsert the pooled rows of an encoder's last hidden state
+        ``hidden`` [b, L, dim] (``mask`` [b, L] uint8): pool (``"cls"`` or
+        ``"mean"``), normalise when ``normalize`` (eps 1e-12), for ``cos``
+        normalise again (eps 1e-30), cast and scatter; the same rows as
+        ``add_batch_device`` of the encoder's pooled output.  One shard on
+        ``hidden``'s device takes the ingest tail
+        (``kernels.pool_normalize_into``: one launch, no f32 rows between
+        the pooling and the scatter); otherwise K7 pools and
+        ``add_batch_device`` scatters.  Slot assignment is the host's work,
+        as there; rows at index >= len(keys) go to an out-of-range slot and
+        are not read."""
+        n = len(keys) if n_valid is None else n_valid
+        b = int(hidden.shape[0])
+        if int(hidden.shape[-1]) != self.dim:
+            raise ValueError(f"hidden dim {hidden.shape[-1]} != {self.dim}")
+        if n > b:
+            raise ValueError(f"{n} keys but only {b} hidden rows")
+        if self.shards != 1 or hidden.device != self.device:
+            self.add_batch_device(keys, pool_normalize(hidden, mask, pool, normalize), n_valid=n)
+            return
+        slots = self._assign_slots(keys, pad_to=b)
+        pool_normalize_into(
+            self._vecs[0], self._flags[0], self._upload(slots, self.device), hidden, mask, pool, normalize,
+            self.metric == "cos",
+        )
 
     def remove(self, keys: Sequence[Any]) -> None:
         slots = []
