@@ -45,7 +45,13 @@ Phases, each fatal on failure:
    hidden state (200 live sequences, 56 pads) into 1M-slot f32 and bf16
    cosine slabs, CLS and mean, against its plain version and against K7
    then K2 on the card (1e-6, one bf16 ulp in a bf16 slab; flags equal),
-   its device time beside the pair's;
+   its device time beside the pair's; B8, the cross-encoder's head in one
+   launch (``phase_cross_head``), on the CLS view of [B, 512, 768] hidden
+   states at B = 256 (a rerank chunk) and 32 (one question), bf16 and f32,
+   1 and 3 labels, against its plain chain (f32 1e-5; bf16 two ulps of each
+   tanh value through the classifier) and the same bits on a second call,
+   timed beside its bound and, by queued device time, beside the five
+   launches it replaced;
 3. the live-RAG embed path at BGE-base full width (768 hidden, 12
    layers, 12 heads, MLP 3072, bf16, seeded random weights): a
    1,048,576-slot cosine index bulk-filled with seeded random vectors,
@@ -64,7 +70,8 @@ Phases, each fatal on failure:
    finite and within a stated tolerance of the same model run through
    the kernels' plain versions only, the kept five must match the plain
    ranking wherever its 5th/6th margin exceeds that tolerance, and the
-   path's kernels must launch during it;
+   path's kernels must launch during it: the head once a chunk (24), K4
+   never with tanh;
 5. the image path through ``DualEncoderModel(SIGLIP_BASE, BGE_BASE)`` at
    full width (224-pixel images in 16-pixel patches, 196 patches, 768
    hidden, 12 layers, 12 heads, MLP 3072, bf16, seeded random weights;
@@ -157,8 +164,13 @@ Phases, each fatal on failure:
     steps; K15-K19 against their plain versions at the step's shapes, the
     first step's loss and gradients against the plain versions' autograd
     on the card, ms a step, tokens/s, peak memory, the profiled step's idle
-    share and split, its share of the card's f32-accurate product peak
-    (3xTF32, PEAK_F32_PRODUCT); K15 also at the dry run's D = 16, at
+    share and split (cuBLAS products counted), its share of the card's
+    f32-accurate product peak (3xTF32, PEAK_F32_PRODUCT); K18's loss
+    (forward: the product, the loss, raw and lse; backward: d emb, also
+    against (G + G^T) @ emb) and its pool backward each against its plain
+    version, the same bits twice, device and queued times, the pool
+    backward at least half of its bound by queued time, and the loss tail
+    one launch of each a step; K15 also at the dry run's D = 16, at
     D = 32, in the cluster form over 2 and 4 blocks (D = 64, 24, 40), and
     in the two-pass form at D = 80 and 128 over 512 keys (K15_CASES), each
     case with a batch row of no present key and rows whose keys lie in one
@@ -193,21 +205,23 @@ Phases, each fatal on failure:
 
 Phase 13 and then phase 8 run right after phase 4, while phase 3's index
 is alive, and phase 10 after them; phases 5, 6, 9 and 12 follow.  The second-to-last line of
-output is a JSON object with one entry per kernel wrapper (K1-K19; K1 and
-K4-K7 with their f32 forms); the last is ``{"ok": true, "device":
+output is a JSON object with one entry per kernel wrapper (K1-K19 and B8's
+head; K1 and K4-K7 with their f32 forms); the last is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device the script exits 1 and prints no result.
 
 ``python3 chip_smoke.py --against-parent DIR`` runs instead, on one card,
 only K14, K3's row-streaming pass, K1, K12, K16, K15, K19, K17 (both
 forms; the embedding form at random and all-ones ids), K9, K7 (CLS bf16,
-mean bf16 and f32), K2 (scatter and clear) and the ingest tail (against
-the parent's K7 then K2) of this tree
+mean bf16 and f32), K2 (scatter and clear), the ingest tail (against
+the parent's K7 then K2), B8's head (against the parent's five launches)
+and K18 (the loss and d emb through autograd against the parent's six
+launches; the pool backward) of this tree
 beside the same kernels built from the sources under ``DIR`` (another
 commit, unpacked) and launched through its launch helper, timed in turns,
 each within PARENT_RATIO of the parent where both sides run the parent's
 code and no slower at all where this tree runs code the parent does not
-(K12 at nq=1, K16 act none, K15, K19, K17, K9 and K7 by device time,
-``queued_ms``;
+(K12 at nq=1, K16 act none, K15, K19, K17, K9, K7, K2, B8 and K18 by
+device time, ``queued_ms``;
 K19 the same bits as the parent's after two steps;
 ``phase_against_parent``).
 
@@ -280,6 +294,12 @@ SCORE_ATOL = 2e-2
 F32_RATIO = 1.5
 # K9: f32 sums of 196 rows and of 768 products taken in another order
 HEAD_ATOL = 1e-5
+# B8, the cross-encoder's head, against its plain chain: in f32 the same
+# operations, sums taken in another order (the pooler's on 3xTF32), within
+# F32_ATOL; in bf16 each tanh value may land BF16_RTOL from the plain one
+# (the pooler's bf16-rounded product summed in another order), so a logit
+# is held to BF16_RTOL * (|classifier| @ |tanh|) + FUSED_ATOL
+CROSS_HEAD_SHAPES = ((RERANK_BATCH, 512), (RERANK_K, 512))  # (B, L): a batched chunk, one question
 # K10: f32 dots of unit rows over 768 dims in another order, times e^s (< 10)
 LOGIT_ATOL = 1e-5
 # image embeddings against the plain-only forward: the bf16 encoder
@@ -364,8 +384,9 @@ PARENT_RATIO = 1.05
 # K17 and K9, redesigned for their device time (the parents' K17 makes two
 # launches a call); K7, redesigned for its device time, and K2, whose calls
 # take less device time than the host takes to make them (two equal
-# builds of K2's clear read 17% apart by events on an H100)
-DEVICE_GATED = ("K12 nq=1 ", "K16 none ", "K15 ", "K19 ", "K17 ", "K9 ", "K7 ", "K2 ")
+# builds of K2's clear read 17% apart by events on an H100); B8 and K18,
+# redesigned as fewer launches for their device time
+DEVICE_GATED = ("K12 nq=1 ", "K16 none ", "K15 ", "K19 ", "K17 ", "K9 ", "K7 ", "K2 ", "B8 ", "K18 ")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, bf16, TF32 and f32
 # (FMA units) FLOP/s
@@ -387,7 +408,8 @@ K15_REPEATS = 1000
 TRAIN_LOSS_RTOL = 1e-5  # the first step's loss against the plain step's
 TRAIN_GRAD_RTOL = 1e-4  # its gradients, each of its tensor's max|g| (12 layers of f32 rounding)
 TRAIN_KERNELS = ("attention", "bias_act", "add_layer_norm", "embed_ln", "pool_normalize", "attention_bwd",
-                 "bias_act_bwd", "layer_norm_bwd", "embed_ln_bwd", "contrastive_loss", "pool_normalize_bwd", "adam")
+                 "bias_act_bwd", "layer_norm_bwd", "embed_ln_bwd", "contrastive_loss", "contrastive_loss_bwd",
+                 "pool_normalize_bwd", "adam")
 
 PEAK_BYTES = 3.35e12
 ENGINE_MD_ROWS = 2000  # markdown rows of the engine phase's groupby first target
@@ -1212,7 +1234,106 @@ def phase_fused(torch, dev) -> dict:
             del sides, kernel, plain, pair, got, want, two, flags
     out["pool_normalize_into"] = {**tail["cls f32"], "max_abs_err": max(r["max_abs_err"] for r in tail.values())}
     out["_pool_normalize_into_shapes"] = tail
+    del x, mask, slots, kept
+    torch.cuda.empty_cache()
+    out.update(phase_cross_head(torch, dev, g))
     return out
+
+
+def head_chain(x, pooler_w, pooler_b, cls_w, cls_b, bias_act):
+    """The five launches the head kernel replaced, with K4 from ``bias_act``
+    (this tree's wrapper, or another commit's): the pooler weight's cast, a
+    cuBLAS product of the CLS view, K4 with tanh, ``h.float()`` and the f32
+    classifier."""
+    import torch.nn.functional as F
+
+    h = bias_act(F.linear(x, pooler_w.to(x.dtype)), pooler_b, "tanh")
+    return F.linear(h.float(), cls_w.float(), cls_b.float())
+
+
+def head_err(torch, name: str, got, ref, x, cls_w, pooler_w, pooler_b) -> float:
+    """B8's logits ``got`` against the plain chain's ``ref``: f32 within
+    F32_ATOL; bf16 within BF16_RTOL * (|classifier| @ |tanh|) + FUSED_ATOL
+    (two bf16 ulps of each tanh value, CROSS_HEAD tolerance above).  Returns
+    the largest difference."""
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch.kernels import bias_act_plain
+
+    err = (got - ref).abs()
+    if x.dtype == torch.float32:
+        tol = torch.full_like(ref, F32_ATOL)
+    else:
+        t = bias_act_plain(F.linear(x, pooler_w.to(x.dtype)), pooler_b, "tanh").float()
+        tol = BF16_RTOL * (t.abs() @ cls_w.abs().T) + FUSED_ATOL
+    if not bool(torch.isfinite(got).all()) or bool((err > tol).any()):
+        fail(f"cross_head {name}: max err {err.max().item()} beyond its tolerance")
+    return err.max().item()
+
+
+def phase_cross_head(torch, dev, g) -> dict:
+    """Phase 2, continued: B8, the cross-encoder's head in one launch, at a
+    batched rerank chunk (B = RERANK_BATCH) and one question (B = RERANK_K),
+    on the CLS view of a [B, 512, HIDDEN] hidden state, bf16 and f32, 1 and 3
+    labels: against its plain chain (``head_err``), the same bits on a second
+    call; by CUDA events, the profiler's device time and queued device time
+    beside its bound, the plain chain's, and the five-launch chain it
+    replaced (``head_chain``, queued)."""
+    from pathway_tpu_torch.kernels import bias_act, cross_head, cross_head_plain
+
+    rows = {}
+    for B, L in CROSS_HEAD_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            hidden = torch.randn((B, L, HIDDEN), generator=g, device=dev).to(dt)
+            x = hidden[:, 0]  # the strided CLS view, as the model passes it
+            wp = torch.randn((HIDDEN, HIDDEN), generator=g, device=dev) * 0.02
+            bp = torch.randn((HIDDEN,), generator=g, device=dev) * 0.5
+            for labels in (1, 3):
+                wc = torch.randn((labels, HIDDEN), generator=g, device=dev) * 0.02
+                bc = torch.randn((labels,), generator=g, device=dev)
+                args = (x, wp, bp, wc, bc)
+                got = cross_head(*args)
+                again = cross_head(*args)
+                ref = cross_head_plain(*args)
+                torch.cuda.synchronize()
+                tag = f"B={B} L={L} H={HIDDEN} {'f32' if dt == torch.float32 else 'bf16'} labels={labels}"
+                err = head_err(torch, tag, got, ref, x, wc, wp, bp)
+                same = bool(torch.equal(got, again))
+                if not same:
+                    fail(f"cross_head {tag}: other bits on a second call on the same inputs")
+                row = {"shape": tag + " (CLS view of the hidden state)", "max_abs_err": err,
+                       "same_bits_twice": same}
+                if labels == 1:  # the reranker's head: timed
+                    elem = x.element_size()
+                    nbytes = HIDDEN * HIDDEN * 4 + B * HIDDEN * elem + HIDDEN * 4 + (HIDDEN + 1) * labels * 4 \
+                        + B * labels * 4
+                    flops = 2 * B * HIDDEN * HIDDEN + 2 * B * HIDDEN * labels
+                    b_ms, b_by = bound(nbytes, flops, PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32_PRODUCT)
+
+                    def kern(args=args):
+                        return cross_head(*args)
+
+                    def chain(args=args):
+                        return head_chain(*args, bias_act)
+
+                    def plain(args=args):
+                        return cross_head_plain(*args)
+
+                    row.update(
+                        ms=time_ms(torch, kern, 200), plain_ms=time_ms(torch, plain, 50),
+                        chain_ms=time_ms(torch, chain, 200), bound_ms=b_ms, bound_by=b_by,
+                        library_ms=None,  # no single torch call takes the pooler, tanh and classifier
+                        device_ms={"kernel": device_ms(torch, kern), "chain": device_ms(torch, chain),
+                                   "plain": device_ms(torch, plain)},
+                        queued_ms={"kernel": queued_ms(torch, kern, 100), "chain": queued_ms(torch, chain, 100)},
+                    )
+                rows[tag] = row
+                log(f"B8 cross_head: {json.dumps(row)}")
+            del hidden, x
+    main = rows["B={} L={} H={} bf16 labels=1".format(*CROSS_HEAD_SHAPES[0], HIDDEN)]
+    return {"cross_head": {**main, "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+                           "same_bits_twice": all(r["same_bits_twice"] for r in rows.values())},
+            "_cross_head_shapes": rows}
 
 
 def phase_vision_kernels(torch, dev) -> dict:
@@ -2156,6 +2277,7 @@ def phase_rerank(torch, dev, ctx: dict, compared_widths: set) -> dict:
     torch.cuda.synchronize()
 
     kernels.reset_launch_counts()
+    tanh_before = kernels.bias_act.launches_by_act["tanh"]
     # (a) the batched round
     t0 = time.perf_counter()
     hits = index.search(embedder.encoder.encode(batched), RERANK_K)
@@ -2195,9 +2317,18 @@ def phase_rerank(torch, dev, ctx: dict, compared_widths: set) -> dict:
     }
     log(f"rerank batched: {json.dumps(res['batched'])}")
     log(f"rerank single: {json.dumps(res['single'])}")
-    missing = [n for n in ("attention", "bias_act", "add_layer_norm", "embed_ln", "knn_topk") if launches[n] == 0]
+    missing = [n for n in ("attention", "bias_act", "add_layer_norm", "embed_ln", "knn_topk", "cross_head")
+               if launches[n] == 0]
     if missing:
         fail(f"kernels not launched on the rerank path: {missing}")
+    # the head: one launch a cross-encoder chunk (the batched round's chunks,
+    # then one per single question), and no K4 with tanh
+    chunks = -(-N_QUESTIONS * RERANK_K // RERANK_BATCH) + N_SINGLE * -(-RERANK_K // RERANK_BATCH)
+    res["head"] = {"chunks": chunks, "cross_head_launches": launches["cross_head"],
+                   "bias_act_tanh_launches": kernels.bias_act.launches_by_act["tanh"] - tanh_before}
+    log(f"rerank head: {json.dumps(res['head'])}")
+    if res["head"]["cross_head_launches"] != chunks or res["head"]["bias_act_tanh_launches"]:
+        fail(f"rerank head launches {json.dumps(res['head'])}: one head launch a chunk and no K4 tanh expected")
 
     # gates: finite scores; the plain-only forward of the same model, and
     # the same forward in f32 as the yardstick of bf16 noise
@@ -3770,8 +3901,11 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
     step's [64, 128, 12, 64] and [2, 512, 4, 128], a row of no present key
     in each), K19 (over copies of every BGE-base parameter), K17, K9, K7
     (CLS bf16, mean bf16 and f32 at B=256 L=256), K2 (scatter and clear at
-    phase 2's shape) and the ingest tail (CLS and mean, against the
-    parent's K7 then K2) of this tree against
+    phase 2's shape), the ingest tail (CLS and mean, against the parent's
+    K7 then K2), B8's head (bf16 at CROSS_HEAD_SHAPES, against the parent's
+    five launches, ``head_chain``) and K18 (the train step's loss and d emb
+    through autograd against the parent's six launches; its pool backward
+    at [64, 128, 768] CLS) of this tree against
     the same kernels built from the sources under ``DIR`` (an unpacked
     ``git archive`` of another commit), on one card, timed in turns (parent,
     this tree, this tree, parent) by CUDA events and by the profiler's
@@ -3788,8 +3922,9 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
     BWD_RTOL, K19 the same bits as the parent's K19 for p, m and v after
     two steps, K17 BWD_RTOL and K9 HEAD_ATOL (K17's residual form at the
     train step's [8,192, 768], its embedding form at BGE-base's tables and
-    random or all-ones ids, K9 at an image chunk).  Gates: DEVICE_GATED
-    rows (K12 at nq=1, K16 act none, K15, K19, K17, K9) by device time
+    random or all-ones ids, K9 at an image chunk; B8 phase 2's tolerance,
+    K18 BWD_RTOL).  Gates: DEVICE_GATED
+    rows (K12 at nq=1, K16 act none, K15, K19, K17, K9, K7, K2, B8, K18) by device time
     (``queued_ms``), the others (K1, K3, K14, K12 at
     nq=32, K16 GELU) by CUDA events; each row no slower than the parent
     where this tree runs code the parent does not (``"strict"``: a library
@@ -3810,6 +3945,9 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
         attention_plain,
         bias_act_bwd,
         bias_act_bwd_plain,
+        contrastive_loss_plain,
+        cross_head,
+        cross_head_plain,
         embed_ln_bwd,
         embed_ln_bwd_plain,
         ivf_scan,
@@ -3819,6 +3957,8 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
         layer_norm_bwd,
         layer_norm_bwd_plain,
         pool_normalize,
+        pool_normalize_bwd,
+        pool_normalize_bwd_plain,
         pool_normalize_into,
         pool_normalize_into_plain,
         pool_normalize_plain,
@@ -3833,6 +3973,7 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
     )
     from pathway_tpu_torch.kernels import _build
     from pathway_tpu_torch.kernels.attention import bwd_form
+    from pathway_tpu_torch.kernels.contrastive_loss import in_batch_loss
 
     def parent_module(name, imports=None):
         """The parent's kernels/<name>.py; ``imports`` maps this tree's
@@ -3854,7 +3995,7 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
     # this tree's build of it (a second copy of one library fails to
     # launch), through the parent's launch path
     names = ("ring_block", "knn_topk", "attention", "ivf_scan", "bias_act_bwd", "attention_bwd", "adam",
-             "layer_norm_bwd", "vision_head", "pool_normalize", "slab_scatter")
+             "layer_norm_bwd", "vision_head", "pool_normalize", "slab_scatter", "bias_act", "contrastive_loss")
     same = [n for n in names if pb._target(n).name == _build._target(n).name]
     t0 = time.perf_counter()
     pb.build_all(tuple(n for n in names if n not in same))
@@ -3881,7 +4022,8 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
     parent_bwd_form = getattr(p_attention_mod, "bwd_form", lambda L, D: "two_pass")
     parent_adam = parent_wrappers("adam").adam_step
     parent_scan = p_scan_mod.ivf_scan
-    parent_bias_bwd = parent_wrappers("bias_act").bias_act_bwd
+    p_bias_mod = parent_wrappers("bias_act")
+    parent_bias_bwd = p_bias_mod.bias_act_bwd
     p_ln_mod = parent_wrappers("add_layer_norm")
     parent_ln_bwd = p_ln_mod.layer_norm_bwd
     parent_embed_bwd = parent_wrappers(
@@ -3889,7 +4031,9 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
     parent_vision_head = parent_wrappers("vision_head").vision_head
     p_slab_mod = parent_wrappers("slab_scatter")
     parent_scatter, parent_clear = p_slab_mod.slab_scatter, p_slab_mod.slab_clear
-    parent_pool = parent_wrappers("pool_normalize").pool_normalize
+    p_pool_mod = parent_wrappers("pool_normalize")
+    parent_pool = p_pool_mod.pool_normalize
+    p_loss_mod = parent_wrappers("contrastive_loss")
 
     def turns(parent_fn, fn, iters: int, lib: str, strict: bool | None = None) -> dict:
         """Events, queued and profiled device ms of both in turns: parent,
@@ -4265,6 +4409,70 @@ def phase_against_parent(torch, dev, parent: str) -> dict:
     del x, slab_ref, valid_ref, sides, vals
     torch.cuda.empty_cache()
 
+    # ---- B8, the cross-encoder's head: this tree's one launch against the
+    # parent's five (head_chain with the parent's K4), bf16 at a batched
+    # chunk and at one question, on the CLS view of the hidden state; both
+    # within phase 2's tolerance of the plain chain
+    for hb, hl in CROSS_HEAD_SHAPES:
+        hidden = torch.randn((hb, hl, HIDDEN), generator=g, device=dev).to(bf16)
+        hx = hidden[:, 0]
+        hargs = (hx, torch.randn((HIDDEN, HIDDEN), generator=g, device=dev) * 0.02,
+                 torch.randn((HIDDEN,), generator=g, device=dev) * 0.5,
+                 torch.randn((1, HIDDEN), generator=g, device=dev) * 0.02, torch.randn((1,), generator=g, device=dev))
+        want = cross_head_plain(*hargs)
+        err = {who: head_err(torch, f"{who} B={hb}", fn(), want, hx, hargs[3], hargs[1], hargs[2])
+               for who, fn in (("parent", lambda: head_chain(*hargs, p_bias_mod.bias_act)),
+                               ("tree", lambda: cross_head(*hargs)))}
+        name = f"B8 head bf16 B={hb} L={hl} H={HIDDEN} (parent: five launches)"
+        res[name] = {"max_abs_err": err, **turns(lambda: head_chain(*hargs, p_bias_mod.bias_act),
+                                                  lambda: cross_head(*hargs), 200, "cross_head", True)}
+        log(f"{name}: {json.dumps(res[name])}")
+        del hidden, hx, hargs, want
+
+    # ---- K18: the loss and d emb of the train step's [64, 768] embeddings
+    # through autograd, as the step runs them: this tree's two launches
+    # against the parent's six (its product, loss kernel, scale and the
+    # product's backward); and the pool backward at the train step's CLS
+    # shape.  Each within BWD_RTOL of the plain versions
+    emb = F.normalize(torch.randn((TRAIN_B, HIDDEN), generator=g, device=dev), dim=1)
+    plain_loss, G = contrastive_loss_plain(emb @ emb.T)
+    plain_d = (G + G.T) @ emb
+
+    def loss_tail(in_batch_loss):
+        def call():
+            e = emb.detach().requires_grad_()
+            loss = in_batch_loss(e)
+            return loss.detach(), torch.autograd.grad(loss, e)[0]
+        return call
+
+    sides = {"parent": loss_tail(p_loss_mod.in_batch_loss), "tree": loss_tail(in_batch_loss)}
+    err = {}
+    for who, fn in sides.items():
+        loss, d = fn()
+        err[who] = max(abs(float(loss) - float(plain_loss)) / abs(float(plain_loss)),
+                       float((d - plain_d).abs().max()) / float(plain_d.abs().max()))
+        if not err[who] <= BWD_RTOL:
+            fail(f"{who} contrastive loss tail: {err[who]} of max|ref| > {BWD_RTOL}")
+    name = f"K18 loss + d emb B={TRAIN_B} H={HIDDEN} (parent: six launches)"
+    res[name] = {"max_rel_err": err, **turns(sides["parent"], sides["tree"], 50, "contrastive_loss", True)}
+    log(f"{name}: {json.dumps(res[name])}")
+    xh = torch.randn((TRAIN_B, TRAIN_L, HIDDEN), generator=g, device=dev)
+    gh = torch.randn((TRAIN_B, HIDDEN), generator=g, device=dev)
+    hmask = lengths_mask(TRAIN_B, TRAIN_L, TRAIN_L // 4)
+    want = pool_normalize_bwd_plain(xh, hmask, gh, "cls", True)
+    err = {}
+    for who, fn in (("parent", p_pool_mod.pool_normalize_bwd), ("tree", pool_normalize_bwd)):
+        err[who] = float((fn(xh, hmask, gh, "cls", True) - want).abs().max()) / float(want.abs().max())
+        if not err[who] <= BWD_RTOL:
+            fail(f"{who} pool_normalize_bwd: {err[who]} of max|ref| > {BWD_RTOL}")
+    name = f"K18 pool backward CLS [{TRAIN_B}, {TRAIN_L}, {HIDDEN}]"
+    res[name] = {"max_rel_err": err, **turns(lambda: p_pool_mod.pool_normalize_bwd(xh, hmask, gh, "cls", True),
+                                              lambda: pool_normalize_bwd(xh, hmask, gh, "cls", True), 50,
+                                              "contrastive_loss", True)}
+    log(f"{name}: {json.dumps(res[name])}")
+    del emb, G, plain_d, xh, gh, want
+    torch.cuda.empty_cache()
+
     # ---- gates: the parent's code keeps its time through this tree's
     # wrappers; code this tree changed loses none
     slow = []
@@ -4604,6 +4812,8 @@ def phase_train(torch, dev) -> dict:
         attention,
         attention_bwd_plain,
         bias_act_bwd_plain,
+        contrastive_loss_bwd_plain,
+        contrastive_loss_fwd_plain,
         contrastive_loss_plain,
         embed_ln_bwd_plain,
         layer_norm_bwd_plain,
@@ -4874,22 +5084,64 @@ def phase_train(torch, dev) -> dict:
         fail(f"K15 takes {row['queued_ms']['kernel']:.4f} ms of device time, slower than SDPA's f32 backward "
              f"({row['queued_ms']['library']:.4f} ms)")
     del q, k, v, do, out, lse, got, want, again, qs, ks, vs, sd, dos, kern, lib, kmask, present
-    # ---- K18: the loss of a [64, 64] product, and K7's backward
+    # ---- K18: the loss of a [64, 768] embedding batch (forward: the
+    # product, the loss, raw and lse kept; backward: d emb), and K7's
+    # backward.  Gates: each within BWD_RTOL of its plain version on the
+    # same inputs, the same bits on a second call; the pool backward at
+    # least half of its bound by queued device time
     e = F.normalize(torch.randn((TRAIN_B, H), generator=g, device=dev), dim=1)
-    raw = e @ e.T
-    got = kernels.contrastive_loss(raw)
-    err = gate("K18 contrastive_loss", got, contrastive_loss_plain(raw))
-    entry("contrastive_loss", err, time_ms(torch, lambda: kernels.contrastive_loss(raw), 20),
-          time_ms(torch, lambda: contrastive_loss_plain(raw), 20), 2 * TRAIN_B * TRAIN_B * 4,
-          10 * TRAIN_B * TRAIN_B, PEAK_F32, None, [TRAIN_B, TRAIN_B])
+    got = kernels.contrastive_loss(e)
+    err = gate("K18 contrastive_loss", got, contrastive_loss_fwd_plain(e))
+    same_fwd = all(torch.equal(a, b) for a, b in zip(got, kernels.contrastive_loss(e)))
+    _, lse, raw = got
+    gl = torch.full((), 0.5, device=dev)  # the loss's incoming gradient, read on the card
+    dgot = kernels.contrastive_loss_bwd(e, raw, lse, gl)
+    err_bwd = gate("K18 contrastive_loss_bwd", (dgot,), (contrastive_loss_bwd_plain(e, raw, lse, gl),))
+    same_bwd = torch.equal(dgot, kernels.contrastive_loss_bwd(e, raw, lse, gl))
+    # and d emb against the reference's own route: G from the raw logits'
+    # plain loss, (G + G^T) @ emb
+    G = contrastive_loss_plain(e @ e.T)[1] * gl
+    err_bwd = max(err_bwd, gate("K18 contrastive_loss_bwd against (G + G^T) @ emb", (dgot,), ((G + G.T) @ e,)))
+    B2 = TRAIN_B * TRAIN_B
+    for name, kern, plain, err_k, same, nbytes in (
+        ("contrastive_loss", lambda: kernels.contrastive_loss(e), lambda: contrastive_loss_fwd_plain(e), err,
+         same_fwd, TRAIN_B * H * 4 + (TRAIN_B + B2 + 1) * 4),
+        ("contrastive_loss_bwd", lambda: kernels.contrastive_loss_bwd(e, raw, lse, gl),
+         lambda: contrastive_loss_bwd_plain(e, raw, lse, gl), err_bwd, same_bwd,
+         2 * TRAIN_B * H * 4 + (TRAIN_B + B2 + 1) * 4),
+    ):
+        entry(name, err_k, time_ms(torch, kern, 50), time_ms(torch, plain, 20), nbytes, 2 * B2 * H + 12 * B2,
+              PEAK_F32_PRODUCT, None, [TRAIN_B, H])
+        row = res["kernels"][name]
+        row["same_bits_twice"] = same
+        row["device_ms"] = {"kernel": device_ms(torch, kern), "plain": device_ms(torch, plain)}
+        row["queued_ms"] = {"kernel": queued_ms(torch, kern, 50)}
+        log(f"K18 {name}: same bits twice: {same}, device ms {json.dumps(row['device_ms'])}, "
+            f"queued ms {json.dumps(row['queued_ms'])}")
+        if not same:
+            fail(f"K18 {name} gave other bits on a second call on the same inputs")
     xh = torch.randn((TRAIN_B, TRAIN_L, H), generator=g, device=dev)
     gg = torch.randn((TRAIN_B, H), generator=g, device=dev)
     got = kernels.pool_normalize_bwd(xh, umask, gg, cfg.pool, True)
     err = gate("K18 pool_normalize_bwd", (got,), (pool_normalize_bwd_plain(xh, umask, gg, cfg.pool, True),))
-    entry("pool_normalize_bwd", err, time_ms(torch, lambda: kernels.pool_normalize_bwd(xh, umask, gg, cfg.pool, True), 20),
-          time_ms(torch, lambda: pool_normalize_bwd_plain(xh, umask, gg, cfg.pool, True), 20),
+    same = torch.equal(got, kernels.pool_normalize_bwd(xh, umask, gg, cfg.pool, True))
+    kern = lambda: kernels.pool_normalize_bwd(xh, umask, gg, cfg.pool, True)  # noqa: E731
+    plain = lambda: pool_normalize_bwd_plain(xh, umask, gg, cfg.pool, True)  # noqa: E731
+    entry("pool_normalize_bwd", err, time_ms(torch, kern, 50), time_ms(torch, plain, 20),
           (M * H + 2 * TRAIN_B * H) * 4 + M, 6 * TRAIN_B * H, PEAK_F32, None, [TRAIN_B, TRAIN_L, H])
-    del xh, gg, got, e, raw
+    row = res["kernels"]["pool_normalize_bwd"]
+    row["same_bits_twice"] = same
+    row["device_ms"] = {"kernel": device_ms(torch, kern), "plain": device_ms(torch, plain)}
+    row["queued_ms"] = {"kernel": queued_ms(torch, kern, 50)}
+    row["bound_share_queued"] = row["bound_ms"] / row["queued_ms"]["kernel"]
+    log(f"K18 pool_normalize_bwd: same bits twice: {same}, device ms {json.dumps(row['device_ms'])}, "
+        f"queued ms {json.dumps(row['queued_ms'])}, {row['bound_share_queued']:.3f} of its bound")
+    if not same:
+        fail("K18 pool_normalize_bwd gave other bits on a second call on the same inputs")
+    if not row["bound_share_queued"] >= 0.5:
+        fail(f"K18 pool_normalize_bwd takes {row['queued_ms']['kernel']:.4f} ms of device time, "
+             f"under half of its bound {row['bound_ms']:.4f}")
+    del xh, gg, got, e, raw, lse, dgot, G, kern, plain
     # ---- K19: Adam over copies of every parameter, random gradients:
     # within BWD_RTOL of the plain version, one launch a step, and by
     # device time (queued_ms) no slower than torch.optim.Adam(fused=True);
@@ -4990,6 +5242,11 @@ def phase_train(torch, dev) -> dict:
     zero = [n for n in TRAIN_KERNELS if res["launches"][n] == 0]
     if zero:
         fail(f"kernels not launched on the train path: {zero}")
+    # the loss tail: the loss's two launches and the pool backward, one each a step
+    res["loss_tail_launches_per_step"] = {
+        n: res["launches"][n] / TRAIN_STEPS for n in ("contrastive_loss", "contrastive_loss_bwd", "pool_normalize_bwd")}
+    if any(v != 1 for v in res["loss_tail_launches_per_step"].values()):
+        fail(f"loss tail launches a step {json.dumps(res['loss_tail_launches_per_step'])}: one each expected")
     del model, opt
     torch.cuda.empty_cache()
 
@@ -5029,13 +5286,15 @@ def train_flops(cfg, B: int, L: int) -> float:
 def step_split(prof: dict) -> dict:
     """A profiled step's device time by kind: the dense products (cuBLAS),
     the port's kernels (by source), the rest, and the idle share."""
-    kinds = {"gemm": 0.0, "forward_kernels": 0.0, "backward_kernels_K15_K18": 0.0, "adam_K19": 0.0, "other": 0.0}
+    kinds = {"gemm": 0.0, "gemm_calls": 0, "forward_kernels": 0.0, "backward_kernels_K15_K18": 0.0,
+             "adam_K19": 0.0, "other": 0.0}
     fwd = ("wgmma_kernel", "tf32_kernel", "bias_act", "add_ln", "embed_ln", "pool_norm")
-    bwd = ("bwd_kernel", "dq_kernel", "dkv_kernel", "dx_kernel", "colsum", "loss_kernel", "pool_bwd")
+    bwd = ("bwd_kernel", "dq_kernel", "dkv_kernel", "dx_kernel", "colsum", "loss_fwd_kernel", "pool_bwd")
     for row in prof.pop("all"):
         n = row["name"]
         if "gemm" in n or "sm90_xmma" in n or "cutlass" in n or "Kernel2" in n:
             kinds["gemm"] += row["ms"]
+            kinds["gemm_calls"] += row["calls"]
         elif "adam_kernel" in n:
             kinds["adam_K19"] += row["ms"]
         elif any(s in n for s in bwd):
@@ -5314,7 +5573,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     f_out = phase_fused(torch, dev)
     fused_shapes = {name: f_out.pop(f"_{name}_shapes")
-                    for name in ("bias_act", "add_layer_norm", "embed_ln", "pool_normalize", "pool_normalize_into")}
+                    for name in ("bias_act", "add_layer_norm", "embed_ln", "pool_normalize", "pool_normalize_into",
+                                 "cross_head")}
     k_out.update(f_out)
     torch.cuda.empty_cache()
     v_out = phase_vision_kernels(torch, dev)
@@ -5395,8 +5655,10 @@ def main() -> int:
         "layer_norm_bwd": ("layer_norm_bwd.cu", "__graft_entry__.py:128"),
         "embed_ln_bwd": ("layer_norm_bwd.cu", "__graft_entry__.py:128"),
         "contrastive_loss": ("contrastive_loss.cu", "__graft_entry__.py:117"),
+        "contrastive_loss_bwd": ("contrastive_loss.cu", "__graft_entry__.py:128"),
         "pool_normalize_bwd": ("contrastive_loss.cu", "__graft_entry__.py:128"),
         "adam": ("adam.cu", "__graft_entry__.py:129"),
+        "cross_head": ("cross_head.cu", "pathway_tpu/models/encoder.py:222"),
     }
     entries = []
     for name, (src, replaces) in sources.items():

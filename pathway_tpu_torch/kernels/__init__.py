@@ -28,10 +28,11 @@ K16 bias_act_bwd   ``csrc/bias_act_bwd.cu``      B2's bias and GELU transposes
 K17 layer_norm_bwd ``csrc/layer_norm_bwd.cu``    B2's and B3's LayerNorm transposes
     embed_ln_bwd                                 (with B3's table scatter-adds)
 K18 contrastive_   ``csrc/contrastive_loss.cu``  ``loss_fn`` (``__graft_entry__.py:
-    loss,                                        117-124``) and B4's transpose
-    pool_normalize_bwd
+    loss, _bwd,                                  117-124``) with both of its
+    pool_normalize_bwd                           products, and B4's transpose
 K19 adam           ``csrc/adam.cu``              ``optax.adam`` + ``apply_updates``
                                                  (``__graft_entry__.py:126-131``)
+B8 cross_head      ``csrc/cross_head.cu``        ``models/encoder.py:222-231``
 =================  ============================  =================================
 
 Each wrapper checks device, dtype, shape and contiguity, launches its
@@ -43,11 +44,14 @@ K3's and count on ``knn_topk``; a selection above ``MAX_K`` counts its
 score-only pass on ``knn_topk`` or ``ivf_scan`` and its select on
 ``topk_select``); for CPU tensors it runs the plain
 PyTorch version beside it.  Kernels build from ``csrc/`` at first use
-(:mod:`pathway_tpu_torch.kernels._build`).  K1 and K4-K7 have autograd
+(:mod:`pathway_tpu_torch.kernels._build`).  The cross-encoder's head
+(B8: pooler, tanh, classifier) is one launch of ``cross_head`` outside
+training, where K4 with tanh ran between cuBLAS products before.  K1 and K4-K7 have autograd
 Functions (``AttentionFunction``, ``BiasActFunction``,
 ``AddLayerNormFunction``, ``EmbedLnFunction``, ``PoolNormalizeFunction``)
 whose backward is K15-K17 and K18's pool backward; the train step
-(:mod:`pathway_tpu_torch.train`) adds K18's loss and K19.
+(:mod:`pathway_tpu_torch.train`) adds K18's loss (``contrastive_loss``
+and ``contrastive_loss_bwd``, one launch each) and K19.
 """
 
 from pathway_tpu_torch.kernels.adam import adam_step, adam_step_plain
@@ -59,7 +63,14 @@ from pathway_tpu_torch.kernels.add_layer_norm import (
 )
 from pathway_tpu_torch.kernels.attention import attention, attention_bwd, attention_bwd_plain, attention_plain
 from pathway_tpu_torch.kernels.bias_act import bias_act, bias_act_bwd, bias_act_bwd_plain, bias_act_plain
-from pathway_tpu_torch.kernels.contrastive_loss import contrastive_loss, contrastive_loss_plain
+from pathway_tpu_torch.kernels.contrastive_loss import (
+    contrastive_loss,
+    contrastive_loss_bwd,
+    contrastive_loss_bwd_plain,
+    contrastive_loss_fwd_plain,
+    contrastive_loss_plain,
+)
+from pathway_tpu_torch.kernels.cross_head import cross_head, cross_head_plain
 from pathway_tpu_torch.kernels.dual_logits import dual_logits, dual_logits_plain
 from pathway_tpu_torch.kernels.embed_ln import embed_ln, embed_ln_bwd, embed_ln_bwd_plain, embed_ln_plain
 from pathway_tpu_torch.kernels.ivf_assign import ivf_assign, ivf_assign_plain
@@ -130,6 +141,11 @@ __all__ = [
     "embed_ln_bwd_plain",
     "contrastive_loss",
     "contrastive_loss_plain",
+    "contrastive_loss_fwd_plain",
+    "contrastive_loss_bwd",
+    "contrastive_loss_bwd_plain",
+    "cross_head",
+    "cross_head_plain",
     "pool_normalize_bwd",
     "pool_normalize_bwd_plain",
     "adam_step",
@@ -162,8 +178,10 @@ WRAPPERS = {
     "layer_norm_bwd": layer_norm_bwd,
     "embed_ln_bwd": embed_ln_bwd,
     "contrastive_loss": contrastive_loss,
+    "contrastive_loss_bwd": contrastive_loss_bwd,
     "pool_normalize_bwd": pool_normalize_bwd,
     "adam": adam_step,
+    "cross_head": cross_head,
 }
 
 

@@ -32,7 +32,7 @@ NAMES = (
     "bias_act", "add_layer_norm", "embed_ln", "pool_normalize",
     "patchify", "vision_head", "dual_logits",
     "ivf_assign", "ivf_scan", "topk_select", "ring_block",
-    "attention_bwd", "bias_act_bwd", "layer_norm_bwd", "contrastive_loss", "adam",
+    "attention_bwd", "bias_act_bwd", "layer_norm_bwd", "contrastive_loss", "adam", "cross_head",
 )
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -188,10 +188,12 @@ _SIGNATURES = {
         "pw_embed_ln_bwd": [_P, _I, _P, _I, _P, _I, _P, _I, _P] + [_I] * 5 + [_P] * 10 + [_I, _F, _I, _P],
     },
     "contrastive_loss": {
-        "pw_contrastive_loss": [_P, _P, _P, _I, _F, _F, _P],
+        "pw_contrastive_loss": [_P, _P, _P, _P, _I, _I, _F, _F, _P],
+        "pw_contrastive_loss_bwd": [_P] * 5 + [_I, _I, _F, _F, _P],
         "pw_pool_normalize_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     },
     "adam": {"pw_adam": [_P, _P, _I, _P, _I] + [_F] * 8 + [_P]},
+    "cross_head": {"pw_cross_head": [_P, _I, _LL] + [_P] * 5 + [_I, _I, _I, _P]},
 }
 
 

@@ -3,8 +3,9 @@
 
 Replaces the bias add of every ``nn.Dense``/``nn.DenseGeneral`` in
 ``EncoderBlock``/``SelfAttention`` (``pathway_tpu/models/encoder.py:88-150``),
-the ``nn.gelu`` after ``mlp_up`` and the pooler's ``jnp.tanh`` in
-``CrossEncoderModel`` (``:222-224``).  flax's order: the product is
+the ``nn.gelu`` after ``mlp_up`` and, where the cross-encoder's head is
+trained, the pooler's ``jnp.tanh`` in ``CrossEncoderModel`` (``:222-224``;
+outside training the head is one ``cross_head`` launch).  flax's order: the product is
 already rounded to the activation type; the f32 bias is cast to it and
 added (rounding again); the activation is applied to the rounded sum and
 rounded once more.  With ``pos`` (``[P, N]``, f32) it also replaces the
@@ -124,11 +125,13 @@ def bias_act(
         int(y.dtype == torch.float32),
     )
     bias_act.launches += 1
+    bias_act.launches_by_act[act] += 1
     return y
 
 
-#: launches of the CUDA kernel in this process
+#: launches of the CUDA kernel in this process, and by activation
 bias_act.launches = 0
+bias_act.launches_by_act = dict.fromkeys(ACTS, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -47,6 +47,8 @@ DTYPES = (torch.bfloat16, torch.float32)
 SLAB_DTYPES = (torch.float32, torch.bfloat16)
 NORM_EPS = 1e-12
 MAX_HIDDEN = 2048
+#: batch rows the backward takes (its grid's y extent)
+MAX_BWD_BATCH = 65535
 
 
 def pool_normalize_plain(
@@ -203,8 +205,9 @@ def pool_normalize_bwd_plain(
 def pool_normalize_bwd(
     x: torch.Tensor, mask: torch.Tensor, g: torch.Tensor, pool: str, normalize: bool
 ) -> torch.Tensor:
-    """K7's backward for f32 ``x``; the kernel on a card (one launch), the
-    plain version for CPU tensors."""
+    """K7's backward for f32 ``x``; the kernel on a card (one launch, over
+    every row of d hidden: CLS 8 rows a block, mean a cluster of up to 8
+    blocks a sequence), the plain version for CPU tensors."""
     if x.device.type == "cpu":
         return pool_normalize_bwd_plain(x, mask, g, pool, normalize)
     device = check_cuda("pool_normalize_bwd", x=x, mask=mask, g=g)
@@ -212,6 +215,8 @@ def pool_normalize_bwd(
     B, L, h = x.shape
     if x.dtype != torch.float32 or g.dtype != torch.float32 or g.shape != (B, h):
         raise ValueError(f"pool_normalize_bwd: f32 x {tuple(x.shape)} and g {(B, h)}")
+    if B > MAX_BWD_BATCH:
+        raise ValueError(f"pool_normalize_bwd: B={B}, at most {MAX_BWD_BATCH} a launch")
     dh = torch.empty((B, L, h), dtype=torch.float32, device=device)
     if B > 0:
         launch(

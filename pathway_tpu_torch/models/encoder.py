@@ -15,13 +15,14 @@ outputs:
 - tanh GELU unless ``gelu_approx=False``;
 - pooled embedding L2-normalized in f32 with eps 1e-12.
 
-Everything but the dense products runs through the port's kernels:
-K6 ``embed_ln`` (embeddings), K1 ``attention``, K4 ``bias_act`` (every
-dense layer's bias, the GELU and the cross-encoder pooler's tanh), K5
-``add_layer_norm`` (both residual LayerNorms of a block) and K7
-``pool_normalize`` (the sentence encoder's tail).  The products are
-``F.linear`` without bias (cuBLAS), as the JAX package leaves them to
-XLA.
+Everything but the encoder blocks' dense products runs through the
+port's kernels: K6 ``embed_ln`` (embeddings), K1 ``attention``, K4
+``bias_act`` (every dense layer's bias and the GELU), K5
+``add_layer_norm`` (both residual LayerNorms of a block), K7
+``pool_normalize`` (the sentence encoder's tail) and ``cross_head`` (the
+cross-encoder's whole head, its two products included: B8).  The blocks'
+products are ``F.linear`` without bias (cuBLAS), as the JAX package
+leaves them to XLA.
 
 Training (``pathway_tpu_torch.train``): where grad is enabled and an
 input or parameter requires it, each kernel call goes through its
@@ -63,6 +64,7 @@ from pathway_tpu_torch._device import resolve_device
 from pathway_tpu_torch.kernels.add_layer_norm import AddLayerNormFunction, add_layer_norm
 from pathway_tpu_torch.kernels.attention import AttentionFunction, attention
 from pathway_tpu_torch.kernels.bias_act import BiasActFunction, bias_act
+from pathway_tpu_torch.kernels.cross_head import cross_head
 from pathway_tpu_torch.kernels.embed_ln import EmbedLnFunction, embed_ln
 from pathway_tpu_torch.kernels.pool_normalize import PoolNormalizeFunction, pool_normalize
 from pathway_tpu_torch.ops.ring_attention import ring_attention_blocks
@@ -491,12 +493,14 @@ class CrossEncoderModel(_EncoderStack):
     logits when ``num_labels <= 1``, else [B, num_labels] (the JAX
     package's ``CrossEncoderModel``, ``encoder.py:205-231``).
 
-    The CLS row (of the first sequence block) goes through the ``pooler``
-    Dense + tanh on the first cell's device (a bf16 product, then K4 with
-    ``act="tanh"``) and the ``classifier`` Dense in f32.  The
-    classifier is a ``[B, hidden] x [hidden, labels]`` f32 product that
-    the JAX package computes outside any fused program; it stays
-    ``F.linear`` in f32, bias included.
+    The head runs on the first cell's device, on the CLS rows of the first
+    sequence block (a strided view of the last hidden state): the
+    ``pooler`` Dense + tanh and the ``classifier`` Dense in f32, bias
+    included, are one launch of the head kernel (``cross_head``, B8).
+    Where autograd asks for a gradient, the head is the pooler's product,
+    K4 with ``act="tanh"`` through its Function, and the classifier's
+    ``F.linear`` in f32 (the reference never trains the cross-encoder, and
+    the head kernel has no backward).
     """
 
     def _add_head(self, cfg: EncoderConfig, device: torch.device) -> None:
@@ -509,8 +513,13 @@ class CrossEncoderModel(_EncoderStack):
     ) -> torch.Tensor:
         xs, _ = self.hidden_blocks(ids, mask.to(torch.uint8), type_ids)
         head = self.cells()[0][0]
-        h = _dense(xs[0][:, 0].to(self.device), head.pooler, "tanh")
-        logits = F.linear(h.float(), head.classifier.weight.float(), head.classifier.bias.float())
+        cls = xs[0][:, 0].to(self.device)
+        params = (head.pooler.weight, head.pooler.bias, head.classifier.weight, head.classifier.bias)
+        if _trains(cls, *params):
+            h = _dense(cls, head.pooler, "tanh")
+            logits = F.linear(h.float(), head.classifier.weight.float(), head.classifier.bias.float())
+        else:
+            logits = cross_head(cls, *params)
         return logits[:, 0] if logits.shape[1] == 1 else logits
 
 

@@ -5,7 +5,8 @@
   (``__graft_entry__.py:117-124``): the encoder's L2-normalised
   embeddings, ``emb @ emb.T * 20`` with each row's own logit masked, and
   softmax cross-entropy against each row's pair partner (``i ^ 1``),
-  averaged (K18 between the two dense products).
+  averaged: K18, both of its products included, one launch forward and one
+  backward.
 - :class:`Adam`: ``optax.adam(lr)`` (b1 0.9, b2 0.999, eps 1e-8, eps_root
   0, bias corrections on an int step count), one launch of K19 over every
   parameter.
