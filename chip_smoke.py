@@ -203,8 +203,26 @@ Phases, each fatal on failure:
     launched, docs/s beside phase 3's ``encode_into``; the UDF's batch
     call from a worker thread.
 
-Phase 13 and then phase 8 run right after phase 4, while phase 3's index
-is alive, and phase 10 after them; phases 5, 6, 9 and 12 follow.  The second-to-last line of
+14. the live retrieval pipeline through ``DataIndex`` (``phase_live_rag``,
+    ROADMAP items 14 and 13), after phase 13: (a) phase 3's 8,192
+    documents as an update stream (then 256 new texts and a few deletes,
+    which start a background merge of the delta segment) through
+    ``BruteForceKnnFactory(embedder=TorchEncoderEmbedder(BGE-base))`` over
+    1,048,576 slots, queried as of now (32 questions in one epoch, 20
+    one-question epochs, 256 unchanged documents by their own text, k=10),
+    every reply against the same batches through ``TorchEncoder.encode``
+    into a ``ShardedKnnIndex`` (keys but near-ties, scores within
+    TOPK_ATOL), no deleted key, self-retrieval, a merge run, K1, K2, K3 and
+    K4-K7 launched, one query epoch profiled; (b) phase 4's 1,024 pairs
+    through ``CrossEncoderReranker`` and ``rerank_topk_filter`` as UDFs,
+    within SCORE_ATOL of phase 4's scores, the same kept five, one head
+    launch a chunk; (c) 65,536 mixture rows as a vector column into
+    ``UsearchKnnFactory(nlist=1,024, nprobe=128)``, which trains inside the
+    pipeline, and 256 mixture queries: recall@10 >= 0.95 against exact
+    f32, K11 and K12 launched.  Each part logs its rows/s and epoch walls.
+
+Phases 13 and 14 and then phase 8 run right after phase 4, while phase
+3's index is alive, and phase 10 after them; phases 5, 6, 9 and 12 follow.  The second-to-last line of
 output is a JSON object with one entry per kernel wrapper (K1-K19 and B8's
 head; K1 and K4-K7 with their f32 forms); the last is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device the script exits 1 and prints no result.
@@ -416,6 +434,11 @@ ENGINE_MD_ROWS = 2000  # markdown rows of the engine phase's groupby first targe
 ENGINE_ROWS = 100_000  # generated orders the engine phase joins
 ENGINE_CUSTOMERS = 1000
 ENGINE_UDF_BATCH = 1024  # the embedder UDF's max_batch_size in the engine phase
+LIVE_UPSERTS = 256  # phase 3's documents given new texts in the live index's second epoch
+LIVE_DELTA_CAP = 128  # below LIVE_UPSERTS: the second epoch's delta segment starts a background merge
+LIVE_SELF = 256  # unchanged documents queried by their own text
+LIVE_IVF_ROWS = 65536  # mixture rows into the live IVF: above its 50,000-row training sample
+LIVE_IVF_NLIST, LIVE_IVF_NPROBE = 1024, 128  # IvfKnnIndex's defaults at 1,048,576 slots
 PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
@@ -2285,7 +2308,7 @@ def phase_rerank(torch, dev, ctx: dict, compared_widths: set) -> dict:
     t1 = time.perf_counter()
     scores = reranker.__batch__(pair_docs, pair_qs)
     t2 = time.perf_counter()
-    kept = [rerank_topk_filter(pair_docs[i : i + RERANK_K], scores[i : i + RERANK_K], RERANK_KEEP)
+    kept = [rerank_topk_filter.__wrapped_fun__(pair_docs[i : i + RERANK_K], scores[i : i + RERANK_K], RERANK_KEEP)
             for i in range(0, len(scores), RERANK_K)]
     t3 = time.perf_counter()
     res["batched"] = {
@@ -2301,7 +2324,7 @@ def phase_rerank(torch, dev, ctx: dict, compared_widths: set) -> dict:
         q_emb = embedder.encoder.encode([q])
         s1 = time.perf_counter()
         docs_q, qs_q = candidates(zip([q], index.search(q_emb, RERANK_K)))
-        rerank_topk_filter(docs_q, reranker.__batch__(docs_q, qs_q), RERANK_KEEP)
+        rerank_topk_filter.__wrapped_fun__(docs_q, reranker.__batch__(docs_q, qs_q), RERANK_KEEP)
         s2 = time.perf_counter()
         single_ms.append((s2 - s0) * 1e3)
         search_rerank_ms.append((s2 - s1) * 1e3)
@@ -2364,7 +2387,7 @@ def phase_rerank(torch, dev, ctx: dict, compared_widths: set) -> dict:
     decided, overlap = 0, 0
     for qi in range(N_QUESTIONS):
         sl = slice(qi * RERANK_K, (qi + 1) * RERANK_K)
-        want = {d["key"] for d in rerank_topk_filter(pair_docs[sl], plain[sl].tolist(), RERANK_KEEP)[0]}
+        want = {d["key"] for d in rerank_topk_filter.__wrapped_fun__(pair_docs[sl], plain[sl].tolist(), RERANK_KEEP)[0]}
         got = {d["key"] for d in kept[qi][0]}
         overlap += len(got & want)
         ranked = np.sort(plain[sl])[::-1]
@@ -2389,6 +2412,7 @@ def phase_rerank(torch, dev, ctx: dict, compared_widths: set) -> dict:
         torch, lambda: reranker.__batch__(pair_docs[:RERANK_BATCH], pair_qs[:RERANK_BATCH]), RERANK_BATCH
     )
     res["_pairs"] = (pair_qs, [d["text"] for d in pair_docs])
+    res["_pair_scores"] = scores
     return res
 
 
@@ -5497,6 +5521,404 @@ def phase_engine(torch, dev, ctx: dict, encode_into_docs_per_s: float, smi: str)
     return res
 
 
+def epoch_spans(tracing, since_ns: int) -> list:
+    """(start, end) ns of the engine epochs since ``since_ns``, in order
+    (the scheduler's ``epoch_process`` spans of a streaming run; where the
+    engine cuts an epoch is its own choice, so an input time may span
+    several)."""
+    return sorted((int(e["ts"] * 1e3), int((e["ts"] + e["dur"]) * 1e3))
+                  for e in tracing.chrome_events(since_ns=since_ns, all_spans=True) if e["name"] == "epoch_process")
+
+
+def epoch_ms_of(spans: list, t_ns: int) -> float | None:
+    """Wall ms of the epoch in ``spans`` that was running at ``t_ns``."""
+    return next(((b - a) / 1e6 for a, b in spans if a <= t_ns <= b), None)
+
+
+def replies_of(table_cols: list, rows: dict, by: str) -> dict:
+    """A ``DataIndex`` reply table's rows as {row[by]: [(doc id, score,
+    doc data), ...]}, best first (the data is the document row's columns
+    as the index held them when it answered)."""
+    from pathway_tpu_torch.stdlib.indexing.data_index import REPLY_DATA, REPLY_ID, REPLY_SCORE
+
+    at = table_cols.index(by)
+    ids, score, data = (table_cols.index(c) for c in (REPLY_ID, REPLY_SCORE, REPLY_DATA))
+    return {values[at]: list(zip(values[ids], map(float, values[score]), values[data])) for values in rows.values()}
+
+
+def phase_live_rag(torch, dev, ctx: dict, rerank: dict, smi: str, rates: dict) -> dict:
+    """Phase 14: the live retrieval pipeline through ``DataIndex`` (ROADMAP
+    items 14 and 13), each part a ``pw.debug`` run of the port's engine on
+    the card.  (a) phase 3's 8,192 documents as an update stream (all of
+    them, then 256 new texts and N_REMOVED deletes, which fill the delta
+    segment past its cap: a background merge) into
+    ``BruteForceKnnFactory(embedder=TorchEncoderEmbedder(BGE-base, phase 3's
+    seed))`` over 1,048,576 slots, queried as of now by 32 questions in one
+    epoch, 20 one-question epochs and LIVE_SELF unchanged documents' own
+    texts, k=10; every reply against the direct path (the same batches
+    through ``TorchEncoder.encode`` into a ``ShardedKnnIndex``), no deleted
+    key, self-retrieval, a merge run, K1, K2, K3 and K4-K7 launched, and a
+    profile of one query epoch.  (b) phase 4's 1,024 (question, candidate)
+    pairs scored by ``CrossEncoderReranker`` as a UDF (phase 4's seed, chunks
+    of 256) and kept by ``rerank_topk_filter`` as a UDF, against phase 4's
+    ``__batch__`` scores; one head launch a chunk, no K4 tanh.  (c) 65,536
+    mixture rows as a vector column into ``UsearchKnnFactory(nlist=1,024,
+    nprobe=128)`` (the IVF trains inside the pipeline), 256 mixture queries
+    at k=10: recall@10 against exact f32, K11 and K12 launched."""
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import BGE_BASE, CrossEncoderReranker, ShardedKnnIndex, TorchEncoderEmbedder, kernels
+    from pathway_tpu_torch.internals import tracing
+    from pathway_tpu_torch.stdlib.indexing.adapters import IvfAdapter
+
+    res: dict = {"card": smi, "beside": rates}
+    launches: dict = {}
+    t_phase = time.perf_counter()
+
+    def count(now: dict) -> None:
+        for name, n in now.items():
+            launches[name] = launches.get(name, 0) + n
+
+    def capture_adapters(inner) -> list:
+        """Make ``inner`` keep the adapter it makes, with the host seconds
+        its ``add`` and ``search`` take (``adapter.seconds``)."""
+        made: list = []
+        make = inner.make_adapter
+
+        def keep():
+            adapter = make()
+            adapter.seconds = {"add": 0.0, "search": 0.0}
+            adapter.calls = []  # (name, start ns, end ns, items), on the trace's clock
+            for name in adapter.seconds:
+                def timed(*args, _fn=getattr(adapter, name), _name=name):
+                    t0 = tracing.now_ns()
+                    try:
+                        return _fn(*args)
+                    finally:
+                        t1 = tracing.now_ns()
+                        adapter.seconds[_name] += (t1 - t0) / 1e9
+                        adapter.calls.append((_name, t0, t1, len(args[0])))
+
+                setattr(adapter, name, timed)
+            made.append(adapter)
+            return adapter
+
+        inner.make_adapter = keep
+        return made
+
+    def stream_md(cols: tuple, rows: list):
+        """A keyed update stream of ``rows`` (key first, then ``__time__``
+        and ``__diff__``) through ``pw.debug``'s markdown reader, whose
+        stream tables share one replay clock: epochs keep their order
+        across tables."""
+        lines = [" | ".join(("id", *cols, "__time__", "__diff__"))]
+        lines += [" | ".join(str(v) for v in (row[0], *row)) for row in rows]
+        return pw.debug.table_from_markdown("\n".join(lines))
+
+    # ---- (a) brute force, live
+    docs = ctx["docs"]
+    n_docs = len(docs)
+    rng = np.random.default_rng(SEED + 19)
+    picked = [int(i) for i in rng.permutation(n_docs)]
+    new_text = dict(zip(sorted(picked[:LIVE_UPSERTS]), synthetic_docs(np, LIVE_UPSERTS, SEED + 19)))
+    removed = set(picked[LIVE_UPSERTS : LIVE_UPSERTS + N_REMOVED])
+    final = {i: new_text.get(i, docs[i]) for i in range(n_docs) if i not in removed}
+    unchanged = [i for i in range(n_docs) if i not in new_text and i not in removed]
+    questions = synthetic_questions(np, [final[i] for i in sorted(final)], N_QUESTIONS + N_SINGLE, SEED + 20)
+    self_ids = unchanged[:LIVE_SELF]
+
+    class Recording(TorchEncoderEmbedder):
+        """The embedder UDF, keeping each batch the engine hands it and its
+        rows (the direct path encodes the same batches) and its time."""
+
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self.batches: list = []
+            self.seconds = 0.0
+
+        def __batch__(self, texts):
+            t0 = time.perf_counter()
+            rows = super().__batch__(texts)
+            self.seconds += time.perf_counter() - t0
+            self.batches.append(([str(t) for t in texts], np.stack(rows)))
+            return rows
+
+    embedder = Recording(model="bge-base", config=BGE_BASE, max_batch_size=ENGINE_UDF_BATCH, seed=SEED,
+                         device=dev)
+    doc_rows = [(i, docs[i], 2, 1) for i in range(n_docs)]
+    for i, text in new_text.items():
+        doc_rows += [(i, docs[i], 4, -1), (i, text, 4, 1)]
+    doc_rows += [(i, docs[i], 4, -1) for i in sorted(removed)]
+    q_text = dict(enumerate(questions[:N_QUESTIONS]))
+    q_rows = [(j, q, 6, 1) for j, q in q_text.items()]
+    for j, q in enumerate(questions[N_QUESTIONS:]):
+        q_text[N_QUESTIONS + j] = q
+        q_rows.append((N_QUESTIONS + j, q, 8 + 2 * j, 1))
+    self_q = {}
+    for j, i in enumerate(self_ids):
+        qid = N_QUESTIONS + N_SINGLE + j
+        q_text[qid], self_q[qid] = docs[i], i
+        q_rows.append((qid, docs[i], 8 + 2 * N_SINGLE, 1))
+    n_epochs = 2 + len({r[2] for r in q_rows})
+
+    pw.G.clear()
+    doc_t = stream_md(("doc_id", "text"), doc_rows)
+    q_t = stream_md(("qid", "text"), q_rows)
+    factory = pw.indexing.BruteForceKnnFactory(reserved_space=CAPACITY, metric="cos", embedder=embedder,
+                                               delta_cap=LIVE_DELTA_CAP, device=dev)
+    inner = factory.build_index(doc_t.text, doc_t)
+    adapters = capture_adapters(inner)
+    out = pw.indexing.DataIndex(doc_t, inner).query_as_of_now(q_t.text, number_of_matches=K)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    since = tracing.now_ns()
+    t0 = time.perf_counter()
+    ((rows, stream),) = pw.debug._run_capture(out)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    seg = adapters[0].index
+    if seg._maintenance is not None:
+        seg._maintenance.drain()  # a merge's launches count with the run's
+    torch.cuda.synchronize()
+    live_launches = kernels.launch_counts()
+    count(live_launches)
+    stats = adapters[0].stats()
+    spans = epoch_spans(tracing, since)
+    calls = adapters[0].calls
+    added, ingest_end = 0, None
+    for name, _a, end, n in calls:
+        if name == "add" and ingest_end is None:
+            added += n
+            ingest_end = end if added >= n_docs else None
+    if ingest_end is None:
+        fail(f"live index: the index's adds hold {added} of {n_docs} documents")
+    upsert = next(((a, b) for name, a, b, n in calls if name == "add" and b > ingest_end), None)
+    query_ms: dict = {}
+    for name, a, _b, n in calls:
+        if name == "search":
+            query_ms.setdefault(n, []).append(epoch_ms_of(spans, a))
+    got = replies_of(out._column_names, rows, "qid")
+    pw.G.clear()
+
+    if len(got) != len(q_rows) or any(len(r) != K for r in got.values()):
+        fail(f"live index: {len(got)} replies for {len(q_rows)} queries, or not {K} matches each")
+    returned = [d for values in [v for _k, v, _t, diff in stream if diff > 0] for d in values[-1]]
+    if any(d["doc_id"] in removed for d in returned):
+        fail("live index: a deleted document was returned")
+    if any(d["doc_id"] in new_text and d["text"] != new_text[d["doc_id"]] for d in returned):
+        fail("live index: an upserted document was returned with its old text")
+    self_fail = [(qid, got[qid][0][2]["doc_id"], got[qid][0][1]) for qid, i in self_q.items()
+                 if got[qid][0][2]["doc_id"] != i or got[qid][0][1] < SELF_COS]
+    if self_fail:
+        fail(f"live index: unchanged documents not their own top-1: {self_fail[:5]}")
+    if not (stats["merges_total"] >= 1 and stats["merge_failures"] == 0 and stats["size"] == len(final)):
+        fail(f"live index: no background merge ran, or one failed, or the size is wrong: {stats}")
+
+    # the direct path: the engine's batches through TorchEncoder.encode,
+    # the final corpus into a ShardedKnnIndex on the same card
+    first_q = next(b for b, (texts, _) in enumerate(embedder.batches) if questions[0] in texts)
+    emb_err, doc_emb, want = 0.0, {}, {}
+    direct = ShardedKnnIndex(HIDDEN, metric="cos", capacity=CAPACITY, device=dev)
+    for b, (texts, udf_rows) in enumerate(embedder.batches):
+        enc = embedder.encoder.encode(texts)
+        emb_err = max(emb_err, float(np.abs(enc - udf_rows).max()))
+        if b < first_q:
+            doc_emb.update(zip(texts, enc))
+        else:
+            want.update(zip(texts, enc))
+    ids = sorted(final)
+    direct.add_batch(ids, np.stack([doc_emb[final[i]] for i in ids]))
+    q_texts = list(want)
+    want = dict(zip(q_texts, direct.search(np.stack([want[t] for t in q_texts]), K)))
+    exact_sets = sum({d["doc_id"] for *_, d in got[qid]} == {k for k, _ in want[t]} for qid, t in q_text.items())
+    worst = compare_rows([[(d["doc_id"], s) for _, s, d in got[qid]] for qid in sorted(q_text)],
+                         [want[q_text[qid]] for qid in sorted(q_text)], K, TOPK_ATOL, "live index vs direct path")
+    if not emb_err <= EMBED_ATOL:
+        fail(f"live index: the UDF's rows differ from TorchEncoder.encode of the same batches by {emb_err}")
+    del direct
+    missing = [n for n in ("attention", "bias_act", "add_layer_norm", "embed_ln", "pool_normalize", "slab_scatter",
+                           "slab_clear", "knn_topk") if live_launches[n] == 0]
+    if missing:
+        fail(f"kernels not launched by the live index: {missing}")
+    singles = [ms for ms in query_ms.get(1, []) if ms is not None]
+    if len(query_ms.get(1, [])) != N_SINGLE or len(query_ms.get(N_QUESTIONS, [])) != 1:
+        fail(f"live index: searches by batch size {json.dumps({n: len(v) for n, v in query_ms.items()})}; "
+             f"one of {N_QUESTIONS} and {N_SINGLE} of one expected")
+    res["brute_force"] = {
+        "docs": n_docs, "upserts": LIVE_UPSERTS, "deletes": N_REMOVED, "queries": len(q_rows),
+        "input_times": n_epochs, "epochs": len(spans), "run_s": run_s,
+        "epoch_ms": [(b - a) / 1e6 for a, b in spans], "stats": stats, "udf_batches": len(embedder.batches),
+        "udf_s": embedder.seconds, "index_s": dict(adapters[0].seconds),
+        # from the run's start to the end of the index's add of the last first-epoch document
+        "ingest_docs_per_s": n_docs / ((ingest_end - since) / 1e9),
+        "upsert_epoch_ms": epoch_ms_of(spans, upsert[0]) if upsert else None,
+        "batched_epoch_ms": query_ms[N_QUESTIONS][0],
+        "single_epoch_p50_ms": float(np.percentile(singles, 50)) if singles else None,
+        "single_epoch_p99_ms": float(np.percentile(singles, 99)) if singles else None,
+        "self_epoch_ms": query_ms.get(LIVE_SELF, [None])[0],
+        "max_abs_err_vs_direct": worst, "exact_key_sets": exact_sets, "udf_vs_encode_max_abs_err": emb_err,
+        "self_top1": len(self_q),
+    }
+    log(f"live index on {smi}: {n_docs} docs indexed at {res['brute_force']['ingest_docs_per_s']:.1f} docs/s "
+        f"(the run's start to the index's add of the last one; phase 3's encode_into "
+        f"{rates['encode_into_docs_per_s']:.1f}, the engine phase's UDF {rates['udf_docs_per_s']:.1f} docs/s); "
+        f"{json.dumps(res['brute_force'])}")
+
+    # one query epoch profiled: the 32 questions over the same index (the
+    # adapter, merged, handed to a new pipeline with no document updates)
+    pw.G.clear()
+    d0 = pw.debug.table_from_rows(pw.schema_from_types(doc_id=int, text=str), [])
+    q0 = pw.debug.table_from_rows(pw.schema_from_types(qid=int, text=str), list(q_text.items())[:N_QUESTIONS])
+    inner0 = factory.build_index(d0.text, d0)
+    inner0.make_adapter = lambda: adapters[0]
+    out0 = pw.indexing.DataIndex(d0, inner0).query_as_of_now(q0.text, number_of_matches=K)
+    box: dict = {}
+    res["query_epoch_profile"] = profile_call(
+        torch, lambda: box.update(rows=pw.debug._run_capture(out0)[0][0]), N_QUESTIONS)
+    again = replies_of(out0._column_names, box["rows"], "qid")
+    pw.G.clear()
+    if any({k for k, *_ in again[j]} != {k for k, *_ in got[j]} for j in range(N_QUESTIONS)):
+        fail("live index: the profiled query epoch answers differently from the pipeline's")
+    log(f"live index: one query epoch ({N_QUESTIONS} questions) profiled on {smi}: idle "
+        f"{res['query_epoch_profile']['device_idle_share']:.3f}, {json.dumps(res['query_epoch_profile'])}")
+    seg.close()
+    del adapters, embedder, seg
+    torch.cuda.empty_cache()
+
+    # ---- (b) rerank as UDFs
+    pair_qs, pair_texts = rerank["_pairs"]
+    want_scores = np.asarray(rerank["_pair_scores"], np.float32)
+    class TimedReranker(CrossEncoderReranker):
+        """The reranker UDF, with the time spent in its batch calls."""
+
+        seconds = 0.0
+
+        def __batch__(self, docs, queries):
+            t0 = time.perf_counter()
+            try:
+                return super().__batch__(docs, queries)
+            finally:
+                self.seconds += time.perf_counter() - t0
+
+    reranker = TimedReranker(max_batch_size=RERANK_BATCH, seed=SEED, device=dev)
+    pw.G.clear()
+    pairs_t = pw.debug.table_from_rows(
+        pw.schema_from_types(pair=int, qi=int, question=str, doc=str),
+        [(i, i // RERANK_K, q, d) for i, (q, d) in enumerate(zip(pair_qs, pair_texts))])
+    scored = pairs_t.select(pairs_t.pair, pairs_t.qi, score=reranker(pairs_t.doc, pairs_t.question))
+    by_q = scored.groupby(scored.qi).reduce(scored.qi, pairs=pw.reducers.tuple(scored.pair),
+                                            scores=pw.reducers.tuple(scored.score))
+    kept_t = by_q.select(by_q.qi, top=pw.rerank_topk_filter(by_q.pairs, by_q.scores, RERANK_KEEP))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tanh_before = kernels.bias_act.launches_by_act["tanh"]
+    t0 = time.perf_counter()
+    (srows, _), (krows, _) = pw.debug._run_capture(scored, kept_t)
+    torch.cuda.synchronize()
+    rr_s = time.perf_counter() - t0
+    rr_launches = kernels.launch_counts()
+    count(rr_launches)
+    pw.G.clear()
+    udf_s = reranker.seconds
+    del reranker
+    scores = np.zeros(len(pair_qs), np.float32)
+    for pair, _qi, score in srows.values():
+        scores[pair] = score
+    err = np.abs(scores - want_scores)
+    kept = {qi: set(top[0]) for qi, top in krows.values()}
+    decided = 0
+    for qi in range(N_QUESTIONS):
+        sl = slice(qi * RERANK_K, (qi + 1) * RERANK_K)
+        ranked = np.sort(want_scores[sl])[::-1]
+        if ranked[RERANK_KEEP - 1] - ranked[RERANK_KEEP] <= 2 * err.max():
+            continue  # a tie within the two runs' difference: either five is right
+        decided += 1
+        want_kept = set(pw.rerank_topk_filter.__wrapped_fun__(list(range(sl.start, sl.stop)), want_scores[sl].tolist(),
+                                                                RERANK_KEEP)[0])
+        if kept[qi] != want_kept:
+            fail(f"rerank UDF: question {qi} keeps {sorted(kept[qi])}, phase 4's scores keep {sorted(want_kept)}")
+    chunks = -(-len(pair_qs) // RERANK_BATCH)
+    res["rerank"] = {
+        "pairs": len(pair_qs), "chunks": chunks, "run_s": rr_s, "pairs_per_s": len(pair_qs) / rr_s,
+        "udf_s": udf_s, "udf_pairs_per_s": len(pair_qs) / udf_s,
+        "phase4_pairs_per_s": rerank["batched"]["pairs_per_s"], "max_abs_err_vs_phase4": float(err.max()),
+        "questions": len(kept), "questions_decided": decided, "cross_head_launches": rr_launches["cross_head"],
+        "bias_act_tanh_launches": kernels.bias_act.launches_by_act["tanh"] - tanh_before,
+    }
+    log(f"live rerank UDFs on {smi}: {json.dumps(res['rerank'])}")
+    if len(srows) != len(pair_qs) or len(kept) != N_QUESTIONS or not np.isfinite(scores).all():
+        fail(f"rerank UDF: {len(srows)} scores for {len(pair_qs)} pairs, {len(kept)} questions kept")
+    if not err.max() <= SCORE_ATOL:
+        fail(f"rerank UDF scores differ from phase 4's by {err.max()} > {SCORE_ATOL}")
+    if res["rerank"]["cross_head_launches"] != chunks or res["rerank"]["bias_act_tanh_launches"]:
+        fail(f"rerank UDF: {json.dumps(res['rerank'])}; one head launch a chunk and no K4 tanh expected")
+    missing = [n for n in ("attention", "bias_act", "add_layer_norm", "embed_ln") if rr_launches[n] == 0]
+    if missing:
+        fail(f"kernels not launched by the rerank UDF: {missing}")
+    torch.cuda.empty_cache()
+
+    # ---- (c) IVF, live: the index trains inside the pipeline
+    rows_ivf = mixture(np, LIVE_IVF_ROWS, HIDDEN, SEED, LIVE_IVF_ROWS)[0]
+    qs_ivf = mixture(np, IVF_QUERIES, HIDDEN, SEED + 1, IVF_QUERIES)[0]
+    pw.G.clear()
+    # the rows are the run's first epoch (static), the queries its second
+    vt = pw.debug.table_from_rows(pw.schema_from_types(row=int, v=np.ndarray), list(enumerate(rows_ivf)))
+    q_schema = pw.schema_builder({"qid": pw.column_definition(dtype=int, primary_key=True),
+                                  "v": pw.column_definition(dtype=np.ndarray)})
+    qt = pw.debug.table_from_rows(q_schema, [(i, q, 2, 1) for i, q in enumerate(qs_ivf)], is_stream=True)
+    inner = pw.indexing.UsearchKnnFactory(dimensions=HIDDEN, reserved_space=CAPACITY, nlist=LIVE_IVF_NLIST,
+                                          nprobe=LIVE_IVF_NPROBE, device=dev).build_index(vt.v, vt)
+    adapters = capture_adapters(inner)
+    out = pw.indexing.DataIndex(vt, inner).query_as_of_now(qt.v, number_of_matches=K)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    since = tracing.now_ns()
+    t0 = time.perf_counter()
+    ((rows, _),) = pw.debug._run_capture(out)
+    torch.cuda.synchronize()
+    ivf_s = time.perf_counter() - t0
+    ivf_launches = kernels.launch_counts()
+    count(ivf_launches)
+    got = replies_of(out._column_names, rows, "qid")
+    main = adapters[0].index.main
+    ivf_seconds = dict(adapters[0].seconds)
+    ivf_query_ms = [epoch_ms_of(epoch_spans(tracing, since), a) for name, a, _b, _n in adapters[0].calls
+                    if name == "search"]
+    pw.G.clear()
+    if not isinstance(adapters[0], IvfAdapter) or not main.trained or (main.nlist, main.nprobe) != (
+            LIVE_IVF_NLIST, LIVE_IVF_NPROBE):
+        fail(f"live IVF: {type(adapters[0]).__name__}, trained {main.trained}, nlist/nprobe "
+             f"{main.nlist}/{main.nprobe}")
+    x = torch.from_numpy(rows_ivf).to(dev)
+    q = torch.from_numpy(qs_ivf).to(dev)
+    truth = (torch.nn.functional.normalize(q, dim=1) @ torch.nn.functional.normalize(x, dim=1).T).topk(K).indices
+    truth = truth.cpu().numpy()
+    del x, q
+    if len(got) != IVF_QUERIES:
+        fail(f"live IVF: {len(got)} replies for {IVF_QUERIES} queries")
+    hits = sum(len({d["row"] for *_, d in got[i]} & set(truth[i].tolist())) for i in range(IVF_QUERIES))
+    res["ivf"] = {
+        "rows": LIVE_IVF_ROWS, "queries": IVF_QUERIES, "nlist": main.nlist, "nprobe": main.nprobe,
+        "cell_cap": main.cell_cap, "run_s": ivf_s, "query_epoch_ms": ivf_query_ms, "index_s": ivf_seconds,
+        "ingest_rows_per_s": LIVE_IVF_ROWS / ivf_seconds["add"],
+        "recall_at_10": hits / (IVF_QUERIES * K), "ivf_assign_launches": ivf_launches["ivf_assign"],
+        "ivf_scan_launches": ivf_launches["ivf_scan"],
+    }
+    log(f"live IVF on {smi}: {json.dumps(res['ivf'])}")
+    if not res["ivf"]["recall_at_10"] >= IVF_RECALL:
+        fail(f"live IVF recall@{K} {res['ivf']['recall_at_10']:.4f} < {IVF_RECALL}")
+    missing = [n for n in ("ivf_assign", "ivf_scan", "slab_scatter", "knn_topk") if ivf_launches[n] == 0]
+    if missing:
+        fail(f"kernels not launched by the live IVF: {missing}")
+    adapters[0].index.close()
+    del adapters, main
+    torch.cuda.empty_cache()
+    res["launches"] = launches
+    res["wall_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def check_stream_handles(torch) -> None:
     """The launch helper's stream handle (read without a ``torch.cuda.Stream``)
     is PyTorch's current stream on the card, on the default stream and
@@ -5602,6 +6024,11 @@ def main() -> int:
     en_out = phase_engine(torch, dev, ctx, s_out["embed_docs_per_s"], smi)
     wall["engine_s"] = time.perf_counter() - t_phase
     torch.cuda.empty_cache()
+    lr_out = phase_live_rag(torch, dev, ctx, r_out, smi, {"encode_into_docs_per_s": s_out["embed_docs_per_s"],
+                                                           "udf_docs_per_s": en_out["udf"]["docs_per_s"]})
+    wall["live_rag_s"] = lr_out["wall_s"]
+    r_out.pop("_pair_scores")
+    torch.cuda.empty_cache()
     sh_out = phase_sharded(torch, dev, ctx)
     wall["sharded_s"] = sh_out["wall_s"]
     log(f"embed docs/s: data parallel over {SHARDS} shards {sh_out['dp_embed_docs_per_s']:.1f}, "
@@ -5667,6 +6094,7 @@ def main() -> int:
                    "image": i_out["launches"][name], "ivf": ivf_out["launches"][name],
                    "ivf_defaults": c3_out["launches"][name], "sharded": sh_out["launches"][name],
                    "checkpoint": ck_out["launches"][name], "engine": en_out["launches"][name],
+                   "live_rag": lr_out["launches"].get(name, 0),
                    "f32_vision": fv_out["launches"][name],
                    **{path: counts[name] for path, counts in p10_out["launches"].items()},
                    "train": tr_out["launches"][name], "dryrun": tr_out["dryrun_launches"][name]}
@@ -5710,6 +6138,7 @@ def main() -> int:
         "ivf_assign_lloyd": {key: k_out["ivf_assign"][f"lloyd_{key}"] for key in ("ms", "library_ms", "bound_ms")},
         "shape_repairs": repairs,
         "engine": {key: val for key, val in en_out.items() if key != "launches"},
+        "live_rag": {key: val for key, val in lr_out.items() if key != "launches"},
         "f32_vision": {key: val for key, val in fv_out.items() if key != "launches"},
         "train": {key: val for key, val in tr_out.items() if key not in ("launches", "dryrun_launches")},
         "phase_wall_s": wall,

@@ -30,10 +30,14 @@ device plane, as ``TorchEncoderEmbedder`` does as a UDF::
     t = pw.debug.table_from_markdown("word | n\n a | 1\n b | 2")
     pw.debug.compute_and_print(t.groupby(t.word).reduce(t.word, total=pw.reducers.sum(t.n)))
 
-The rest of the host plane comes in later slices (ROADMAP queue A): a
-name that belongs to one (``io``, ``stdlib``, ``persistence``,
-``analysis``, ``iterate``, ``sql``, ...) raises an ``AttributeError`` that
-names its item, and :func:`run` raises ``NotImplementedError`` until the
+The live retrieval indexes come with it (``pw.indexing``, also
+``pw.stdlib.indexing``: ``DataIndex`` over the card-resident KNN and IVF
+indexes, BM25 and hybrid RRF, behind ``SegmentedIndex``'s delta segment
+and background merge), and the rerankers are UDFs.  The rest of the host
+plane comes in later slices (ROADMAP queue A): a name that belongs to
+one (``io``, ``persistence``, ``analysis``, ``iterate``, ``sql``, the
+stdlib beyond indexing, ...) raises an ``AttributeError`` that names its
+item, and :func:`run` raises ``NotImplementedError`` until the
 connectors come (item 16); ``pw.debug`` runs a pipeline meanwhile.
 """
 
@@ -126,15 +130,14 @@ DURATION = _dt.DURATION
 #: names of ``pathway_tpu`` that later slices of the port bring, by the
 #: ROADMAP item that brings them
 _LATER = {
-    **dict.fromkeys(("indexing",), "item 14 (stdlib/indexing)"),
     **dict.fromkeys(
         ("io", "demo", "persistence", "PersistenceMode", "testing", "universes", "iterate", "iterate_universe", "enable_interactive_mode", "LiveTable",
          "live", "export_table", "import_table", "ExportedTable", "sql", "load_yaml"),
         "item 16 (io, persistence, serving and the rest of internals)",
     ),
     **dict.fromkeys(
-        ("stdlib", "temporal", "ml", "graphs", "stateful", "statistical", "ordered", "utils",
-         "viz", "AsyncTransformer"),
+        ("temporal", "ml", "graphs", "stateful", "statistical", "ordered", "utils", "viz",
+         "AsyncTransformer"),
         "item 16 (stdlib beyond indexing)",
     ),
     **dict.fromkeys(
@@ -150,6 +153,14 @@ def __getattr__(name: str) -> Any:
         import pathway_tpu_torch.xpacks as xpacks
 
         return xpacks
+    if name == "stdlib":
+        import pathway_tpu_torch.stdlib as stdlib
+
+        return stdlib
+    if name == "indexing":
+        import pathway_tpu_torch.stdlib.indexing as indexing
+
+        return indexing
     if name == "asynchronous":
         # deprecated alias kept for parity (reference pathway.asynchronous -> pw.udfs)
         return udfs

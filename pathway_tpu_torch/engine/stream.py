@@ -41,7 +41,16 @@ def hashable(value: Any) -> Any:
     if isinstance(value, np.ndarray):
         return ("__ndarray__", value.shape, value.tobytes())
     if isinstance(value, dict):
-        return ("__dict__", json.dumps(value, sort_keys=True, default=str))
+        # each cell by its own hashable form (an ndarray by its bytes): JSON
+        # through str() formats every element of an array and summarises one
+        # of over 1,000 elements, so rows that differ only there would merge
+        # (a DataIndex reply's data snapshot holds the indexed vectors)
+        items = tuple(sorted(((str(k), hashable(v)) for k, v in value.items()), key=lambda kv: kv[0]))
+        try:
+            hash(items)
+        except TypeError:
+            return ("__dict__", json.dumps(value, sort_keys=True, default=str))
+        return ("__dict__", items)
     if isinstance(value, list):
         return ("__list__", tuple(hashable(v) for v in value))
     if isinstance(value, tuple):

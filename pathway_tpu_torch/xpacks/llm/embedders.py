@@ -6,9 +6,13 @@
 card through :class:`~pathway_tpu_torch.parallel.TorchEncoder`.  Like the
 JAX package's embedders it is a :class:`~pathway_tpu_torch.UDF` with a
 ``__batch__``: applied to a column, the engine hands it each epoch's
-rows in one call, cut into chunks of at most ``max_batch_size``.  The
-API embedders (OpenAI, LiteLLM, Gemini) come with the rest of ROADMAP
-item 13.
+rows in one call, cut into chunks of at most ``max_batch_size``.
+
+The API embedders (:class:`OpenAIEmbedder`, :class:`LiteLLMEmbedder`,
+:class:`GeminiEmbedder`) keep the reference's async-UDF shape (capacity,
+retry and cache composition) and need their client packages, imported
+only when an embedder is made or called; without the package the
+constructor raises ``ImportError``.
 """
 
 from __future__ import annotations
@@ -19,11 +23,19 @@ from typing import Any
 import numpy as np
 import torch
 
+from pathway_tpu_torch.internals import udfs
 from pathway_tpu_torch.internals.udfs import UDF
 from pathway_tpu_torch.models import encoder as _enc
 from pathway_tpu_torch.parallel.executor import TorchEncoder
 
-__all__ = ["BaseEmbedder", "TorchEncoderEmbedder", "SentenceTransformerEmbedder"]
+__all__ = [
+    "BaseEmbedder",
+    "TorchEncoderEmbedder",
+    "SentenceTransformerEmbedder",
+    "OpenAIEmbedder",
+    "LiteLLMEmbedder",
+    "GeminiEmbedder",
+]
 
 _PRESETS = {
     "all-minilm-l6-v2": "MINILM_L6",
@@ -107,3 +119,85 @@ class TorchEncoderEmbedder(BaseEmbedder):
 #: reference-compatible name: in the reference this wraps torch
 #: SentenceTransformers; here it is the port's encoder on the card
 SentenceTransformerEmbedder = TorchEncoderEmbedder
+
+
+class _ApiEmbedder(BaseEmbedder):
+    """Shared shape of the network API embedders."""
+
+    _client_pkg = ""
+
+    def __init__(
+        self,
+        *,
+        capacity: int | None = None,
+        retry_strategy: udfs.AsyncRetryStrategy | None = None,
+        cache_strategy: udfs.CacheStrategy | None = None,
+        model: str | None = None,
+        **call_kwargs: Any,
+    ):
+        executor = udfs.async_executor(capacity=capacity, retry_strategy=retry_strategy)
+        super().__init__(executor=executor, cache_strategy=cache_strategy)
+        self.model = model
+        self.call_kwargs = call_kwargs
+        try:
+            __import__(self._client_pkg)
+        except ImportError as e:
+            raise ImportError(
+                f"{type(self).__name__} needs the {self._client_pkg!r} package "
+                "(and network access); use TorchEncoderEmbedder to embed "
+                "locally on the card"
+            ) from e
+
+    def _embed_batch(self, texts: list[str]) -> list:
+        import asyncio
+
+        async def run_all() -> list:
+            return await asyncio.gather(*[self.__wrapped__(t) for t in texts])
+
+        return asyncio.run(run_all())
+
+
+class OpenAIEmbedder(_ApiEmbedder):
+    """reference ``embedders.py:85``"""
+
+    _client_pkg = "openai"
+
+    async def __wrapped__(self, input: str, **kwargs: Any) -> Any:
+        import openai
+
+        client = openai.AsyncOpenAI()
+        kw = {**self.call_kwargs, **kwargs}
+        if self.model is not None:
+            kw.setdefault("model", self.model)
+        ret = await client.embeddings.create(input=[input or "."], **kw)
+        return np.asarray(ret.data[0].embedding)
+
+
+class LiteLLMEmbedder(_ApiEmbedder):
+    """reference ``embedders.py:180``"""
+
+    _client_pkg = "litellm"
+
+    async def __wrapped__(self, input: str, **kwargs: Any) -> Any:
+        import litellm
+
+        kw = {**self.call_kwargs, **kwargs}
+        if self.model is not None:
+            kw.setdefault("model", self.model)
+        ret = await litellm.aembedding(input=[input or "."], **kw)
+        return np.asarray(ret.data[0]["embedding"])
+
+
+class GeminiEmbedder(_ApiEmbedder):
+    """reference ``embedders.py:330``"""
+
+    _client_pkg = "google.generativeai"
+
+    async def __wrapped__(self, input: str, **kwargs: Any) -> Any:
+        import google.generativeai as genai
+
+        kw = {**self.call_kwargs, **kwargs}
+        if self.model is not None:
+            kw.setdefault("model", self.model)
+        ret = genai.embed_content(content=input or ".", **kw)
+        return np.asarray(ret["embedding"])

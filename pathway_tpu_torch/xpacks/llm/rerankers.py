@@ -2,46 +2,52 @@
 
 :class:`CrossEncoderReranker` scores (doc, query) pairs with the
 cross-encoder on the card through
-:class:`~pathway_tpu_torch.parallel.TorchEncoder` ``(cross=True)``, one
-batched call per engine epoch; :class:`EncoderReranker` scores with the
-bi-encoder's dot product; :func:`rerank_topk_filter` keeps the k best.
-They are plain classes and a plain function for now: the JAX package's
-derive from the ``UDF`` base class and ``@udf``, which the port now has
-(``pathway_tpu_torch.internals.udfs``); making them UDFs is the rest of
-ROADMAP item 13.  ``LLMReranker`` and ``FlashRankReranker`` need an LLM
-client and the servers and come with items 13 and 15.
+:class:`~pathway_tpu_torch.parallel.TorchEncoder` ``(cross=True)``;
+:class:`EncoderReranker` scores with the bi-encoder's dot product.  Both
+are :class:`~pathway_tpu_torch.UDF`\\ s with a ``__batch__``, as the JAX
+package's are: applied to columns, the engine hands them each epoch's
+pairs in one call, cut into chunks of at most ``max_batch_size``.
+:func:`rerank_topk_filter` (a ``@udf``) keeps the k best, and
+:class:`LLMReranker` asks a chat UDF for a 1-5 rating.
+``FlashRankReranker`` needs the servers' slice and comes with ROADMAP
+item 15.
 """
 
 from __future__ import annotations
 
+import asyncio
+import inspect
 import os
 from typing import Any
 
 import numpy as np
 import torch
 
+from pathway_tpu_torch.internals.udfs import UDF, udf
 from pathway_tpu_torch.models.encoder import BGE_RERANKER_BASE, EncoderConfig
 from pathway_tpu_torch.parallel.executor import TorchEncoder
 from pathway_tpu_torch.xpacks.llm.embedders import TorchEncoderEmbedder
 
-__all__ = ["rerank_topk_filter", "CrossEncoderReranker", "EncoderReranker"]
+__all__ = ["rerank_topk_filter", "CrossEncoderReranker", "EncoderReranker", "LLMReranker"]
 
 
 def _text(doc: Any) -> str:
     return doc["text"] if isinstance(doc, dict) else str(doc)
 
 
+@udf
 def rerank_topk_filter(
-    docs: list, scores: list[float], k: int = 5
-) -> tuple[list, list[float]]:
+    docs: list[dict], scores: list[float], k: int = 5
+) -> tuple[list[dict], list[float]]:
     """Keep the k best (docs, scores) pairs, best first (the JAX
     package's numpy ``argsort`` of the negated scores, so ties fall the
-    same way)."""
+    same way).  A UDF: call the function itself as
+    ``rerank_topk_filter.__wrapped_fun__``."""
     order = np.argsort(-np.asarray(scores, dtype=np.float64))[: int(k)]
     return [docs[i] for i in order], [float(scores[i]) for i in order]
 
 
-class CrossEncoderReranker:
+class CrossEncoderReranker(UDF):
     """(doc, query) -> relevance score via the cross-encoder on the card.
 
     Without ``config`` the architecture is
@@ -50,6 +56,9 @@ class CrossEncoderReranker:
     ``params`` (a flax parameter tree of the JAX package's
     ``CrossEncoderModel``) is passed.  A local HF checkpoint directory as
     ``model_name`` loads its weights, config and vocabulary.
+    ``max_batch_size`` bounds both the pairs the engine hands one
+    ``__batch__`` call and the encoder's chunk; other keyword arguments go
+    to :class:`~pathway_tpu_torch.UDF`.
     """
 
     def __init__(
@@ -62,7 +71,9 @@ class CrossEncoderReranker:
         max_batch_size: int | None = 256,
         seed: int = 0,
         device: str | torch.device = "cuda",
+        **kwargs: Any,
     ):
+        super().__init__(max_batch_size=max_batch_size, **kwargs)
         checkpoint_dir = model_name if os.path.isdir(model_name) else None
         if config is None and checkpoint_dir is None:
             config = BGE_RERANKER_BASE
@@ -80,9 +91,10 @@ class CrossEncoderReranker:
         return self.__batch__([doc], [query])[0]
 
 
-class EncoderReranker:
+class EncoderReranker(UDF):
     """Bi-encoder similarity reranker: the dot product of the doc's and
-    the query's embeddings."""
+    the query's embeddings (by default a :class:`TorchEncoderEmbedder` of
+    ``model_name`` on ``device``)."""
 
     def __init__(
         self,
@@ -90,7 +102,9 @@ class EncoderReranker:
         model_name: str = "all-MiniLM-L6-v2",
         *,
         device: str | torch.device = "cuda",
+        **kwargs: Any,
     ):
+        super().__init__(**kwargs)
         self.embedder = embedder if embedder is not None else TorchEncoderEmbedder(
             model_name, device=device
         )
@@ -102,3 +116,30 @@ class EncoderReranker:
 
     def __wrapped__(self, doc: Any, query: str) -> float:
         return self.__batch__([doc], [query])[0]
+
+
+class LLMReranker(UDF):
+    """Chat-based 1-5 relevance scoring (reference ``rerankers.py:58``):
+    ``llm`` is a chat UDF (or a callable) taking a list of messages; an
+    answer that does not start with a number scores 1."""
+
+    PROMPT = (
+        "Given a query and a document, rate how relevant the document is "
+        "to the query on an integer scale of 1 to 5. Answer with ONLY the "
+        "number.\nQuery: {query}\nDocument: {doc}"
+    )
+
+    def __init__(self, llm: Any, **kwargs: Any):
+        super().__init__(**kwargs)
+        self.llm = llm
+
+    def __wrapped__(self, doc: Any, query: str) -> float:
+        msg = [{"role": "user", "content": self.PROMPT.format(query=query, doc=_text(doc))}]
+        fun = self.llm.__wrapped__ if hasattr(self.llm, "__wrapped__") else self.llm
+        out = fun(msg)
+        if inspect.isawaitable(out):
+            out = asyncio.run(out)
+        try:
+            return float(str(out).strip().split()[0])
+        except (ValueError, IndexError):
+            return 1.0

@@ -569,11 +569,17 @@ def test_native_off_run_equals_the_native_run():
 
 
 def test_later_slices_raise_naming_their_item():
-    for name, item in (("io", "item 16"), ("stdlib", "item 16"), ("persistence", "item 16"),
-                       ("analysis", "item 16"), ("iterate", "item 16"), ("sql", "item 16"),
-                       ("indexing", "item 14")):
+    for name, item in (("io", "item 16"), ("temporal", "item 16"), ("persistence", "item 16"),
+                       ("analysis", "item 16"), ("iterate", "item 16"), ("sql", "item 16")):
         with pytest.raises(AttributeError, match=item):
             getattr(tpw, name)
+    # item 14 brought the indexes: ``indexing`` and ``stdlib`` resolve, and
+    # the stdlib's other submodules name the item that brings them
+    assert tpw.indexing is tpw.stdlib.indexing
+    assert tpw.indexing.BruteForceKnnFactory.__module__ == "pathway_tpu_torch.stdlib.indexing.data_index"
+    for name in ("temporal", "ml", "graphs", "stateful", "statistical", "ordered", "utils", "viz"):
+        with pytest.raises(AttributeError, match="item 16"):
+            getattr(tpw.stdlib, name)
     with pytest.raises(AttributeError, match="no attribute 'nonsense'"):
         tpw.nonsense  # noqa: B018
     with pytest.raises(NotImplementedError, match="item 16"):

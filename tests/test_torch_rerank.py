@@ -166,7 +166,7 @@ def test_rerank_topk_filter_matches_jax():
     docs = [{"text": f"d{i}"} for i in range(12)]
     for scores in (rng.standard_normal(12).tolist(), [0.1, 0.9, 0.5, 0.3, 0.8] + [0.0] * 7):
         for k in (1, 3, 5, 20):
-            assert rerank_topk_filter(docs, scores, k) == jrr.rerank_topk_filter.__wrapped_fun__(docs, scores, k)
+            assert rerank_topk_filter.__wrapped_fun__(docs, scores, k) == jrr.rerank_topk_filter.__wrapped_fun__(docs, scores, k)
 
 
 def test_cross_encoder_reranker_matches_jax(cross_pair):
@@ -219,7 +219,7 @@ def test_retrieve_rerank_slice_matches_jax(cross_pair, bi_pair):
         for q, hits in zip(questions, index.search(bi.encode(questions), 8)):
             cands = [key for key, _ in hits]
             scores = cross.score_pairs([q] * len(cands), [text_of[c] for c in cands])
-            kept.append(rerank_topk_filter(cands, scores.tolist(), 3))
+            kept.append(rerank_topk_filter.__wrapped_fun__(cands, scores.tolist(), 3))
         return kept
 
     want = run(jbi, jcross, JaxIndex(64, metric="cos", capacity=256))
