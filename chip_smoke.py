@@ -221,7 +221,22 @@ Phases, each fatal on failure:
     pipeline, and 256 mixture queries: recall@10 >= 0.95 against exact
     f32, K11 and K12 launched.  Each part logs its rows/s and epoch walls.
 
-Phases 13 and 14 and then phase 8 run right after phase 4, while phase
+15. the RAG server (``phase_rag_server``, ROADMAP item 15), after phase
+    14: the first 2,048 of phase 3's documents as files, read by
+    ``pw.io.fs.read(mode="streaming")`` into ``VectorStoreServer``
+    (BGE-base with phase 3's seed, 1,048,576 slots, split 16-128 tokens)
+    and a ``BaseRAGQuestionAnswerer``'s ``QASummaryRestServer`` with a
+    stand-in chat, both started by one ``run_server(threaded=True)`` on
+    127.0.0.1; 64 one-question ``/v1/retrieve`` requests, 64 documents by
+    their first chunk, 32 requests from 8 client threads, a glob and a
+    metadata filter, 8 QA requests, then 64 files added, 32 rewritten and
+    32 deleted in place; every reply against the direct path (the engine's
+    own batches through ``TorchEncoder.encode`` into a ``ShardedKnnIndex``),
+    K1, K2, K3 and K4-K7 launched; logs ingest docs/s, HTTP p50/p99, the
+    QA round's p50, a served question's idle share and the live change's
+    time to visibility.
+
+Phases 13, 14 and 15 and then phase 8 run right after phase 4, while phase
 3's index is alive, and phase 10 after them; phases 5, 6, 9 and 12 follow.  The second-to-last line of
 output is a JSON object with one entry per kernel wrapper (K1-K19 and B8's
 head; K1 and K4-K7 with their f32 forms); the last is ``{"ok": true, "device":
@@ -439,6 +454,18 @@ LIVE_DELTA_CAP = 128  # below LIVE_UPSERTS: the second epoch's delta segment sta
 LIVE_SELF = 256  # unchanged documents queried by their own text
 LIVE_IVF_ROWS = 65536  # mixture rows into the live IVF: above its 50,000-row training sample
 LIVE_IVF_NLIST, LIVE_IVF_NPROBE = 1024, 128  # IvfKnnIndex's defaults at 1,048,576 slots
+N_SERVER_DOCS = 2048  # phase 3's first documents, written as files for the served pipeline
+SERVER_SPLIT = (16, 128)  # TokenCountSplitter's (min_tokens, max_tokens): the longer documents split in two
+SERVER_QUESTIONS = 64  # one-question /v1/retrieve requests; as many documents queried by their first chunk
+SERVER_CONCURRENT, SERVER_CLIENTS = 32, 8  # requests sent at once, from client threads
+SERVER_FILTERED = 4  # questions asked with a glob and with a metadata filter
+SERVER_QA = 8  # /v1/pw_ai_answer requests
+SERVER_QA_TOPK = 6  # BaseRAGQuestionAnswerer's search_topk (its default)
+SERVER_ADDED, SERVER_REWRITTEN, SERVER_DELETED = 64, 32, 32  # the live change, in place
+SERVER_DEADLINE_S = 120.0  # the server's start, and the live change's visibility
+SERVER_MTIME0 = 1_700_000_000  # file i's modified_at: SERVER_MTIME0 + i
+SERVER_GLOB = "*/doc00[0-9]*.txt"  # files 0-999
+SERVER_FILTER = f"modified_at < `{SERVER_MTIME0 + 1024}`"  # files 0-1,023
 PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
@@ -5919,6 +5946,381 @@ def phase_live_rag(torch, dev, ctx: dict, rerank: dict, smi: str, rates: dict) -
     return res
 
 
+def phase_rag_server(torch, dev, ctx: dict, smi: str, rates: dict) -> dict:
+    """Phase 15: the RAG server (ROADMAP item 15) on the card, through the
+    entry points a user calls.  The first N_SERVER_DOCS of phase 3's
+    documents are written as files (``modified_at`` SERVER_MTIME0 + i) and
+    read by ``pw.io.fs.read(format="binary", mode="streaming",
+    with_metadata=True)`` into ``VectorStoreServer`` (phase 3's BGE-base
+    weights as ``TorchEncoderEmbedder``, a 1,048,576-slot
+    ``BruteForceKnnFactory``, ``TokenCountSplitter(16, 128)``); a
+    ``BaseRAGQuestionAnswerer`` over the same store with a stand-in chat (a
+    digest of its messages) serves ``QASummaryRestServer`` on a second
+    port; one ``run_server(threaded=True)`` starts both on 127.0.0.1.
+    Checks: the statistics reach N_SERVER_DOCS; some documents split; 64
+    one-question ``/v1/retrieve`` requests at k=10 and 64 documents queried
+    by their first chunk (its own top-1), each reply against the direct
+    path (the engine's own batches through ``TorchEncoder.encode`` into a
+    ``ShardedKnnIndex`` on the card: ``compare_rows`` at TOPK_ATOL); 32
+    requests from 8 client threads, against the direct path and against
+    the one-at-a-time replies (``compare_rows`` at EMBED_ATOL: a query
+    batched with others embeds in another batch shape); ``/v1/inputs`` with
+    a glob, ``/v1/retrieve`` with a glob and with a metadata filter,
+    against a Python filter over the files (the index's over-fetch of 4k,
+    then the filter, then k); 8 ``/v1/pw_ai_answer`` requests whose context
+    docs equal ``/v1/retrieve`` at ``search_topk`` and whose response is
+    the stand-in's digest; a live change (files added, rewritten and
+    deleted in place) visible within SERVER_DEADLINE_S; K1, K4-K7, K2 and
+    K3 launched between the server's start and the end of the live change;
+    the scheduler stops and its thread joins."""
+    import fnmatch
+    import hashlib
+    import shutil
+    import socket
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import BGE_BASE, ShardedKnnIndex, TorchEncoderEmbedder, kernels
+    from pathway_tpu_torch.xpacks.llm import prompts
+    from pathway_tpu_torch.xpacks.llm.llms import BaseChat, prompt_chat_single_qa
+    from pathway_tpu_torch.xpacks.llm.question_answering import BaseRAGQuestionAnswerer
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+    from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreClient, VectorStoreServer
+
+    res: dict = {"card": smi, "beside": rates}
+    t_phase = time.perf_counter()
+    ports = []
+    for _ in range(2):
+        sock = socket.socket()
+        try:
+            sock.bind(("127.0.0.1", 0))
+        except OSError as e:
+            fail(f"rag server: a loopback socket does not bind on this machine: {e!r}")
+        ports.append(sock.getsockname()[1])
+        sock.close()
+    port, qa_port = ports
+
+    # ---- the files, and what the splitter makes of them
+    docs = list(ctx["docs"][:N_SERVER_DOCS])
+    root = tempfile.mkdtemp(prefix="rag_server_")
+
+    def path_of(i: int) -> str:
+        return os.path.join(root, f"doc{i:05d}.txt")
+
+    def write(i: int, text: str, mtime: int | None = None) -> None:
+        with open(path_of(i), "w") as f:
+            f.write(text)
+        if mtime is not None:
+            os.utime(path_of(i), (mtime, mtime))
+
+    for i, text in enumerate(docs):
+        write(i, text, SERVER_MTIME0 + i)
+    splitter = TokenCountSplitter(min_tokens=SERVER_SPLIT[0], max_tokens=SERVER_SPLIT[1])
+
+    def chunks_of(text: str) -> list:
+        return [c for c, _ in splitter.__wrapped__(text)]
+
+    doc_chunks = [chunks_of(t) for t in docs]
+    key_info = [(path_of(i), c) for i, cs in enumerate(doc_chunks) for c in cs]
+    key_of = {info: g for g, info in enumerate(key_info)}
+
+    def keyed(hits: list) -> list:
+        """A reply's chunks as [(chunk key, score), ...]."""
+        return [(key_of[(d["metadata"]["path"], d["text"])], d["score"]) for d in hits]
+    res["chunks"] = len(key_info)
+    res["split_docs"] = sum(len(cs) > 1 for cs in doc_chunks)
+    if not res["split_docs"]:
+        fail(f"rag server: no document of {N_SERVER_DOCS} splits into two or more chunks")
+
+    lock = threading.Lock()
+
+    class Recording(TorchEncoderEmbedder):
+        """The embedder UDF, keeping each batch the engine hands it (texts,
+        rows, thread) in order; the direct path encodes the same batches."""
+
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self.batches: list = []
+
+        def __batch__(self, texts):
+            rows = super().__batch__(texts)
+            with lock:
+                self.batches.append(([str(t) for t in texts], np.stack(rows), threading.current_thread().name))
+            return rows
+
+    class DigestChat(BaseChat):
+        """A stand-in chat: the digest of its messages."""
+
+        def __wrapped__(self, messages, **kwargs):
+            return "digest:" + hashlib.sha256(json.dumps(messages).encode()).hexdigest()[:16]
+
+    embedder = Recording(model="bge-base", config=BGE_BASE, max_batch_size=ENGINE_UDF_BATCH, seed=SEED, device=dev)
+    if embedder.encoder.device != dev:
+        fail(f"rag server: the embedder's encoder is on {embedder.encoder.device}, not {dev}")
+    pw.G.clear()
+    files = pw.io.fs.read(root, format="binary", mode="streaming", with_metadata=True)
+    server = VectorStoreServer(
+        files,
+        index_factory=pw.indexing.BruteForceKnnFactory(embedder=embedder, reserved_space=CAPACITY, device=dev),
+        splitter=splitter,
+    )
+    adapters: list = []
+    inner = server.document_store.index.inner
+    make = inner.make_adapter
+
+    def keep_adapter():
+        adapters.append(make())
+        return adapters[-1]
+
+    inner.make_adapter = keep_adapter
+    rag = BaseRAGQuestionAnswerer(DigestChat(), server.document_store, search_topk=SERVER_QA_TOPK)
+    rag.build_server("127.0.0.1", qa_port)
+    client = VectorStoreClient(port=port, timeout=SERVER_DEADLINE_S)
+    qa = VectorStoreClient(port=qa_port, timeout=SERVER_DEADLINE_S)
+
+    def timed(fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def stats_count():
+        try:
+            return client.get_vectorstore_statistics()["file_count"]
+        except OSError:
+            return None
+
+    pw.G.active_scheduler = None
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t_start = time.perf_counter()
+    thread = server.run_server("127.0.0.1", port, threaded=True)
+    try:
+        # ---- ready: every file in the statistics (an epoch after the
+        # files' epoch, whose index updates are done by then)
+        deadline = t_start + SERVER_DEADLINE_S
+        while stats_count() != N_SERVER_DOCS:
+            if time.perf_counter() > deadline or not thread.is_alive():
+                fail(f"rag server: the statistics did not reach {N_SERVER_DOCS} files in {SERVER_DEADLINE_S} s")
+            time.sleep(0.02)
+        res["ingest_s"] = time.perf_counter() - t_start
+        res["ingest_docs_per_s"] = N_SERVER_DOCS / res["ingest_s"]
+        ingest_batches = len(embedder.batches)
+        res["indexes"] = len(adapters)
+        for a in adapters:
+            main = a.index.main
+            if getattr(main, "device", dev) != dev:
+                fail(f"rag server: an index is on {main.device}, not {dev}")
+
+        # ---- one question at a time, then the documents by their first chunk
+        rng = np.random.default_rng(SEED + 21)
+        questions = synthetic_questions(np, docs, SERVER_QUESTIONS + SERVER_CONCURRENT, SEED + 21)
+        rounds: dict = {}
+
+        def served(name: str, texts: list, ask) -> list:
+            start = len(embedder.batches)
+            out = [timed(ask, t) for t in texts]
+            rounds[name] = (texts, [o for o, _ in out], start, len(embedder.batches))
+            return [ms for _, ms in out]
+
+        single_ms = served("single", questions[:SERVER_QUESTIONS], lambda q: client.query(q, k=K))
+        self_docs = [int(i) for i in rng.choice(N_SERVER_DOCS, SERVER_QUESTIONS, replace=False)]
+        served("self", [doc_chunks[i][0] for i in self_docs], lambda q: client.query(q, k=K))
+        bad_self = [i for i, hits in zip(self_docs, rounds["self"][1])
+                    if (hits[0]["metadata"]["path"], hits[0]["text"]) != (path_of(i), doc_chunks[i][0])]
+        if bad_self:
+            fail(f"rag server: documents not their first chunk's top-1: {bad_self[:5]}")
+
+        # ---- concurrent requests
+        conc = questions[SERVER_QUESTIONS:SERVER_QUESTIONS + SERVER_CONCURRENT]
+        start = len(embedder.batches)
+        with ThreadPoolExecutor(max_workers=SERVER_CLIENTS) as pool:
+            conc_out = list(pool.map(lambda q: timed(client.query, q, k=K), conc))
+        rounds["concurrent"] = (conc, [o for o, _ in conc_out], start, len(embedder.batches))
+        conc_ms = [ms for _, ms in conc_out]
+        alone = [client.query(q, k=K) for q in conc]
+
+        # ---- filters
+        def glob_ok(path: str) -> bool:
+            return fnmatch.fnmatch(path, SERVER_GLOB)
+
+        def mtime_ok(path: str) -> bool:
+            return os.stat(path).st_mtime < SERVER_MTIME0 + 1024
+
+        listed = client.get_input_files(filepath_globpattern=SERVER_GLOB)
+        want_listed = {path_of(i): SERVER_MTIME0 + i for i in range(N_SERVER_DOCS) if glob_ok(path_of(i))}
+        if {m["path"]: m["modified_at"] for m in listed} != want_listed or len(listed) != len(want_listed):
+            fail(f"rag server: /v1/inputs with {SERVER_GLOB!r} lists {len(listed)} files, not the "
+                 f"{len(want_listed)} the glob matches")
+        served("glob", questions[:SERVER_FILTERED], lambda q: client.query(q, k=K, filepath_globpattern=SERVER_GLOB))
+        served("filter", questions[:SERVER_FILTERED], lambda q: client.query(q, k=K, metadata_filter=SERVER_FILTER))
+        for name, ok in (("glob", glob_ok), ("filter", mtime_ok)):
+            if any(not ok(d["metadata"]["path"]) for hits in rounds[name][1] for d in hits):
+                fail(f"rag server: /v1/retrieve with the {name} returned a file the {name} excludes")
+
+        # ---- question answering: context docs against /v1/retrieve at search_topk
+        qa_out = [timed(qa._post, "/v1/pw_ai_answer", {"prompt": q, "return_context_docs": True})
+                  for q in questions[:SERVER_QA]]
+        qa_ms = [ms for _, ms in qa_out]
+        for q, (answer, _ms) in zip(questions[:SERVER_QA], qa_out):
+            ctx_docs = answer["context_docs"]
+            again = qa.query(q, k=SERVER_QA_TOPK)
+            compare_rows([keyed(ctx_docs)], [keyed(again)], SERVER_QA_TOPK, TOPK_ATOL,
+                         "rag server: QA context docs vs /v1/retrieve")
+            digest = DigestChat().__wrapped__(prompt_chat_single_qa(prompts.prompt_qa_geometric_rag(q, ctx_docs)))
+            if answer["response"] != digest:
+                fail(f"rag server: the QA response {answer['response']!r} is not the stand-in's {digest!r}")
+
+        # ---- one served question profiled
+        res["served_profile"] = profile_call(torch, lambda: client.query(questions[0], k=K), 1)
+
+        # ---- the live change, in place
+        n0 = N_SERVER_DOCS
+        changed = [int(i) for i in rng.permutation(N_SERVER_DOCS)[:SERVER_REWRITTEN + SERVER_DELETED]]
+        rewritten, deleted = changed[:SERVER_REWRITTEN], changed[SERVER_REWRITTEN:]
+        new_docs = dict(zip(range(n0, n0 + SERVER_ADDED), synthetic_docs(np, SERVER_ADDED, SEED + 24)))
+        new_docs.update(zip(rewritten, synthetic_docs(np, SERVER_REWRITTEN, SEED + 25)))
+        old_first = {i: doc_chunks[i][0] for i in rewritten + deleted}
+        old_chunks = {(path_of(i), c) for i in rewritten + deleted for c in doc_chunks[i]}
+        t_change = time.perf_counter()
+        for i, text in new_docs.items():
+            write(i, text)
+        for i in deleted:
+            os.remove(path_of(i))
+        want_count = N_SERVER_DOCS + SERVER_ADDED - SERVER_DELETED
+
+        def live_failures(new_ids: list, old_ids: list) -> list:
+            """New and rewritten documents not their first chunk's top-1;
+            old texts whose query returns a chunk of a file's old text."""
+            out = []
+            for i in new_ids:
+                first = chunks_of(new_docs[i])[0]
+                hits = client.query(first, k=K)
+                if (hits[0]["metadata"]["path"], hits[0]["text"]) != (path_of(i), first):
+                    out.append(("not its own top-1", i))
+            for i in old_ids:
+                if any((d["metadata"]["path"], d["text"]) in old_chunks for d in client.query(old_first[i], k=K)):
+                    out.append(("old text returned", i))
+            return out
+
+        visible_s, checks = None, 0
+        while True:
+            if time.perf_counter() - t_change > SERVER_DEADLINE_S:
+                fail(f"rag server: the live change was not visible in {SERVER_DEADLINE_S} s "
+                     f"(statistics {stats_count()}, expected {want_count})")
+            if stats_count() == want_count and not live_failures([n0, rewritten[0]], [rewritten[0], deleted[0]]):
+                visible_s = visible_s or time.perf_counter() - t_change
+                checks += 1
+                if not live_failures(list(new_docs), list(old_first)):
+                    break
+            time.sleep(0.05)
+        res["live_change"] = {"added": SERVER_ADDED, "rewritten": SERVER_REWRITTEN, "deleted": SERVER_DELETED,
+                              "visible_s": visible_s, "full_checks": checks, "files": want_count}
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+    finally:
+        sched = getattr(pw.G, "active_scheduler", None)
+        if sched is not None:
+            sched.stop()
+        thread.join(timeout=SERVER_DEADLINE_S)
+        pw.G.clear()
+        shutil.rmtree(root, ignore_errors=True)
+    if thread.is_alive():
+        fail("rag server: the scheduler's thread did not join after stop()")
+    res["launches"] = launches
+    missing = [n for n in ("attention", "bias_act", "add_layer_norm", "embed_ln", "pool_normalize", "slab_scatter",
+                           "knn_topk") if launches[n] == 0]
+    if missing:
+        fail(f"kernels not launched by the RAG server: {missing}")
+
+    # ---- the direct path: the engine's own batches through TorchEncoder.encode
+    # into a ShardedKnnIndex on the same card
+    encoder = embedder.encoder
+    emb_err, doc_emb, encoded = 0.0, {}, {}
+    for texts, rows, _thread in embedder.batches[:ingest_batches]:
+        # each index side embeds the same batches: encode each batch once
+        batch = tuple(texts)
+        if batch not in encoded:
+            encoded[batch] = encoder.encode(texts)
+            doc_emb.update(zip(texts, encoded[batch]))
+        emb_err = max(emb_err, float(np.abs(encoded[batch] - rows).max()))
+    embedded = sorted(t for texts, _, _ in embedder.batches[:ingest_batches] for t in texts)
+    if embedded != sorted(c for _, c in key_info for _ in range(res["indexes"])):
+        fail(f"rag server: the index sides embedded {len(embedded)} chunk rows, not the splitter's "
+             f"{len(key_info)} chunks once an index ({res['indexes']} indexes)")
+    direct = ShardedKnnIndex(HIDDEN, metric="cos", capacity=CAPACITY, device=dev)
+    direct.add_batch(list(range(len(key_info))), np.stack([doc_emb[c] for _, c in key_info]))
+    direct_ms = []
+    worst = 0.0
+    for name, (texts, replies, b0, b1) in rounds.items():
+        q_emb = {}
+        for b_texts, rows, _thread in embedder.batches[b0:b1]:
+            enc = encoder.encode(b_texts)
+            emb_err = max(emb_err, float(np.abs(enc - rows).max()))
+            q_emb.update(zip(b_texts, enc))
+        missing_q = [t for t in texts if t not in q_emb]
+        if missing_q:
+            fail(f"rag server: {len(missing_q)} {name} queries not found among the engine's batches")
+        fetch = K * 4 if name in ("glob", "filter") else K
+        want = direct.search(np.stack([q_emb[t] for t in texts]), fetch)
+        got_rows = [keyed(hits) for hits in replies]
+        if name in ("glob", "filter"):
+            ok = glob_ok if name == "glob" else (lambda path: int(path[-9:-4]) < 1024)
+            want = [[(k, s) for k, s in row if ok(key_info[k][0])][:K] for row in want]
+            if [len(r) for r in got_rows] != [len(r) for r in want]:
+                fail(f"rag server: /v1/retrieve with the {name} gives {[len(r) for r in got_rows]} results, "
+                     f"the Python filter over the direct path {[len(r) for r in want]}")
+            for g, w in zip(got_rows, want):
+                if w:
+                    worst = max(worst, compare_rows([g], [w], len(w), TOPK_ATOL, f"rag server {name} vs direct path"))
+        else:
+            worst = max(worst, compare_rows(got_rows, want, K, TOPK_ATOL, f"rag server {name} vs direct path"))
+    for q in questions[:SERVER_QUESTIONS]:
+        t0 = time.perf_counter()
+        direct.search(encoder.encode([q]), K)
+        torch.cuda.synchronize()
+        direct_ms.append((time.perf_counter() - t0) * 1e3)
+    if not emb_err <= EMBED_ATOL:
+        fail(f"rag server: the UDF's rows differ from TorchEncoder.encode of the same batches by {emb_err}")
+    conc_vs_alone = compare_rows([keyed(hits) for hits in rounds["concurrent"][1]], [keyed(hits) for hits in alone],
+                                 K, EMBED_ATOL, "rag server: concurrent vs one at a time")
+    del direct
+    torch.cuda.empty_cache()
+
+    def pct(xs, p):
+        return float(np.percentile(xs, p))
+
+    threads_seen = sorted({b[2] for b in embedder.batches})
+    res.update({
+        "docs": N_SERVER_DOCS, "questions": SERVER_QUESTIONS, "k": K,
+        "http_single_p50_ms": pct(single_ms, 50), "http_single_p99_ms": pct(single_ms, 99),
+        "http_concurrent_p50_ms": pct(conc_ms, 50), "http_concurrent_p99_ms": pct(conc_ms, 99),
+        "concurrent": {"requests": SERVER_CONCURRENT, "clients": SERVER_CLIENTS},
+        "direct_query_p50_ms": pct(direct_ms, 50), "direct_query_p99_ms": pct(direct_ms, 99),
+        "qa_p50_ms": pct(qa_ms, 50), "qa_requests": SERVER_QA,
+        "max_abs_err_vs_direct": worst, "rule": "batches recovered: compare_rows at TOPK_ATOL",
+        "concurrent_vs_alone_max_abs_err": conc_vs_alone, "udf_vs_encode_max_abs_err": emb_err,
+        "udf_batches": len(embedder.batches), "distinct_ingest_batches": len(encoded), "udf_threads": threads_seen,
+        "chunk_rows_embedded_per_s": len(embedded) / res["ingest_s"],
+    })
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"rag server on {smi}: {N_SERVER_DOCS} files searchable {res['ingest_s']:.2f} s after the run's start, "
+        f"{res['ingest_docs_per_s']:.1f} docs/s ({res['chunks']} chunks, {res['indexes']} indexes; phase 3's "
+        f"encode_into {rates['encode_into_docs_per_s']:.1f}, phase 13's UDF {rates['udf_docs_per_s']:.1f}, "
+        f"phase 14's live ingest {rates['live_ingest_docs_per_s']:.1f} docs/s)")
+    log(f"rag server on {smi}: HTTP one question p50 {res['http_single_p50_ms']:.2f} ms, p99 "
+        f"{res['http_single_p99_ms']:.2f}; {SERVER_CONCURRENT} from {SERVER_CLIENTS} clients p50 "
+        f"{res['http_concurrent_p50_ms']:.2f}, p99 {res['http_concurrent_p99_ms']:.2f}; direct path "
+        f"(encode + search) p50 {res['direct_query_p50_ms']:.2f} ms; QA p50 {res['qa_p50_ms']:.2f} ms")
+    log(f"rag server on {smi}: one served question idle {res['served_profile']['device_idle_share']:.3f}; "
+        f"live change visible in {res['live_change']['visible_s']:.2f} s; phase wall {res['wall_s']:.1f} s; "
+        f"{json.dumps({k: v for k, v in res.items() if k not in ('launches', 'beside', 'card')})}")
+    return res
+
+
 def check_stream_handles(torch) -> None:
     """The launch helper's stream handle (read without a ``torch.cuda.Stream``)
     is PyTorch's current stream on the card, on the default stream and
@@ -6029,6 +6431,11 @@ def main() -> int:
     wall["live_rag_s"] = lr_out["wall_s"]
     r_out.pop("_pair_scores")
     torch.cuda.empty_cache()
+    rs_out = phase_rag_server(torch, dev, ctx, smi, {
+        "encode_into_docs_per_s": s_out["embed_docs_per_s"], "udf_docs_per_s": en_out["udf"]["docs_per_s"],
+        "live_ingest_docs_per_s": lr_out["brute_force"]["ingest_docs_per_s"]})
+    wall["rag_server_s"] = rs_out["wall_s"]
+    torch.cuda.empty_cache()
     sh_out = phase_sharded(torch, dev, ctx)
     wall["sharded_s"] = sh_out["wall_s"]
     log(f"embed docs/s: data parallel over {SHARDS} shards {sh_out['dp_embed_docs_per_s']:.1f}, "
@@ -6095,6 +6502,7 @@ def main() -> int:
                    "ivf_defaults": c3_out["launches"][name], "sharded": sh_out["launches"][name],
                    "checkpoint": ck_out["launches"][name], "engine": en_out["launches"][name],
                    "live_rag": lr_out["launches"].get(name, 0),
+                   "rag_server": rs_out["launches"].get(name, 0),
                    "f32_vision": fv_out["launches"][name],
                    **{path: counts[name] for path, counts in p10_out["launches"].items()},
                    "train": tr_out["launches"][name], "dryrun": tr_out["dryrun_launches"][name]}
@@ -6139,6 +6547,7 @@ def main() -> int:
         "shape_repairs": repairs,
         "engine": {key: val for key, val in en_out.items() if key != "launches"},
         "live_rag": {key: val for key, val in lr_out.items() if key != "launches"},
+        "rag_server": {key: val for key, val in rs_out.items() if key != "launches"},
         "f32_vision": {key: val for key, val in fv_out.items() if key != "launches"},
         "train": {key: val for key, val in tr_out.items() if key not in ("launches", "dryrun_launches")},
         "phase_wall_s": wall,

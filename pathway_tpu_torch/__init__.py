@@ -33,12 +33,15 @@ device plane, as ``TorchEncoderEmbedder`` does as a UDF::
 The live retrieval indexes come with it (``pw.indexing``, also
 ``pw.stdlib.indexing``: ``DataIndex`` over the card-resident KNN and IVF
 indexes, BM25 and hybrid RRF, behind ``SegmentedIndex``'s delta segment
-and background merge), and the rerankers are UDFs.  The rest of the host
-plane comes in later slices (ROADMAP queue A): a name that belongs to
-one (``io``, ``persistence``, ``analysis``, ``iterate``, ``sql``, the
-stdlib beyond indexing, ...) raises an ``AttributeError`` that names its
-item, and :func:`run` raises ``NotImplementedError`` until the
-connectors come (item 16); ``pw.debug`` runs a pipeline meanwhile.
+and background merge), and the rerankers are UDFs.  :func:`run` runs a
+pipeline with the file, Python and REST connectors (``pw.io``), and
+``pw.xpacks.llm`` serves it: ``DocumentStore``, ``VectorStoreServer`` and
+question answering over REST.  The rest of the host plane comes in later
+slices (ROADMAP queue A): a name that belongs to one (``persistence``,
+``analysis``, ``iterate``, ``sql``, the stdlib beyond indexing and utils,
+the other connectors, ...) raises an ``AttributeError`` that names its
+item, and :func:`run` raises ``NotImplementedError`` for what needs one
+(``strict``, persistence, the monitoring server).
 """
 
 from __future__ import annotations
@@ -131,13 +134,12 @@ DURATION = _dt.DURATION
 #: ROADMAP item that brings them
 _LATER = {
     **dict.fromkeys(
-        ("io", "demo", "persistence", "PersistenceMode", "testing", "universes", "iterate", "iterate_universe", "enable_interactive_mode", "LiveTable",
+        ("demo", "persistence", "PersistenceMode", "testing", "universes", "iterate", "iterate_universe", "enable_interactive_mode", "LiveTable",
          "live", "export_table", "import_table", "ExportedTable", "sql", "load_yaml"),
         "item 16 (io, persistence, serving and the rest of internals)",
     ),
     **dict.fromkeys(
-        ("temporal", "ml", "graphs", "stateful", "statistical", "ordered", "utils", "viz",
-         "AsyncTransformer"),
+        ("temporal", "ml", "graphs", "stateful", "statistical", "ordered", "viz"),
         "item 16 (stdlib beyond indexing)",
     ),
     **dict.fromkeys(
@@ -149,6 +151,19 @@ _LATER = {
 
 
 def __getattr__(name: str) -> Any:
+    # heavier subpackages load lazily to keep import fast
+    if name == "io":
+        import pathway_tpu_torch.io as io
+
+        return io
+    if name == "utils":
+        import pathway_tpu_torch.stdlib.utils as utils
+
+        return utils
+    if name == "AsyncTransformer":
+        from pathway_tpu_torch.stdlib.utils.async_transformer import AsyncTransformer
+
+        return AsyncTransformer
     if name == "xpacks":
         import pathway_tpu_torch.xpacks as xpacks
 

@@ -1,20 +1,27 @@
 """``pw.run`` — execute the constructed dataflow.
 
 Reference: ``python/pathway/internals/run.py`` + ``GraphRunner``
-(``internals/graph_runner/__init__.py:36-252``).  In ``pathway_tpu`` it
-runs the epoch scheduler over the global graph with the connectors, the
-licence check, telemetry, the monitoring server and persistence around
-it (``pathway_tpu/internals/run.py``).  Those belong to the port's last
-host-plane slice (ROADMAP item 16), so :func:`run` and :func:`run_all`
-raise :class:`NotImplementedError` until it lands rather than run with
-their hooks skipped; ``pw.debug`` (``compute_and_print``,
-``table_to_dicts``, ...) runs the scheduler directly.
+(``internals/graph_runner/__init__.py:36-252``); counterpart of
+``pathway_tpu/internals/run.py``.  Runs the epoch scheduler over the
+global graph with the free tier's worker cap, the cluster topology,
+telemetry and the collector pacing around it; with live connectors it
+blocks until all sources close (streaming mode), mirroring ``pw.run``
+blocking semantics.
+
+The port has no static analyzer, plan compiler, persistence or monitoring
+server yet (ROADMAP item 16).  So a run takes the path the JAX package
+takes when its analyzer is absent (no pre-flight counts, the captured
+graph runs as it is, ``G.last_plan`` is None), and a run that asks for
+what only those bring (``strict``, a ``persistence_config``,
+``with_http_server`` or a monitoring port) raises
+:class:`NotImplementedError` instead of running without it.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+from pathway_tpu_torch.engine.scheduler import Scheduler
 from pathway_tpu_torch.internals.parse_graph import G
 
 
@@ -25,11 +32,10 @@ class MonitoringLevel:
     AUTO = "auto"
 
 
-_MISSING = (
-    "pw.run() needs the connectors, the licence check, telemetry, the monitoring "
-    "server and persistence, which pathway_tpu_torch ports in ROADMAP item 16; "
-    "drive a pipeline through pw.debug (compute_and_print, table_to_dicts) until then"
-)
+def _needs_item_16(arg: str, part: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"pw.run({arg}) needs the {part}, which pathway_tpu_torch ports in ROADMAP item 16"
+    )
 
 
 def run(
@@ -43,13 +49,242 @@ def run(
     optimize: int | None = None,
     **kwargs: Any,
 ):
-    """Run the whole computation graph: not yet in the port (ROADMAP item
-    16); raises :class:`NotImplementedError`."""
-    raise NotImplementedError(_MISSING)
+    """Run the whole computation graph (blocking until sources finish).
+
+    ``strict=True`` (or ``PATHWAY_STRICT=1``), a ``persistence_config``
+    (here or in ``pathway_config.persistence_config``) and
+    ``with_http_server=True`` (or a monitoring port) raise
+    :class:`NotImplementedError`: the analyzer, persistence and the
+    monitoring server come with ROADMAP item 16.  ``optimize`` is
+    accepted for the JAX package's signature; with no plan compiler the
+    captured graph runs as it is."""
+    import os
+
+    from pathway_tpu_torch.internals import config as cfg
+
+    if strict is None:
+        strict = os.environ.get("PATHWAY_STRICT", "").lower() in (
+            "1",
+            "true",
+            "yes",
+        )
+    if strict:
+        raise _needs_item_16("strict=True", "static analyzer (pathway_tpu_torch.analysis)")
+    G.last_plan = None
+
+    if persistence_config is None:
+        persistence_config = cfg.pathway_config.persistence_config
+    if persistence_config is not None:
+        raise _needs_item_16("persistence_config=...", "persistence layer (pathway_tpu_torch.persistence)")
+    if with_http_server or cfg.pathway_config.monitoring_http_port:
+        raise _needs_item_16("with_http_server=True", "monitoring server")
+    pc = cfg.pathway_config
+    saved_typecheck = pc.runtime_typechecking
+    if runtime_typechecking is not None:
+        pc.runtime_typechecking = runtime_typechecking
+    try:
+        return _run_inner(pc, monitoring_level, autocommit_duration_ms)
+    finally:
+        # per-run override, not a process-wide setting
+        pc.runtime_typechecking = saved_typecheck
+
+
+def _run_inner(pc: Any, monitoring_level: Any, autocommit_duration_ms: int | None):
+    import os
+
+    from pathway_tpu_torch.internals.license import LicenseError, get_license
+
+    threads = max(1, pc.threads)
+    processes = max(1, pc.processes)
+    # free tier caps total workers (reference MAX_WORKERS, config.rs:7-11).
+    # Thread counts clamp locally; a process topology over the cap cannot
+    # be shrunk from inside one process, so it is refused outright (every
+    # process raises the same error).
+    cap = get_license().worker_cap()
+    if cap is not None and threads * processes > cap:
+        if processes > cap:
+            raise LicenseError(
+                f"free tier allows at most {cap} workers but "
+                f"PATHWAY_PROCESSES={processes}; set a license key with "
+                "the 'scale' entitlement"
+            )
+        threads = max(1, cap // processes)
+        import logging
+
+        logging.getLogger("pathway_tpu_torch.license").warning(
+            "free tier caps workers at %d: running %d threads x %d "
+            "processes = %d workers; set a license key with the 'scale' "
+            "entitlement to lift the cap",
+            cap,
+            threads,
+            processes,
+            threads * processes,
+        )
+    sched = Scheduler(G.engine_graph, autocommit_ms=autocommit_duration_ms or 50)
+    #: pre-flight analyzer finding counts: none without the analyzer
+    sched.analysis_findings = {}
+    # a ClusterSupervisor stamps its respawn generation into the env so the
+    # worker can surface it as pathway_tpu_worker_restarts_total
+    try:
+        sched.worker_restarts = int(os.environ.get("PATHWAY_WORKER_RESTARTS", "0"))
+    except ValueError:
+        sched.worker_restarts = 0
+    sched.execution_plan = None
+    sched.plan_counters = {}
+    sched.memory_estimate = None
+    # live TUI dashboard (reference pw.run(monitoring_level=...) rich TUI):
+    # AUTO shows it only on a real terminal; NONE never
+    show = monitoring_level in (MonitoringLevel.ALL, MonitoringLevel.IN_OUT)
+    if monitoring_level == MonitoringLevel.AUTO:
+        import sys
+
+        show = sys.stderr.isatty()
+    if show:
+        try:
+            from pathway_tpu_torch.internals.monitoring import start_dashboard
+
+            start_dashboard(
+                sched,
+                level=(
+                    monitoring_level
+                    if monitoring_level != MonitoringLevel.AUTO
+                    else MonitoringLevel.ALL
+                ),
+            )
+        except ImportError:
+            pass  # rich unavailable: run silently
+    G.active_scheduler = sched  # handle for stopping threaded servers
+    from pathway_tpu_torch.internals.telemetry import get_telemetry
+
+    telemetry = get_telemetry()
+    with telemetry.span(
+        "graph_runner.run", operators=len(G.engine_graph.nodes)
+    ), _ManagedGc() as mgc:
+
+        def _gc_tick() -> None:
+            # the GC pacer is a wakeup source too: a sweep can take long
+            # enough that parked workers' deadlines passed — notify the
+            # scheduler's event waits so they re-evaluate immediately
+            if mgc.maybe_sweep():
+                sched.wake()
+
+        sched.gc_tick = _gc_tick
+        if threads * processes > 1:
+            # multi-worker topology from the spawn env contract
+            # (PATHWAY_THREADS × PATHWAY_PROCESSES, reference config.rs:86-120)
+            from pathway_tpu_torch.engine.cluster import Cluster
+
+            cluster = Cluster(
+                threads=threads,
+                processes=processes,
+                process_id=pc.process_id,
+                first_port=pc.first_port,
+            )
+            try:
+                ctx = sched.run_cluster(cluster)
+            finally:
+                cluster.close()
+        else:
+            ctx = sched.run()
+    telemetry.record_process_metrics()
+    telemetry.gauge("run.epoch", ctx.time)
+    telemetry.gauge("run.errors", len(ctx.error_log))
+    telemetry.export_metrics()
+    G.last_run_ctx = ctx
+    return ctx
+
+
+class _ManagedGc:
+    """Collector discipline for the run hot loop.
+
+    CPython's automatic gen-0 collection fires every ~700 net container
+    allocations; a streaming epoch allocates millions of short-lived row
+    tuples, so the collector's pauses cost the run loop throughput.  The
+    reference engine has no such pauses — Rust frees rows
+    deterministically (src/engine/dataflow.rs) — so the host runtime
+    disables *automatic* collection for the duration of the run and
+    sweeps at EPOCH BOUNDARIES instead (the scheduler calls
+    :meth:`maybe_sweep` after each epoch).  Mid-epoch sweeps walk every
+    transient row tuple alive inside the epoch and hold the GIL against
+    the exchange reader threads, stalling peer processes; at the boundary
+    the transients are already refcount-freed, so a sweep only walks live
+    survivors (reducer state, buffers).  Startup objects (modules, the
+    graph, torch internals) are frozen out of the collector entirely for
+    the run.  Plain reference-counted garbage (the vast majority of row
+    data) is freed immediately either way.  Opt out with
+    PATHWAY_GC_INTERVAL_S=0; a user who already disabled gc keeps their
+    setting untouched.
+    """
+
+    def __init__(self) -> None:
+        import gc
+        import os
+        import time
+
+        self._gc = gc
+        self._time = time
+        try:
+            self._interval = float(os.environ.get("PATHWAY_GC_INTERVAL_S", "2.0"))
+        except ValueError:
+            self._interval = 2.0
+        self._was_enabled = False
+        self._last_sweep = 0.0
+        self._next_due = 0.0
+        self._sweeps = 0
+
+    def __enter__(self) -> "_ManagedGc":
+        if self._interval <= 0 or not self._gc.isenabled():
+            return self
+        self._was_enabled = True
+        self._gc.disable()
+        # clean the YOUNG generations, then freeze everything into the
+        # permanent generation.  A full collect here walks gen-2 — with a
+        # million-row static table that is ~1s before the run even starts
+        # — for the sole benefit of not freezing old cyclic garbage; that
+        # garbage is bounded (startup imports) and unfreezes at exit.
+        self._gc.collect(1)
+        self._gc.freeze()
+        self._last_sweep = self._time.monotonic()
+        self._next_due = self._last_sweep + self._interval
+        return self
+
+    def maybe_sweep(self) -> bool:
+        """Sweep cycles if due — called by the scheduler between epochs,
+        when transient row data is already dead.  Sweeps are PACED by
+        their own cost: a sweep that took ``t`` seconds pushes the next
+        one at least ``t / 0.02`` seconds out, bounding collector
+        overhead to ~2% of runtime.  A fixed wall interval instead
+        charges every process the full sweep cost per interval, which on
+        a shared core compounds — slower runs sweep more, sweeping makes
+        them slower.  Cycle garbage only accumulates from the few objects
+        that survive epochs, so deferring sweeps costs memory slowly;
+        leaks still get collected, just amortized.  Returns True when a
+        sweep actually ran (the caller treats that as a wakeup-worthy
+        event)."""
+        if not self._was_enabled:
+            return False
+        now = self._time.monotonic()
+        if now < self._next_due:
+            return False
+        self._sweeps += 1
+        # young generations every sweep; a full collection every 8th so
+        # gen-2 cycles (promoted survivors) cannot leak over a long
+        # streaming run
+        t0 = self._time.monotonic()
+        self._gc.collect(2 if self._sweeps % 8 == 0 else 1)
+        self._last_sweep = self._time.monotonic()
+        cost = self._last_sweep - t0
+        self._next_due = self._last_sweep + max(self._interval, cost / 0.02)
+        return True
+
+    def __exit__(self, *exc: Any) -> None:
+        if self._was_enabled:
+            self._gc.unfreeze()
+            self._gc.enable()
 
 
 def run_all(**kwargs: Any):
-    raise NotImplementedError(_MISSING)
+    return run(**kwargs)
 
 
 def attach_prober(callback: Any) -> None:

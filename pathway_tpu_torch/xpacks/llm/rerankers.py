@@ -8,9 +8,8 @@ are :class:`~pathway_tpu_torch.UDF`\\ s with a ``__batch__``, as the JAX
 package's are: applied to columns, the engine hands them each epoch's
 pairs in one call, cut into chunks of at most ``max_batch_size``.
 :func:`rerank_topk_filter` (a ``@udf``) keeps the k best, and
-:class:`LLMReranker` asks a chat UDF for a 1-5 rating.
-``FlashRankReranker`` needs the servers' slice and comes with ROADMAP
-item 15.
+:class:`LLMReranker` asks a chat UDF for a 1-5 rating, and
+:class:`FlashRankReranker` needs the optional ``flashrank`` package.
 """
 
 from __future__ import annotations
@@ -28,7 +27,13 @@ from pathway_tpu_torch.models.encoder import BGE_RERANKER_BASE, EncoderConfig
 from pathway_tpu_torch.parallel.executor import TorchEncoder
 from pathway_tpu_torch.xpacks.llm.embedders import TorchEncoderEmbedder
 
-__all__ = ["rerank_topk_filter", "CrossEncoderReranker", "EncoderReranker", "LLMReranker"]
+__all__ = [
+    "rerank_topk_filter",
+    "CrossEncoderReranker",
+    "EncoderReranker",
+    "LLMReranker",
+    "FlashRankReranker",
+]
 
 
 def _text(doc: Any) -> str:
@@ -143,3 +148,17 @@ class LLMReranker(UDF):
             return float(str(out).strip().split()[0])
         except (ValueError, IndexError):
             return 1.0
+
+
+class FlashRankReranker(UDF):
+    """reference ``rerankers.py:319`` — gated on the flashrank package."""
+
+    def __init__(self, model: str = "ms-marco-TinyBERT-L-2-v2", **kwargs: Any):
+        super().__init__(**kwargs)
+        try:
+            import flashrank  # noqa: F401
+        except ImportError as e:
+            raise ImportError(
+                "FlashRankReranker needs the 'flashrank' package; use "
+                "CrossEncoderReranker (on the card) instead"
+            ) from e
