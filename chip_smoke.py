@@ -226,18 +226,34 @@ Phases, each fatal on failure:
     ``pw.io.fs.read(mode="streaming")`` into ``VectorStoreServer``
     (BGE-base with phase 3's seed, 1,048,576 slots, split 16-128 tokens)
     and a ``BaseRAGQuestionAnswerer``'s ``QASummaryRestServer`` with a
-    stand-in chat, both started by one ``run_server(threaded=True)`` on
-    127.0.0.1; 64 one-question ``/v1/retrieve`` requests, 64 documents by
+    stand-in chat, both started by one ``run(threaded=True)`` (what
+    ``VectorStoreServer.run_server`` does, in its two steps) on 127.0.0.1; 64 one-question ``/v1/retrieve`` requests, 64 documents by
     their first chunk, 32 requests from 8 client threads, a glob and a
     metadata filter, 8 QA requests, then 64 files added, 32 rewritten and
     32 deleted in place; every reply against the direct path (the engine's
     own batches through ``TorchEncoder.encode`` into a ``ShardedKnnIndex``),
     K1, K2, K3 and K4-K7 launched; logs ingest docs/s, HTTP p50/p99, the
     QA round's p50, a served question's idle share and the live change's
-    time to visibility.
+    time to visibility.  Since slice 16a ``pw.run`` analyses the graph and
+    runs the plan compiler's rewrite of it (``optimize=2``): before the
+    server starts, ``pw.analyze()``, ``pw.explain()`` and
+    ``pw.run(strict=True)`` (``analyse_before_run``) read the same graph.
 
-Phases 13, 14 and 15 and then phase 8 run right after phase 4, while phase
-3's index is alive, and phase 10 after them; phases 5, 6, 9 and 12 follow.  The second-to-last line of
+16. the analyzer and the plan compiler (``phase_analysis``, slice 16a),
+    after phase 15: phase 15's pre-flight (findings by severity and code,
+    the columnar decision of each node, the plan's counters, the strict
+    run's outcome, the pre-flight's ms) and its served numbers at
+    ``optimize=2``; phase 13's join + groupby over its 100,000 orders, read
+    from JSON-lines files, through ``pw.run`` at ``optimize=0`` and ``2``
+    in turns (rows/s; the scheduler's ``columnar_rows``, which must count
+    columnar rows at ``2``; both levels equal to each other and to plain
+    Python); A11's ``device_profile()`` over the installed port (an
+    unwaived error fails); ``estimate_memory`` of phase 14's live-index
+    graph beside the card's peak while it ran.
+
+Phases 13, 14, 15 and 16 and then phase 8 run right after phase 4, while
+phase 3's index is alive, and phase 10 after them; phases 5, 6, 9 and 12
+follow.  The second-to-last line of
 output is a JSON object with one entry per kernel wrapper (K1-K19 and B8's
 head; K1 and K4-K7 with their f32 forms); the last is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device the script exits 1 and prints no result.
@@ -257,6 +273,12 @@ code and no slower at all where this tree runs code the parent does not
 device time, ``queued_ms``;
 K19 the same bits as the parent's after two steps;
 ``phase_against_parent``).
+
+``python3 chip_smoke.py --rag-server-levels`` runs instead, on one card,
+only phase 15 over phase 3's documents at ``PATHWAY_OPTIMIZE`` 0 and 2
+and at 2 with ``PATHWAY_DISABLE_COLUMNAR=1``, in turns
+(``phase_rag_server_levels``): the served numbers of the rewritten plan
+beside the captured graph's, and each run's busiest operators.
 
 ``python3 chip_smoke.py --distinct-cards`` runs instead, on four cards,
 only what a mesh that repeats one card cannot show: ring attention and
@@ -463,6 +485,9 @@ SERVER_QA = 8  # /v1/pw_ai_answer requests
 SERVER_QA_TOPK = 6  # BaseRAGQuestionAnswerer's search_topk (its default)
 SERVER_ADDED, SERVER_REWRITTEN, SERVER_DELETED = 64, 32, 32  # the live change, in place
 SERVER_DEADLINE_S = 120.0  # the server's start, and the live change's visibility
+ANALYSIS_LEVELS = (0, 2, 2, 0)  # phase 16's runs of the engine join, in turns
+#: --rag-server-levels' runs of phase 15, in turns: (optimize, columnar paths off)
+SERVER_LEVEL_RUNS = ((0, False), (2, False), (2, True), (2, True), (2, False), (0, False))
 SERVER_MTIME0 = 1_700_000_000  # file i's modified_at: SERVER_MTIME0 + i
 SERVER_GLOB = "*/doc00[0-9]*.txt"  # files 0-999
 SERVER_FILTER = f"modified_at < `{SERVER_MTIME0 + 1024}`"  # files 0-1,023
@@ -5697,13 +5722,26 @@ def phase_live_rag(torch, dev, ctx: dict, rerank: dict, smi: str, rates: dict) -
     inner = factory.build_index(doc_t.text, doc_t)
     adapters = capture_adapters(inner)
     out = pw.indexing.DataIndex(doc_t, inner).query_as_of_now(q_t.text, number_of_matches=K)
+    # the analyzer's capacity estimate of this graph at this run's sizes,
+    # for phase_analysis to set beside the card's peak
+    estimate = pw.estimate_memory(rows=len(doc_rows) + len(q_rows), distinct_keys=n_docs + len(q_text),
+                                  str_bytes=int(np.mean([len(d) for d in docs])), array_bytes=4 * HIDDEN)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    allocated0 = torch.cuda.memory_allocated()
     kernels.reset_launch_counts()
     since = tracing.now_ns()
     t0 = time.perf_counter()
     ((rows, stream),) = pw.debug._run_capture(out)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    res["memory"] = {
+        "estimate_bytes": estimate.total_bytes, "estimate_level": estimate.level,
+        "estimate_params": dataclasses.asdict(estimate.params),
+        "estimate_top": [(f"{o.name}#{o.node_id}", o.growth, o.total_bytes)
+                         for o in sorted(estimate.operators, key=lambda o: -o.total_bytes)[:4]],
+        "device_allocated_before_bytes": allocated0, "device_max_allocated_bytes": torch.cuda.max_memory_allocated(),
+    }
     seg = adapters[0].index
     if seg._maintenance is not None:
         seg._maintenance.drain()  # a merge's launches count with the run's
@@ -5956,7 +5994,9 @@ def phase_rag_server(torch, dev, ctx: dict, smi: str, rates: dict) -> dict:
     ``BruteForceKnnFactory``, ``TokenCountSplitter(16, 128)``); a
     ``BaseRAGQuestionAnswerer`` over the same store with a stand-in chat (a
     digest of its messages) serves ``QASummaryRestServer`` on a second
-    port; one ``run_server(threaded=True)`` starts both on 127.0.0.1.
+    port; one ``run(threaded=True)`` of the ``DocumentStoreServer`` that
+    ``server.run_server`` builds starts both on 127.0.0.1, once
+    ``analyse_before_run`` has read the whole graph.
     Checks: the statistics reach N_SERVER_DOCS; some documents split; 64
     one-question ``/v1/retrieve`` requests at k=10 and 64 documents queried
     by their first chunk (its own top-1), each reply against the direct
@@ -5988,6 +6028,7 @@ def phase_rag_server(torch, dev, ctx: dict, smi: str, rates: dict) -> dict:
     from pathway_tpu_torch.xpacks.llm import prompts
     from pathway_tpu_torch.xpacks.llm.llms import BaseChat, prompt_chat_single_qa
     from pathway_tpu_torch.xpacks.llm.question_answering import BaseRAGQuestionAnswerer
+    from pathway_tpu_torch.xpacks.llm.servers import DocumentStoreServer
     from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
     from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreClient, VectorStoreServer
 
@@ -6093,11 +6134,18 @@ def phase_rag_server(torch, dev, ctx: dict, smi: str, rates: dict) -> dict:
         except OSError:
             return None
 
+    # what ``server.run_server`` does, in its two steps: the REST routes
+    # join the graph, then pw.run starts it; the graph is analysed between
+    rest = DocumentStoreServer("127.0.0.1", port, server.document_store)
+    res["analysis"] = analyse_before_run(pw)
+    strict_env = os.environ.get("PATHWAY_STRICT")
+    if res["analysis"]["strict"]["started"]:
+        os.environ["PATHWAY_STRICT"] = "1"  # the server's own pw.run refuses the graph on an error finding
     pw.G.active_scheduler = None
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t_start = time.perf_counter()
-    thread = server.run_server("127.0.0.1", port, threaded=True)
+    thread = rest.run(threaded=True)
     try:
         # ---- ready: every file in the statistics (an epoch after the
         # files' epoch, whose index updates are done by then)
@@ -6109,6 +6157,15 @@ def phase_rag_server(torch, dev, ctx: dict, smi: str, rates: dict) -> dict:
         res["ingest_s"] = time.perf_counter() - t_start
         res["ingest_docs_per_s"] = N_SERVER_DOCS / res["ingest_s"]
         ingest_batches = len(embedder.batches)
+        # the run executes the plan that explain() printed
+        plan, sched = pw.G.last_plan, pw.G.active_scheduler
+        if plan is None or plan.level != res["analysis"]["level"] or sched.execution_plan is not plan:
+            fail(f"rag server: pw.run did not execute the optimize={res['analysis']['level']} plan ({plan!r})")
+        if plan.format() != res["analysis"]["plan"] or sched.plan_counters != res["analysis"]["counters"]:
+            fail("rag server: the plan pw.run executes is not the one pw.explain() printed")
+        if sched.analysis_findings != res["analysis"]["by_severity"]:
+            fail(f"rag server: pw.run counted findings {sched.analysis_findings}, pw.analyze() "
+                 f"{res['analysis']['by_severity']}")
         res["indexes"] = len(adapters)
         for a in adapters:
             main = a.index.main
@@ -6222,14 +6279,23 @@ def phase_rag_server(torch, dev, ctx: dict, smi: str, rates: dict) -> dict:
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
     finally:
+        if strict_env is None:
+            os.environ.pop("PATHWAY_STRICT", None)
+        else:
+            os.environ["PATHWAY_STRICT"] = strict_env
         sched = getattr(pw.G, "active_scheduler", None)
         if sched is not None:
             sched.stop()
         thread.join(timeout=SERVER_DEADLINE_S)
+        run_ctx = getattr(pw.G, "last_run_ctx", None)
         pw.G.clear()
         shutil.rmtree(root, ignore_errors=True)
     if thread.is_alive():
         fail("rag server: the scheduler's thread did not join after stop()")
+    res["columnar_rows"] = dict(run_ctx.stats.get("columnar_rows", {})) if run_ctx is not None else None
+    ops = run_ctx.stats.get("operators", {}).values() if run_ctx is not None else ()
+    res["operators_top"] = [(p["name"], round(p["total_ms"], 1), p["epochs"], p["rows_in"])
+                            for p in sorted(ops, key=lambda p: -p["total_ms"])[:10]]
     res["launches"] = launches
     missing = [n for n in ("attention", "bias_act", "add_layer_norm", "embed_ln", "pool_normalize", "slab_scatter",
                            "knn_topk") if launches[n] == 0]
@@ -6321,6 +6387,222 @@ def phase_rag_server(torch, dev, ctx: dict, smi: str, rates: dict) -> dict:
     return res
 
 
+def analyse_before_run(pw) -> dict:
+    """The pre-flight of the captured graph, as a user reads it before
+    starting it: ``pw.analyze()``'s findings by severity and code,
+    ``pw.explain()``'s plan (the columnar decision of each node, the
+    rewrite counters), each timed.  Then strict mode: a graph with an
+    error finding must be refused by ``pw.run(strict=True)`` before any
+    source starts (the refusal's findings are kept); a clean one is for the
+    caller to start with ``PATHWAY_STRICT=1`` (``strict.started``)."""
+    from pathway_tpu_torch.analysis import SEV_ERROR, AnalysisError, count_by_severity, resolve_level
+
+    level = resolve_level(None)  # pw.run's: PATHWAY_OPTIMIZE, else 2
+    t0 = time.perf_counter()
+    diags = pw.analyze(optimize=level)
+    t1 = time.perf_counter()
+    plan = pw.explain()
+    t2 = time.perf_counter()
+    by_code: dict = {}
+    for d in diags:
+        by_code[d.code] = by_code.get(d.code, 0) + 1
+    out = {
+        "level": level, "by_severity": count_by_severity(diags), "by_code": dict(sorted(by_code.items())),
+        "analyze_ms": (t1 - t0) * 1e3, "explain_ms": (t2 - t1) * 1e3,
+        "nodes": [plan.nodes_before, plan.nodes_after], "counters": plan.counters(),
+        "columnar": plan.columnar_lines(), "plan": plan.format(),
+        "columnar_nodes": sum(p == "columnar" for _n, p, _r in plan.columnar),
+    }
+    errors = [d for d in diags if d.severity == SEV_ERROR]
+    if not errors:
+        out["strict"] = {"started": True}
+        return out
+    pw.G.active_scheduler = None
+    try:
+        pw.run(strict=True, monitoring_level=pw.MonitoringLevel.NONE)
+    except AnalysisError as e:
+        refused = [d.format() for d in e.diagnostics if d.severity == SEV_ERROR]
+    else:
+        fail("pw.run(strict=True) ran a graph with error findings")
+    if pw.G.active_scheduler is not None:
+        fail("pw.run(strict=True) built a scheduler before it refused the graph")
+    if sorted(refused) != sorted(d.format() for d in errors):
+        fail("pw.run(strict=True) refused with other findings than pw.analyze() gives")
+    out["strict"] = {"started": False, "refused_by": refused}
+    return out
+
+
+def phase_analysis(torch, dev, rag: dict, live: dict, smi: str) -> dict:
+    """Phase 16: the analyzer and the plan compiler (slice 16a) on the
+    card's machine.  (a) Phase 15's pre-flight and its run through the
+    rewritten plan.  (b) Phase 13's join + groupby over ENGINE_ROWS orders
+    and ENGINE_CUSTOMERS customers, written as JSON-lines files and read
+    by ``pw.io.jsonlines.read(mode="static")`` (the orders through a
+    filter that keeps every row, which the plan can run on frames), run by
+    ``pw.run(optimize=...)`` at the levels of ANALYSIS_LEVELS in turns:
+    rows/s at each level, the scheduler's ``columnar_rows`` (columnar rows
+    at 2 or the phase fails), the plan's counters, both levels equal to
+    each other and to plain Python.  (c) A11's ``device_profile()`` over
+    the installed port (an unwaived error fails).  (d) Phase 14's
+    ``estimate_memory`` beside the card's peak while that graph ran."""
+    import shutil
+    import tempfile
+    from collections import defaultdict
+
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.analysis.device import device_profile
+
+    res: dict = {"card": smi}
+    t_phase = time.perf_counter()
+
+    # ---- (a) phase 15's pre-flight, and its numbers through the plan
+    an = rag["analysis"]
+    res["rag_server"] = {key: an[key] for key in ("by_severity", "by_code", "analyze_ms", "explain_ms", "nodes",
+                                                  "counters", "columnar_nodes", "strict")}
+    res["rag_server"]["preflight_ms"] = an["analyze_ms"] + an["explain_ms"]
+    res["rag_server"]["columnar_rows"] = rag["columnar_rows"]
+    log(f"analysis: the RAG server's graph on {smi}: findings {json.dumps(an['by_severity'])} by code "
+        f"{json.dumps(an['by_code'])}; analyze {an['analyze_ms']:.1f} ms, explain {an['explain_ms']:.1f} ms; "
+        f"nodes {an['nodes'][0]} -> {an['nodes'][1]}; counters {json.dumps(an['counters'])}")
+    for line in an["columnar"]:
+        log(f"analysis: the RAG server's plan, columnar: {line}")
+    if an["strict"]["started"]:
+        log("analysis: pw.run(strict=True) started the RAG server (no error finding)")
+    else:
+        for line in an["strict"]["refused_by"]:
+            log(f"analysis: pw.run(strict=True) refused the RAG server: {line}")
+    served = {key: rag[key] for key in ("ingest_docs_per_s", "http_single_p50_ms", "http_single_p99_ms",
+                                        "http_concurrent_p50_ms", "http_concurrent_p99_ms")}
+    served["served_idle_share"] = rag["served_profile"]["device_idle_share"]
+    res["rag_server"]["served_at_optimize_2"] = served
+    log(f"analysis: the RAG server at optimize=2 on {smi}: {json.dumps(served)}; its scheduler's "
+        f"columnar_rows {json.dumps(rag['columnar_rows'])}")
+
+    # ---- (b) the engine's join + groupby at each level
+    rng = np.random.default_rng(SEED + 12)
+    rng.integers(0, 50, ENGINE_MD_ROWS)  # phase 13's markdown rows are drawn first
+    rng.integers(1, 100, ENGINE_MD_ROWS)
+    cust = rng.integers(0, ENGINE_CUSTOMERS, ENGINE_ROWS)
+    amount = rng.integers(1, 1000, ENGINE_ROWS)
+    region = {c: f"r{c % 7}" for c in range(ENGINE_CUSTOMERS)}
+    want: dict = defaultdict(lambda: (0, 0))
+    for c, a in zip(cust, amount):
+        r = region[int(c)]
+        want[r] = (want[r][0] + int(a), want[r][1] + 1)
+    root = tempfile.mkdtemp(prefix="analysis_")
+    try:
+        orders_path, customers_path = os.path.join(root, "orders.jsonl"), os.path.join(root, "customers.jsonl")
+        with open(orders_path, "w") as f:
+            f.write("\n".join(json.dumps({"order": i, "customer": int(c), "amount": int(a)})
+                              for i, (c, a) in enumerate(zip(cust, amount))))
+        with open(customers_path, "w") as f:
+            f.write("\n".join(json.dumps({"customer": c, "region": r}) for c, r in region.items()))
+        runs: list = []
+        for level in ANALYSIS_LEVELS:
+            pw.G.clear()
+            orders = pw.io.jsonlines.read(orders_path, mode="static",
+                                          schema=pw.schema_from_types(order=int, customer=int, amount=int))
+            customers = pw.io.jsonlines.read(customers_path, mode="static",
+                                             schema=pw.schema_from_types(customer=int, region=str))
+            orders = orders.filter(orders.amount > 0)
+            joined = orders.join(customers, orders.customer == customers.customer).select(
+                orders.order, customers.region, orders.amount)
+            by_region = joined.groupby(joined.region).reduce(joined.region, total=pw.reducers.sum(joined.amount),
+                                                             n=pw.reducers.count())
+            got: dict = {}
+
+            def on_change(key, row, time, is_addition, got=got):
+                if is_addition:
+                    got[row["region"]] = (row["total"], row["n"])
+                elif got.get(row["region"]) == (row["total"], row["n"]):
+                    del got[row["region"]]
+
+            pw.io.subscribe(by_region, on_change=on_change)
+            t0 = time.perf_counter()
+            ctx = pw.run(optimize=level, monitoring_level=pw.MonitoringLevel.NONE)
+            run_s = time.perf_counter() - t0
+            plan = pw.G.last_plan
+            if plan is None or plan.level != level:
+                fail(f"analysis: pw.run(optimize={level}) ran plan {plan!r}")
+            if got != dict(want):
+                fail(f"analysis: the join + groupby at optimize={level} differs from its plain-Python result")
+            runs.append({"level": level, "run_s": run_s, "rows_per_s": ENGINE_ROWS / run_s,
+                         "columnar_rows": dict(ctx.stats.get("columnar_rows", {})), "counters": plan.counters(),
+                         "columnar": plan.columnar_lines()})
+            pw.G.clear()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    by_level = {}
+    for level in sorted(set(ANALYSIS_LEVELS)):
+        at = [r for r in runs if r["level"] == level]
+        by_level[f"optimize_{level}"] = {
+            "rows_per_s": [r["rows_per_s"] for r in at], "columnar_rows": [r["columnar_rows"] for r in at],
+            "counters": at[0]["counters"], "columnar": at[0]["columnar"],
+        }
+    res["engine_join"] = {"rows": ENGINE_ROWS, "customers": ENGINE_CUSTOMERS, **by_level}
+    if not all(r["columnar_rows"].get("columnar", 0) > 0 for r in runs if r["level"] == 2):
+        fail(f"analysis: the join + groupby at optimize=2 ran no columnar rows: {json.dumps(by_level)}")
+    log(f"analysis: join + groupby over {ENGINE_ROWS} rows on {smi}: " + "; ".join(
+        f"optimize={lvl[-1]} rows/s {', '.join(f'{x:.0f}' for x in v['rows_per_s'])}, columnar_rows "
+        f"{json.dumps(v['columnar_rows'][0])}" for lvl, v in by_level.items()))
+
+    # ---- (c) A11 over the installed port
+    profile = device_profile(refresh=True)
+    res["device_profile"] = profile
+    log(f"analysis: A11 device_profile of the installed port: {json.dumps(profile)}")
+    if profile["errors"]:
+        fail(f"analysis: A11 finds {profile['errors']} unwaived error(s) in the port")
+
+    # ---- (d) phase 14's estimate beside the card's peak
+    res["live_index_memory"] = live["memory"]
+    log(f"analysis: phase 14's live-index graph on {smi}: estimate_memory {live['memory']['estimate_bytes']} B "
+        f"(host state at optimize={live['memory']['estimate_level']}, top {json.dumps(live['memory']['estimate_top'])}) "
+        f"beside torch.cuda.max_memory_allocated {live['memory']['device_max_allocated_bytes']} B "
+        f"({live['memory']['device_allocated_before_bytes']} B before the run)")
+    res["wall_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def phase_rag_server_levels(torch, dev, smi: str) -> dict:
+    """``--rag-server-levels``: phase 15 alone (over phase 3's synthetic
+    documents) with ``PATHWAY_OPTIMIZE`` and ``PATHWAY_DISABLE_COLUMNAR``
+    set by SERVER_LEVEL_RUNS in turns, to set the served numbers of the
+    rewritten plan (with and without its columnar paths) beside those of
+    the captured graph in one call, on one card; each run's busiest
+    operators by the scheduler's probe."""
+    import numpy as np
+
+    docs = synthetic_docs(np, N_DOCS, SEED)
+    unset = {"encode_into_docs_per_s": float("nan"), "udf_docs_per_s": float("nan"),
+             "live_ingest_docs_per_s": float("nan")}
+    saved = {name: os.environ.get(name) for name in ("PATHWAY_OPTIMIZE", "PATHWAY_DISABLE_COLUMNAR")}
+    runs = []
+    try:
+        for level, row_only in SERVER_LEVEL_RUNS:
+            os.environ["PATHWAY_OPTIMIZE"] = str(level)
+            os.environ["PATHWAY_DISABLE_COLUMNAR"] = "1" if row_only else "0"
+            rs = phase_rag_server(torch, dev, {"docs": docs}, smi, unset)
+            runs.append({"level": level, "columnar_off": row_only, "ingest_s": rs["ingest_s"],
+                         "ingest_docs_per_s": rs["ingest_docs_per_s"], "udf_batches": rs["udf_batches"],
+                         "distinct_ingest_batches": rs["distinct_ingest_batches"],
+                         "operators_top": rs["operators_top"],
+                         **{key: rs[key] for key in ("http_single_p50_ms", "http_single_p99_ms",
+                                                     "http_concurrent_p50_ms", "http_concurrent_p99_ms",
+                                                     "qa_p50_ms", "columnar_rows")},
+                         "served_idle_share": rs["served_profile"]["device_idle_share"],
+                         "counters": rs["analysis"]["counters"]})
+            torch.cuda.empty_cache()
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+    return {"card": smi, "runs": runs}
+
+
 def check_stream_handles(torch) -> None:
     """The launch helper's stream handle (read without a ``torch.cuda.Stream``)
     is PyTorch's current stream on the card, on the default stream and
@@ -6370,6 +6652,12 @@ def main() -> int:
     if "--against-parent" in sys.argv[1:]:
         parent = sys.argv[sys.argv.index("--against-parent") + 1]
         log("against parent: " + json.dumps(phase_against_parent(torch, dev, parent)))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}))
+        return 0
+    if "--rag-server-levels" in sys.argv[1:]:
+        log("rag server by level: " + json.dumps(phase_rag_server_levels(torch, dev, smi)))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         }}))
@@ -6435,6 +6723,8 @@ def main() -> int:
         "encode_into_docs_per_s": s_out["embed_docs_per_s"], "udf_docs_per_s": en_out["udf"]["docs_per_s"],
         "live_ingest_docs_per_s": lr_out["brute_force"]["ingest_docs_per_s"]})
     wall["rag_server_s"] = rs_out["wall_s"]
+    pa_out = phase_analysis(torch, dev, rs_out, lr_out, smi)
+    wall["analysis_s"] = pa_out["wall_s"]
     torch.cuda.empty_cache()
     sh_out = phase_sharded(torch, dev, ctx)
     wall["sharded_s"] = sh_out["wall_s"]
@@ -6547,7 +6837,8 @@ def main() -> int:
         "shape_repairs": repairs,
         "engine": {key: val for key, val in en_out.items() if key != "launches"},
         "live_rag": {key: val for key, val in lr_out.items() if key != "launches"},
-        "rag_server": {key: val for key, val in rs_out.items() if key != "launches"},
+        "rag_server": {key: val for key, val in rs_out.items() if key not in ("launches", "analysis")},
+        "analysis": pa_out,
         "f32_vision": {key: val for key, val in fv_out.items() if key != "launches"},
         "train": {key: val for key, val in tr_out.items() if key not in ("launches", "dryrun_launches")},
         "phase_wall_s": wall,

@@ -36,12 +36,15 @@ indexes, BM25 and hybrid RRF, behind ``SegmentedIndex``'s delta segment
 and background merge), and the rerankers are UDFs.  :func:`run` runs a
 pipeline with the file, Python and REST connectors (``pw.io``), and
 ``pw.xpacks.llm`` serves it: ``DocumentStore``, ``VectorStoreServer`` and
-question answering over REST.  The rest of the host plane comes in later
+question answering over REST.  :func:`run` analyses the graph before it
+runs it and executes the plan compiler's rewrite of it (``pw.analysis``:
+``analyze``, ``explain``, ``estimate_memory``, ``strict``; the columnar
+fast paths at ``optimize=2``).  The rest of the host plane comes in later
 slices (ROADMAP queue A): a name that belongs to one (``persistence``,
-``analysis``, ``iterate``, ``sql``, the stdlib beyond indexing and utils,
-the other connectors, ...) raises an ``AttributeError`` that names its
-item, and :func:`run` raises ``NotImplementedError`` for what needs one
-(``strict``, persistence, the monitoring server).
+``iterate``, ``sql``, the stdlib beyond indexing and utils, the other
+connectors, ...) raises an ``AttributeError`` that names its item, and
+:func:`run` raises ``NotImplementedError`` for what needs one
+(persistence, the monitoring server).
 """
 
 from __future__ import annotations
@@ -142,11 +145,6 @@ _LATER = {
         ("temporal", "ml", "graphs", "stateful", "statistical", "ordered", "viz"),
         "item 16 (stdlib beyond indexing)",
     ),
-    **dict.fromkeys(
-        ("analysis", "analyze", "explain", "estimate_memory", "MemoryReport", "EstimateParams",
-         "Diagnostic", "AnalysisError", "ExecutionPlan"),
-        "item 16 (analysis; its device pass is A11)",
-    ),
 }
 
 
@@ -193,6 +191,23 @@ def __getattr__(name: str) -> Any:
         from pathway_tpu_torch.internals.run import attach_prober
 
         return attach_prober
+    if name == "analysis":
+        import pathway_tpu_torch.analysis as analysis
+
+        return analysis
+    if name in (
+        "analyze",
+        "explain",
+        "estimate_memory",
+        "MemoryReport",
+        "EstimateParams",
+        "Diagnostic",
+        "AnalysisError",
+        "ExecutionPlan",
+    ):
+        from pathway_tpu_torch import analysis
+
+        return getattr(analysis, name)
     if name in _LATER:
         raise AttributeError(
             f"module {__name__!r} has no attribute {name!r} yet: the port brings it with "
@@ -251,6 +266,14 @@ __all__ = [
     "set_license_key",
     "set_monitoring_config",
     "G",
+    "analyze",
+    "explain",
+    "estimate_memory",
+    "MemoryReport",
+    "EstimateParams",
+    "Diagnostic",
+    "AnalysisError",
+    "ExecutionPlan",
     "kernels",
     "models",
     "ops",

@@ -2,17 +2,15 @@
 
 Reference: ``python/pathway/internals/run.py`` + ``GraphRunner``
 (``internals/graph_runner/__init__.py:36-252``); counterpart of
-``pathway_tpu/internals/run.py``.  Runs the epoch scheduler over the
-global graph with the free tier's worker cap, the cluster topology,
-telemetry and the collector pacing around it; with live connectors it
-blocks until all sources close (streaming mode), mirroring ``pw.run``
-blocking semantics.
+``pathway_tpu/internals/run.py``.  Runs the pre-flight static analyzer
+and the plan compiler (``pathway_tpu_torch/analysis/``), then the epoch
+scheduler over the rewritten view of the global graph, with the free
+tier's worker cap, the cluster topology, telemetry and the collector
+pacing around it; with live connectors it blocks until all sources close
+(streaming mode), mirroring ``pw.run`` blocking semantics.
 
-The port has no static analyzer, plan compiler, persistence or monitoring
-server yet (ROADMAP item 16).  So a run takes the path the JAX package
-takes when its analyzer is absent (no pre-flight counts, the captured
-graph runs as it is, ``G.last_plan`` is None), and a run that asks for
-what only those bring (``strict``, a ``persistence_config``,
+The port has no persistence or monitoring server yet (ROADMAP slices 16b
+and 16c): a run that asks for one (a ``persistence_config``,
 ``with_http_server`` or a monitoring port) raises
 :class:`NotImplementedError` instead of running without it.
 """
@@ -51,15 +49,28 @@ def run(
 ):
     """Run the whole computation graph (blocking until sources finish).
 
-    ``strict=True`` (or ``PATHWAY_STRICT=1``), a ``persistence_config``
-    (here or in ``pathway_config.persistence_config``) and
-    ``with_http_server=True`` (or a monitoring port) raise
-    :class:`NotImplementedError`: the analyzer, persistence and the
-    monitoring server come with ROADMAP item 16.  ``optimize`` is
-    accepted for the JAX package's signature; with no plan compiler the
-    captured graph runs as it is."""
+    ``strict=True`` (or ``PATHWAY_STRICT=1``) runs the pre-flight static
+    analyzer (``pathway_tpu_torch/analysis/``) and raises
+    :class:`pathway_tpu_torch.AnalysisError` on any error-severity
+    finding, BEFORE the scheduler exists, so no connector thread ever
+    starts.  Finding counts are computed either way
+    (``sched.analysis_findings``).
+
+    ``optimize`` sets the plan-compiler level (0 = off, 1 = const-fold +
+    dead-column elimination + select/filter fusion, 2 = + append-only
+    specialization + join pushdowns + the columnar fast paths); default
+    comes from ``PATHWAY_OPTIMIZE``, else 2.  The applied plan is
+    available as ``pw.explain()`` / ``G.last_plan``.
+
+    A ``persistence_config`` (here or in
+    ``pathway_config.persistence_config``) and ``with_http_server=True``
+    (or a monitoring port) raise :class:`NotImplementedError`:
+    persistence and the monitoring server come with ROADMAP slices 16c
+    and 16b."""
     import os
 
+    from pathway_tpu_torch.analysis import SEV_ERROR, AnalysisError, analyze, count_by_severity
+    from pathway_tpu_torch.analysis.rewrite import optimize_graph, resolve_level
     from pathway_tpu_torch.internals import config as cfg
 
     if strict is None:
@@ -68,30 +79,55 @@ def run(
             "true",
             "yes",
         )
-    if strict:
-        raise _needs_item_16("strict=True", "static analyzer (pathway_tpu_torch.analysis)")
-    G.last_plan = None
-
     if persistence_config is None:
         persistence_config = cfg.pathway_config.persistence_config
     if persistence_config is not None:
         raise _needs_item_16("persistence_config=...", "persistence layer (pathway_tpu_torch.persistence)")
     if with_http_server or cfg.pathway_config.monitoring_http_port:
         raise _needs_item_16("with_http_server=True", "monitoring server")
+
+    level = resolve_level(optimize)
+    # plan-aware: analyze the view the scheduler will execute, so
+    # rewrites that cure a finding (dead-column elimination, append-only
+    # reducer specialization) also clear its diagnostic
+    diags = analyze(G.engine_graph, optimize=level)
+    if strict and any(d.severity == SEV_ERROR for d in diags):
+        raise AnalysisError(diags)
+
+    # plan compiler: rewrite a cloned execution view of the captured
+    # graph; the captured graph itself stays pristine (re-runs, explain)
+    exec_graph, plan = optimize_graph(G.engine_graph, level)
+    G.last_plan = plan
+
     pc = cfg.pathway_config
     saved_typecheck = pc.runtime_typechecking
     if runtime_typechecking is not None:
         pc.runtime_typechecking = runtime_typechecking
     try:
-        return _run_inner(pc, monitoring_level, autocommit_duration_ms)
+        return _run_inner(
+            pc,
+            monitoring_level,
+            autocommit_duration_ms,
+            count_by_severity(diags),
+            exec_graph,
+            plan,
+        )
     finally:
         # per-run override, not a process-wide setting
         pc.runtime_typechecking = saved_typecheck
 
 
-def _run_inner(pc: Any, monitoring_level: Any, autocommit_duration_ms: int | None):
+def _run_inner(
+    pc: Any,
+    monitoring_level: Any,
+    autocommit_duration_ms: int | None,
+    analysis_counts: dict[str, int],
+    exec_graph: Any,
+    plan: Any,
+):
     import os
 
+    from pathway_tpu_torch.analysis.memory import estimate_memory
     from pathway_tpu_torch.internals.license import LicenseError, get_license
 
     threads = max(1, pc.threads)
@@ -120,18 +156,24 @@ def _run_inner(pc: Any, monitoring_level: Any, autocommit_duration_ms: int | Non
             processes,
             threads * processes,
         )
-    sched = Scheduler(G.engine_graph, autocommit_ms=autocommit_duration_ms or 50)
-    #: pre-flight analyzer finding counts: none without the analyzer
-    sched.analysis_findings = {}
+    sched = Scheduler(exec_graph, autocommit_ms=autocommit_duration_ms or 50)
+    #: pre-flight analyzer finding counts, by severity
+    sched.analysis_findings = dict(analysis_counts)
     # a ClusterSupervisor stamps its respawn generation into the env so the
     # worker can surface it as pathway_tpu_worker_restarts_total
     try:
         sched.worker_restarts = int(os.environ.get("PATHWAY_WORKER_RESTARTS", "0"))
     except ValueError:
         sched.worker_restarts = 0
-    sched.execution_plan = None
-    sched.plan_counters = {}
-    sched.memory_estimate = None
+    #: optimizer audit trail + rewrite counters
+    sched.execution_plan = plan
+    sched.plan_counters = plan.counters()
+    #: static capacity estimate of the EXECUTING view, beside the
+    #: measured state bytes
+    try:
+        sched.memory_estimate = estimate_memory(exec_graph, optimize=0)  # already rewritten
+    except Exception:
+        sched.memory_estimate = None
     # live TUI dashboard (reference pw.run(monitoring_level=...) rich TUI):
     # AUTO shows it only on a real terminal; NONE never
     show = monitoring_level in (MonitoringLevel.ALL, MonitoringLevel.IN_OUT)

@@ -64,6 +64,10 @@ _MAX_BODY = 1 << 20
 #: an idle keep-alive connection closes after this many seconds (aiohttp's
 #: default keep-alive timeout)
 _KEEPALIVE_S = 75.0
+#: after an answer that leaves the request's body unread, the most bytes
+#: and seconds the server reads and discards before it closes
+_LINGER_BYTES = 16 * _MAX_BODY
+_LINGER_S = 5.0
 _SERVER = f"Python/{sys.version_info[0]}.{sys.version_info[1]} pathway_tpu_torch"
 
 
@@ -181,9 +185,19 @@ async def _read_body(reader: asyncio.StreamReader, req: Request) -> bytes:
             chunks.append(await reader.readexactly(size))
             if await reader.readexactly(2) != b"\r\n":
                 raise _BadRequest("chunk not followed by CRLF")
+    n = _content_length(req)
+    return await reader.readexactly(n) if n else b""
+
+
+def _content_length(req: Request) -> int:
+    """The body's declared length (0 when chunked or absent), checked
+    against ``_MAX_BODY`` from the head alone, before any of the body is
+    asked for (``100 Continue``) or read."""
+    if "chunked" in req.headers.get("transfer-encoding", "").lower():
+        return 0
     length = req.headers.get("content-length")
     if not length:
-        return b""
+        return 0
     try:
         n = int(length)
     except ValueError:
@@ -192,7 +206,31 @@ async def _read_body(reader: asyncio.StreamReader, req: Request) -> bytes:
         raise _BadRequest(f"bad Content-Length {length!r}")
     if n > _MAX_BODY:
         raise _too_large(n)
-    return await reader.readexactly(n)
+    return n
+
+
+async def _linger(reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
+    """Lingering close: after an answer that leaves part of the request
+    unread (a 413), half-close the socket and read and discard what the
+    client still sends, up to ``_LINGER_BYTES`` and ``_LINGER_S``.  A
+    socket closed with unread data answers the client with a reset, which
+    can reach it before the answer does."""
+    try:
+        if writer.can_write_eof():
+            writer.write_eof()
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + _LINGER_S
+        left = _LINGER_BYTES
+        while left > 0:
+            wait = deadline - loop.time()
+            if wait <= 0:
+                break
+            data = await asyncio.wait_for(reader.read(min(left, 1 << 16)), wait)
+            if not data:
+                break  # the client closed its side
+            left -= len(data)
+    except (asyncio.TimeoutError, ConnectionError, OSError):
+        pass
 
 
 def _response(
@@ -287,12 +325,14 @@ class PathwayWebserver:
                     req = await _read_request(reader, _KEEPALIVE_S)
                     if req is None:
                         break
+                    _content_length(req)  # refuse an over-limit body before asking for it
                     if req.headers.get("expect", "").lower() == "100-continue":
                         writer.write(b"HTTP/1.1 100 Continue\r\n\r\n")
                     req.body = await _read_body(reader, req)
                 except _BadRequest as e:
                     writer.write(_response(e.status, {"error": str(e)}, keep_alive=False))
                     await writer.drain()
+                    await _linger(reader, writer)
                     break
                 writer.write(await self._dispatch(req))
                 await writer.drain()

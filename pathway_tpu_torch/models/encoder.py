@@ -406,7 +406,7 @@ class _EncoderStack(nn.Module):
         cells = self.cells()[0]
         for name, spec in encoder_param_specs(self).items():
             dims = [d for d, axis in enumerate(spec) if axis is not None]
-            parts = [cell.get_parameter(name).cpu() for cell in cells]
+            parts = [cell.get_parameter(name).cpu() for cell in cells]  # pw-j002: once per state_dict
             self.get_parameter(name).copy_(torch.cat(parts, dims[0]) if dims else parts[0])
 
     def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):

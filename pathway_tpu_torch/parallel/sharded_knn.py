@@ -270,7 +270,7 @@ class ShardedKnnIndex:
                 if not len(sel):
                     continue
                 local = self._local(slots[sel], s)
-                rows = vectors.index_select(0, self._upload(sel, vectors.device)).to(dev)
+                rows = vectors.index_select(0, self._upload(sel, vectors.device)).to(dev)  # pw-j002: card to card
             slab_scatter(
                 self._vecs[s], self._flags[s], self._upload(local, dev), rows,
                 normalize=self.metric == "cos",
@@ -359,7 +359,7 @@ class ShardedKnnIndex:
         for s, dev in enumerate(self._devices):
             qs = on_device.get(dev)
             if qs is None:
-                qs = q.to(dev)
+                qs = q.to(dev)  # pw-j002: card to card, once per shard's card
                 qs = on_device[dev] = normalize(qs) if self.metric == "cos" else qs
             v, i = knn_topk(qs, self._vecs[s], self._flags[s], kk, metric, offset=s * rows)
             vals.append(v.to(self.device))

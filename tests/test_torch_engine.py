@@ -570,9 +570,14 @@ def test_native_off_run_equals_the_native_run():
 
 def test_later_slices_raise_naming_their_item():
     for name, item in (("temporal", "item 16"), ("persistence", "item 16"),
-                       ("analysis", "item 16"), ("iterate", "item 16"), ("sql", "item 16")):
+                       ("iterate", "item 16"), ("sql", "item 16")):
         with pytest.raises(AttributeError, match=item):
             getattr(tpw, name)
+    # slice 16a brought the analyzer: its names resolve to the port's own
+    assert tpw.analysis.__name__ == "pathway_tpu_torch.analysis"
+    for name in ("analyze", "explain", "estimate_memory", "MemoryReport", "EstimateParams",
+                 "Diagnostic", "AnalysisError", "ExecutionPlan"):
+        assert getattr(tpw, name) is getattr(tpw.analysis, name)
     # item 15 brought the connectors and ``stdlib.utils``: ``io``, ``utils``
     # and ``AsyncTransformer`` resolve; an unported connector and the
     # parsers still to come name the item that brings them
@@ -596,8 +601,13 @@ def test_later_slices_raise_naming_their_item():
         tpw.nonsense  # noqa: B018
     with pytest.raises(NotImplementedError, match="item 16"):
         tpw.run(persistence_config=object())
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tpw.run(strict=True)
+    # strict mode runs a clean graph and sets the plan
+    tpw.G.clear()
+    t = tpw.debug.table_from_rows(tpw.schema_from_types(a=int), [(1,)])
+    tpw.io.subscribe(t, on_change=lambda *a: None)
+    tpw.run(strict=True, monitoring_level=tpw.MonitoringLevel.NONE)
+    assert isinstance(tpw.G.last_plan, tpw.ExecutionPlan)
+    tpw.G.clear()
     assert tpw.DateTimeNaive is tpw.internals.dtype.DateTimeNaive
     assert tpw.xpacks.llm.embedders.TorchEncoderEmbedder is tpw.TorchEncoderEmbedder
 

@@ -172,13 +172,10 @@ def ivf_usearch(pw):
     return pw.indexing.DataIndex(docs, inner).query_as_of_now(q.qvec, number_of_matches=5)
 
 
-def _stream_docs(pw):
-    """Three epochs of documents keyed by name: the corpus, then upserts
-    and deletes, then new documents and more deletes."""
-    schema = pw.schema_builder({
-        "name": pw.column_definition(dtype=str, primary_key=True),
-        "vec": pw.column_definition(dtype=tuple),
-    })
+def _stream_rows() -> list:
+    """Three epochs of documents keyed by name, as (name, vec, time, diff):
+    the corpus, then upserts and deletes, then new documents and more
+    deletes."""
     rng = np.random.default_rng(11)
     cur = {f"d{i}": vec(VECS[i]) for i in range(24)}
     rows = [(n, v, 2, 1) for n, v in cur.items()]
@@ -193,7 +190,15 @@ def _stream_docs(pw):
         rows.append((f"d{i}", cur[f"d{i}"], 6, 1))
     for n in ("d1", "d2"):
         rows.append((n, cur.pop(n), 6, -1))
-    return pw.debug.table_from_rows(schema, rows, is_stream=True)
+    return rows
+
+
+def _stream_docs(pw):
+    schema = pw.schema_builder({
+        "name": pw.column_definition(dtype=str, primary_key=True),
+        "vec": pw.column_definition(dtype=tuple),
+    })
+    return pw.debug.table_from_rows(schema, _stream_rows(), is_stream=True)
 
 
 def knn_query_consistent(pw):
@@ -294,6 +299,84 @@ def by_query(cols: list, rows: dict, flattened: bool) -> dict:
     return out
 
 
+def same_reply(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(abs(a[rid] - b[rid]) <= F32_TOL for rid in a)
+
+
+def consistent_oracle() -> list:
+    """The revisions that ``knn_query_consistent`` must emit, from numpy:
+    for the corpus that ``_stream_rows`` holds at each of its times, each
+    query's exact top 3 by cosine similarity (in f64); wherever a query's
+    reply changes, a retraction of the old reply and an insertion of the
+    new one.  Rows are (time, query id, diff, {reply id: score})."""
+    from pathway_tpu.internals.keys import ref_scalar, sequential_key
+
+    qs = QVECS.astype(np.float64)
+    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+    rows = _stream_rows()
+    qkeys = [int(sequential_key(i)) for i in range(len(qs))]
+    prev = [{} for _ in qkeys]
+    out = [(0, qk, 1, {}) for qk in qkeys]  # the queries come before any document
+    corpus: dict = {}
+    for t in sorted({r[2] for r in rows}):
+        for name, v, time_, diff in rows:
+            if time_ == t and diff > 0:
+                corpus[name] = np.asarray(v, np.float64)
+            elif time_ == t:
+                del corpus[name]
+        names = sorted(corpus)
+        mat = np.stack([corpus[n] for n in names])
+        scores = qs @ (mat / np.linalg.norm(mat, axis=1, keepdims=True)).T
+        for i, qk in enumerate(qkeys):
+            order = np.argsort(-scores[i])
+            # no near-tie at the cut: the top 3 is decided at any f32 rounding
+            assert len(order) <= 3 or scores[i, order[2]] - scores[i, order[3]] > 10 * F32_TOL
+            reply = {int(ref_scalar(names[j])): float(scores[i, j]) for j in order[:3]}
+            if not same_reply(reply, prev[i]):
+                out += [(t, qk, -1, prev[i]), (t, qk, 1, reply)]
+                prev[i] = reply
+    return out
+
+
+def consolidated(cols: list, stream: list) -> list:
+    """The (time, query id, diff, {reply id: score}) rows of an update
+    stream, less each retraction and insertion of one query at one time
+    whose replies are the same at ``F32_TOL``: a reply re-emitted
+    unchanged (its scores a rounding apart) is no revision."""
+    by: dict = {}
+    for k, v, t, d in stream:
+        assert d in (1, -1)
+        by.setdefault((t, int(k)), []).append((d, split_row(cols, tuple(v))[1]))
+    out = []
+    for (t, k), ups in by.items():
+        ins = [r for d, r in ups if d > 0]
+        rets = [r for d, r in ups if d < 0]
+        for r in list(ins):
+            match = next((x for x in rets if same_reply(x, r)), None)
+            if match is not None:
+                ins.remove(r)
+                rets.remove(match)
+        out += [(t, k, -1, r) for r in rets] + [(t, k, 1, r) for r in ins]
+    return out
+
+
+def _revision_order(rows: list) -> list:
+    return sorted(rows, key=lambda r: (r[0], r[1], r[2], sorted(r[3])))
+
+
+def revisions_agree(got: list, want: list) -> bool:
+    g, w = _revision_order(got), _revision_order(want)
+    return len(g) == len(w) and all(a[:3] == b[:3] and same_reply(a[3], b[3]) for a, b in zip(g, w))
+
+
+def assert_revisions_match(got: list, want: list, what: str) -> None:
+    """The same (time, query, diff, reply ids), each score at ``F32_TOL``."""
+    g, w = _revision_order(got), _revision_order(want)
+    assert [(*r[:3], sorted(r[3])) for r in g] == [(*r[:3], sorted(r[3])) for r in w], what
+    for a, b in zip(g, w):
+        assert same_reply(a[3], b[3]), (what, a, b)
+
+
 @pytest.mark.parametrize("build,tol", PIPELINES, ids=[p.__name__ for p, _ in PIPELINES])
 def test_data_index_pipeline_matches_jax_package(build, tol):
     want = run(jpw, build)
@@ -309,13 +392,21 @@ def test_data_index_pipeline_matches_jax_package(build, tol):
         assert_replies_match(by_query(cols, grows, flattened), by_query(wcols, wrows, flattened), tol,
                              build.__name__)
         if build is knn_query_consistent:
-            # the revisions themselves: the same (time, query, diff, reply ids)
-            def revisions(stream):
-                return sorted((t, int(k), d, tuple(sorted(split_row(cols, tuple(v))[1])))
-                              for k, v, t, d in stream)
-
-            assert revisions(gstream) == revisions(wstream)
-            assert len({t for _, _, t, _ in gstream}) >= 3
+            # the revisions themselves: the port's are held to the exact
+            # numpy oracle; the JAX package's stream depends on timing
+            # (ROADMAP, "Reference behaviour found while porting"), so it
+            # is compared with the port's only where it agrees with the
+            # oracle
+            oracle = consistent_oracle()
+            port_revs = consolidated(cols, gstream)
+            assert_revisions_match(port_revs, oracle, "the port against the numpy oracle")
+            assert len({r[0] for r in port_revs}) >= 3
+            jax_revs = consolidated(wcols, wstream)
+            if revisions_agree(jax_revs, oracle):
+                assert_revisions_match(port_revs, jax_revs, "the port against the JAX package")
+            else:
+                print(f"the reference diverged from the oracle: {len(jax_revs)} revisions "
+                      f"against the oracle's {len(oracle)}")
 
 
 def test_knn_query_consistent_revises_answers():

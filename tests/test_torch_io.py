@@ -452,8 +452,8 @@ def test_worker_cap_over_the_free_tier(monkeypatch, caplog):
 @pytest.mark.parametrize(
     "kwargs, env, what",
     [
-        ({"strict": True}, {}, "static analyzer"),
-        ({}, {"PATHWAY_STRICT": "1"}, "static analyzer"),
+        ({"strict": True}, {}, None),
+        ({}, {"PATHWAY_STRICT": "1"}, None),
         ({"persistence_config": object()}, {}, "persistence"),
         ({"with_http_server": True}, {}, "monitoring server"),
         ({}, {"monitoring_http_port": 9}, "monitoring server"),
@@ -461,6 +461,10 @@ def test_worker_cap_over_the_free_tier(monkeypatch, caplog):
     ids=["strict", "strict_env", "persistence", "http_server", "monitoring_port"],
 )
 def test_run_raises_for_what_item_16_brings(monkeypatch, kwargs, env, what):
+    """What slices 16b and 16c bring raises before any source starts.
+    Strict mode came with 16a: it refuses a graph with an error finding
+    (a join of an int key with a str key, PW-T001) before any source
+    starts, and runs a clean one."""
     t = tpw.debug.table_from_rows(tpw.schema_from_types(a=int), [(1,)])
     ran = []
     tpw.io.subscribe(t, on_change=lambda *a: ran.append(a))
@@ -469,11 +473,24 @@ def test_run_raises_for_what_item_16_brings(monkeypatch, kwargs, env, what):
             monkeypatch.setenv(name, value)
         else:
             monkeypatch.setattr(tpw.internals.config.pathway_config, name, value)
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP item 16"):
-        tpw.run(**kwargs)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tpw.run_all(**kwargs)
-    assert ran == []  # raised before any source started
+    if what is not None:
+        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP item 16"):
+            tpw.run(**kwargs)
+        with pytest.raises(NotImplementedError, match="item 16"):
+            tpw.run_all(**kwargs)
+        assert ran == []  # raised before any source started
+        return
+    s = tpw.debug.table_from_rows(tpw.schema_from_types(b=str), [("1",)])
+    tpw.io.subscribe(t.join(s, t.a == s.b).select(t.a), on_change=lambda *a: ran.append(a))
+    for run in (tpw.run, tpw.run_all):
+        with pytest.raises(tpw.AnalysisError, match="PW-T001"):
+            run(**kwargs)
+    assert ran == []  # refused before any source started
+    tpw.G.clear()
+    t = tpw.debug.table_from_rows(tpw.schema_from_types(a=int), [(1,)])
+    tpw.io.subscribe(t, on_change=lambda key, row, time, is_addition: ran.append(row))
+    tpw.run(monitoring_level=tpw.MonitoringLevel.NONE, **kwargs)
+    assert ran == [{"a": 1}]
 
 
 def test_io_names():

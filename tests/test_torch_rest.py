@@ -262,6 +262,72 @@ def test_body_limit(apps):
     assert same(apps, "POST", "/", {"query": "after"}) == (200, None, "AFTER")
 
 
+OVER_LIMIT = 8 << 20
+N_OVER_LIMIT = 64
+
+
+def over_limit(port: int, chunked: bool):
+    """One 8 MiB body (more than the loopback socket buffers hold), by
+    ``Content-Length`` or in 256 KiB chunks: (status, JSON body), or the
+    name of the error the client met instead of an answer."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=DEADLINE_S)
+    try:
+        body = b'{"query": "' + b"x" * (OVER_LIMIT - 13) + b'"}'
+        if chunked:
+            step = 1 << 18
+            conn.request("POST", "/", body=iter([body[i:i + step] for i in range(0, len(body), step)]),
+                         headers={"Content-Type": "application/json"}, encode_chunked=True)
+        else:
+            conn.request("POST", "/", body=body, headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    except OSError as e:
+        return type(e).__name__
+    finally:
+        conn.close()
+
+
+@pytest.mark.parametrize("chunked", [False, True], ids=["content_length", "chunked"])
+def test_every_over_limit_body_gets_its_413(apps, chunked):
+    """An over-limit body is answered, never dropped: the server writes its
+    413, then half-closes and discards the rest of the body before it
+    closes, so no client meets a reset before it reads the answer."""
+    with ThreadPoolExecutor(8) as pool:
+        answers = list(pool.map(lambda _: over_limit(apps.port.port, chunked), range(N_OVER_LIMIT)))
+    refused = [a for a in answers if not (isinstance(a, tuple) and a[0] == 413)]
+    assert not refused, f"{len(refused)} of {N_OVER_LIMIT} over-limit requests got no 413: {refused[:4]}"
+    for _, body in answers:
+        assert "over the 1048576-byte limit" in body["error"]
+    assert same(apps, "POST", "/", {"query": "after"}) == (200, None, "AFTER")
+
+
+def test_expect_continue_over_limit_gets_413_without_continue(apps):
+    """A client that asks ``Expect: 100-continue`` for an over-limit body is
+    refused from the head alone: the 413 comes with no ``100 Continue``
+    before it, and the body is never sent."""
+    with socket.create_connection(("127.0.0.1", apps.port.port), timeout=DEADLINE_S) as s:
+        s.sendall(b"POST / HTTP/1.1\r\nHost: x\r\nContent-Type: application/json\r\n"
+                  b"Expect: 100-continue\r\nContent-Length: %d\r\n\r\n" % OVER_LIMIT)
+        data = b""
+        while chunk := s.recv(1 << 16):
+            data += chunk
+    head, _, body = data.partition(b"\r\n\r\n")
+    assert head.startswith(b"HTTP/1.1 413 "), data[:200]
+    assert b"100 Continue" not in data
+    assert "over the 1048576-byte limit" in json.loads(body)["error"]
+    # the same request within the limit is told to go on, and then answered
+    with socket.create_connection(("127.0.0.1", apps.port.port), timeout=DEADLINE_S) as s:
+        payload = b'{"query": "go"}'
+        s.sendall(b"POST / HTTP/1.1\r\nHost: x\r\nContent-Type: application/json\r\nConnection: close\r\n"
+                  b"Expect: 100-continue\r\nContent-Length: %d\r\n\r\n" % len(payload))
+        assert s.recv(64).startswith(b"HTTP/1.1 100 Continue\r\n\r\n")
+        s.sendall(payload)
+        data = b""
+        while chunk := s.recv(1 << 16):
+            data += chunk
+    assert data.startswith(b"HTTP/1.1 200 ") and json.loads(data.partition(b"\r\n\r\n")[2]) == "GO"
+
+
 def test_query_string_merges_into_the_payload(apps):
     assert same(apps, "POST", "/?query=from%20url") == (200, None, "FROM URL")
     assert same(apps, "POST", "/add?y=5", {"x": 1}) == (200, None, 6)
