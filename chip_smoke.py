@@ -238,6 +238,8 @@ Phases, each fatal on failure:
     runs the plan compiler's rewrite of it (``optimize=2``): before the
     server starts, ``pw.analyze()``, ``pw.explain()`` and
     ``pw.run(strict=True)`` (``analyse_before_run``) read the same graph.
+    Since slice 16b the run is ``pw.run(with_http_server=True)`` on a free
+    monitoring port, and ``/status`` is scraped once while it serves.
 
 16. the analyzer and the plan compiler (``phase_analysis``, slice 16a),
     after phase 15: phase 15's pre-flight (findings by severity and code,
@@ -251,7 +253,24 @@ Phases, each fatal on failure:
     unwaived error fails); ``estimate_memory`` of phase 14's live-index
     graph beside the card's peak while it ran.
 
-Phases 13, 14, 15 and 16 and then phase 8 run right after phase 4, while
+17. the serving layer and the monitoring server (``phase_serving``, slice
+    16b), after phase 16: ``RagServingApp`` with BGE-base (phase 3's seed)
+    as its embedder (``EncoderAdapter``: one text a call, as the app calls
+    it) and a 1,048,576-slot ``SegmentedIndex(ShardedKnnIndex)`` on the
+    card as its index; phase 15's 2,048 documents upserted, then three
+    tenants under ``LoadGen`` (interactive, batch, and a batch tenant over
+    its rate, which admission sheds) while documents are rewritten and
+    deleted; 64 answers against the direct path (the adapter over each
+    live chunk, an exact numpy top-k), lookahead probes above 0, K1-K7
+    launched, ``/v1/answer`` over REST with a 429 and ``Retry-After`` for
+    an over-rate tenant and the admission counters equal to the replies,
+    ``/metrics``, ``/status`` and ``/debug/stacks`` of
+    ``start_http_server``; then ``RagServingApp(shards=2)`` over two
+    65,536-slot shards: one owner killed under load answers partially,
+    ``ShardFailoverSupervisor`` restores it, the hits equal those before
+    the kill.
+
+Phases 13, 14, 15, 16 and 17 and then phase 8 run right after phase 4, while
 phase 3's index is alive, and phase 10 after them; phases 5, 6, 9 and 12
 follow.  The second-to-last line of
 output is a JSON object with one entry per kernel wrapper (K1-K19 and B8's
@@ -279,6 +298,9 @@ only phase 15 over phase 3's documents at ``PATHWAY_OPTIMIZE`` 0 and 2
 and at 2 with ``PATHWAY_DISABLE_COLUMNAR=1``, in turns
 (``phase_rag_server_levels``): the served numbers of the rewritten plan
 beside the captured graph's, and each run's busiest operators.
+
+``python3 chip_smoke.py --serving`` runs instead, on one card, only phase 15
+(over phase 3's documents) and phase 17.
 
 ``python3 chip_smoke.py --distinct-cards`` runs instead, on four cards,
 only what a mesh that repeats one card cannot show: ring attention and
@@ -491,6 +513,18 @@ SERVER_LEVEL_RUNS = ((0, False), (2, False), (2, True), (2, True), (2, False), (
 SERVER_MTIME0 = 1_700_000_000  # file i's modified_at: SERVER_MTIME0 + i
 SERVER_GLOB = "*/doc00[0-9]*.txt"  # files 0-999
 SERVER_FILTER = f"modified_at < `{SERVER_MTIME0 + 1024}`"  # files 0-1,023
+SERVING_DOCS = 2048  # phase 15's documents, upserted through RagServingApp.upsert
+SERVING_CHUNK_WORDS = 256  # simple_splitter's window: a document of 62-254 words is one chunk
+SERVING_DELTA_CAP = 256  # the delta segment's cap: above K - 128, so a probe over a full delta runs K13
+SERVING_REWRITTEN, SERVING_DELETED = 128, 64  # documents rewritten and deleted while the load runs
+SERVING_LOAD_S = 5.0  # LoadGen's duration
+SERVING_CHECKED = 64  # answers held against the direct path
+SERVING_DEADLINE_S = 60.0  # the ingest's end, the churn's settling, the REST server's start
+FAILOVER_SLOTS = 1 << 16  # each of the two shards' slots: a standby snapshot copies its shard to the host
+FAILOVER_DOCS = 256  # documents of the two-shard app
+FAILOVER_SNAPSHOT_EVERY = 64  # a shard owner's ops between snapshots: about two a shard, so a standby has one
+FAILOVER_DELTA_CAP = 32  # a shard's delta cap: its 128 or so chunks merge into its slab (K2), probes reach it (K3)
+FAILOVER_QUERIES = 32  # questions answered before the kill and after the restore
 PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
@@ -6034,16 +6068,7 @@ def phase_rag_server(torch, dev, ctx: dict, smi: str, rates: dict) -> dict:
 
     res: dict = {"card": smi, "beside": rates}
     t_phase = time.perf_counter()
-    ports = []
-    for _ in range(2):
-        sock = socket.socket()
-        try:
-            sock.bind(("127.0.0.1", 0))
-        except OSError as e:
-            fail(f"rag server: a loopback socket does not bind on this machine: {e!r}")
-        ports.append(sock.getsockname()[1])
-        sock.close()
-    port, qa_port = ports
+    port, qa_port = free_port(), free_port()
 
     # ---- the files, and what the splitter makes of them
     docs = list(ctx["docs"][:N_SERVER_DOCS])
@@ -6142,10 +6167,15 @@ def phase_rag_server(torch, dev, ctx: dict, smi: str, rates: dict) -> dict:
     if res["analysis"]["strict"]["started"]:
         os.environ["PATHWAY_STRICT"] = "1"  # the server's own pw.run refuses the graph on an error finding
     pw.G.active_scheduler = None
+    mport = free_port()
+    mport_env = os.environ.get("PATHWAY_MONITORING_HTTP_PORT")
+    os.environ["PATHWAY_MONITORING_HTTP_PORT"] = str(mport)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t_start = time.perf_counter()
-    thread = rest.run(threaded=True)
+    # what ``rest.run(threaded=True)`` does, with the monitoring server on
+    thread = threading.Thread(target=pw.run, kwargs={"with_http_server": True}, daemon=True, name="pw_server")
+    thread.start()
     try:
         # ---- ready: every file in the statistics (an epoch after the
         # files' epoch, whose index updates are done by then)
@@ -6166,6 +6196,16 @@ def phase_rag_server(torch, dev, ctx: dict, smi: str, rates: dict) -> dict:
         if sched.analysis_findings != res["analysis"]["by_severity"]:
             fail(f"rag server: pw.run counted findings {sched.analysis_findings}, pw.analyze() "
                  f"{res['analysis']['by_severity']}")
+        # ---- the monitoring server, scraped once while the server runs
+        status_raw, status_ms = scrape(mport, "/status")
+        status = json.loads(status_raw)
+        res["monitoring"] = {"port": mport, "status_ms": status_ms, "status_bytes": len(status_raw),
+                             "epoch": status["epoch"], "operators": status["operators"],
+                             "device_counters": status["device"].get("counters"), "serving": status["serving"],
+                             "serving_imported": "pathway_tpu_torch.serving" in sys.modules}
+        if status["operators"] != len(sched.graph.nodes) or not status["index"]:
+            fail(f"rag server: /status reads {status['operators']} operators and {len(status['index'])} indexes, "
+                 f"the run has {len(sched.graph.nodes)} nodes")
         res["indexes"] = len(adapters)
         for a in adapters:
             main = a.index.main
@@ -6283,6 +6323,10 @@ def phase_rag_server(torch, dev, ctx: dict, smi: str, rates: dict) -> dict:
             os.environ.pop("PATHWAY_STRICT", None)
         else:
             os.environ["PATHWAY_STRICT"] = strict_env
+        if mport_env is None:
+            os.environ.pop("PATHWAY_MONITORING_HTTP_PORT", None)
+        else:
+            os.environ["PATHWAY_MONITORING_HTTP_PORT"] = mport_env
         sched = getattr(pw.G, "active_scheduler", None)
         if sched is not None:
             sched.stop()
@@ -6292,6 +6336,11 @@ def phase_rag_server(torch, dev, ctx: dict, smi: str, rates: dict) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     if thread.is_alive():
         fail("rag server: the scheduler's thread did not join after stop()")
+    try:
+        socket.create_connection(("127.0.0.1", mport), timeout=2).close()
+        fail("rag server: the monitoring server outlived its run")
+    except OSError:
+        pass
     res["columnar_rows"] = dict(run_ctx.stats.get("columnar_rows", {})) if run_ctx is not None else None
     ops = run_ctx.stats.get("operators", {}).values() if run_ctx is not None else ()
     res["operators_top"] = [(p["name"], round(p["total_ms"], 1), p["epochs"], p["rows_in"])
@@ -6381,6 +6430,10 @@ def phase_rag_server(torch, dev, ctx: dict, smi: str, rates: dict) -> dict:
         f"{res['http_single_p99_ms']:.2f}; {SERVER_CONCURRENT} from {SERVER_CLIENTS} clients p50 "
         f"{res['http_concurrent_p50_ms']:.2f}, p99 {res['http_concurrent_p99_ms']:.2f}; direct path "
         f"(encode + search) p50 {res['direct_query_p50_ms']:.2f} ms; QA p50 {res['qa_p50_ms']:.2f} ms")
+    mo = res["monitoring"]
+    log(f"rag server on {smi}: /status scraped mid-run in {mo['status_ms']:.2f} ms ({mo['status_bytes']} B): epoch "
+        f"{mo['epoch']}, {mo['operators']} operators, device counters {json.dumps(mo['device_counters'])}; "
+        f"serving layer imported: {mo['serving_imported']}")
     log(f"rag server on {smi}: one served question idle {res['served_profile']['device_idle_share']:.3f}; "
         f"live change visible in {res['live_change']['visible_s']:.2f} s; phase wall {res['wall_s']:.1f} s; "
         f"{json.dumps({k: v for k, v in res.items() if k not in ('launches', 'beside', 'card')})}")
@@ -6565,6 +6618,421 @@ def phase_analysis(torch, dev, rag: dict, live: dict, smi: str) -> dict:
     return res
 
 
+class EncoderAdapter:
+    """A ``TorchEncoder`` as the serving layer's embedder
+    (``RagServingApp(embedder=)``): ``dim``, and one text a call, as
+    ``StageCoScheduler._embed_batch`` and ``RagServingApp._ingest_batch``
+    call it."""
+
+    def __init__(self, encoder):
+        self.encoder = encoder
+        self.dim = encoder.config.hidden
+
+    def __call__(self, text: str):
+        return self.encoder.encode([text])[0]
+
+
+def post_json(port: int, path: str, payload: dict, timeout: float = SERVING_DEADLINE_S) -> tuple:
+    """One JSON POST on 127.0.0.1: (status, Retry-After, JSON body)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.headers.get("Retry-After"), json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Retry-After"), json.loads(e.read())
+
+
+def free_port() -> int:
+    import socket
+
+    sock = socket.socket()
+    try:
+        sock.bind(("127.0.0.1", 0))
+    except OSError as e:
+        fail(f"a loopback socket does not bind on this machine: {e!r}")
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
+def scrape(port: int, path: str) -> tuple:
+    """GET ``path`` of the monitoring server: (body, ms)."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    body = urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=SERVING_DEADLINE_S).read()
+    return body, (time.perf_counter() - t0) * 1e3
+
+
+def wait_until(what: str, cond, hub, deadline_s: float = SERVING_DEADLINE_S) -> float:
+    """Generation-wait on ``hub`` until ``cond()``; its seconds, or the
+    phase fails at the deadline."""
+    t0 = time.perf_counter()
+    while True:
+        seen = hub.seq()
+        if cond():
+            return time.perf_counter() - t0
+        if time.perf_counter() - t0 > deadline_s:
+            fail(f"serving: {what} not reached in {deadline_s} s")
+        hub.wait(seen, 0.05)
+
+
+def phase_serving(torch, dev, smi: str) -> dict:
+    """Phase 17: the serving layer (slice 16b) on the card, through the
+    entry points a user calls.  ``RagServingApp`` with BGE-base (phase 3's
+    seed) through ``EncoderAdapter`` and a CAPACITY-slot f32 cosine
+    ``SegmentedIndex(ShardedKnnIndex)`` on the card (delta cap
+    SERVING_DELTA_CAP); ``/v1/answer`` served over REST.
+    (a) SERVING_DOCS of phase 15's documents upserted (SERVING_CHUNK_WORDS
+    a chunk), then LoadGen for SERVING_LOAD_S (tenant ``alice``
+    interactive, ``bob`` batch, ``noisy`` batch over its rate) while
+    SERVING_REWRITTEN documents get new texts and SERVING_DELETED are
+    deleted; once the index holds exactly the live chunks, SERVING_CHECKED
+    answers against the direct path (the adapter over each live chunk's
+    text and the query, one text a call as the app embeds them, and an
+    exact numpy top-k: ``compare_rows`` at TOPK_ATOL); lookahead probes
+    and ``SegmentedIndex.probes_dispatched`` above 0; K1-K7 launched.
+    (b) ``/v1/answer``: 200s with the same answers as ``app.answer``, a
+    tenant over its rate answered 429 with ``Retry-After``, the admission
+    counters' change equal to the replies; one request profiled.
+    (c) ``start_http_server(app.sched)``: ``/metrics`` with the serving
+    latency series by tenant class, ``/status`` whose admitted counts equal
+    ``app.admission.stats()`` and whose device counters moved bytes both
+    ways, ``/debug/stacks``.  (d) ``RagServingApp(shards=2)`` over two
+    FAILOVER_SLOTS-slot shards on the card, FAILOVER_DOCS documents: one
+    owner killed while queries run answers ``partial`` with 1 of 2 shards,
+    ``ShardFailoverSupervisor`` restores it, and the FAILOVER_QUERIES
+    answers equal those before the kill."""
+    import threading
+
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import BGE_BASE, ShardedKnnIndex, TorchEncoder, kernels, serving
+    from pathway_tpu_torch.internals.monitoring_server import start_http_server
+    from pathway_tpu_torch.serving.graph import simple_splitter
+    from pathway_tpu_torch.stdlib.indexing.segments import SegmentedIndex
+
+    res: dict = {"card": smi}
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    adapter = EncoderAdapter(TorchEncoder(BGE_BASE, seed=SEED, device=dev))
+    policies = {
+        "alice": serving.TenantPolicy("interactive", rate_per_s=400.0, burst=80, queue_cap=64),
+        "bob": serving.TenantPolicy("batch", rate_per_s=200.0, burst=40, queue_cap=32),
+        "noisy": serving.TenantPolicy("batch", rate_per_s=5.0, burst=2, queue_cap=2),
+        "rest_slow": serving.TenantPolicy("batch", rate_per_s=0.01, burst=1, queue_cap=4),
+        "drill": serving.TenantPolicy("interactive", rate_per_s=1e6, burst=1e6, queue_cap=1024),
+    }
+    docs = {f"doc{i:05d}": text for i, text in enumerate(synthetic_docs(np, SERVING_DOCS, SEED))}
+
+    def chunks(items) -> dict:
+        return {cid: text for doc_id, t in items for cid, text in simple_splitter(doc_id, t, SERVING_CHUNK_WORDS)}
+
+    index = SegmentedIndex(ShardedKnnIndex(HIDDEN, metric="cos", capacity=CAPACITY, device=dev),
+                           delta_cap=SERVING_DELTA_CAP)
+    pw.G.clear()
+    app = serving.RagServingApp(policies, embedder=adapter, index=index, k=K, chunk_words=SERVING_CHUNK_WORDS)
+    rest_port = free_port()
+    app.serve_rest(host="127.0.0.1", port=rest_port)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    app.start()
+    try:
+        # ---- (a) ingest
+        first = chunks(docs.items())
+        res["docs"], res["chunks"] = len(docs), len(first)
+        res["split_docs"] = sum(1 for cid in first if cid.endswith("#1"))
+        t0 = time.perf_counter()
+        for i, (doc_id, text) in enumerate(docs.items()):
+            app.upsert(doc_id, text, tenant=("alice", "bob")[i % 2])
+        res["ingest_s"] = wait_until("the first ingest", lambda: app.ingested_chunks >= len(first)
+                                     and len(app.index) == len(first), app.hub)
+        res["ingest_chunks_per_s"] = len(first) / res["ingest_s"]
+        merges_before_load = app.index.stats()["merges_total"]
+        log(f"serving on {smi}: {res['docs']} documents, {res['chunks']} chunks ({res['split_docs']} split) "
+            f"searchable in {res['ingest_s']:.2f} s ({res['ingest_chunks_per_s']:.1f} chunks/s, one encode a "
+            f"chunk), {merges_before_load} merges")
+
+        # ---- (a) load, with documents rewritten and deleted meanwhile
+        questions = synthetic_questions(np, list(docs.values()), 64, SEED + 31)
+        lg = serving.LoadGen(app, [serving.TenantLoad("alice", qps=30.0, queries=questions),
+                                   serving.TenantLoad("bob", qps=10.0, queries=questions),
+                                   serving.TenantLoad("noisy", qps=80.0, queries=questions)],
+                             duration_s=SERVING_LOAD_S, seed=SEED)
+        report: dict = {}
+        loader = threading.Thread(target=lambda: report.update(lg.run()), name="loadgen", daemon=True)
+        loader.start()
+        rng = np.random.default_rng(SEED + 32)
+        picked = [f"doc{i:05d}" for i in rng.permutation(SERVING_DOCS)[:SERVING_REWRITTEN + SERVING_DELETED]]
+        rewritten = dict(zip(picked[:SERVING_REWRITTEN], synthetic_docs(np, SERVING_REWRITTEN, SEED + 33)))
+        deleted = picked[SERVING_REWRITTEN:]
+        for doc_id, text in rewritten.items():
+            app.upsert(doc_id, text, tenant="bob")
+        for doc_id in deleted:
+            app.delete(doc_id)
+        loader.join(SERVING_LOAD_S + 2 * SERVING_DEADLINE_S)
+        if loader.is_alive() or not report:
+            fail("serving: LoadGen did not finish")
+        final = dict(docs)
+        final.update(rewritten)
+        for doc_id in deleted:
+            del final[doc_id]
+        live = chunks(final.items())
+        n_rewritten = len(chunks(rewritten.items()))
+        res["settle_s"] = wait_until(
+            "the churn's settling", lambda: app.ingested_chunks >= len(first) + n_rewritten
+            and set(app.index.keys()) == set(live), app.hub)
+        res["load"] = report
+        res["admission_after_load"] = app.admission.stats()
+        cls = report["classes"]
+        ten = report["tenants"]
+        for c, row in sorted(cls.items()):
+            log(f"serving on {smi}: class {c}: {row['achieved_qps']:.1f} answers/s of {row['offered_qps']:.0f} "
+                f"offered, p50 {row['p50_ms']:.2f} ms, p99 {row['p99_ms']:.2f} ms, sent {row['sent']}, shed "
+                f"{row['shed']}, errors {row['errors']}")
+        log(f"serving on {smi}: tenants {json.dumps(ten)}; admission {json.dumps(res['admission_after_load'])}; "
+            f"scheduler {json.dumps(app.scheduler.stats())}")
+        if ten["noisy"]["shed"] == 0:
+            fail(f"serving: the tenant over its rate was never shed: {json.dumps(ten['noisy'])}")
+        # the interactive class holds (no shed, no error, every request answered); the
+        # batch class may be shed by brownout when the engine reports pressure
+        a = ten["alice"]
+        if a["shed"] or a["errors"] or a["completed"] != a["sent"]:
+            fail(f"serving: the interactive tenant lost requests: {json.dumps(a)}")
+        if any(ten[t]["errors"] or ten[t]["completed"] + ten[t]["shed"] != ten[t]["sent"] for t in ten):
+            fail(f"serving: requests neither answered nor shed: {json.dumps(ten)}")
+
+        # ---- (a) the checked round
+        asked = synthetic_questions(np, list(final.values()), SERVING_CHECKED, SEED + 34)
+        answers = []
+        for i in range(0, len(asked), 16):
+            futs = [app.submit_query(q, tenant="alice") for q in asked[i:i + 16]]
+            answers.extend(f.result(timeout=SERVING_DEADLINE_S) for f in futs)
+        got_rows = [[(d["id"], d["score"]) for d in a["docs"]] for a in answers]
+        if any(a["partial"] for a in answers):
+            fail("serving: an answer over the one-owner index says partial")
+        for a in answers:
+            top = a["docs"][0]
+            if a["answer"] != f"[{top['id']}] {live[top['id']][:240]}" or top["text"] != live[top["id"]]:
+                fail(f"serving: the extractive answer or a doc's text does not match chunk {top['id']}")
+
+        # ---- (b) REST
+        rest = {"start_s": wait_until("the REST route's start", lambda: _answers(rest_port), app.hub)}
+        before = app.admission.stats()
+        replies = [post_json(rest_port, "/v1/answer", {"query": q, "tenant": "alice", "k": K}) for q in asked[:8]]
+        for (status, _, body), want in zip(replies, answers[:8]):
+            if status != 200 or [d["id"] for d in body["docs"]] != [d["id"] for d in want["docs"]]:
+                fail(f"serving: /v1/answer gave {status} or other hits than app.answer for the same question")
+        slow = [post_json(rest_port, "/v1/answer", {"query": asked[0], "tenant": "rest_slow"}) for _ in range(2)]
+        if slow[0][0] != 200 or slow[1][0] != 429 or not slow[1][1] or int(slow[1][1]) < 1 \
+                or "rate limited" not in slow[1][2]["error"]:
+            fail(f"serving: the over-rate tenant's replies: {[(s, ra, b if s != 200 else '...') for s, ra, b in slow]}")
+        after = app.admission.stats()
+        d_admitted = {c: n - before["admitted_total"].get(c, 0) for c, n in after["admitted_total"].items()
+                      if n != before["admitted_total"].get(c, 0)}
+        d_shed = {c: n - before["shed_total"].get(c, 0) for c, n in after["shed_total"].items()
+                  if n != before["shed_total"].get(c, 0)}
+        if d_admitted != {"interactive": 8, "batch": 1} or d_shed != {"batch": 1} or after["inflight"]:
+            fail(f"serving: admission counted {d_admitted} admitted, {d_shed} shed, {after['inflight']} in "
+                 "flight for 9 200s and one 429")
+        rest.update({"ok": len(replies) + 1, "retry_after": slow[1][1], "error": slow[1][2]["error"]})
+        res["rest"] = rest
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        res["launches"] = launches
+        res["coscheduler"] = app.coscheduler.stats()
+        res["index"] = app.index.stats()
+        res["ingested_chunks"], res["removed_chunks"] = app.ingested_chunks, app.removed_chunks
+        res["merges_during_load"] = res["index"]["merges_total"] - merges_before_load
+
+        # ---- (a) the direct path: the adapter over each live chunk and question
+        t0 = time.perf_counter()
+        ids = sorted(live)
+        mat = np.stack([adapter(live[cid]) for cid in ids]).astype(np.float32)
+        mat /= np.maximum(np.linalg.norm(mat, axis=1, keepdims=True), 1e-30)
+        qv = np.stack([adapter(q) for q in asked]).astype(np.float32)
+        qv /= np.maximum(np.linalg.norm(qv, axis=1, keepdims=True), 1e-30)
+        scores = qv @ mat.T
+        want_rows = []
+        for row in scores:
+            top = np.argsort(-row, kind="stable")[:K]
+            want_rows.append([(ids[j], float(row[j])) for j in top])
+        res["direct_s"] = time.perf_counter() - t0
+        res["max_abs_err_vs_direct"] = compare_rows(got_rows, want_rows, K, TOPK_ATOL, "serving vs direct path")
+        co = res["coscheduler"]
+        if not co["lookahead_probes"] > 0 or not res["index"]["probes_dispatched"] > 0:
+            fail(f"serving: no lookahead probe ({co['lookahead_probes']}) or dispatched probe "
+                 f"({res['index']['probes_dispatched']})")
+        missing = [n for n in ("attention", "slab_scatter", "knn_topk", "bias_act", "add_layer_norm", "embed_ln",
+                               "pool_normalize") if launches[n] == 0]
+        if missing:
+            fail(f"kernels not launched by the serving path: {missing}")
+        res["served_profile"] = profile_call(
+            torch, lambda: post_json(rest_port, "/v1/answer", {"query": asked[1], "tenant": "alice"}), 1)
+
+        # ---- (c) the monitoring server
+        mport = free_port()
+        start_http_server(app.sched, port=mport)
+        _, metrics_first_ms = scrape(mport, "/metrics")  # the first scrape may pay A11's scan of the port
+        metrics, metrics_ms = scrape(mport, "/metrics")
+        status_raw, status_ms = scrape(mport, "/status")
+        stacks, stacks_ms = scrape(mport, "/debug/stacks")
+        app.sched._monitoring_server.shutdown()
+        app.sched._monitoring_server.server_close()
+        metrics, status, stacks = metrics.decode(), json.loads(status_raw), stacks.decode()
+        for c in ("interactive", "batch"):
+            if f'pathway_tpu_stage_latency_ms{{stage="serve_e2e",tenant_class="{c}",quantile="p99"}}' not in metrics:
+                fail(f"serving: /metrics has no serve_e2e latency series for tenant_class {c}")
+        adm = app.admission.stats()
+        if status["serving"]["admission"]["admitted_total"] != adm["admitted_total"]:
+            fail(f"serving: /status admitted {status['serving']['admission']['admitted_total']}, the controller "
+                 f"{adm['admitted_total']}")
+        ctr = status["device"]["counters"]
+        if not (ctr["h2d_bytes"] > 0 and ctr["d2h_bytes"] > 0) or "--- Thread" not in stacks:
+            fail(f"serving: /status device counters {ctr} or /debug/stacks without threads")
+        res["monitoring"] = {"metrics_first_ms": metrics_first_ms, "metrics_ms": metrics_ms, "status_ms": status_ms,
+                             "stacks_ms": stacks_ms,
+                             "metrics_bytes": len(metrics), "status_bytes": len(status_raw),
+                             "device_counters": ctr, "admitted_total": adm["admitted_total"],
+                             "shed_total": adm["shed_total"]}
+    finally:
+        app.close()
+        pw.G.clear()
+    del app, index
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) failover: two shards on the card, one owner killed under load
+    fo_docs = dict(list(docs.items())[:FAILOVER_DOCS])
+    fo_live = chunks(fo_docs.items())
+    part = serving.PartitionedIndex(
+        lambda: SegmentedIndex(ShardedKnnIndex(HIDDEN, metric="cos", capacity=FAILOVER_SLOTS, device=dev),
+                               delta_cap=FAILOVER_DELTA_CAP),
+        n_shards=2, snapshot_every=FAILOVER_SNAPSHOT_EVERY)
+    app2 = serving.RagServingApp(policies, embedder=adapter, index=part, shards=2, k=K,
+                                 chunk_words=SERVING_CHUNK_WORDS)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    app2.start()
+    sup = None
+    try:
+        for doc_id, text in fo_docs.items():
+            app2.upsert(doc_id, text, tenant="drill")
+        fo: dict = {"docs": len(fo_docs), "chunks": len(fo_live)}
+        fo["ingest_s"] = wait_until("the two-shard ingest", lambda: app2.ingested_chunks >= len(fo_live)
+                                    and len(app2.index) == len(fo_live), app2.hub)
+        fo_q = synthetic_questions(np, list(fo_docs.values()), FAILOVER_QUERIES, SEED + 35)
+
+        def answer_all() -> list:
+            return [app2.answer(q, tenant="drill", timeout=SERVING_DEADLINE_S) for q in fo_q]
+
+        healthy = answer_all()
+        if any(a["partial"] or a["shards_answered"] != 2 for a in healthy):
+            fail("serving: a healthy two-shard answer says partial")
+        stop, after_kill = threading.Event(), []
+        killed = threading.Event()
+        errors: list = []
+
+        def load() -> None:
+            i = 0
+            while not stop.is_set():
+                try:
+                    a = app2.answer(fo_q[i % len(fo_q)], tenant="drill", timeout=SERVING_DEADLINE_S)
+                except BaseException as e:  # noqa: BLE001 - the drill counts them
+                    errors.append(repr(e))
+                    return
+                if killed.is_set():
+                    after_kill.append((a["partial"], a["shards_answered"], a["shards_total"]))
+                i += 1
+
+        loader = threading.Thread(target=load, name="failover_load", daemon=True)
+        loader.start()
+        t_kill = time.perf_counter()
+        app2.index.fail_shard(1)
+        killed.set()
+        wait_until("answers after the kill", lambda: len(after_kill) >= 8 or errors, app2.hub)
+        degraded = [app2.answer(q, tenant="drill", timeout=SERVING_DEADLINE_S) for q in fo_q[:8]]
+        stop.set()
+        loader.join(SERVING_DEADLINE_S)
+        if errors or loader.is_alive():
+            fail(f"serving: queries failed while a shard was dead: {errors[:3]}")
+        if any((p, a, t) != (True, 1, 2) for p, a, t in after_kill[1:]) \
+                or any(not d["partial"] or d["shards_answered"] != 1 for d in degraded):
+            fail(f"serving: answers with a dead shard are not partial over 1 of 2: {after_kill[:8]}")
+        sup = serving.ShardFailoverSupervisor(app2.index, scheduler=app2.scheduler)
+        fo["restore_s"] = wait_until("the supervisor's restore", lambda: app2.index.stats()["shards_healthy"] == 2,
+                                     app2.hub)
+        fo["kill_to_healthy_s"] = time.perf_counter() - t_kill
+        restored = answer_all()
+        if any(a["partial"] for a in restored):
+            fail("serving: an answer after the restore says partial")
+        fo["max_abs_err_restored_vs_healthy"] = compare_rows(
+            [[(d["id"], d["score"]) for d in a["docs"]] for a in restored],
+            [[(d["id"], d["score"]) for d in a["docs"]] for a in healthy], K, TOPK_ATOL,
+            "serving: answers after the restore vs before the kill")
+        st = app2.index.stats()
+        hist = st["failover_seconds"]
+        fo.update({"answers_after_kill": len(after_kill), "degraded_responses": st["degraded_responses"],
+                   "standby_serves": st["standby_serves"], "failovers": st["failovers_total"],
+                   "failover_seconds": hist.get("max_ns", 0) / 1e9,
+                   "owners": [{k: o[k] for k in ("alive", "incarnation", "tail_replayed", "restores_total",
+                                                  "snapshot_seq")} for o in st["shards"]]})
+        torch.cuda.synchronize()
+        res["failover_launches"] = kernels.launch_counts()
+        res["failover"] = fo
+        missing = [n for n in ("slab_scatter", "knn_topk") if res["failover_launches"][n] == 0]
+        if missing:
+            fail(f"kernels not launched by the two-shard serving path: {missing}")
+    finally:
+        if sup is not None:
+            sup.close()
+        app2.close()
+        pw.G.clear()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["wall_s"] = time.perf_counter() - t_phase
+
+    lc = {n: c for n, c in res["launches"].items() if c}
+    log(f"serving on {smi}: chunks ingested {res['ingested_chunks']}, removed {res['removed_chunks']}, merges "
+        f"{res['index']['merges_total']} ({res['merges_during_load']} from the load's start); settled "
+        f"{res['settle_s']:.2f} s after the load")
+    log(f"serving on {smi}: {SERVING_CHECKED} answers vs the direct path: max score error "
+        f"{res['max_abs_err_vs_direct']:.2e} (direct path {res['direct_s']:.1f} s); lookahead probes "
+        f"{co['lookahead_probes']}, mean overlap {co['overlap_ms_mean']:.3f} ms; probes dispatched "
+        f"{res['index']['probes_dispatched']}, recovered {res['index']['probes_recovered']}")
+    sp = res["served_profile"]
+    log(f"serving on {smi}: one /v1/answer: wall {sp['wall_ms']:.2f} ms, busy {sp['device_busy_ms']:.3f} ms, "
+        f"idle {sp['device_idle_share']:.3f}; REST 429 Retry-After {res['rest']['retry_after']} "
+        f"({res['rest']['error']!r})")
+    log(f"serving on {smi}: launches by kernel {json.dumps(lc)} (K13 topk_select {res['launches']['topk_select']})")
+    mo = res["monitoring"]
+    log(f"serving on {smi}: monitoring /metrics {mo['metrics_ms']:.2f} ms ({mo['metrics_bytes']} B; the first "
+        f"scrape {mo['metrics_first_ms']:.2f} ms), /status "
+        f"{mo['status_ms']:.2f} ms ({mo['status_bytes']} B), /debug/stacks {mo['stacks_ms']:.2f} ms; device "
+        f"counters {json.dumps(mo['device_counters'])}")
+    log(f"serving on {smi}: failover: {fo['chunks']} chunks over 2 shards of {FAILOVER_SLOTS} slots in "
+        f"{fo['ingest_s']:.2f} s; {fo['answers_after_kill']} answers under load after the kill, partial over 1 of 2 "
+        f"({fo['degraded_responses']} degraded, {fo['standby_serves']} shard answers from the standby); "
+        f"restored in {fo['restore_s']:.3f} s (failover_seconds {fo['failover_seconds']:.4f}, kill to healthy "
+        f"{fo['kill_to_healthy_s']:.3f} s); hits after the restore within {fo['max_abs_err_restored_vs_healthy']:.1e} "
+        f"of before the kill; owners {json.dumps(fo['owners'])}")
+    log(f"serving on {smi}: peak {res['peak_mem_gb']:.2f} GB; phase wall {res['wall_s']:.1f} s")
+    return res
+
+
+def _answers(port: int) -> bool:
+    """True once ``/v1/answer`` on ``port`` answers a request."""
+    try:
+        return post_json(port, "/v1/answer", {"query": "w1", "tenant": "drill"}, timeout=5.0)[0] == 200
+    except OSError:
+        return False
+
+
 def phase_rag_server_levels(torch, dev, smi: str) -> dict:
     """``--rag-server-levels``: phase 15 alone (over phase 3's synthetic
     documents) with ``PATHWAY_OPTIMIZE`` and ``PATHWAY_DISABLE_COLUMNAR``
@@ -6662,6 +7130,20 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         }}))
         return 0
+    if "--serving" in sys.argv[1:]:
+        import numpy as np
+
+        ctx = {"docs": synthetic_docs(np, N_DOCS, SEED)}
+        rates = dict.fromkeys(("encode_into_docs_per_s", "udf_docs_per_s", "live_ingest_docs_per_s"), float("nan"))
+        rs = phase_rag_server(torch, dev, ctx, smi, rates)
+        log("serving only: rag server " + json.dumps({k: v for k, v in rs.items() if k not in ("launches", "analysis")}))
+        torch.cuda.empty_cache()
+        sv = phase_serving(torch, dev, smi)
+        log("serving only: " + json.dumps({k: v for k, v in sv.items() if k not in ("launches", "failover_launches")}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}))
+        return 0
     if "--distinct-cards" in sys.argv[1:]:
         if torch.cuda.device_count() < 4:
             fail(f"--distinct-cards needs four cards, found {torch.cuda.device_count()}")
@@ -6725,6 +7207,9 @@ def main() -> int:
     wall["rag_server_s"] = rs_out["wall_s"]
     pa_out = phase_analysis(torch, dev, rs_out, lr_out, smi)
     wall["analysis_s"] = pa_out["wall_s"]
+    torch.cuda.empty_cache()
+    sv_out = phase_serving(torch, dev, smi)
+    wall["serving_s"] = sv_out["wall_s"]
     torch.cuda.empty_cache()
     sh_out = phase_sharded(torch, dev, ctx)
     wall["sharded_s"] = sh_out["wall_s"]
@@ -6793,6 +7278,8 @@ def main() -> int:
                    "checkpoint": ck_out["launches"][name], "engine": en_out["launches"][name],
                    "live_rag": lr_out["launches"].get(name, 0),
                    "rag_server": rs_out["launches"].get(name, 0),
+                   "serving": sv_out["launches"].get(name, 0),
+                   "serving_failover": sv_out["failover_launches"].get(name, 0),
                    "f32_vision": fv_out["launches"][name],
                    **{path: counts[name] for path, counts in p10_out["launches"].items()},
                    "train": tr_out["launches"][name], "dryrun": tr_out["dryrun_launches"][name]}
@@ -6839,6 +7326,7 @@ def main() -> int:
         "live_rag": {key: val for key, val in lr_out.items() if key != "launches"},
         "rag_server": {key: val for key, val in rs_out.items() if key not in ("launches", "analysis")},
         "analysis": pa_out,
+        "serving": {key: val for key, val in sv_out.items() if key not in ("launches", "failover_launches")},
         "f32_vision": {key: val for key, val in fv_out.items() if key != "launches"},
         "train": {key: val for key, val in tr_out.items() if key not in ("launches", "dryrun_launches")},
         "phase_wall_s": wall,

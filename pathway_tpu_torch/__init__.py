@@ -137,13 +137,17 @@ DURATION = _dt.DURATION
 #: ROADMAP item that brings them
 _LATER = {
     **dict.fromkeys(
-        ("demo", "persistence", "PersistenceMode", "testing", "universes", "iterate", "iterate_universe", "enable_interactive_mode", "LiveTable",
+        ("persistence", "PersistenceMode", "testing"),
+        "item 16 (slice 16c: persistence and the chaos drills)",
+    ),
+    **dict.fromkeys(
+        ("demo", "universes", "iterate", "iterate_universe", "enable_interactive_mode", "LiveTable",
          "live", "export_table", "import_table", "ExportedTable", "sql", "load_yaml"),
-        "item 16 (io, persistence, serving and the rest of internals)",
+        "item 16 (slice 16d: the rest of internals)",
     ),
     **dict.fromkeys(
         ("temporal", "ml", "graphs", "stateful", "statistical", "ordered", "viz"),
-        "item 16 (stdlib beyond indexing)",
+        "item 16 (slice 16d: stdlib beyond indexing)",
     ),
 }
 

@@ -150,6 +150,12 @@ _LANES = {
     ("stdlib/indexing/segments.py", "SegmentedIndex.dispatch"),
     ("stdlib/indexing/segments.py", "SegmentedIndex._merge_inplace"),
     ("io/http/__init__.py", "PathwayWebserver._dispatch"),
+    # the serving stages that run inside ``SloScheduler._execute``, on the
+    # scheduler's one dispatcher thread (the JAX pass treats every
+    # ``*lane*`` function of ``serving/`` so)
+    ("serving/coscheduler.py", "StageCoScheduler._embed_batch"),
+    ("serving/coscheduler.py", "StageCoScheduler._retrieve"),
+    ("serving/graph.py", "RagServingApp._ingest_batch"),
 }
 
 #: the device surface beyond ``ops/``, ``models/``, ``parallel/`` and
@@ -612,14 +618,14 @@ def _package_dir() -> str:
 
 def device_module_files() -> "list[str]":
     """The port's device surface: ``ops/``, ``models/``, ``parallel/``,
-    ``kernels/*.py``, ``train.py``, and the modules of the host lanes a
-    served question passes through (:data:`_LANES`)."""
+    ``kernels/*.py``, ``serving/``, ``train.py``, and the modules of the
+    host lanes a served question passes through (:data:`_LANES`)."""
     pkg = _package_dir()
     out: list[str] = []
-    for sub in ("ops", "models", "parallel", "kernels"):
+    for sub in ("ops", "models", "parallel", "kernels", "serving"):
         out.extend(sorted(glob.glob(os.path.join(pkg, sub, "*.py"))))
     out.extend(os.path.join(pkg, *f.split("/")) for f in _DEVICE_FILES)
-    return [f for f in out if os.path.isfile(f)]
+    return [f for f in dict.fromkeys(out) if os.path.isfile(f)]
 
 
 _profile_cache: "dict | None" = None

@@ -9,10 +9,12 @@ tier's worker cap, the cluster topology, telemetry and the collector
 pacing around it; with live connectors it blocks until all sources close
 (streaming mode), mirroring ``pw.run`` blocking semantics.
 
-The port has no persistence or monitoring server yet (ROADMAP slices 16b
-and 16c): a run that asks for one (a ``persistence_config``,
-``with_http_server`` or a monitoring port) raises
-:class:`NotImplementedError` instead of running without it.
+``with_http_server=True`` (or ``PATHWAY_MONITORING_HTTP_PORT``) serves
+``/status``, ``/metrics``, ``/debug/stacks`` and ``/debug/trace`` for the
+length of the run (``internals/monitoring_server.py``).  The port has no
+persistence layer yet (ROADMAP slice 16c): a run that asks for one (a
+``persistence_config``) raises :class:`NotImplementedError` instead of
+running without it.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ class MonitoringLevel:
 
 def _needs_item_16(arg: str, part: str) -> NotImplementedError:
     return NotImplementedError(
-        f"pw.run({arg}) needs the {part}, which pathway_tpu_torch ports in ROADMAP item 16"
+        f"pw.run({arg}) needs the {part}, which pathway_tpu_torch ports in ROADMAP item 16 (slice 16c)"
     )
 
 
@@ -62,11 +64,12 @@ def run(
     comes from ``PATHWAY_OPTIMIZE``, else 2.  The applied plan is
     available as ``pw.explain()`` / ``G.last_plan``.
 
-    A ``persistence_config`` (here or in
-    ``pathway_config.persistence_config``) and ``with_http_server=True``
-    (or a monitoring port) raise :class:`NotImplementedError`:
-    persistence and the monitoring server come with ROADMAP slices 16c
-    and 16b."""
+    ``with_http_server=True`` (or ``PATHWAY_MONITORING_HTTP_PORT``) starts
+    the monitoring server on ``PATHWAY_MONITORING_HTTP_PORT`` (default
+    20000) plus ``PATHWAY_PROCESS_ID``; it stops when the run ends.  A
+    ``persistence_config`` (here or in ``pathway_config.persistence_config``)
+    raises :class:`NotImplementedError`: persistence comes with ROADMAP
+    slice 16c."""
     import os
 
     from pathway_tpu_torch.analysis import SEV_ERROR, AnalysisError, analyze, count_by_severity
@@ -83,8 +86,6 @@ def run(
         persistence_config = cfg.pathway_config.persistence_config
     if persistence_config is not None:
         raise _needs_item_16("persistence_config=...", "persistence layer (pathway_tpu_torch.persistence)")
-    if with_http_server or cfg.pathway_config.monitoring_http_port:
-        raise _needs_item_16("with_http_server=True", "monitoring server")
 
     level = resolve_level(optimize)
     # plan-aware: analyze the view the scheduler will execute, so
@@ -107,6 +108,7 @@ def run(
         return _run_inner(
             pc,
             monitoring_level,
+            with_http_server or bool(cfg.pathway_config.monitoring_http_port),
             autocommit_duration_ms,
             count_by_severity(diags),
             exec_graph,
@@ -120,6 +122,7 @@ def run(
 def _run_inner(
     pc: Any,
     monitoring_level: Any,
+    with_http_server: bool,
     autocommit_duration_ms: int | None,
     analysis_counts: dict[str, int],
     exec_graph: Any,
@@ -174,6 +177,20 @@ def _run_inner(
         sched.memory_estimate = estimate_memory(exec_graph, optimize=0)  # already rewritten
     except Exception:
         sched.memory_estimate = None
+    if with_http_server:
+        from pathway_tpu_torch.internals.monitoring_server import start_http_server
+
+        start_http_server(sched)
+    try:
+        return _run_scheduler(sched, pc, monitoring_level, threads, processes)
+    finally:
+        server = getattr(sched, "_monitoring_server", None)
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+
+
+def _run_scheduler(sched: Any, pc: Any, monitoring_level: Any, threads: int, processes: int):
     # live TUI dashboard (reference pw.run(monitoring_level=...) rich TUI):
     # AUTO shows it only on a real terminal; NONE never
     show = monitoring_level in (MonitoringLevel.ALL, MonitoringLevel.IN_OUT)

@@ -20,6 +20,6 @@ def __getattr__(name: str) -> Any:
     if name in _LATER:
         raise AttributeError(
             f"module {__name__!r} has no attribute {name!r} yet: the port brings it with "
-            "ROADMAP item 16 (stdlib beyond indexing)"
+            "ROADMAP item 16 (slice 16d: stdlib beyond indexing)"
         )
     raise AttributeError(name)

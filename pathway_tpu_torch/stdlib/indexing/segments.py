@@ -77,10 +77,9 @@ class _SegProbe:
     The probe also carries the serving layer's partial-result contract
     (``partial``/``shards_answered``/``shards_total``): a single
     SegmentedIndex is one shard that always answers authoritatively, so
-    the identity coverage ``1/1`` — the multi-shard variant lives in the
-    serving layer's ``PartitionedIndex`` (``pathway_tpu/serving/failover.py``;
-    the port's comes with ROADMAP item 16), whose probe carries the same
-    fields with real per-shard health behind them."""
+    the identity coverage ``1/1`` — the multi-shard variant lives in
+    :class:`pathway_tpu_torch.serving.failover.PartitionedIndex`, whose
+    probe carries the same fields with real per-shard health behind them."""
 
     __slots__ = (
         "queries",

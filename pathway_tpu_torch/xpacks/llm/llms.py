@@ -119,10 +119,12 @@ class CohereChat(_GatedChat):
 
 
 class HFPipelineChat(BaseChat):
-    """Local HuggingFace text-generation pipeline (reference ``llms.py:441``;
-    torch-cpu). Requires a locally cached model — no downloads attempted."""
+    """Local HuggingFace text-generation pipeline (reference ``llms.py:441``).
+    Runs on the card unless the caller passes ``device="cpu"``, as every
+    entry point of the port does.  Requires a locally cached model — no
+    downloads attempted."""
 
-    def __init__(self, model: str | None = None, device: str = "cpu", **kwargs: Any):
+    def __init__(self, model: str | None = None, device: str = "cuda", **kwargs: Any):
         super().__init__(model=model, **kwargs)
         from transformers import pipeline
 

@@ -64,6 +64,6 @@ def __getattr__(name: str) -> Any:
     if name in _LATER:
         raise AttributeError(
             f"module {__name__!r} has no attribute {name!r} yet: the port brings it with "
-            "ROADMAP item 16 (the other parsers)"
+            "ROADMAP item 16 (slice 16e: the other parsers)"
         )
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -461,10 +461,14 @@ def test_worker_cap_over_the_free_tier(monkeypatch, caplog):
     ids=["strict", "strict_env", "persistence", "http_server", "monitoring_port"],
 )
 def test_run_raises_for_what_item_16_brings(monkeypatch, kwargs, env, what):
-    """What slices 16b and 16c bring raises before any source starts.
-    Strict mode came with 16a: it refuses a graph with an error finding
-    (a join of an int key with a str key, PW-T001) before any source
-    starts, and runs a clean one."""
+    """What slice 16c brings (persistence) raises before any source
+    starts.  Strict mode came with 16a: it refuses a graph with an error
+    finding (a join of an int key with a str key, PW-T001) before any
+    source starts, and runs a clean one.  The monitoring server came with
+    16b: ``with_http_server=True`` or a configured monitoring port runs,
+    serves on ``PATHWAY_MONITORING_HTTP_PORT`` and stops with the run."""
+    import socket
+
     t = tpw.debug.table_from_rows(tpw.schema_from_types(a=int), [(1,)])
     ran = []
     tpw.io.subscribe(t, on_change=lambda *a: ran.append(a))
@@ -473,6 +477,21 @@ def test_run_raises_for_what_item_16_brings(monkeypatch, kwargs, env, what):
             monkeypatch.setenv(name, value)
         else:
             monkeypatch.setattr(tpw.internals.config.pathway_config, name, value)
+    if what == "monitoring server":
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        monkeypatch.setenv("PATHWAY_MONITORING_HTTP_PORT", str(port))
+        monkeypatch.delenv("PATHWAY_PROCESS_ID", raising=False)
+        tpw.G.active_scheduler = None
+        tpw.run(monitoring_level=tpw.MonitoringLevel.NONE, **kwargs)
+        assert len(ran) == 1
+        server = tpw.G.active_scheduler._monitoring_server
+        assert server.server_address[1] == port
+        with pytest.raises(OSError):  # stopped with the run
+            socket.create_connection(("127.0.0.1", port), timeout=2).close()
+        return
     if what is not None:
         with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP item 16"):
             tpw.run(**kwargs)

@@ -120,8 +120,32 @@ def app(pw, port: int, log: dict) -> None:
     server.serve_callable("/v1/reverse", Text, reverse)
 
 
+def admitted_app(pw, port: int, log: dict) -> None:
+    """``/v1/answer`` on a webserver of its own, behind the package's own
+    ``serving.AdmissionController`` (a clock that stands still, so a
+    token bucket never refills): the counterpart of
+    ``tests/test_serving.py::test_rest_429_retry_after_and_tenant_isolation``."""
+    import importlib
+
+    serving = importlib.import_module(f"{pw.__name__}.serving")
+    log["admission"] = serving.AdmissionController(
+        {"fast": serving.TenantPolicy("interactive", rate_per_s=500.0, burst=50, queue_cap=64),
+         "slow": serving.TenantPolicy("batch", rate_per_s=1.0, burst=1, queue_cap=4),
+         "warm": serving.TenantPolicy("warmup", rate_per_s=500.0, burst=50)},
+        clock=lambda: 0.0)
+
+    class Ask(pw.Schema):
+        query: str
+        tenant: str = pw.column_definition(default_value="default")
+
+    q, writer = pw.io.http.rest_connector(host="127.0.0.1", port=port, route="/v1/answer", schema=Ask,
+                                          admission=log["admission"], tenant_field="tenant")
+    writer(q.select(result=pw.apply(lambda query, tenant: f"{tenant}:{query}", q.query, q.tenant)))
+
+
 def start(pw, port: int, log: dict):
     app(pw, port, log)
+    admitted_app(pw, log["admitted_port"], log)
     pw.G.active_scheduler = None
     thread = threading.Thread(target=pw.run, kwargs={"monitoring_level": pw.MonitoringLevel.NONE},
                               daemon=True)
@@ -134,6 +158,14 @@ def start(pw, port: int, log: dict):
     while time.monotonic() < deadline:
         try:
             if ask(port, "POST", "/", {"query": "up"}) == (200, None, "UP"):
+                break
+        except OSError:
+            pass
+        time.sleep(0.1)
+    while time.monotonic() < deadline:
+        try:
+            if ask(log["admitted_port"], "POST", "/v1/answer", {"query": "up", "tenant": "warm"}) == (
+                    200, None, "warm:up"):
                 return sched, thread
         except OSError:
             pass
@@ -151,7 +183,7 @@ def apps():
     try:
         for name, pw in (("jax", jpw), ("port", tpw)):
             pw.G.clear()
-            port, log = free_port(), {"shed": [], "released": [], "deleted": []}
+            port, log = free_port(), {"shed": [], "released": [], "deleted": [], "admitted_port": free_port()}
             sched, thread = start(pw, port, log)
             running.append((sched, thread))
             setattr(out, name, SimpleNamespace(port=port, log=log))
@@ -387,3 +419,31 @@ def test_keep_alive_connection_and_chunked_body(apps):
             conn.close()
         answers[name] = out
     assert answers["port"] == answers["jax"] == [(200, 10), (200, 11), (200, 12), (200, "CHUNKED BODY")]
+
+
+def test_real_admission_sheds_with_429_and_isolates_tenants(apps):
+    """``rest_connector(admission=AdmissionController(...))`` of each
+    package's ``serving``: an over-rate tenant gets 429 with
+    ``Retry-After`` and a JSON error body, the other tenant keeps getting
+    200s, and every reply released its ticket (nothing stays in flight)."""
+
+    def both(payload):
+        want = ask(apps.jax.log["admitted_port"], "POST", "/v1/answer", payload)
+        got = ask(apps.port.log["admitted_port"], "POST", "/v1/answer", payload)
+        assert got == want, (payload, got, want)
+        return got
+
+    assert both({"query": "solar", "tenant": "fast"}) == (200, None, "fast:solar")
+    assert both({"query": "merge", "tenant": "slow"}) == (200, None, "slow:merge")
+    assert both({"query": "merge", "tenant": "slow"}) == (
+        429, "1", {"error": "rate limited: tenant 'slow' (/v1/answer)", "retry_after": 1.0})
+    assert both({"query": "bucket", "tenant": "fast"}) == (200, None, "fast:bucket")
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        out = list(pool.map(lambda i: both({"query": f"q{i}", "tenant": "fast"}), range(16)))
+    assert out == [(200, None, f"fast:q{i}") for i in range(16)]
+    stats = {name: getattr(apps, name).log["admission"].stats() for name in ("jax", "port")}
+    for st in stats.values():
+        assert st["admitted_total"] == {"warmup": 1, "interactive": 18, "batch": 1}
+        assert st["shed_total"] == {"batch": 1}
+        assert st["inflight"] == {}  # every reply, 429 included, left no ticket behind
+    assert stats["port"]["admitted_total"] == stats["jax"]["admitted_total"]

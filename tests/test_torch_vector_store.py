@@ -292,6 +292,27 @@ def test_default_embedder_needs_a_card():
         tpw.xpacks.llm.vector_store.VectorStoreServer(docs, embedder=embedder(tpw))
 
 
+def test_entry_points_default_to_the_card():
+    """C11: every class of the port's LLM xpack that takes ``device=``
+    defaults to ``"cuda"``; ``HFPipelineChat`` defaulted to the CPU.  The
+    test reads the signatures, so it needs no ``transformers``."""
+    import importlib
+    import inspect
+
+    defaults = {}
+    for mod in ("llms", "embedders", "rerankers", "vector_store", "document_store", "question_answering",
+                "servers"):
+        m = importlib.import_module(f"pathway_tpu_torch.xpacks.llm.{mod}")
+        for name, obj in vars(m).items():
+            if inspect.isclass(obj) and obj.__module__ == m.__name__:
+                params = inspect.signature(obj.__init__).parameters
+                if "device" in params:
+                    defaults[name] = params["device"].default
+    assert defaults["HFPipelineChat"] == "cuda"
+    assert {"TorchEncoderEmbedder", "CrossEncoderReranker", "VectorStoreServer"} <= set(defaults)
+    assert set(defaults.values()) == {"cuda"}, defaults
+
+
 # ---------------------------------------------------------------------------
 # the langchain and llama_index constructors (duck-typed components)
 
