@@ -270,7 +270,21 @@ Phases, each fatal on failure:
     ``ShardFailoverSupervisor`` restores it, the hits equal those before
     the kill.
 
-Phases 13, 14, 15, 16 and 17 and then phase 8 run right after phase 4, while
+18. persistence and the chaos drill (``phase_persistence``, slice 16c),
+    after phase 17: an ``IndexDrill`` over BGE-base and a 131,072-slot
+    f32 slab on the card runs ``pw.run(persistence_config=...)`` under
+    OPERATOR_PERSISTING in subprocesses under ``ClusterSupervisor``
+    (one process): a fault-free baseline (its ``/status`` checkpoint
+    section scraped once), the drill killed between a finished merge and
+    its commit and respawned (exactly once: 8,192 documents; answers equal
+    to numpy top-10 over the recovered vectors and recall@10 0.99 against
+    the baseline; the recovering generation embeds less than the input;
+    K1-K7 launched), and a third run over the drill's storage with no new
+    input (nothing embedded, no sink row); then phase 3's 1M slab through
+    ``state_dict``, ``pickle`` and ``load_state_dict`` into a fresh index,
+    K3 giving the same ids and score bits before and after.
+
+Phases 13-18 and then phase 8 run right after phase 4, while
 phase 3's index is alive, and phase 10 after them; phases 5, 6, 9 and 12
 follow.  The second-to-last line of
 output is a JSON object with one entry per kernel wrapper (K1-K19 and B8's
@@ -301,6 +315,9 @@ beside the captured graph's, and each run's busiest operators.
 
 ``python3 chip_smoke.py --serving`` runs instead, on one card, only phase 15
 (over phase 3's documents) and phase 17.
+
+``python3 chip_smoke.py --persistence`` runs instead, on one card, only
+phase 18 (over a slab built as phase 3 builds its own).
 
 ``python3 chip_smoke.py --distinct-cards`` runs instead, on four cards,
 only what a mesh that repeats one card cannot show: ring attention and
@@ -525,6 +542,21 @@ FAILOVER_DOCS = 256  # documents of the two-shard app
 FAILOVER_SNAPSHOT_EVERY = 64  # a shard owner's ops between snapshots: about two a shard, so a standby has one
 FAILOVER_DELTA_CAP = 32  # a shard's delta cap: its 128 or so chunks merge into its slab (K2), probes reach it (K3)
 FAILOVER_QUERIES = 32  # questions answered before the kill and after the restore
+PERSIST_DOCS = 8192  # phase 15's documents read by the persisted pipeline
+PERSIST_REUPSERTS = 2048  # seeded ids given new texts after them
+PERSIST_QUESTIONS = 128
+PERSIST_COMMIT = 256  # the document reader commits every this many rows
+PERSIST_EPOCH_ROWS = 192  # PATHWAY_EPOCH_MAX_ROWS: batches below the delta cap go through the delta and merge
+PERSIST_SLOTS = 1 << 17  # the index's slots: one checkpoint holds the 403 MB f32 slab
+PERSIST_DELTA_CAP = 256
+PERSIST_KILL_MERGE = 3  # the drill's process dies between this merge and its commit
+PERSIST_CHECKPOINT_S = 1.0  # PATHWAY_CHECKPOINT_INTERVAL
+PERSIST_BATCH = 256  # the embedder UDF's max_batch_size
+PERSIST_RECALL = 0.99  # the drill's answers against the baseline's, recall@10
+PERSIST_RUN_S = 300.0  # the supervisor's limit for one run
+PERSIST_PHASE_S = 120.0
+PERSIST_EMBEDDER = '"bge-base"'  # TorchEncoderEmbedder's model argument in the drill's program
+PERSIST_SLAB_QUERIES = 32  # phase 3's queries held before and after the 1M slab's round trip
 PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
@@ -7025,6 +7057,541 @@ def phase_serving(torch, dev, smi: str) -> dict:
     return res
 
 
+PERSIST_PROGRAM = """
+import json, os, sys, time
+_t0 = time.perf_counter()
+sys.path.insert(0, {repo!r})
+import dataclasses
+import numpy as np
+import torch
+import pathway_tpu_torch as pw
+from pathway_tpu_torch import kernels
+from pathway_tpu_torch.engine.external_index import ExternalIndexNode
+from pathway_tpu_torch.persistence import Backend, Config, PersistenceHooks, PersistenceMode, _FsBackend
+from pathway_tpu_torch.stdlib.indexing import DataIndex
+from pathway_tpu_torch.stdlib.indexing.data_index import BruteForceKnn
+
+import_s = time.perf_counter() - _t0
+_generation = os.environ.get("PATHWAY_WORKER_RESTARTS", "0")
+_kill_rank = int(os.environ.get("CHAOS_KILL_RANK", "-1"))
+if _kill_rank >= 0:
+    from pathway_tpu_torch.testing.chaos import chaos as _chaos
+
+    _c = _chaos(seed=int(os.environ.get("CHAOS_SEED", "0")))
+    _c.__enter__()  # never restored: this process dies or exits
+    _c.kill_worker_mid_merge(_kill_rank, on_nth_merge=int(os.environ["CHAOS_KILL_MERGE"]))
+
+# where a checkpoint's and a restore's time goes
+timers = {{"state_dict_s": [], "write_s": [], "restore_s": 0.0}}
+restored = {{}}
+_snapshot_state = ExternalIndexNode.snapshot_state
+_on_restore = ExternalIndexNode.on_restore
+_put_blob = _FsBackend.put_blob
+_load = PersistenceHooks.load_operator_snapshot
+
+
+def _timed_snapshot(self, ctx):
+    t = time.perf_counter()
+    out = _snapshot_state(self, ctx)
+    if out is not None:
+        timers["state_dict_s"].append(time.perf_counter() - t)
+    return out
+
+
+def _timed_restore(self, ctx):
+    t = time.perf_counter()
+    _on_restore(self, ctx)
+    timers["restore_s"] += time.perf_counter() - t
+
+
+def _timed_put(self, name, data):
+    t = time.perf_counter()
+    _put_blob(self, name, data)
+    timers["write_s"].append(time.perf_counter() - t)
+
+
+def _noted_load(self, worker):
+    snap = _load(self, worker)
+    if snap is not None:
+        restored["epoch"] = snap["epoch"]
+        restored["consumed"] = sum(snap["consumed"].values())
+    return snap
+
+
+ExternalIndexNode.snapshot_state = _timed_snapshot
+ExternalIndexNode.on_restore = _timed_restore
+_FsBackend.put_blob = _timed_put
+PersistenceHooks.load_operator_snapshot = _noted_load
+
+free_at_start, total_mem = torch.cuda.mem_get_info() if torch.cuda.is_available() else (0, 0)
+embedded = [0]
+
+
+class CountingEmbedder(pw.TorchEncoderEmbedder):
+    def __batch__(self, texts):
+        embedded[0] += len(texts)
+        with open({dump!r} + ".gen" + _generation, "w") as f:  # survives the kill
+            f.write(str(embedded[0]))
+        return super().__batch__(texts)
+
+
+class Doc(pw.Schema):
+    doc: str = pw.column_definition(primary_key=True)
+    text: str
+
+
+class Q(pw.Schema):
+    qid: str = pw.column_definition(primary_key=True)
+    text: str
+
+
+class DocSubject(pw.io.python.ConnectorSubject):
+    deterministic_replay = True  # same file, same order, every generation
+
+    def run(self):
+        n = 0
+        with open({docs!r}) as f:
+            for line in f:
+                row = json.loads(line)
+                self.next(doc=row["doc"], text=row["text"])
+                n += 1
+                if n % {commit_every} == 0:
+                    self.commit()
+        self.commit()
+
+
+_t_model = time.perf_counter()
+emb = CountingEmbedder({embedder}, max_batch_size={batch}, seed={seed}, device={device!r})
+model_s = time.perf_counter() - _t_model
+docs = pw.io.python.read(DocSubject(), schema=Doc)
+docs = docs.select(doc=pw.this.doc, vec=emb(pw.this.text))
+queries = pw.io.jsonlines.read({queries!r}, schema=Q, mode="static")
+queries = queries.select(qid=pw.this.qid, qvec=emb(pw.this.text))
+di = DataIndex(docs, BruteForceKnn(docs.vec, dimensions={dim}, reserved_space={slots}, metric="cos",
+                                   delta_cap={delta_cap}, device={device!r}))
+reply = di.query(queries.qvec, number_of_matches={k})
+out = reply.select(
+    qid=pw.this.qid,
+    ids=pw.apply(lambda ds: [d["doc"] for d in ds if d], pw.this._pw_index_reply),
+    scores=pw.apply(lambda ss: [float(s) for s in ss], pw.this._pw_index_reply_score),
+)
+pw.io.jsonlines.write(out, {output!r})
+pconf = Config.simple_config(Backend.filesystem({persist!r}),
+                             persistence_mode=PersistenceMode.OPERATOR_PERSISTING)
+kernels.reset_launch_counts()
+if torch.cuda.is_available():
+    torch.cuda.reset_peak_memory_stats()
+startup_s = time.perf_counter() - _t0
+t_run = time.perf_counter()
+pw.run(autocommit_duration_ms=20, persistence_config=pconf, monitoring_level="none",
+       with_http_server={http_server})
+run_s = time.perf_counter() - t_run
+
+node = reply._node
+st = pw.G.last_run_ctx.state(node)
+name_of = {{key: data["doc"] for key, (data, _meta) in st["docs"].items()}}
+seg = node.adapter.state_dict()["index"]
+main = seg["main"]
+tombs = set(seg["tombstones"])
+live = {{key: main["vectors"][slot] for key, slot in main["slot_of"].items() if key not in tombs}}
+bad_flags = sum(1 for key, slot in main["slot_of"].items() if main["valid"][slot] != 1.0)
+live.update(zip(seg["delta_keys"], seg["delta_vectors"]))
+names = sorted(live, key=lambda key: name_of[key])
+qcol = queries._column_names
+qrows = {{values[qcol.index("qid")]: values[qcol.index("qvec")] for values in st["queries"].values()}}
+np.savez({vectors!r},
+         names=np.array([name_of[key] for key in names]),
+         vectors=np.stack([np.asarray(live[key], np.float32) for key in names]),
+         qids=np.array(sorted(qrows)),
+         qvecs=np.stack([np.asarray(qrows[q], np.float32) for q in sorted(qrows)]))
+sched = pw.G.active_scheduler
+with open({dump!r}, "w") as f:
+    json.dump({{
+        **node.adapter.stats(),
+        "embedded": embedded[0],
+        "launches": kernels.launch_counts(),
+        "checkpoint": sched.persistence.checkpoint_snapshot(),
+        "max_memory_allocated": torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0,
+        "free_at_start": free_at_start,
+        "total_mem": total_mem,
+        "startup_s": startup_s,
+        "import_s": import_s,
+        "model_s": model_s,
+        "run_s": run_s,
+        "restored": restored,
+        "bad_flags": bad_flags,
+        "zero_rows": int(sum(1 for v in live.values() if not np.any(v))),
+        "state_dict_s": timers["state_dict_s"],
+        "write_s": timers["write_s"],
+        "restore_s": timers["restore_s"],
+        "generation": int(_generation),
+    }}, f)
+"""
+
+
+def chip_index_drill(np, device: str):
+    """``IndexDrill`` at BGE-base width on the card: the drill of
+    ``pathway_tpu_torch.testing.chaos`` with this script's documents,
+    program and recall.  One process (``ClusterSupervisor`` over
+    ``processes=1``) runs ``pw.run(persistence_config=...)`` under
+    OPERATOR_PERSISTING: a Python reader of PERSIST_DOCS documents then
+    PERSIST_REUPSERTS new texts for seeded ids, ``TorchEncoderEmbedder``
+    as the UDF over the text, ``DataIndex`` over ``BruteForceKnn`` on the
+    card (``SegmentedIndex`` over a ``ShardedKnnIndex`` of PERSIST_SLOTS
+    slots), PERSIST_QUESTIONS questions embedded by the same UDF,
+    answered at k = K into a JSON-lines sink.  Each run dumps the
+    adapter's stats, the rows it embedded, its launch counts, its last
+    checkpoint and its peak memory, and saves the recovered index's
+    vectors and the questions' vectors."""
+    from pathway_tpu_torch.testing.chaos import IndexDrill
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+
+    class ChipIndexDrill(IndexDrill):
+        def __init__(self, workdir: str):
+            super().__init__(
+                workdir, seed=SEED, processes=1, n_docs=PERSIST_DOCS, n_upserts=PERSIST_REUPSERTS, dim=HIDDEN,
+                n_queries=PERSIST_QUESTIONS, k=K, delta_cap=PERSIST_DELTA_CAP, kill_merge=PERSIST_KILL_MERGE,
+                recall_target=PERSIST_RECALL, checkpoint_interval_s=PERSIST_CHECKPOINT_S,
+                epoch_max_rows=PERSIST_EPOCH_ROWS, max_restarts=2, timeout_s=PERSIST_RUN_S)
+            self.walls: list[float] = []
+            self.http_port = free_port()
+            self.paths: dict = {}
+            self.n_rows = 0
+
+        def _write_inputs(self) -> tuple[str, str]:
+            texts = synthetic_docs(np, self.n_docs, self.seed)
+            fresh = synthetic_docs(np, self.n_upserts, self.seed + 1)
+            ids = np.random.default_rng(self.seed + 2).integers(0, self.n_docs, self.n_upserts)
+            rows = [(f"doc-{i}", t) for i, t in enumerate(texts)] + [(f"doc-{int(i)}", t) for i, t in zip(ids, fresh)]
+            self._final = dict(rows)
+            self.n_rows = len(rows)
+            asked = synthetic_questions(np, [self._final[d] for d in sorted(self._final)], self.n_queries,
+                                        self.seed + 3)
+            self._queries = {f"q{j}": q for j, q in enumerate(asked)}
+            docs_path = os.path.join(self.workdir, "docs.jsonl")
+            with open(docs_path, "w") as f:
+                f.writelines(json.dumps({"doc": d, "text": t}) + "\n" for d, t in rows)
+            queries_path = os.path.join(self.workdir, "queries.jsonl")
+            with open(queries_path, "w") as f:
+                f.writelines(json.dumps({"qid": q, "text": t}) + "\n" for q, t in self._queries.items())
+            return docs_path, queries_path
+
+        def _write_index_program(self, tag: str, docs_path: str, queries_path: str,
+                                 persist_tag: str | None = None) -> tuple[str, str, str]:
+            paths = {name: os.path.join(self.workdir, f"{tag}_{name}") for name in
+                     ("out.jsonl", "index.json", "vectors.npz", "prog.py")}
+            paths["snap"] = os.path.join(self.workdir, f"{persist_tag or tag}_snap")
+            self.paths[tag] = paths
+            with open(paths["prog.py"], "w") as f:
+                if tag == "baseline":  # the baseline serves /status for the phase's scrape
+                    f.write(f"import os\nos.environ['PATHWAY_MONITORING_HTTP_PORT'] = '{self.http_port}'\n")
+                f.write(PERSIST_PROGRAM.format(
+                    repo=repo, docs=docs_path, queries=queries_path, output=paths["out.jsonl"],
+                    persist=paths["snap"], dump=paths["index.json"], vectors=paths["vectors.npz"],
+                    dim=self.dim, slots=PERSIST_SLOTS, delta_cap=self.delta_cap, k=self.k,
+                    commit_every=PERSIST_COMMIT, batch=PERSIST_BATCH, seed=SEED, device=device,
+                    embedder=PERSIST_EMBEDDER, http_server=tag == "baseline"))
+            return paths["prog.py"], paths["out.jsonl"], paths["index.json"]
+
+        def _recall(self, output_path: str) -> float:
+            """Recall@k of the sink's final answers against the baseline's."""
+            want = self._final_answers(self.paths["baseline"]["out.jsonl"])
+            got = self._final_answers(output_path)
+            hits = sum(len(set(ids) & set(got.get(q, ()))) for q, ids in want.items())
+            return hits / max(sum(len(ids) for ids in want.values()), 1)
+
+        def _run_supervised(self, prog: str, extra_env: dict) -> object:
+            t0 = time.perf_counter()
+            report = super()._run_supervised(prog, extra_env)
+            self.walls.append(time.perf_counter() - t0)
+            return report
+
+    return ChipIndexDrill
+
+
+def final_scores(path: str) -> dict:
+    """A JSON-lines query sink consolidated to each question's final
+    ``[(id, score), ...]``."""
+    state: dict = {}
+    with open(path) as f:
+        for line in f:
+            row = json.loads(line)
+            pair = list(zip(row["ids"], row["scores"]))
+            if row["diff"] > 0:
+                state[row["qid"]] = pair
+            elif state.get(row["qid"]) == pair:
+                del state[row["qid"]]
+    return state
+
+
+def log_record_kinds(workdir: str) -> dict:
+    """Record kinds of every input log under ``workdir`` (the drill's
+    storage), read back through the port's filesystem backend."""
+    import glob
+    import pickle
+
+    from pathway_tpu_torch.persistence import _FsBackend
+
+    kinds: dict = {}
+    impl = _FsBackend(workdir)
+    for path in glob.glob(os.path.join(workdir, "*.log")):
+        for rec in impl.read_all(os.path.basename(path)[: -len(".log")]):
+            kind = pickle.loads(rec)[0]
+            kinds[kind] = kinds.get(kind, 0) + 1
+    return kinds
+
+
+def persistence_slab(torch, dev) -> dict:
+    """Phase 3's slab for ``--persistence`` alone: CAPACITY f32 cosine
+    slots, the bulk rows phase 3 adds and its N_DOCS documents through
+    ``encode_into``, and the first PERSIST_SLAB_QUERIES documents
+    re-embedded as queries."""
+    import numpy as np
+
+    from pathway_tpu_torch import ShardedKnnIndex, TorchEncoderEmbedder
+
+    index = ShardedKnnIndex(HIDDEN, metric="cos", capacity=CAPACITY, device=dev)
+    n_bulk = CAPACITY - N_DOCS - 1024
+    rng = np.random.default_rng(SEED)
+    for start in range(0, n_bulk, 65536):
+        n = min(65536, n_bulk - start)
+        index.add_batch(range(start, start + n), rng.standard_normal((n, HIDDEN), dtype=np.float32))
+    embedder = TorchEncoderEmbedder("bge-base", max_batch_size=DOC_BATCH, seed=SEED, device=dev)
+    docs = synthetic_docs(np, N_DOCS, SEED)
+    keys = [f"doc-{i}" for i in range(N_DOCS)]
+    embedder.encoder.encode_into(index, keys, docs)
+    index.remove(keys[-N_REMOVED:])
+    return {"index": index, "q_all": embedder.encoder.encode(docs[:PERSIST_SLAB_QUERIES])}
+
+
+def phase_persistence(torch, dev, smi: str, ctx: dict) -> dict:
+    """Phase 18: persistence and the chaos drill (slice 16c) on the card.
+    ``chip_index_drill``'s pipeline runs three times in subprocesses under
+    ``ClusterSupervisor``: (1) a fault-free baseline, whose ``/status`` is
+    scraped once a checkpoint has landed; (2) the drill:
+    ``chaos.kill_worker_mid_merge(0, on_nth_merge=PERSIST_KILL_MERGE)``
+    kills the process between a finished merge (K2) and its commit, the
+    supervisor respawns it, and the new generation restores the
+    checkpointed slab and replays the tail; (3) the same program over the
+    drill's storage with no new input.  Checks: the drill recovers
+    (returns 0, at least one restart) with the index holding each of the
+    PERSIST_DOCS documents once; its final answers equal an exact numpy
+    top-k over the vectors the recovered index holds (``compare_rows`` at
+    TOPK_ATOL) and reach recall@k PERSIST_RECALL against the baseline's,
+    and each document's stored vector is within phase 3's bf16 tolerance
+    of the baseline's (EMBED_ATOL, cosine EMBED_COS); the recovering
+    generation embeds fewer rows than the input holds, and the third run
+    embeds none and adds no sink row; K1-K7 launched in the recovering
+    generation; the input logs hold the native module's binary records.
+    Then phase 3's 1M-slot slab alone: ``state_dict``, ``pickle.dumps``,
+    ``load_state_dict`` into a fresh index on the card, each timed, and K3
+    before and after gives the same ids and the same score bits for
+    PERSIST_SLAB_QUERIES queries."""
+    import pickle
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from pathway_tpu_torch import ShardedKnnIndex, kernels
+    from pathway_tpu_torch.internals import native
+
+    res: dict = {"card": smi}
+    t_phase = time.perf_counter()
+    # the drill's processes load the native module that writes the logs'
+    # binary records; build it here (phase 13 has, in the whole script)
+    if native.load() is None:
+        fail("persistence: the native module pathway_torch_native did not build")
+    device = "cuda" if dev.type == "cuda" else str(dev)
+    workdir = tempfile.mkdtemp(prefix="pw_persist_")
+    drill = chip_index_drill(np, device)(workdir)
+    status: dict = {}
+    done = threading.Event()
+
+    def scrape_status() -> None:
+        """``/status`` of the baseline run, once a checkpoint has landed."""
+        while not done.is_set():
+            try:
+                t0 = time.perf_counter()
+                body = json.loads(urllib.request.urlopen(
+                    f"http://127.0.0.1:{drill.http_port}/status", timeout=10).read())
+                ms = (time.perf_counter() - t0) * 1e3
+                ckpt = body.get("checkpoint") or {}
+                if ckpt.get("count"):
+                    status.update(checkpoint=ckpt, ms=ms)
+                    return
+            except OSError:
+                pass
+            done.wait(0.05)
+
+    scraper = threading.Thread(target=scrape_status, daemon=True)
+    scraper.start()
+    try:
+        report = drill.run()
+        done.set()
+        scraper.join(10)
+        docs_path = os.path.join(workdir, "docs.jsonl")
+        queries_path = os.path.join(workdir, "queries.jsonl")
+        prog, third_out, third_dump = drill._write_index_program("third", docs_path, queries_path,
+                                                                 persist_tag="drill")
+        third = drill._run_supervised(prog, {})
+        if third.returncode != 0:
+            fail(f"persistence: the third run failed: {third.failures}")
+        with open(drill.paths["baseline"]["index.json"]) as f:
+            base = json.load(f)
+        with open(drill.paths["drill"]["index.json"]) as f:
+            rec = json.load(f)
+        with open(third_dump) as f:
+            again = json.load(f)
+        gen0_path = drill.paths["drill"]["index.json"] + ".gen0"
+        gen0 = int(open(gen0_path).read()) if os.path.exists(gen0_path) else 0
+        kinds = log_record_kinds(drill.paths["drill"]["snap"])
+
+        total = drill.n_rows + PERSIST_QUESTIONS
+        res.update({
+            "baseline_s": drill.walls[0], "drill_s": drill.walls[1], "third_s": drill.walls[2],
+            "recovery_seconds": report["recovery_seconds"], "restarts": report["restarts"],
+            "docs_per_s": {tag: drill.n_rows / wall for tag, wall in zip(("baseline", "drill", "third"),
+                                                                         drill.walls)},
+            "merges": {"baseline": report["baseline_merges_total"], "drill": report["merges_total"],
+                       "third": again["merges_total"]},
+            "embedded": {"baseline": base["embedded"], "drill_gen0": gen0, "drill_gen1": rec["embedded"],
+                         "third": again["embedded"]},
+            "input_events": total,
+            "events_past_checkpoint": total - rec["restored"].get("consumed", 0),
+            "restored_epoch": rec["restored"].get("epoch"),
+            "checkpoint": {tag: d["checkpoint"] for tag, d in (("baseline", base), ("drill", rec))},
+            "state_dict_s": {tag: d["state_dict_s"] for tag, d in (("baseline", base), ("drill", rec))},
+            "write_s": {tag: d["write_s"] for tag, d in (("baseline", base), ("drill", rec))},
+            "restore_s": rec["restore_s"],
+            "startup_s": {tag: {key: d[key] for key in ("startup_s", "import_s", "model_s")}
+                          for tag, d in (("baseline", base), ("drill_gen1", rec), ("third", again))},
+            "run_s": {"baseline": base["run_s"], "drill_gen1": rec["run_s"], "third": again["run_s"]},
+            "peak_gb": {tag: d["max_memory_allocated"] / 1e9 for tag, d in
+                        (("baseline", base), ("drill_gen1", rec), ("third", again))},
+            "free_gb_at_respawn": rec["free_at_start"] / 1e9, "card_gb": rec["total_mem"] / 1e9,
+            "log_records": kinds, "status_checkpoint": status.get("checkpoint"), "status_ms": status.get("ms"),
+            "recall": report["recall"],
+        })
+        log(f"persistence on {smi}: baseline {res['baseline_s']:.2f} s, drill {res['drill_s']:.2f} s "
+            f"(recovery_seconds {report['recovery_seconds']}), third run {res['third_s']:.2f} s; docs/s "
+            f"{json.dumps(res['docs_per_s'])}")
+        log(f"persistence: /status of the baseline run ({res['status_ms']} ms): checkpoint "
+            f"{json.dumps(res['status_checkpoint'])}")
+        log(f"persistence: checkpoints {json.dumps(res['checkpoint'])}; state_dict s {json.dumps(res['state_dict_s'])};"
+            f" write s {json.dumps(res['write_s'])}")
+        log(f"persistence: merges {json.dumps(res['merges'])}; rows embedded {json.dumps(res['embedded'])} of "
+            f"{total} input events, {res['events_past_checkpoint']} past the checkpoint's consumed count "
+            f"(epoch {res['restored_epoch']}); restore {res['restore_s']:.3f} s, start-up s "
+            f"{json.dumps(res['startup_s'])}, run s {json.dumps(res['run_s'])}")
+        log(f"persistence: peak GB {json.dumps(res['peak_gb'])}; {res['free_gb_at_respawn']:.2f} of "
+            f"{res['card_gb']:.2f} GB free when the respawned generation started; log records {json.dumps(kinds)}")
+
+        # ---- check 1: exactly once
+        if report["returncode"] != 0 or report["restarts"] < 1:
+            fail(f"persistence: the drill did not recover once: {report}")
+        if not report["exactly_once"] or report["recovered_size"] != PERSIST_DOCS:
+            fail(f"persistence: the recovered index holds {report['recovered_size']} documents, expected "
+                 f"{PERSIST_DOCS}")
+        for tag, d in (("baseline", base), ("drill", rec), ("third", again)):
+            if d["bad_flags"] or d["zero_rows"]:
+                fail(f"persistence: the {tag} index has {d['bad_flags']} slots without their flag and "
+                     f"{d['zero_rows']} zero rows")
+        # ---- check 2: answers
+        rv = np.load(drill.paths["drill"]["vectors.npz"])
+        bv = np.load(drill.paths["baseline"]["vectors.npz"])
+        answers = final_scores(drill.paths["drill"]["out.jsonl"])
+        names = list(rv["names"])
+        qv = rv["qvecs"] / np.linalg.norm(rv["qvecs"], axis=1, keepdims=True)
+        scores = qv.astype(np.float64) @ rv["vectors"].astype(np.float64).T
+        want, got = [], []
+        for i, qid in enumerate(rv["qids"]):
+            top = np.argsort(-scores[i], kind="stable")[:K]
+            want.append([(names[j], float(scores[i, j])) for j in top])
+            got.append(answers.get(str(qid), []))
+        if len(answers) != PERSIST_QUESTIONS or len(rv["qids"]) != PERSIST_QUESTIONS:
+            fail(f"persistence: {len(answers)} answers and {len(rv['qids'])} questions, expected "
+                 f"{PERSIST_QUESTIONS}")
+        res["answer_err"] = compare_rows(got, want, K, TOPK_ATOL, "persistence: the drill's answers")
+        if report["recall"] < PERSIST_RECALL:
+            fail(f"persistence: recall@{K} {report['recall']:.4f} against the baseline < {PERSIST_RECALL}")
+        if list(bv["names"]) != names:
+            fail("persistence: the drill's index holds other documents than the baseline's")
+        a, b = rv["vectors"], bv["vectors"]
+        res["vector_err"] = float(np.abs(a - b).max())
+        res["vector_min_cos"] = float((a * b).sum(1).min())
+        if not res["vector_err"] <= EMBED_ATOL or not res["vector_min_cos"] >= EMBED_COS:
+            fail(f"persistence: stored vectors differ from the baseline's by {res['vector_err']}, "
+                 f"cosine {res['vector_min_cos']}")
+        log(f"persistence: {len(got)} answers within {res['answer_err']:.2e} of numpy top-{K} over the recovered "
+            f"vectors, recall@{K} {report['recall']:.4f} against the baseline, stored vectors within "
+            f"{res['vector_err']:.2e} (cosine >= {res['vector_min_cos']:.6f})")
+        # ---- check 3: restore, not re-embed
+        if not rec["embedded"] < total:
+            fail(f"persistence: the recovering generation embedded {rec['embedded']} of {total} rows")
+        third_rows = sum(1 for _ in open(third_out)) if os.path.exists(third_out) else 0
+        res["third_sink_rows"] = third_rows
+        if again["embedded"] or third_rows:
+            fail(f"persistence: the third run embedded {again['embedded']} rows and wrote {third_rows} sink rows")
+        # ---- check 4: launches in the recovering generation
+        want_k = ("attention", "slab_scatter", "knn_topk", "bias_act", "add_layer_norm", "embed_ln",
+                  "pool_normalize")
+        zero = [name for name in want_k if rec["launches"].get(name, 0) == 0]
+        log(f"persistence: the recovering generation's launches {json.dumps(rec['launches'])}; K13 "
+            f"{rec['launches'].get('topk_select', 0)}")
+        if zero:
+            fail(f"persistence: not launched in the recovering generation: {zero}")
+        if not ({"addmany_b", "addframe"} & set(kinds)) or "addmany" in kinds:
+            fail(f"persistence: the input logs hold {json.dumps(kinds)}, not the native module's records")
+        launches = {name: sum(d["launches"].get(name, 0) for d in (base, rec, again))
+                    for name in set(base["launches"]) | set(rec["launches"])}
+    finally:
+        done.set()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # ---- check 5: the 1M slab alone
+    index, q32 = ctx["index"], ctx["q_all"][:PERSIST_SLAB_QUERIES]
+    torch.cuda.synchronize()
+    before_counts = kernels.launch_counts()
+    want_rows = index.search(q32, K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = index.state_dict()
+    t1 = time.perf_counter()
+    blob = pickle.dumps(state, protocol=pickle.HIGHEST_PROTOCOL)
+    t2 = time.perf_counter()
+    del state
+    fresh = ShardedKnnIndex(HIDDEN, metric="cos", capacity=CAPACITY, device=dev)
+    loaded = pickle.loads(blob)
+    t3 = time.perf_counter()
+    fresh.load_state_dict(loaded)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    got_rows = fresh.search(q32, K)
+    torch.cuda.synchronize()
+    after_counts = kernels.launch_counts()
+    for name in after_counts:
+        launches[name] = launches.get(name, 0) + after_counts[name] - before_counts.get(name, 0)
+    slab = {"bytes": len(blob), "state_dict_s": t1 - t0, "pickle_s": t2 - t1, "unpickle_s": t3 - t2,
+            "load_state_dict_s": t4 - t3}
+    del blob, loaded, fresh
+    if got_rows != want_rows:
+        fail("persistence: K3 over the restored 1M slab gives other ids or score bits than before")
+    res["slab_1m"] = slab
+    log(f"persistence: the {CAPACITY}-slot slab: {slab['bytes']} bytes, state_dict {slab['state_dict_s']:.3f} s, "
+        f"pickle.dumps {slab['pickle_s']:.3f} s, pickle.loads {slab['unpickle_s']:.3f} s, load_state_dict "
+        f"{slab['load_state_dict_s']:.3f} s; {PERSIST_SLAB_QUERIES} queries' ids and score bits equal")
+    res["launches"] = launches
+    res["wall_s"] = time.perf_counter() - t_phase
+    log(f"persistence: launches on the path {json.dumps(launches)}; phase {res['wall_s']:.1f} s")
+    if res["wall_s"] > PERSIST_PHASE_S:
+        log(f"persistence: the phase took {res['wall_s']:.1f} s, above its {PERSIST_PHASE_S} s")
+    return res
+
+
 def _answers(port: int) -> bool:
     """True once ``/v1/answer`` on ``port`` answers a request."""
     try:
@@ -7144,6 +7711,13 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         }}))
         return 0
+    if "--persistence" in sys.argv[1:]:
+        ps = phase_persistence(torch, dev, smi, persistence_slab(torch, dev))
+        log("persistence only: " + json.dumps({k: v for k, v in ps.items() if k != "launches"}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}))
+        return 0
     if "--distinct-cards" in sys.argv[1:]:
         if torch.cuda.device_count() < 4:
             fail(f"--distinct-cards needs four cards, found {torch.cuda.device_count()}")
@@ -7210,6 +7784,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     sv_out = phase_serving(torch, dev, smi)
     wall["serving_s"] = sv_out["wall_s"]
+    torch.cuda.empty_cache()
+    ps_out = phase_persistence(torch, dev, smi, ctx)
+    wall["persistence_s"] = ps_out["wall_s"]
     torch.cuda.empty_cache()
     sh_out = phase_sharded(torch, dev, ctx)
     wall["sharded_s"] = sh_out["wall_s"]
@@ -7280,6 +7857,7 @@ def main() -> int:
                    "rag_server": rs_out["launches"].get(name, 0),
                    "serving": sv_out["launches"].get(name, 0),
                    "serving_failover": sv_out["failover_launches"].get(name, 0),
+                   "persistence": ps_out["launches"].get(name, 0),
                    "f32_vision": fv_out["launches"][name],
                    **{path: counts[name] for path, counts in p10_out["launches"].items()},
                    "train": tr_out["launches"][name], "dryrun": tr_out["dryrun_launches"][name]}
@@ -7327,6 +7905,7 @@ def main() -> int:
         "rag_server": {key: val for key, val in rs_out.items() if key not in ("launches", "analysis")},
         "analysis": pa_out,
         "serving": {key: val for key, val in sv_out.items() if key not in ("launches", "failover_launches")},
+        "persistence": {key: val for key, val in ps_out.items() if key != "launches"},
         "f32_vision": {key: val for key, val in fv_out.items() if key != "launches"},
         "train": {key: val for key, val in tr_out.items() if key not in ("launches", "dryrun_launches")},
         "phase_wall_s": wall,

@@ -39,12 +39,13 @@ pipeline with the file, Python and REST connectors (``pw.io``), and
 question answering over REST.  :func:`run` analyses the graph before it
 runs it and executes the plan compiler's rewrite of it (``pw.analysis``:
 ``analyze``, ``explain``, ``estimate_memory``, ``strict``; the columnar
-fast paths at ``optimize=2``).  The rest of the host plane comes in later
-slices (ROADMAP queue A): a name that belongs to one (``persistence``,
-``iterate``, ``sql``, the stdlib beyond indexing and utils, the other
-connectors, ...) raises an ``AttributeError`` that names its item, and
-:func:`run` raises ``NotImplementedError`` for what needs one
-(persistence, the monitoring server).
+fast paths at ``optimize=2``).  ``pw.run(persistence_config=...)`` logs
+the inputs, replays them and checkpoints the operators, the card-resident
+index's slab included (``pw.persistence``), and ``pw.testing.chaos``
+injects faults into a run and drills its recovery.  The rest of the host
+plane comes in later slices (ROADMAP queue A): a name that belongs to one
+(``iterate``, ``sql``, the stdlib beyond indexing and utils, the other
+connectors, ...) raises an ``AttributeError`` that names its item.
 """
 
 from __future__ import annotations
@@ -137,10 +138,6 @@ DURATION = _dt.DURATION
 #: ROADMAP item that brings them
 _LATER = {
     **dict.fromkeys(
-        ("persistence", "PersistenceMode", "testing"),
-        "item 16 (slice 16c: persistence and the chaos drills)",
-    ),
-    **dict.fromkeys(
         ("demo", "universes", "iterate", "iterate_universe", "enable_interactive_mode", "LiveTable",
          "live", "export_table", "import_table", "ExportedTable", "sql", "load_yaml"),
         "item 16 (slice 16d: the rest of internals)",
@@ -187,6 +184,18 @@ def __getattr__(name: str) -> Any:
         from pathway_tpu_torch.internals.expression import declare_type
 
         return declare_type
+    if name == "persistence":
+        import pathway_tpu_torch.persistence as persistence
+
+        return persistence
+    if name == "PersistenceMode":
+        from pathway_tpu_torch.persistence import PersistenceMode
+
+        return PersistenceMode
+    if name == "testing":
+        import pathway_tpu_torch.testing as testing
+
+        return testing
     if name == "ConnectorRecoveryPolicy":
         from pathway_tpu_torch.internals.resilience import ConnectorRecoveryPolicy
 

@@ -11,10 +11,10 @@ pacing around it; with live connectors it blocks until all sources close
 
 ``with_http_server=True`` (or ``PATHWAY_MONITORING_HTTP_PORT``) serves
 ``/status``, ``/metrics``, ``/debug/stacks`` and ``/debug/trace`` for the
-length of the run (``internals/monitoring_server.py``).  The port has no
-persistence layer yet (ROADMAP slice 16c): a run that asks for one (a
-``persistence_config``) raises :class:`NotImplementedError` instead of
-running without it.
+length of the run (``internals/monitoring_server.py``).  A
+``persistence_config`` (here or in ``pathway_config.persistence_config``)
+attaches the persistence layer (``pathway_tpu_torch/persistence/``: input
+logs, replay and operator checkpoints) to the scheduler before it runs.
 """
 
 from __future__ import annotations
@@ -30,12 +30,6 @@ class MonitoringLevel:
     IN_OUT = "in_out"
     ALL = "all"
     AUTO = "auto"
-
-
-def _needs_item_16(arg: str, part: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"pw.run({arg}) needs the {part}, which pathway_tpu_torch ports in ROADMAP item 16 (slice 16c)"
-    )
 
 
 def run(
@@ -68,8 +62,7 @@ def run(
     the monitoring server on ``PATHWAY_MONITORING_HTTP_PORT`` (default
     20000) plus ``PATHWAY_PROCESS_ID``; it stops when the run ends.  A
     ``persistence_config`` (here or in ``pathway_config.persistence_config``)
-    raises :class:`NotImplementedError`: persistence comes with ROADMAP
-    slice 16c."""
+    is attached to the scheduler (:func:`pathway_tpu_torch.persistence.attach_persistence`)."""
     import os
 
     from pathway_tpu_torch.analysis import SEV_ERROR, AnalysisError, analyze, count_by_severity
@@ -84,8 +77,6 @@ def run(
         )
     if persistence_config is None:
         persistence_config = cfg.pathway_config.persistence_config
-    if persistence_config is not None:
-        raise _needs_item_16("persistence_config=...", "persistence layer (pathway_tpu_torch.persistence)")
 
     level = resolve_level(optimize)
     # plan-aware: analyze the view the scheduler will execute, so
@@ -113,6 +104,7 @@ def run(
             count_by_severity(diags),
             exec_graph,
             plan,
+            persistence_config,
         )
     finally:
         # per-run override, not a process-wide setting
@@ -127,6 +119,7 @@ def _run_inner(
     analysis_counts: dict[str, int],
     exec_graph: Any,
     plan: Any,
+    persistence_config: Any = None,
 ):
     import os
 
@@ -181,6 +174,10 @@ def _run_inner(
         from pathway_tpu_torch.internals.monitoring_server import start_http_server
 
         start_http_server(sched)
+    if persistence_config is not None:
+        from pathway_tpu_torch.persistence import attach_persistence
+
+        attach_persistence(sched, persistence_config)
     try:
         return _run_scheduler(sched, pc, monitoring_level, threads, processes)
     finally:

@@ -18,6 +18,7 @@ JAX package's does.  A checkpoint's ``vocab.txt`` is read by
 from __future__ import annotations
 
 import hashlib
+import os
 import re
 from typing import Sequence
 
@@ -138,11 +139,29 @@ class HFTokenizer(Tokenizer):
         return ids, mask, tps
 
 
+def _may_resolve_locally(name: str) -> bool:
+    """False only where ``AutoTokenizer.from_pretrained(name,
+    local_files_only=True)`` cannot succeed: ``name`` is no directory and
+    has no entry in the HuggingFace hub cache.  Importing ``transformers``
+    takes 8-25 s in a fresh process, and every restarted worker that builds
+    an embedder of a preset name (``"bge-base"``) would pay it only to fall
+    back to the hash tokenizer."""
+    if os.path.isdir(name):
+        return True
+    try:
+        from huggingface_hub import constants
+    except ImportError:
+        return True  # cannot tell: let transformers decide
+    caches = {constants.HF_HUB_CACHE, os.environ.get("TRANSFORMERS_CACHE") or constants.HF_HUB_CACHE}
+    entry = "models--" + name.replace("/", "--")
+    return any(os.path.isdir(os.path.join(cache, entry)) for cache in caches)
+
+
 def get_tokenizer(model_name: str | None = None, vocab_size: int = 30522) -> Tokenizer:
     """The HuggingFace tokenizer of ``model_name`` where it resolves
     locally (a cache entry or a directory), else the deterministic hash
     tokenizer, as the JAX package chooses."""
-    if model_name:
+    if model_name and _may_resolve_locally(model_name):
         try:
             return HFTokenizer(model_name)
         except Exception:

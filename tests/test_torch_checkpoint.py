@@ -14,7 +14,11 @@ in bf16, the port's encoder tolerance (``test_torch_encoder.py``): cosine
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -46,6 +50,7 @@ from pathway_tpu_torch.parallel import TorchEncoder
 from pathway_tpu_torch.xpacks.llm.embedders import TorchEncoderEmbedder
 from pathway_tpu_torch.xpacks.llm.rerankers import CrossEncoderReranker
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB = (
     "[PAD] [unused0] [UNK] [CLS] [SEP] [MASK] the quick brown fox jumps over "
     "lazy dog un ##aff ##able run ##ning , . ! ? ' \" - hello world stream "
@@ -152,6 +157,29 @@ def test_get_tokenizer_resolves_a_local_directory_as_jax_does(ckpt):
     assert tok.count_tokens(SENTENCES[1]) == jtok.count_tokens(SENTENCES[1])
     assert isinstance(get_tokenizer("no-such-model-anywhere", 512), HashTokenizer)
     assert isinstance(get_tokenizer(None), HashTokenizer)
+
+
+def test_get_tokenizer_skips_transformers_for_a_name_that_cannot_resolve(tmp_path):
+    """A preset name with no directory and no hub-cache entry gives the
+    hash tokenizer, as in the JAX package, without importing
+    ``transformers``; a hub-cache entry of that name sends it to
+    ``transformers`` again."""
+    code = textwrap.dedent(f"""
+        import json, os, sys
+        os.environ["HF_HUB_CACHE"] = {str(tmp_path / "hub")!r}
+        from pathway_tpu_torch.models.tokenizer import HashTokenizer, _may_resolve_locally, get_tokenizer
+        out = [isinstance(get_tokenizer("bge-base", 512), HashTokenizer), "transformers" in sys.modules,
+               _may_resolve_locally("BAAI/bge-base-en-v1.5")]
+        os.makedirs(os.path.join({str(tmp_path / "hub")!r}, "models--BAAI--bge-base-en-v1.5"))
+        out.append(_may_resolve_locally("BAAI/bge-base-en-v1.5"))
+        print(json.dumps(out))
+    """)
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "TRANSFORMERS_CACHE")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [True, False, False, True]
+    assert type(jax_get_tokenizer("bge-base", 512)).__name__ == "HashTokenizer"  # the JAX package's choice
 
 
 def test_safetensors_reader_matches_the_package(ckpt, tmp_path):

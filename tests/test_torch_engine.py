@@ -569,7 +569,7 @@ def test_native_off_run_equals_the_native_run():
 
 
 def test_later_slices_raise_naming_their_item():
-    for name, item in (("temporal", "item 16"), ("persistence", "item 16"),
+    for name, item in (("temporal", "item 16"), ("universes", "item 16"),
                        ("iterate", "item 16"), ("sql", "item 16")):
         with pytest.raises(AttributeError, match=item):
             getattr(tpw, name)
@@ -599,8 +599,29 @@ def test_later_slices_raise_naming_their_item():
             getattr(tpw.stdlib, name)
     with pytest.raises(AttributeError, match="no attribute 'nonsense'"):
         tpw.nonsense  # noqa: B018
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tpw.run(persistence_config=object())
+    # slice 16c brought persistence and the chaos harness: the names are
+    # the port's own, and a persisted run resumes without duplicates
+    assert tpw.persistence.__name__ == "pathway_tpu_torch.persistence"
+    assert tpw.PersistenceMode is tpw.persistence.PersistenceMode
+    assert tpw.testing.__name__ == "pathway_tpu_torch.testing"
+    store = tpw.persistence.Backend.memory(f"torch_engine_{os.getpid()}")
+    delivered = []
+
+    class Two(tpw.io.python.ConnectorSubject):
+        deterministic_replay = True
+
+        def run(self):
+            self.next(a=1)
+            self.next(a=2)
+            self.commit()
+
+    for _ in range(2):
+        tpw.G.clear()
+        t = tpw.io.python.read(Two(), schema=tpw.schema_from_types(a=int))
+        tpw.io.subscribe(t, on_change=lambda key, row, time, is_addition: delivered.append(row["a"]))
+        tpw.run(monitoring_level=tpw.MonitoringLevel.NONE, persistence_config=tpw.persistence.Config(
+            store, persistence_mode=tpw.PersistenceMode.OPERATOR_PERSISTING))
+    assert sorted(delivered) == [1, 2]
     # strict mode runs a clean graph and sets the plan
     tpw.G.clear()
     t = tpw.debug.table_from_rows(tpw.schema_from_types(a=int), [(1,)])

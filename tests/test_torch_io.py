@@ -454,19 +454,20 @@ def test_worker_cap_over_the_free_tier(monkeypatch, caplog):
     [
         ({"strict": True}, {}, None),
         ({}, {"PATHWAY_STRICT": "1"}, None),
-        ({"persistence_config": object()}, {}, "persistence"),
+        ({"persistence_config": "filesystem"}, {}, "persistence"),
         ({"with_http_server": True}, {}, "monitoring server"),
         ({}, {"monitoring_http_port": 9}, "monitoring server"),
     ],
     ids=["strict", "strict_env", "persistence", "http_server", "monitoring_port"],
 )
-def test_run_raises_for_what_item_16_brings(monkeypatch, kwargs, env, what):
-    """What slice 16c brings (persistence) raises before any source
-    starts.  Strict mode came with 16a: it refuses a graph with an error
+def test_run_raises_for_what_item_16_brings(monkeypatch, tmp_path, kwargs, env, what):
+    """Strict mode came with 16a: it refuses a graph with an error
     finding (a join of an int key with a str key, PW-T001) before any
     source starts, and runs a clean one.  The monitoring server came with
     16b: ``with_http_server=True`` or a configured monitoring port runs,
-    serves on ``PATHWAY_MONITORING_HTTP_PORT`` and stops with the run."""
+    serves on ``PATHWAY_MONITORING_HTTP_PORT`` and stops with the run.
+    Persistence came with 16c: ``persistence_config=`` runs, and a second
+    run over the same storage and the same file delivers no row twice."""
     import socket
 
     t = tpw.debug.table_from_rows(tpw.schema_from_types(a=int), [(1,)])
@@ -492,12 +493,18 @@ def test_run_raises_for_what_item_16_brings(monkeypatch, kwargs, env, what):
         with pytest.raises(OSError):  # stopped with the run
             socket.create_connection(("127.0.0.1", port), timeout=2).close()
         return
-    if what is not None:
-        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP item 16"):
-            tpw.run(**kwargs)
-        with pytest.raises(NotImplementedError, match="item 16"):
-            tpw.run_all(**kwargs)
-        assert ran == []  # raised before any source started
+    if what == "persistence":
+        from pathway_tpu_torch.persistence import Backend, Config
+
+        (tmp_path / "w.jsonl").write_text("\n".join(json.dumps({"word": w}) for w in DOC_WORDS))
+        for run in (tpw.run, tpw.run_all):
+            tpw.G.clear()
+            src = tpw.io.jsonlines.read(str(tmp_path / "w.jsonl"), schema=tpw.schema_from_types(word=str),
+                                        mode="static")
+            tpw.io.subscribe(src, on_change=lambda key, row, time, is_addition: ran.append(row["word"]))
+            run(monitoring_level=tpw.MonitoringLevel.NONE, persistence_config=Config.simple_config(
+                Backend.filesystem(tmp_path / "snap"), persistence_mode=tpw.PersistenceMode.OPERATOR_PERSISTING))
+        assert ran == list(DOC_WORDS)  # the file once: the resumed run restores and delivers nothing again
         return
     s = tpw.debug.table_from_rows(tpw.schema_from_types(b=str), [("1",)])
     tpw.io.subscribe(t.join(s, t.a == s.b).select(t.a), on_change=lambda *a: ran.append(a))

@@ -312,11 +312,29 @@ def test_metrics_companions_match_jax_on_known_samples():
     assert lines["port"] == lines["jax"]
 
 
-def test_persistence_still_raises_naming_16c():
-    t = tpw.debug.table_from_rows(tpw.schema_from_types(a=int), [(1,)])
-    tpw.io.subscribe(t, on_change=lambda *a: None)
-    with pytest.raises(NotImplementedError, match="16c"):
-        tpw.run(persistence_config=object())
+def test_persistence_still_raises_naming_16c(tmp_path):
+    """Slice 16c brought persistence, so ``pw.run(persistence_config=...)``
+    no longer raises: ``pw.persistence`` and ``pw.PersistenceMode`` are the
+    port's own, a persisted run checkpoints (the monitoring view of
+    ``sched.persistence`` counts it), and a second run over the same
+    storage delivers no row twice."""
+    import pathway_tpu_torch.persistence as persistence
+    from pathway_tpu_torch.internals.monitoring import checkpoint_stats
+
+    assert tpw.persistence is persistence and tpw.PersistenceMode is persistence.PersistenceMode
+    config = persistence.Config.simple_config(persistence.Backend.filesystem(tmp_path / "snap"),
+                                              persistence_mode=tpw.PersistenceMode.OPERATOR_PERSISTING)
+    (tmp_path / "w.jsonl").write_text("\n".join(json.dumps({"word": f"w{i % 3}"}) for i in range(9)))
+    seen: list = []
+    for _ in range(2):
+        tpw.G.clear()
+        t = tpw.io.jsonlines.read(str(tmp_path / "w.jsonl"), schema=tpw.schema_from_types(word=str), mode="static")
+        tpw.io.subscribe(t.groupby(t.word).reduce(t.word, n=tpw.reducers.count()),
+                         on_change=lambda key, row, time, is_addition: seen.append((row["word"], row["n"])))
+        tpw.run(monitoring_level=tpw.MonitoringLevel.NONE, persistence_config=config)
+        ckpt = checkpoint_stats(tpw.G.active_scheduler)
+        assert ckpt["count"] >= 1 and ckpt["bytes"] > 0
+    assert sorted(seen) == [("w0", 3), ("w1", 3), ("w2", 3)]  # the restart re-fires nothing
 
 
 def test_serving_and_monitoring_import_no_jax():

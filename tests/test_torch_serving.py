@@ -1032,3 +1032,122 @@ def test_all_matches_jax():
     for name in package("port").serving.__all__:
         assert getattr(package("port").serving, name).__module__.startswith("pathway_tpu_torch.serving")
     assert tpw.serving is package("port").serving
+
+
+# ---------------------------------------------------------------------------
+# noisy-neighbour isolation and a merge killed mid-serving, under chaos
+
+
+CHAOS_DOCS = corpus(12, seed=21, lo=6, hi=14)
+
+
+def chaos_app(p, **kw):
+    pols = {"alice": p.serving.TenantPolicy("interactive", rate_per_s=500.0, burst=50, queue_cap=64),
+            "bob": p.serving.TenantPolicy("batch", rate_per_s=500.0, burst=50, queue_cap=64)}
+    kw.setdefault("embed_dim", D)
+    kw.setdefault("delta_cap", 64)
+    kw.setdefault("autocommit_ms", 10)
+    p.pw.G.clear()
+    return p.serving.RagServingApp(pols, **kw).start()
+
+
+def seed_chaos_docs(app) -> None:
+    for doc_id, text in CHAOS_DOCS:
+        app.upsert(doc_id, text, tenant="alice")
+    assert app.wait_indexed(len(CHAOS_DOCS), timeout=DEADLINE_S), app.stats()
+
+
+def noisy_neighbour(p) -> dict:
+    chaos_mod = __import__(f"{p.pw.__name__}.testing.chaos", fromlist=["chaos"])
+    app = chaos_app(p, delta_cap=8)  # a tiny delta: merges fire mid-run
+    app.admission.set_policy("noisy", p.serving.TenantPolicy("batch", rate_per_s=5.0, burst=2, queue_cap=2))
+    try:
+        seed_chaos_docs(app)
+        with chaos_mod.chaos(seed=3) as c:
+            c.inject_latency(app.index, "_run_merge", delay_s=0.05)
+            app.index.merge(wait=False)  # a merge is in flight as the load starts
+            rep = p.serving.LoadGen(app, [p.serving.TenantLoad("alice", qps=40.0),
+                                          p.serving.TenantLoad("noisy", qps=80.0, write_fraction=0.3)],
+                                    duration_s=1.5, seed=11).run()
+        return {"rep": rep, "shed_total": app.admission.stats()["shed_total"]}
+    finally:
+        app.close()
+        p.pw.G.clear()
+
+
+def test_noisy_neighbour_isolation_under_merge_load_matches_jax():
+    """A batch tenant over its bucket (with interleaved writes) and a merge
+    held in flight leave the interactive tenant untouched in both
+    packages: no interactive shed, no loss, a bounded p99."""
+    got = {name: noisy_neighbour(package(name)) for name in BOTH}
+    for name, out in got.items():
+        fast, noisy = out["rep"]["tenants"]["alice"], out["rep"]["tenants"]["noisy"]
+        assert fast["sent"] > 20, name
+        assert fast["shed"] == 0 and fast["errors"] == 0 and fast["completed"] == fast["sent"], name
+        assert 0 < fast["p99_ms"] <= 500.0, (name, out["rep"]["classes"])
+        assert noisy["shed"] > 0 and noisy["writes"] > 0, name
+        assert out["shed_total"].get("interactive", 0) == 0, name
+    assert got["port"]["rep"].keys() == got["jax"]["rep"].keys()
+
+
+def merge_killed(p) -> dict:
+    chaos_mod = __import__(f"{p.pw.__name__}.testing.chaos", fromlist=["chaos"])
+    gate, first_in = threading.Event(), threading.Event()
+
+    def slow_answerer(query, docs):
+        first_in.set()
+        gate.wait(DEADLINE_S)
+        return f"[{docs[0]['id']}] {docs[0]['text'][:240]}" if docs else f"no context found for: {query}"
+
+    index = p.seg(p.knn(D, metric="cos", capacity=512), delta_cap=64, auto_merge=False)
+    app = chaos_app(p, index=index, answerer=slow_answerer, lookahead=True)
+    out: dict = {}
+    try:
+        seed_chaos_docs(app)
+        state = app.index.state_dict()
+        with chaos_mod.chaos(seed=5) as c:  # the index owner dies between a merge and its commit
+            c.raise_on_nth_call(app.index, "_pre_commit", n=1)
+            with pytest.raises(chaos_mod.ChaosError):
+                app.index.merge(wait=True)
+            out["pre_commit_calls"] = c.call_count(app.index, "_pre_commit")
+        out["after_kill"] = {k: app.index.stats()[k] for k in ("merge_failures", "merging", "size")}
+        asked = [text for _, text in CHAOS_DOCS[:3]]  # each document's own text: its own top hit
+        f1 = app.submit_query(asked[0], tenant="alice")
+        assert first_in.wait(DEADLINE_S)
+        rest = [app.submit_query(q, tenant="alice") for q in asked[1:]]
+        wait_deadline = time.monotonic() + DEADLINE_S
+        while app.coscheduler.stats()["gen_queued"] < 2:  # both probes dispatched, parked behind f1
+            assert time.monotonic() < wait_deadline
+            first_in.wait(0.005)
+        app.index.load_state_dict(state)  # the owner's restart: the parked probes' handles go stale
+        gate.set()
+        answers = [f.result(timeout=DEADLINE_S) for f in [f1, *rest]]
+        out["answers"] = [[(d["id"], d["score"]) for d in r["docs"]] for r in answers]
+        out["probes_recovered"] = app.index.stats()["probes_recovered"]
+        out["shed_total"] = app.admission.stats()["shed_total"]
+        app.index.merge(wait=True)  # the next merge, without a fault, commits on the restored index
+        out["after_merge"] = {k: app.index.stats()[k] for k in ("merges_total", "merge_failures", "size")}
+        return out
+    finally:
+        gate.set()
+        app.close()
+        p.pw.G.clear()
+
+
+@pytest.mark.chaos
+def test_merge_killed_and_index_restored_mid_serving_matches_jax():
+    """A merge killed at its pre-commit instant rolls back fully; the index
+    restored from a checkpoint under two parked lookahead probes answers
+    every query, the stale probes re-run; then a clean merge commits.  The
+    answers and counters equal the JAX package's."""
+    want = merge_killed(package("jax"))
+    got = merge_killed(package("port"))
+    for key in ("pre_commit_calls", "after_kill", "probes_recovered", "shed_total", "after_merge"):
+        assert got[key] == want[key], key
+    for g, w in zip(got["answers"], want["answers"]):
+        same_hits(g, w, SCORE_TOL, "restored answer")
+    assert got["pre_commit_calls"] == 1 and got["after_kill"]["merge_failures"] == 1
+    assert not got["after_kill"]["merging"]
+    assert got["probes_recovered"] == 2 and got["shed_total"] == {}
+    assert got["after_merge"]["merges_total"] >= 1 and got["after_merge"]["merge_failures"] == 1
+    assert [a[0][0].split("#")[0] for a in got["answers"]] == [d for d, _ in CHAOS_DOCS[:3]]

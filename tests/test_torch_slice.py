@@ -167,7 +167,8 @@ def test_unported_executor_options_name_their_roadmap_item(kwargs, error):
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, pathway_tpu_torch, pathway_tpu_torch.kernels._build,"
-        " pathway_tpu_torch.xpacks.llm.rerankers;"
+        " pathway_tpu_torch.xpacks.llm.rerankers, pathway_tpu_torch.persistence,"
+        " pathway_tpu_torch.testing, pathway_tpu_torch.testing.chaos;"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'pathway_tpu'));"
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -446,6 +446,7 @@ def test_entry_and_dryrun_on_the_cpu(capsys):
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     names = [m.name for m in pkgutil.walk_packages(pathway_tpu_torch.__path__, "pathway_tpu_torch.")]
     assert "pathway_tpu_torch.train" in names
+    assert {"pathway_tpu_torch.persistence", "pathway_tpu_torch.testing", "pathway_tpu_torch.testing.chaos"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}: importlib.import_module(name)\n"
