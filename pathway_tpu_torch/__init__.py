@@ -42,10 +42,15 @@ runs it and executes the plan compiler's rewrite of it (``pw.analysis``:
 fast paths at ``optimize=2``).  ``pw.run(persistence_config=...)`` logs
 the inputs, replays them and checkpoints the operators, the card-resident
 index's slab included (``pw.persistence``), and ``pw.testing.chaos``
-injects faults into a run and drills its recovery.  The rest of the host
-plane comes in later slices (ROADMAP queue A): a name that belongs to one
-(``iterate``, ``sql``, the stdlib beyond indexing and utils, the other
-connectors, ...) raises an ``AttributeError`` that names its item.
+injects faults into a run and drills its recovery.  The streaming
+stdlib is here too: ``pw.temporal`` (``windowby`` and the interval, asof
+and window joins), ``pw.iterate``/``pw.iterate_universe``, ``pw.graphs``,
+``pw.ordered``, ``pw.stateful``, ``pw.statistical``, ``pw.universes`` and
+``pw.ml`` (``KNNIndex`` and the kNN classifier over the card-resident
+slab).  The rest of the host plane comes in later slices (ROADMAP queue
+A): a name that belongs to one (``sql``, ``demo``, ``viz``, the
+interactive mode, ``load_yaml``, the other connectors, ...) raises an
+``AttributeError`` that names its item.
 """
 
 from __future__ import annotations
@@ -136,17 +141,14 @@ DURATION = _dt.DURATION
 
 #: names of ``pathway_tpu`` that later slices of the port bring, by the
 #: ROADMAP item that brings them
-_LATER = {
-    **dict.fromkeys(
-        ("demo", "universes", "iterate", "iterate_universe", "enable_interactive_mode", "LiveTable",
-         "live", "export_table", "import_table", "ExportedTable", "sql", "load_yaml"),
-        "item 16 (slice 16d: the rest of internals)",
-    ),
-    **dict.fromkeys(
-        ("temporal", "ml", "graphs", "stateful", "statistical", "ordered", "viz"),
-        "item 16 (slice 16d: stdlib beyond indexing)",
-    ),
-}
+_LATER = dict.fromkeys(
+    ("demo", "enable_interactive_mode", "LiveTable", "live", "export_table", "import_table",
+     "ExportedTable", "sql", "load_yaml", "viz"),
+    "item 16 (slice 16e: sql, interactive, yaml_loader, demo, viz)",
+)
+
+#: the stdlib's modules that resolve as ``pw.<name>``
+_STDLIB = ("temporal", "ml", "graphs", "stateful", "statistical", "ordered")
 
 
 def __getattr__(name: str) -> Any:
@@ -175,6 +177,18 @@ def __getattr__(name: str) -> Any:
         import pathway_tpu_torch.stdlib.indexing as indexing
 
         return indexing
+    if name in _STDLIB:
+        import importlib
+
+        return importlib.import_module(f"pathway_tpu_torch.stdlib.{name}")
+    if name == "universes":
+        import pathway_tpu_torch.universes as universes
+
+        return universes
+    if name in ("iterate", "iterate_universe"):
+        from pathway_tpu_torch.internals import iterate
+
+        return getattr(iterate, name)
     if name == "asynchronous":
         # deprecated alias kept for parity (reference pathway.asynchronous -> pw.udfs)
         return udfs

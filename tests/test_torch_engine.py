@@ -569,9 +569,16 @@ def test_native_off_run_equals_the_native_run():
 
 
 def test_later_slices_raise_naming_their_item():
-    for name, item in (("temporal", "item 16"), ("universes", "item 16"),
-                       ("iterate", "item 16"), ("sql", "item 16")):
-        with pytest.raises(AttributeError, match=item):
+    # slice 16d brought the streaming stdlib: its names resolve to the
+    # port's own modules; what slice 16e brings still raises, naming it
+    for name in ("temporal", "ml", "graphs", "stateful", "statistical", "ordered"):
+        assert getattr(tpw, name).__name__ == f"pathway_tpu_torch.stdlib.{name}"
+        assert getattr(tpw, name) is getattr(tpw.stdlib, name)
+    assert tpw.universes.__name__ == "pathway_tpu_torch.universes"
+    assert tpw.iterate.__module__ == tpw.iterate_universe.__module__ == "pathway_tpu_torch.internals.iterate"
+    assert tpw.temporal.windowby.__module__ == "pathway_tpu_torch.stdlib.temporal._window"
+    for name in ("sql", "demo", "viz", "load_yaml", "enable_interactive_mode"):
+        with pytest.raises(AttributeError, match="slice 16e"):
             getattr(tpw, name)
     # slice 16a brought the analyzer: its names resolve to the port's own
     assert tpw.analysis.__name__ == "pathway_tpu_torch.analysis"
@@ -591,12 +598,11 @@ def test_later_slices_raise_naming_their_item():
         with pytest.raises(AttributeError, match="item 16"):
             getattr(tpw.xpacks.llm.parsers, parser)
     # item 14 brought the indexes: ``indexing`` and ``stdlib`` resolve, and
-    # the stdlib's other submodules name the item that brings them
+    # the stdlib's one submodule still to come names the slice that brings it
     assert tpw.indexing is tpw.stdlib.indexing
     assert tpw.indexing.BruteForceKnnFactory.__module__ == "pathway_tpu_torch.stdlib.indexing.data_index"
-    for name in ("temporal", "ml", "graphs", "stateful", "statistical", "ordered", "viz"):
-        with pytest.raises(AttributeError, match="item 16"):
-            getattr(tpw.stdlib, name)
+    with pytest.raises(AttributeError, match="slice 16e"):
+        tpw.stdlib.viz  # noqa: B018
     with pytest.raises(AttributeError, match="no attribute 'nonsense'"):
         tpw.nonsense  # noqa: B018
     # slice 16c brought persistence and the chaos harness: the names are

@@ -1,8 +1,8 @@
 """The port's persistence layer (``pathway_tpu_torch/persistence/``)
 against the JAX package's, on the CPU.
 
-Each scenario of ``tests/test_persistence.py`` (but the two that need
-``windowby`` and the one that needs ``io.s3``, which later slices bring)
+Each scenario of ``tests/test_persistence.py`` (but the one that needs
+``io.s3``, which a later slice brings)
 is written once, as a function of one package's namespace, and runs
 through both packages with the same inputs, made from a seed with numpy:
 the sinks' consolidated outputs are equal, and so are the counts the JAX
@@ -497,6 +497,94 @@ def test_operator_snapshot_bounded_replay(tmp_path):
     assert c3 == []  # a restart with no new input fires nothing
 
 
+def op_run(p, d):
+    return run_with(p, fs_config(p, d / "snapshots", "OPERATOR_PERSISTING", snapshot_interval_ms=0), autocommit_ms=5)
+
+
+def join_window(p, d):
+    """A join over a tumbling window per key, killed after partial input
+    and restarted over the appended rest, then a fresh run over the whole
+    input: the restarted and the fresh final states."""
+    pw = p.pw
+    CaptureNode = import_module(f"{p.pw.__name__}.engine.graph").CaptureNode
+    rows1 = [{"k": "x", "t": 1, "v": 10}, {"k": "y", "t": 2, "v": 20}, {"k": "x", "t": 6, "v": 30}]
+    rows2 = [{"k": "y", "t": 7, "v": 40}, {"k": "x", "t": 11, "v": 50}]
+    (d / "names.jsonl").write_text('{"k": "x", "name": "xray"}\n{"k": "y", "name": "yankee"}')
+
+    class ES(pw.Schema):
+        k: str
+        t: int
+        v: int
+
+    class NS(pw.Schema):
+        k: str
+        name: str
+
+    def build():
+        ev = pw.io.jsonlines.read(str(d / "events.jsonl"), schema=ES, mode="static")
+        nm = pw.io.jsonlines.read(str(d / "names.jsonl"), schema=NS, mode="static")
+        win = ev.windowby(ev.t, window=pw.temporal.tumbling(duration=5), instance=ev.k).reduce(
+            k=pw.this._pw_instance, start=pw.this._pw_window_start, s=pw.reducers.sum(pw.this.v))
+        joined = win.join(nm, win.k == nm.k).select(nm.name, win.start, win.s)
+        return CaptureNode(p.G.engine_graph, joined._node)
+
+    (d / "events.jsonl").write_text("\n".join(json.dumps(r) for r in rows1))
+    build()
+    op_run(p, d)
+    p.G.clear()
+    with open(d / "events.jsonl", "a") as f:
+        f.write("\n" + "\n".join(json.dumps(r) for r in rows2))
+    cap = build()
+    restarted = sorted(op_run(p, d).ctx.state(cap)["rows"].values())
+    p.G.clear()
+    cap = build()
+    fresh_sched = p.Scheduler(p.G.engine_graph, autocommit_ms=5)
+    fresh_sched.run()
+    return restarted, sorted(fresh_sched.ctx.state(cap)["rows"].values())
+
+
+def test_operator_snapshot_join_window_equivalence(tmp_path):
+    """Kill/restart over a join + tumbling-window pipeline: the restarted
+    run's final state equals a fresh full-input run, in both packages."""
+    got = both(join_window, tmp_path)
+    assert got["port"] == got["jax"]
+    restarted, fresh = got["port"]
+    assert restarted == fresh and len(fresh) >= 3
+
+
+def windows_flushed(p, d):
+    """A tumbling window's sink over a clean run, then over a restart with
+    no new input."""
+    pw = p.pw
+    (d / "ev.jsonl").write_text('{"t": 1, "v": 10}\n{"t": 2, "v": 20}\n{"t": 7, "v": 30}')
+
+    class ES(pw.Schema):
+        t: int
+        v: int
+
+    runs = []
+    for _ in range(2):
+        p.G.clear()
+        fired: list = []
+        ev = pw.io.jsonlines.read(str(d / "ev.jsonl"), schema=ES, mode="static")
+        win = ev.windowby(ev.t, window=pw.temporal.tumbling(duration=5)).reduce(
+            start=pw.this._pw_window_start, s=pw.reducers.sum(pw.this.v))
+        pw.io.subscribe(win, on_change=lambda k, row, time, add: fired.append((row["start"], row["s"], add)))
+        op_run(p, d)
+        runs.append(fired)
+    return runs
+
+
+def test_operator_snapshot_windows_not_reflushed(tmp_path):
+    """The clean shutdown snapshots after the finalizing flush: a restart
+    with no new input re-emits no window, in both packages."""
+    got = both(windows_flushed, tmp_path)
+    assert got["port"] == got["jax"]
+    fired1, fired2 = got["port"]
+    assert {(s, v) for s, v, add in fired1 if add} == {(0, 30), (5, 30)}
+    assert fired2 == []
+
+
 class FakeS3Client:
     """boto3-compatible in-memory object store shared across instances."""
 
@@ -708,6 +796,7 @@ def device_pipeline(p, d, tiny, steps):
 
         cfg = tcfg
     out = []
+    vecs: dict = {}  # each text embedded in this package, to its vector
     for docs, questions in steps:
         with open(d / "docs.jsonl", "a") as f:
             f.writelines(json.dumps(row) + "\n" for row in docs)
@@ -719,7 +808,9 @@ def device_pipeline(p, d, tiny, steps):
         class Counting(Embedder):
             def __batch__(self, texts):
                 embedded[0] += len(texts)
-                return super().__batch__(texts)
+                got = super().__batch__(texts)
+                vecs.update((t, np.asarray(v, np.float64)) for t, v in zip(texts, got))
+                return got
 
         class Doc(pw.Schema):
             doc: str = pw.column_definition(primary_key=True)
@@ -749,22 +840,104 @@ def device_pipeline(p, d, tiny, steps):
             elif final.get(qid, (None,))[0] == ids:
                 del final[qid]
         out.append({"size": reply._node.adapter.stats()["size"], "final": final, "embedded": embedded[0],
-                    "sink_rows": len(rows)})
+                    "sink_rows": len(rows), "rows": rows, "vecs": vecs})
     return out
+
+
+F32_TOL = 1e-5
+
+
+def same_answer(a: dict, b: dict) -> bool:
+    """Two replies ({doc: score}) with the same ids, scores at ``F32_TOL``."""
+    return a.keys() == b.keys() and all(abs(a[doc] - b[doc]) <= F32_TOL for doc in a)
+
+
+def step_revisions(rows: list) -> tuple[list, int]:
+    """One run's sink rows as (question, diff, {doc: score}), less each
+    retraction and insertion of one question whose replies are the same
+    at ``F32_TOL``, and the number of such pairs taken out.  A reply
+    re-emitted with its ids unchanged is no revision: ``SegmentedIndex``
+    merges its delta segment on a background thread, and when a merge
+    ends between two re-answers a document's score comes from the main
+    segment instead of the delta, a rounding apart (ROADMAP, "Reference
+    behaviour found while porting", C10 and C12)."""
+    by: dict = {}
+    for qid, ids, scores, add in rows:
+        by.setdefault(qid, []).append((add, dict(zip(ids, map(float, scores)))))
+    out, removed = [], 0
+    for qid, ups in by.items():
+        ins = [r for add, r in ups if add]
+        rets = [r for add, r in ups if not add]
+        for r in list(ins):
+            match = next((x for x in rets if same_answer(x, r)), None)
+            if match is not None:
+                ins.remove(r)
+                rets.remove(match)
+                removed += 1
+        out += [(qid, -1, r) for r in rets] + [(qid, 1, r) for r in ins]
+    return out, removed
+
+
+def resume_oracle(steps: list, vecs: dict, k: int = 4) -> list:
+    """The revisions each run must emit, from numpy: over the documents
+    present after that run's input (a re-upserted document by its new
+    text), each question's exact top ``k`` by cosine similarity (in f64,
+    over ``vecs``, the package's own embeddings); a question's first
+    answer is an insertion, a changed answer a retraction of the old
+    and an insertion of the new."""
+    docs: dict = {}
+    questions: list = []
+    prev: dict = {}
+    out = []
+    for step_docs, step_questions in steps:
+        docs.update((row["doc"], row["text"]) for row in step_docs)
+        questions += [q["doc"] for q in step_questions]
+        texts = {q["doc"]: q["text"] for _, qs in steps for q in qs}
+        names = sorted(docs)
+        mat = np.stack([vecs[docs[n]] for n in names])
+        mat /= np.linalg.norm(mat, axis=1, keepdims=True)
+        revs = []
+        for qid in questions:
+            q = vecs[texts[qid]] / np.linalg.norm(vecs[texts[qid]])
+            scores = mat @ q
+            order = np.argsort(-scores, kind="stable")
+            # no near-tie at the cut: the top k is decided at any f32 rounding
+            assert len(order) <= k or scores[order[k - 1]] - scores[order[k]] > 10 * F32_TOL, qid
+            answer = {names[j]: float(scores[j]) for j in order[:k]}
+            if qid not in prev:
+                revs.append((qid, 1, answer))
+            elif not same_answer(prev[qid], answer):
+                revs += [(qid, -1, prev[qid]), (qid, 1, answer)]
+            prev[qid] = answer
+        out.append(revs)
+    return out
+
+
+def _revision_key(r: tuple) -> tuple:
+    return (r[0], r[1], sorted(r[2]))
+
+
+def revisions_equal(got: list, want: list) -> bool:
+    g, w = sorted(got, key=_revision_key), sorted(want, key=_revision_key)
+    return len(g) == len(w) and all(a[:2] == b[:2] and same_answer(a[2], b[2]) for a, b in zip(g, w))
 
 
 def test_device_config_persists_and_resumes_like_jax(tmp_path, tiny_encoder):
     """Run, stop; append documents (some re-upserted) and questions,
-    resume; resume again with nothing new.  Index sizes, answers' ids,
-    rows embedded after each restart and the sink rows of the last run
-    are equal in both packages, scores within 1e-5."""
+    resume; resume again with nothing new.  Index sizes, final answers'
+    ids and rows embedded after each restart are equal in both packages,
+    scores within 1e-5, and the last run sinks nothing.  Each run's
+    revisions, less the replies re-emitted unchanged after a background
+    merge, equal an exact numpy oracle: the port's always, the JAX
+    package's where it agrees with its oracle (then it is held to the
+    port's too)."""
     base = corpus_lines(24, seed=16)
     extra = corpus_lines(8, seed=17, prefix="e") + [dict(base[i], text=f"new text {i}") for i in (2, 5)]
     questions = corpus_lines(6, seed=18, prefix="q")
     steps = [(base, questions[:4]), (extra, questions[4:]), ([], [])]
     got = both(device_pipeline, tmp_path, tiny_encoder, steps)
     for g, w in zip(got["port"], got["jax"]):
-        assert g["size"] == w["size"] and g["embedded"] == w["embedded"] and g["sink_rows"] == w["sink_rows"]
+        assert g["size"] == w["size"] and g["embedded"] == w["embedded"]
         assert g["final"].keys() == w["final"].keys()
         for qid, (ids, scores) in w["final"].items():
             assert g["final"][qid][0] == ids, qid
@@ -773,8 +946,21 @@ def test_device_config_persists_and_resumes_like_jax(tmp_path, tiny_encoder):
     assert [first["size"], second["size"], third["size"]] == [24, 32, 32]
     assert first["embedded"] == 24 + 4
     assert second["embedded"] == len(extra) + 2  # only the appended rows: the checkpoint covered the rest
-    assert third["embedded"] == 0 and third["sink_rows"] == 0
+    assert third["embedded"] == 0 and third["sink_rows"] == 0 and got["jax"][2]["sink_rows"] == 0
     assert len(first["final"]) == 4 and len(second["final"]) == 6
+    port_oracle = resume_oracle(steps, first["vecs"])
+    jax_oracle = resume_oracle(steps, got["jax"][0]["vecs"])
+    for i, (g, w) in enumerate(zip(got["port"], got["jax"])):
+        port_revs, port_repeats = step_revisions(g["rows"])
+        jax_revs, jax_repeats = step_revisions(w["rows"])
+        print(f"run {i + 1}: sink rows port {g['sink_rows']} jax {w['sink_rows']}; "
+              f"unchanged re-emissions port {port_repeats} jax {jax_repeats}")
+        assert bool(port_oracle[i]) == (i < 2)  # revisions in every run but the last
+        assert revisions_equal(port_revs, port_oracle[i]), (i, port_revs, port_oracle[i])
+        if revisions_equal(jax_revs, jax_oracle[i]):
+            assert revisions_equal(port_revs, jax_revs), (i, port_revs, jax_revs)
+        else:
+            print(f"run {i + 1}: the reference diverged from its oracle: {jax_revs} against {jax_oracle[i]}")
 
 
 # ---------------------------------------------------------------------------

@@ -168,7 +168,13 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, pathway_tpu_torch, pathway_tpu_torch.kernels._build,"
         " pathway_tpu_torch.xpacks.llm.rerankers, pathway_tpu_torch.persistence,"
-        " pathway_tpu_torch.testing, pathway_tpu_torch.testing.chaos;"
+        " pathway_tpu_torch.testing, pathway_tpu_torch.testing.chaos,"
+        " pathway_tpu_torch.engine.temporal, pathway_tpu_torch.stdlib.temporal,"
+        " pathway_tpu_torch.stdlib.ordered, pathway_tpu_torch.stdlib.stateful,"
+        " pathway_tpu_torch.stdlib.statistical, pathway_tpu_torch.internals.iterate,"
+        " pathway_tpu_torch.universes, pathway_tpu_torch.stdlib.graphs, pathway_tpu_torch.stdlib.ml,"
+        " pathway_tpu_torch.stdlib.ml.index, pathway_tpu_torch.stdlib.ml.classifiers,"
+        " pathway_tpu_torch.stdlib.ml.hmm, pathway_tpu_torch.stdlib.ml.smart_table_ops;"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'pathway_tpu'));"
         "print(bad); sys.exit(1 if bad else 0)"
     )
