@@ -140,12 +140,8 @@ DATE_TIME_UTC = _dt.DATE_TIME_UTC
 DURATION = _dt.DURATION
 
 #: names of ``pathway_tpu`` that later slices of the port bring, by the
-#: ROADMAP item that brings them
-_LATER = dict.fromkeys(
-    ("demo", "enable_interactive_mode", "LiveTable", "live", "export_table", "import_table",
-     "ExportedTable", "sql", "load_yaml", "viz"),
-    "item 16 (slice 16e: sql, interactive, yaml_loader, demo, viz)",
-)
+#: ROADMAP item that brings them (none left since slice 16e)
+_LATER: dict[str, str] = {}
 
 #: the stdlib's modules that resolve as ``pw.<name>``
 _STDLIB = ("temporal", "ml", "graphs", "stateful", "statistical", "ordered")
@@ -192,6 +188,30 @@ def __getattr__(name: str) -> Any:
     if name == "asynchronous":
         # deprecated alias kept for parity (reference pathway.asynchronous -> pw.udfs)
         return udfs
+    if name == "enable_interactive_mode":
+        from pathway_tpu_torch.internals.interactive import enable_interactive_mode
+
+        return enable_interactive_mode
+    if name in ("LiveTable", "live", "export_table", "import_table", "ExportedTable"):
+        from pathway_tpu_torch.internals import interactive
+
+        return getattr(interactive, name)
+    if name == "viz":
+        import pathway_tpu_torch.stdlib.viz as viz
+
+        return viz
+    if name == "sql":
+        from pathway_tpu_torch.internals.sql import sql
+
+        return sql
+    if name == "load_yaml":
+        from pathway_tpu_torch.internals.yaml_loader import load_yaml
+
+        return load_yaml
+    if name == "demo":
+        import pathway_tpu_torch.demo as demo
+
+        return demo
     if name in ("DateTimeNaive", "DateTimeUtc", "Duration"):
         return getattr(_dt, name)
     if name == "declare_type":

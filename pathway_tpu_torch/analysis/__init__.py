@@ -13,8 +13,7 @@ docstring embeds the generated table (``render_code_table()``); codes
 are never listed by hand anywhere else.
 
 Three surfaces: ``pathway_tpu_torch.analyze()``, :func:`lint_file` (the
-JAX package's CLI ``lint`` subcommand; the port's CLI comes with ROADMAP
-slice 16e), and strict mode (``pw.run(strict=True)`` /
+CLI's ``lint`` subcommand, ``python -m pathway_tpu_torch.cli lint``), and strict mode (``pw.run(strict=True)`` /
 ``PATHWAY_STRICT=1``) which refuses to start connectors while
 error-severity findings exist.
 """

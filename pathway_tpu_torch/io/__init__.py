@@ -50,7 +50,7 @@ def __getattr__(name: str) -> Any:
     if name in _LATER:
         raise AttributeError(
             f"module {__name__!r} has no attribute {name!r} yet: the port brings it with "
-            "ROADMAP item 16 (slice 16e: the other connectors)"
+            "ROADMAP item 16 (slice 16f: the other connectors)"
         )
     raise AttributeError(f"module {__name__} has no attribute {name!r}")
 

@@ -34,7 +34,13 @@
 //    each: they split the rows in registers and run wgmma m64nNk8 with the
 //    queries as B, N = nq rounded up to 8, 16, 32 or 64, so up to 64
 //    queries read the slab once (more run as groups of 64, one group over
-//    every tile after another).  The epilogue masks the scores (valid flag,
+//    every tile after another).  Each stage's products of a block of 64
+//    rows go into a fresh wgmma accumulator that is added to the row's
+//    running sums by IEEE f32 adds (tf32x3_stage_rows' kRound): the tensor
+//    cores' own accumulation is not round-to-nearest, and summed straight
+//    over d = 768 it left a row's dot with itself up to ~1e-5 low (C13:
+//    an l2sq distance of 1.05e-5 from a row to itself on an H100).  The
+//    epilogue masks the scores (valid flag,
 //    capacity), applies l2sq with ||x||^2 summed from the same registers,
 //    and stages them in shared memory.  A warp keeps each of its queries'
 //    best k of every row the block has walked, one entry a lane (four for
@@ -591,7 +597,7 @@ score_tc_kernel(const __grid_constant__ CUtensorMap slab_map, const __grid_const
       for (int ks = 0; ks < k_steps; ++ks) {
         const int s = (j + ks) % kStages;
         mbar_wait(&full[s], ((j + ks) / kStages) & 1);
-        tf32x3_stage_rows<N, 2, L2SQ>(acc, a_tile(s) + 128 * wg * kRowFloats, hi_tile(s), lo_tile(s), sq);
+        tf32x3_stage_rows<N, 2, L2SQ, true>(acc, a_tile(s) + 128 * wg * kRowFloats, hi_tile(s), lo_tile(s), sq);
         mbar_arrive(&empty[s]);  // stage s may be loaded again
       }
       j += k_steps;

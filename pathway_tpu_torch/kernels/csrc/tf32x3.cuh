@@ -179,13 +179,14 @@ __device__ __forceinline__ void wgmma_m64n256k8_tf32_rs(float (&d)[128], const u
 }
 
 template <int N>
-__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                              int scale_d = 1) {
   static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 256, "a wgmma TF32 width of the port");
-  if constexpr (N == 256) wgmma_m64n256k8_tf32_rs(d, a, b, 1);
-  else if constexpr (N == 64) wgmma_m64n64k8_tf32_rs(d, a, b, 1);
-  else if constexpr (N == 32) wgmma_m64n32k8_tf32_rs(d, a, b, 1);
-  else if constexpr (N == 16) wgmma_m64n16k8_tf32_rs(d, a, b, 1);
-  else wgmma_m64n8k8_tf32_rs(d, a, b, 1);
+  if constexpr (N == 256) wgmma_m64n256k8_tf32_rs(d, a, b, scale_d);
+  else if constexpr (N == 64) wgmma_m64n64k8_tf32_rs(d, a, b, scale_d);
+  else if constexpr (N == 32) wgmma_m64n32k8_tf32_rs(d, a, b, scale_d);
+  else if constexpr (N == 16) wgmma_m64n16k8_tf32_rs(d, a, b, scale_d);
+  else wgmma_m64n8k8_tf32_rs(d, a, b, scale_d);
 }
 
 // acc[m] (the wgmma accumulator layout) += A_m . B^T over one stage, for
@@ -197,7 +198,17 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t 
 // thread holds of row r + 8 i of block m (4 of the stage's 16 columns; the
 // 4 lanes that share a row hold the other 12).  Every thread of the
 // warpgroup calls it.
-template <int N, int kM, bool kSquares>
+//
+// kRound: the tensor cores' f32 accumulation is not round-to-nearest.
+// Summed straight into acc, each of a row's 3 d / 8 products drops up to an
+// ulp of a sum near q.x, so at q.x near |q||x| = 1 over d = 768 the dot
+// comes out up to ~1e-5 low (C13, K3's rows against themselves).  With
+// kRound a block's six products of the stage go into a fresh accumulator
+// (scale-d 0 at the first), whose sum is a 16-dim partial dot, and acc
+// takes it by an IEEE f32 add.  The blocks run one after another through
+// that one accumulator (N / 2 more registers, not kM N / 2), each waited
+// for before its add.
+template <int N, int kM, bool kSquares, bool kRound = false>
 __device__ __forceinline__ void tf32x3_stage_rows(float (&acc)[kM][N / 2], const float* a, const float* b_hi,
                                                   const float* b_lo, float (&sq)[kM][2]) {
   const int lane = threadIdx.x % 32;
@@ -221,6 +232,28 @@ __device__ __forceinline__ void tf32x3_stage_rows(float (&acc)[kM][N / 2], const
   }
   const uint64_t dh = wgmma_desc(b_hi, 16, kSbo, kMode);
   const uint64_t dl = wgmma_desc(b_lo, 16, kSbo, kMode);
+  if constexpr (kRound) {
+    float part[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) part[i] = 0.0f;  // read by no product (scale-d 0), but defined
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      fence_regs(part);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        wgmma_tf32_rs<N>(part, al[m][kk], dh + 2 * kk, kk);  // scale-d 0 at the stage's first product
+        wgmma_tf32_rs<N>(part, ah[m][kk], dl + 2 * kk);
+        wgmma_tf32_rs<N>(part, ah[m][kk], dh + 2 * kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(part);
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) acc[m][i] = __fadd_rn(acc[m][i], part[i]);
+    }
+    return;
+  }
 #pragma unroll
   for (int m = 0; m < kM; ++m) fence_regs(acc[m]);
   wgmma_fence();

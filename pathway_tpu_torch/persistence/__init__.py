@@ -385,7 +385,7 @@ class Backend:
         ``src/persistence/backends/s3.rs``).  ``bucket_settings`` is any
         object with ``create_client()`` (a boto3-compatible client) and
         ``bucket_name``, as ``pw.io.s3.AwsS3Settings`` is (the S3
-        connector comes with ROADMAP slice 16e; tests inject a fake)."""
+        connector comes with ROADMAP slice 16f; tests inject a fake)."""
         if bucket_settings is None:
             raise ValueError(
                 "Backend.s3 requires bucket_settings (pw.io.s3.AwsS3Settings)"

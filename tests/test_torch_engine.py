@@ -569,17 +569,24 @@ def test_native_off_run_equals_the_native_run():
 
 
 def test_later_slices_raise_naming_their_item():
-    # slice 16d brought the streaming stdlib: its names resolve to the
-    # port's own modules; what slice 16e brings still raises, naming it
+    # slice 16d brought the streaming stdlib and slice 16e sql, the
+    # interactive mode, yaml_loader, demo and viz: their names resolve to
+    # the port's own modules, and no name of the JAX package is left to a
+    # later slice
     for name in ("temporal", "ml", "graphs", "stateful", "statistical", "ordered"):
         assert getattr(tpw, name).__name__ == f"pathway_tpu_torch.stdlib.{name}"
         assert getattr(tpw, name) is getattr(tpw.stdlib, name)
     assert tpw.universes.__name__ == "pathway_tpu_torch.universes"
     assert tpw.iterate.__module__ == tpw.iterate_universe.__module__ == "pathway_tpu_torch.internals.iterate"
     assert tpw.temporal.windowby.__module__ == "pathway_tpu_torch.stdlib.temporal._window"
-    for name in ("sql", "demo", "viz", "load_yaml", "enable_interactive_mode"):
-        with pytest.raises(AttributeError, match="slice 16e"):
-            getattr(tpw, name)
+    assert tpw._LATER == {}
+    assert tpw.sql.__module__ == "pathway_tpu_torch.internals.sql"
+    assert tpw.load_yaml.__module__ == "pathway_tpu_torch.internals.yaml_loader"
+    assert tpw.enable_interactive_mode.__module__ == "pathway_tpu_torch.internals.interactive"
+    for name in ("live", "LiveTable", "export_table", "import_table", "ExportedTable"):
+        assert getattr(tpw, name).__module__ == "pathway_tpu_torch.internals.interactive"
+    assert tpw.demo.__name__ == "pathway_tpu_torch.demo"
+    assert tpw.viz.__name__ == "pathway_tpu_torch.stdlib.viz"
     # slice 16a brought the analyzer: its names resolve to the port's own
     assert tpw.analysis.__name__ == "pathway_tpu_torch.analysis"
     for name in ("analyze", "explain", "estimate_memory", "MemoryReport", "EstimateParams",
@@ -598,11 +605,10 @@ def test_later_slices_raise_naming_their_item():
         with pytest.raises(AttributeError, match="item 16"):
             getattr(tpw.xpacks.llm.parsers, parser)
     # item 14 brought the indexes: ``indexing`` and ``stdlib`` resolve, and
-    # the stdlib's one submodule still to come names the slice that brings it
+    # the stdlib's last submodule (``viz``, slice 16e) is the port's own
     assert tpw.indexing is tpw.stdlib.indexing
     assert tpw.indexing.BruteForceKnnFactory.__module__ == "pathway_tpu_torch.stdlib.indexing.data_index"
-    with pytest.raises(AttributeError, match="slice 16e"):
-        tpw.stdlib.viz  # noqa: B018
+    assert tpw.stdlib.viz is tpw.viz
     with pytest.raises(AttributeError, match="no attribute 'nonsense'"):
         tpw.nonsense  # noqa: B018
     # slice 16c brought persistence and the chaos harness: the names are

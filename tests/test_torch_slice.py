@@ -174,7 +174,10 @@ def test_import_pulls_in_no_jax():
         " pathway_tpu_torch.stdlib.statistical, pathway_tpu_torch.internals.iterate,"
         " pathway_tpu_torch.universes, pathway_tpu_torch.stdlib.graphs, pathway_tpu_torch.stdlib.ml,"
         " pathway_tpu_torch.stdlib.ml.index, pathway_tpu_torch.stdlib.ml.classifiers,"
-        " pathway_tpu_torch.stdlib.ml.hmm, pathway_tpu_torch.stdlib.ml.smart_table_ops;"
+        " pathway_tpu_torch.stdlib.ml.hmm, pathway_tpu_torch.stdlib.ml.smart_table_ops,"
+        " pathway_tpu_torch.internals.sql, pathway_tpu_torch.internals.interactive,"
+        " pathway_tpu_torch.internals.yaml_loader, pathway_tpu_torch.demo, pathway_tpu_torch.stdlib.viz,"
+        " pathway_tpu_torch.xpacks.llm.rag_eval, pathway_tpu_torch.cli;"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'pathway_tpu'));"
         "print(bad); sys.exit(1 if bad else 0)"
     )
