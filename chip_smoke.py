@@ -29,8 +29,10 @@ Phases, each fatal on failure:
    near-duplicates (cosine 0.99-0.9999) and random rows, dot and l2sq,
    the tensor-core pass at every query width and the row-streaming pass,
    within TOPK_ATOL of the plain version, a row's l2sq distance to itself
-   below TOPK_ATOL; K9 also at B = 1 and
-   13 (one launch each); the ptxas lines of K1, K3 and K14.  C8's f32
+   below TOPK_ATOL; the same rows through K11, K12 and K10 (C15,
+   ``c15_edge_cases``) within ASSIGN_ATOL, TOPK_ATOL and LOGIT_ATOL of
+   their plain versions and float64; K9 also at B = 1 and
+   13 (one launch each); the ptxas lines of K1, K3, K10-K12 and K14.  C8's f32
    forms: K8 writing f32 rows (from uint8 and f32 images, and on padded
    grids) and K9 reading f32 x, each against its plain version; then
    the tiny f32 dual encoder (``phase_f32_vision``: 32-pixel images,
@@ -327,8 +329,23 @@ Phases, each fatal on failure:
     embeddings and answers 512 questions at k=10 (numpy's exact top-10),
     ``table_viz`` and ``plot`` holding the grouped rows; one SQL epoch
     profiled.
+21. slice 16f (``phase_documents``), after phase 20: (a) 2,048 generated
+    files (``make_pdf``, ``make_docx``) read by ``pw.io.fs.read`` into
+    ``VectorStoreServer`` with ``OpenParse`` for the PDFs and
+    ``ParseUnstructured(mode="elements")`` for the DOCX files, BGE-base
+    and a 1M-slot index, served over REST: every parser output equal to
+    the same parser's in-process, 136 questions against the direct path
+    at DOCS_REPLY_ATOL, 32 at once, a PDF rewritten and a DOCX deleted
+    while it serves; (b) 16,384 documents through ``pw.io.kafka.read`` and
+    a Debezium change stream through ``pw.io.debezium.read`` (both on a
+    ``MockBroker``) into two live ``DataIndex``es, 512 questions each,
+    the replies through ``pw.io.postgres.write`` into ``sqlite3`` (and
+    ``pw.io.null.write``) and read back by ``pw.io.sqlite.read``: each
+    index against the direct path over its final set, no deleted key,
+    updated keys' rows equal to their new texts' encodings, the rows read
+    back equal to the rows written.
 
-Phases 13-20 and then phase 8 run right after phase 4, while
+Phases 13-21 and then phase 8 run right after phase 4, while
 phase 3's index is alive, and phase 10 after them; phases 5, 6, 9 and 12
 follow.  The second-to-last line of
 output is a JSON object with one entry per kernel wrapper (K1-K19 and B8's
@@ -367,10 +384,14 @@ phase 18 (over a slab built as phase 3 builds its own).
 
 ``python3 chip_smoke.py --apps`` runs instead, on one card, only phase 20.
 
+``python3 chip_smoke.py --documents`` runs instead, on one card, only
+phase 21.
+
 ``python3 chip_smoke.py --k3-edge [DIR]`` runs instead, on one card, only
-phase 2's C13 case (``k3_edge_cases``) on this tree's K3 and, with DIR
-(another commit, unpacked), on that commit's K3 first, then both timed in
-turns over the 1M slab (``phase_k3_edge``).
+phase 2's C13 and C15 cases (``k3_edge_cases``, ``c15_edge_cases``) on
+this tree's K3, K11, K12 and K10 and, with DIR (another commit,
+unpacked), on that commit's first, then K3 timed in turns over the 1M
+slab and K10 at phase 2's shape (``phase_k3_edge``).
 
 ``python3 chip_smoke.py --distinct-cards`` runs instead, on four cards,
 only what a mesh that repeats one card cannot show: ring attention and
@@ -390,7 +411,9 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
+import zlib
 
 SEED = 0
 HIDDEN = 768
@@ -429,6 +452,10 @@ EDGE_RANDOM_QUERIES = 64  # unit queries that are not slab rows
 EDGE_SLAB = 65536
 EDGE_K = 8  # a row, its three near-duplicates and four others
 EDGE_SINGLE = 16  # base rows queried one a call (the row-streaming pass)
+EDGE_KERNELS = ("knn_topk", "topk_select", "ivf_assign", "ivf_scan", "dual_logits")  # what --k3-edge builds
+C15_NLISTS = (1024, 4096)  # K11's centroid counts at the edge
+C15_SCAN_CAP = 512  # K12's edge cells: the edge slab as 128 cells of 512 slots ...
+C15_SCAN_NPROBE = 64  # ... of which each query probes half
 SELECT_ATOL = 0.0  # K13 copies the values it selects
 SELECT_K = 256  # the k above K3's MAX_K that phases 2, 6 and 8 search at
 SELF_COS = 0.999
@@ -651,6 +678,19 @@ APPS_IMPORT_QUESTIONS = 512  # questions the imported table's index answers
 APPS_EPOCH_ROWS = 64  # the profiled SQL epoch: one demo-stream commit
 APPS_DELTA_CAP = 8  # below the 16 topic rows: an index batch this large goes straight to the slab
 APPS_FLOAT_RTOL = 1e-9  # SQL sums against sqlite's: f64 host arithmetic in another order
+DOCS_FILES = 2048  # phase 21's files: the first half PDFs, the rest DOCX
+DOCS_QUESTIONS = 136  # one-question /v1/retrieve requests to the document server
+DOCS_CONCURRENT = 32  # of them sent at once, from SERVER_CLIENTS threads
+DOCS_DELTA_CAP = 8  # the indexes' delta cap: an ingest batch this large goes straight to the slab
+DOCS_REPLY_ATOL = 1e-6  # served scores against the direct path's; an updated key's row against its encoding
+DOCS_DEADLINE_S = 120.0  # the server's ingest, and each live change's visibility
+DOCS_EPOCH_FILES = 64  # files of the profiled ingest epoch: half PDFs, half DOCX
+DOCS_CDC = (4096, 1024, 512)  # Debezium creates, then updates and deletes of those keys
+DOCS_STREAM_QUESTIONS = 512  # questions each index of part (b) answers at k = K
+DOCS_STREAM_DEADLINE_S = 240.0  # the indexes of part (b) reach their final sets
+DOCS_PHASE_S = 150.0
+DOCS_PDF_PAGES = 2  # pages of a generated PDF (phase 21)
+DOCS_LINE_WORDS = 10  # words on a generated PDF's body line; a DOCX paragraph has three lines' worth
 PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
@@ -817,11 +857,15 @@ def check_attention_case(torch, label: str, v, mask, got, ref, atol: float, rtol
 def phase_kernels(torch, dev) -> dict:
     """Phase 2: each kernel against its plain version; returns the
     measurements per kernel."""
+    import numpy as np
     import torch.nn.functional as F
 
     from pathway_tpu_torch.kernels import (
         attention,
         attention_plain,
+        dual_logits,
+        ivf_assign,
+        ivf_scan,
         MAX_K,
         knn_topk,
         knn_topk_plain,
@@ -1206,7 +1250,11 @@ def phase_kernels(torch, dev) -> dict:
     log(f"K13 topk_select: {launches} kernels a call")
     out["topk_select"] = {**select_rows["k256"], "max_abs_err": select_err, "launches_per_call": launches}
     out["_topk_select_rows"] = select_rows
-    out["_knn_edge"] = k3_edge_cases(torch, dev, {"tree": (knn_topk, knn_launch)})["tree"]
+    edge = k3_edge_slab(np, torch, dev)
+    out["_knn_edge"] = k3_edge_cases(torch, dev, {"tree": (knn_topk, knn_launch)}, edge)["tree"]
+    out["_c15_edge"] = c15_edge_cases(torch, dev, {"tree": {
+        "ivf_assign": ivf_assign, "ivf_scan": ivf_scan, "dual_logits": dual_logits}}, edge)["tree"]
+    del edge
     return out
 
 
@@ -1241,6 +1289,7 @@ def k3_edge_slab(np, torch, dev) -> dict:
             "valid": torch.from_numpy(valid).to(dev),
             "queries": torch.from_numpy(queries.astype(np.float32)).to(dev),
             "self_slot": torch.from_numpy(at[:EDGE_BASE].astype(np.int64)).to(dev),
+            "edge_slots": torch.from_numpy(at.astype(np.int64)).to(dev),
             "near_slots": torch.from_numpy(at[EDGE_BASE:EDGE_BASE * (1 + len(EDGE_COS))].astype(np.int64)
                                            .reshape(len(EDGE_COS), EDGE_BASE)).to(dev)}
 
@@ -1330,33 +1379,238 @@ def k3_edge_cases(torch, dev, kernels: dict, data: dict | None = None) -> dict:
     return out
 
 
+def c15_edge_cases(torch, dev, kernels: dict, data: dict | None = None) -> dict:
+    """C15: C13's rows (``k3_edge_slab``) through K11, K12 and K10, whose
+    tensor-core sums C13's repair of K3 did not reach.  ``kernels`` maps a
+    label to ``{"ivf_assign": fn, "ivf_scan": fn, "dual_logits": fn}``:
+    this tree's wrappers, and with ``--k3-edge DIR`` the parent's too.
+
+    - K11, both forms: every slab row against centroids seeded from slab
+      rows, as ``_kmeans`` seeds them (the base rows and their
+      near-duplicates; at 4,096 also the random edge rows and other slab
+      rows), so each seeded row is scored against itself.  Decided rows
+      that differ and the chosen centroid's shortfall, against the plain
+      version's f32 scores and against float64.
+    - K12, query-major (nq = 1) and cell-major (nq = 32), over f32 and
+      bf16 cells (the slab as C15_SCAN_CELLS cells of C15_SCAN_CAP slots,
+      each query probing its own cell and its near-duplicates' first):
+      the returned scores against the plain version and against float64
+      of the rows (for bf16 cells, of the bf16-rounded query and rows);
+      over f32 cells a stored row must come back as its own first
+      neighbour.
+    - K10: the base rows as images against each group of edge rows as
+      texts (IMAGE_BATCH x N_CAPTIONS, phase 5's shape), and all 1,280
+      edge rows as both, at phase 2's logit scale and bias, against the
+      plain version and float64.
+
+    Fails (after every label is measured) if the tree's cases miss
+    ASSIGN_ATOL, TOPK_ATOL or LOGIT_ATOL; another label's failures are
+    logged."""
+    import ctypes
+
+    import numpy as np
+
+    from pathway_tpu_torch.kernels import _build, dual_logits_plain, ivf_assign_plain, ivf_scan_plain
+    from pathway_tpu_torch.kernels.ivf_scan import scan_form
+
+    data = data or k3_edge_slab(np, torch, dev)
+    slab, valid, queries = data["slab"], data["valid"], data["queries"]
+    at, self_slot, near_slots = data["edge_slots"], data["self_slot"], data["near_slots"]
+    n_base = self_slot.shape[0]
+    out = {label: {"cases": {}, "failures": []} for label in kernels}
+
+    def record(label: str, name: str, row: dict, bad: list) -> None:
+        out[label]["cases"][name] = row
+        out[label]["failures"] += [f"{name}: {b}" for b in bad]
+        log(f"C15 edge [{label}] {name}: {json.dumps(row)}")
+
+    # ---- K11: centroids seeded from slab rows
+    g = torch.Generator().manual_seed(SEED + 26)
+    others = torch.ones(EDGE_SLAB, dtype=torch.bool)
+    others[at.cpu()] = False
+    pool = others.nonzero()[:, 0][torch.randperm(int(others.sum()), generator=g)].to(dev)
+    x64 = slab.double()
+    for nlist in C15_NLISTS:
+        seeds = at[:nlist] if nlist <= at.shape[0] else torch.cat([at, pool[:nlist - at.shape[0]]])
+        c = slab[seeds].contiguous()
+        c64 = c.double()
+        for half_norm in (False, True):
+            s32, s64 = slab @ c.T, x64 @ c64.T
+            if half_norm:
+                s32 -= 0.5 * (c * c).sum(1)
+                s64 -= 0.5 * (c64 * c64).sum(1)
+            v32, v64 = s32.topk(2, dim=1), s64.topk(2, dim=1)
+            dec32 = (v32.values[:, 0] - v32.values[:, 1]) > ASSIGN_ATOL
+            dec64 = (v64.values[:, 0] - v64.values[:, 1]) > ASSIGN_ATOL
+            want = ivf_assign_plain(slab, c, half_norm).long()
+            plain_row = {
+                "plain_differ_vs_f64": int((want != v64.indices[:, 0])[dec64].sum()),
+                "plain_shortfall_vs_f64": (v64.values[:, 0] - s64.gather(1, want[:, None])[:, 0]).max().item(),
+            }
+            for label, fns in kernels.items():
+                got = fns["ivf_assign"](slab, c, half_norm).long()
+                torch.cuda.synchronize()
+                row = {
+                    "rows": EDGE_SLAB, "nlist": nlist,
+                    "decided_vs_plain": int(dec32.sum()), "decided_vs_f64": int(dec64.sum()),
+                    "differ_vs_plain": int((got != want)[dec32].sum()),
+                    "differ_vs_f64": int((got != v64.indices[:, 0])[dec64].sum()),
+                    "shortfall_vs_plain": (v32.values[:, 0] - s32.gather(1, got[:, None])[:, 0]).max().item(),
+                    "shortfall_vs_f64": (v64.values[:, 0] - s64.gather(1, got[:, None])[:, 0]).max().item(),
+                    "seeded_rows_own_centroid": int((got[seeds] == torch.arange(nlist, device=dev)).sum()),
+                    **plain_row,
+                }
+                bad = []
+                if row["differ_vs_plain"] or row["differ_vs_f64"]:
+                    bad.append(f"{row['differ_vs_plain']} / {row['differ_vs_f64']} decided rows differ "
+                               "from the plain version / float64")
+                if not max(row["shortfall_vs_plain"], row["shortfall_vs_f64"]) <= ASSIGN_ATOL:
+                    bad.append(f"a chosen centroid scores {row['shortfall_vs_f64']:.3e} below float64's best "
+                               f"({row['shortfall_vs_plain']:.3e} below the plain version's)")
+                record(label, f"K11 nlist={nlist} half_norm={half_norm}", row, bad)
+            del s32, s64
+    del x64
+
+    # ---- K12: the slab as cells; stored rows query their own cells first
+    cap = C15_SCAN_CAP
+    nlist = EDGE_SLAB // cap
+    order = torch.randperm(nlist, generator=g).tolist()
+    probe_rows = []
+    for i in range(queries.shape[0]):
+        first = []
+        if i < n_base:
+            for slot in [int(self_slot[i])] + [int(s) for s in near_slots[:, i]]:
+                if slot // cap not in first:
+                    first.append(slot // cap)
+        probe_rows.append((first + [cell for cell in order if cell not in first])[:C15_SCAN_NPROBE])
+    probe = torch.tensor(probe_rows, dtype=torch.int32, device=dev)
+    vcells = valid.reshape(nlist, cap)
+    for dtype in (torch.float32, torch.bfloat16):
+        cells = slab.reshape(nlist, cap, HIDDEN).to(dtype)
+        rows64 = cells.double().reshape(-1, HIDDEN)
+        q_round = queries.to(dtype).double()
+        plan = (ctypes.c_longlong * 2)()
+        if not _build.library("ivf_scan").pw_ivf_scan_cells_plan(
+                HIDDEN, int(dtype == torch.bfloat16), EDGE_K, nlist, cap, 32 * C15_SCAN_NPROBE, plan):
+            fail(f"C15: the cell-major scan refuses its edge case ({dtype})")
+        tname = "f32" if dtype == torch.float32 else "bf16"
+        for form, nq in (("query-major nq=1", 1), ("cell-major nq=32", 32)):
+            if scan_form(nq) != form.split("-")[0]:
+                fail(f"C15: ivf_scan at nq={nq} is not {form}")
+            spans = ([(i, i + 1) for i in range(EDGE_SINGLE)] if nq == 1
+                     else [(lo, min(lo + nq, queries.shape[0])) for lo in range(0, queries.shape[0], nq)])
+            if nq > 1 and queries.shape[0] % nq:
+                fail(f"C15: {queries.shape[0]} edge queries are not whole batches of {nq}")
+            qs = queries[:spans[-1][1]]
+            pv, pi = ivf_scan_plain(qs, probe[:len(qs)], cells, vcells, EDGE_K)
+            for label, fns in kernels.items():
+                got = [fns["ivf_scan"](queries[lo:hi], probe[lo:hi], cells, vcells, EDGE_K) for lo, hi in spans]
+                kv, ki = torch.cat([v for v, _ in got]), torch.cat([i for _, i in got])
+                torch.cuda.synchronize()
+                exact = (q_round[:len(qs), None, :] * rows64[ki.long()]).sum(-1)
+                err = (kv.double() - exact).abs()
+                nb = min(len(qs), n_base)
+                is_self = ki[:nb].long() == self_slot[:nb, None]
+                row = {
+                    "cells": f"[{nlist}, {cap}, {HIDDEN}] {tname}", "nprobe": C15_SCAN_NPROBE, "queries": len(qs),
+                    "vs_plain": (kv - pv).abs().max().item(),
+                    "vs_f64": err.max().item(),
+                    "plain_vs_f64": (pv.double() - (q_round[:len(qs), None, :] * rows64[pi.long()]).sum(-1))
+                    .abs().max().item(),
+                    "self_vs_f64": err[:nb][is_self].max().item() if bool(is_self.any()) else None,
+                    "self_signed_mean": (kv.double() - exact)[:nb][is_self].mean().item()
+                    if bool(is_self.any()) else None,
+                    "random_vs_f64": err[nb:].max().item() if len(qs) > nb else None,
+                    "self_first": int(is_self[:, 0].sum()), "stored_queries": nb,
+                }
+                bad = []
+                try:
+                    compare_topk(kv, ki, pv, pi, TOPK_ATOL)
+                except SystemExit as e:
+                    bad.append(str(e))
+                if not row["vs_f64"] <= TOPK_ATOL:
+                    bad.append(f"a score {row['vs_f64']:.3e} from float64")
+                if dtype == torch.float32 and row["self_first"] != nb:
+                    bad.append(f"{nb - row['self_first']} stored rows are not their own first neighbour")
+                record(label, f"K12 {tname} {form}", row, bad)
+        del cells, rows64
+
+    # ---- K10: the edge rows as images and texts, at phase 5's shape
+    # (IMAGE_BATCH images x N_CAPTIONS captions) and all of them at once
+    rows = slab[at].contiguous()
+    groups = {"base": rows[:n_base], "random": rows[n_base * (1 + len(EDGE_COS)):]}
+    groups.update({f"near {c}": rows[n_base * (1 + j):n_base * (2 + j)] for j, c in enumerate(EDGE_COS)})
+    scale, lbias = torch.tensor(2.3, device=dev), torch.tensor(-0.5, device=dev)
+    k10_cases = [(f"base x {name}", groups["base"], groups[name], True) for name in groups]
+    k10_cases.append(("edge x edge", rows, rows, False))
+    for name, a, b, path_shape in k10_cases:
+        ref = dual_logits_plain(a, b, scale, lbias)
+        ref64 = (a.double() @ b.double().T) * math.exp(scale.item()) + lbias.item()
+        for label, fns in kernels.items():
+            got = fns["dual_logits"](a, b, scale, lbias)
+            torch.cuda.synchronize()
+            err = (got.double() - ref64).abs()
+            diag = torch.arange(min(a.shape[0], b.shape[0]), device=dev)
+            row = {
+                "shape": f"[{a.shape[0]}, {HIDDEN}] x [{b.shape[0]}, {HIDDEN}]^T f32, * e^2.3 - 0.5",
+                "vs_plain": (got - ref).abs().max().item(), "vs_f64": err.max().item(),
+                "plain_vs_f64": (ref.double() - ref64).abs().max().item(),
+                "diagonal_vs_f64": err[diag, diag].max().item(),
+                "diagonal_signed_mean": (got.double() - ref64)[diag, diag].mean().item(),
+            }
+            bad = []
+            # at the path's shape, within LOGIT_ATOL of the plain version and
+            # of float64; over all 1,280 edge rows the plain version's own
+            # f32 sums are further than LOGIT_ATOL from float64 (cuBLAS's
+            # order at that shape), so there the kernel is held to float64
+            if path_shape and not row["vs_plain"] <= LOGIT_ATOL:
+                bad.append(f"logits {row['vs_plain']:.3e} from the plain version")
+            if not row["vs_f64"] <= LOGIT_ATOL:
+                bad.append(f"logits {row['vs_f64']:.3e} from float64")
+            record(label, f"K10 {name}", row, bad)
+
+    for label, res in out.items():
+        log(f"C15 edge [{label}]: {len(res['failures'])} failures"
+            + (": " + "; ".join(res["failures"]) if res["failures"] else ""))
+    if out["tree"]["failures"]:
+        fail("K11/K12/K10 near q.x = |q||x| (C15): " + "; ".join(out["tree"]["failures"]))
+    return out
+
+
 def phase_k3_edge(torch, dev, parent: str | None) -> dict:
     """``--k3-edge [DIR]``: ``k3_edge_cases`` on this tree's K3 and, with
     DIR (an unpacked ``git archive`` of another commit), on that commit's
     K3 wrapper and kernel on the same rows first; then both timed in turns
     (parent, tree, tree, parent) at phase 2's shapes over a 1,048,576 x 768
-    unit f32 slab, 10% invalid: nq 1 and 32 at k=10, nq 32 at k=128."""
+    unit f32 slab, 10% invalid: nq 1 and 32 at k=10, nq 32 at k=128; and
+    ``c15_edge_cases`` on both trees' K11, K12 and K10 after K3's, with
+    K10 timed in turns at phase 2's shape."""
     import types
 
     import numpy as np
 
-    from pathway_tpu_torch.kernels import MAX_K, knn_topk
+    from pathway_tpu_torch.kernels import MAX_K, dual_logits, ivf_assign, ivf_scan, knn_topk
     from pathway_tpu_torch.kernels import _build
     from pathway_tpu_torch.kernels.knn_topk import _launch as knn_launch
 
-    kernels = {}
+    kernels, c15 = {}, {}
     if parent:
         pb = parent_kernel_module(parent, "_build")
-        if pb._target("knn_topk").name == _build._target("knn_topk").name:
-            fail("--k3-edge: the parent's knn_topk build is this tree's")
-        pb.build_all(("knn_topk",))
-        p_knn = parent_kernel_module(parent, "knn_topk")
-        p_knn._build = types.SimpleNamespace(library=pb.library)
-        kernels["parent"] = (p_knn.knn_topk, p_knn._launch)
+        if all(pb._target(name).name == _build._target(name).name for name in EDGE_KERNELS):
+            fail("--k3-edge: the parent's builds of " + ", ".join(EDGE_KERNELS) + " are this tree's")
+        pb.build_all(EDGE_KERNELS)
+        mods = {name: parent_kernel_module(parent, name) for name in ("knn_topk", "ivf_assign", "ivf_scan",
+                                                                      "dual_logits")}
+        for mod in mods.values():
+            mod._build = types.SimpleNamespace(library=pb.library)
+        kernels["parent"] = (mods["knn_topk"].knn_topk, mods["knn_topk"]._launch)
+        c15["parent"] = {name: getattr(mods[name], name) for name in ("ivf_assign", "ivf_scan", "dual_logits")}
     kernels["tree"] = (knn_topk, knn_launch)
+    c15["tree"] = {"ivf_assign": ivf_assign, "ivf_scan": ivf_scan, "dual_logits": dual_logits}
     data = k3_edge_slab(np, torch, dev)
     try:
-        res = {"cases": k3_edge_cases(torch, dev, kernels, data)}
+        res = {"cases": k3_edge_cases(torch, dev, kernels, data),
+               "c15": c15_edge_cases(torch, dev, c15, data)}
     finally:
         del data
     if not parent:
@@ -1376,6 +1630,20 @@ def phase_k3_edge(torch, dev, parent: str | None) -> dict:
             t[who].append(time_ms(torch, lambda: f(qs, slab, valid, k, "dot"), 10))
         times[f"nq={nq} k={k}"] = {who: sum(v) / 2 for who, v in t.items()} | {"turns": t}
         log(f"K3 [parent vs tree] nq={nq} k={k} over [{CAPACITY},{HIDDEN}] f32: {json.dumps(times[f'nq={nq} k={k}'])}")
+    # K10 at phase 2's shape (C15's repair): CUDA events and device time
+    img = torch.randn((IMAGE_BATCH, HIDDEN), generator=g, device=dev)
+    txt = torch.randn((N_CAPTIONS, HIDDEN), generator=g, device=dev)
+    img /= img.norm(dim=1, keepdim=True)
+    txt /= txt.norm(dim=1, keepdim=True)
+    scale, lbias = torch.tensor(2.3, device=dev), torch.tensor(-0.5, device=dev)
+    t = {"parent": [], "tree": [], "parent_device": [], "tree_device": []}
+    for who in ("parent", "tree", "tree", "parent"):
+        f = c15[who]["dual_logits"]
+        t[who].append(time_ms(torch, lambda: f(img, txt, scale, lbias), 50))
+        t[f"{who}_device"].append(device_ms(torch, lambda: f(img, txt, scale, lbias)))
+    times["dual_logits"] = {who: sum(v) / 2 for who, v in t.items()} | {"turns": t}
+    log(f"K10 [parent vs tree] [{IMAGE_BATCH},{HIDDEN}] x [{N_CAPTIONS},{HIDDEN}]^T f32: "
+        f"{json.dumps(times['dual_logits'])}")
     res["times"] = times
     return res
 
@@ -7910,20 +8178,25 @@ class FinalRows:
 
 def recording_embedder(cls):
     """``cls`` (an embedder UDF class) whose ``__batch__`` also keeps each
-    text's vector in ``seen`` and its docs and seconds in ``docs``/``secs``."""
+    text's vector in ``seen``, each batch it is handed with its rows in
+    ``batches``, and its docs and seconds in ``docs``/``secs``."""
 
     class Recording(cls):
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
             self.seen: dict = {}
+            self.batches: list = []
             self.docs, self.secs = 0, 0.0
+            self._lock = threading.Lock()
 
         def __batch__(self, texts):
             t0 = time.perf_counter()
             out = super().__batch__(texts)
-            self.secs += time.perf_counter() - t0
-            self.docs += len(texts)
-            self.seen.update(zip(texts, out))
+            with self._lock:
+                self.secs += time.perf_counter() - t0
+                self.docs += len(texts)
+                self.seen.update(zip(texts, out))
+                self.batches.append(([str(t) for t in texts], out))
             return out
 
     return Recording
@@ -8970,6 +9243,652 @@ def check_stream_handles(torch) -> None:
     log(f"stream handles: {got} equal PyTorch's current streams")
 
 
+def document_parser():
+    """Phase 21's parser UDF: ``OpenParse`` for PDFs and
+    ``ParseUnstructured(mode="elements")`` for the rest (told apart by the
+    ``%PDF`` header), keeping each output by the digest of its bytes and
+    the host seconds and calls of each parser."""
+    import hashlib
+    import threading
+
+    from pathway_tpu_torch.internals.udfs import UDF
+    from pathway_tpu_torch.xpacks.llm.parsers import OpenParse, ParseUnstructured
+
+    class Parser(UDF):
+        def __init__(self) -> None:
+            super().__init__()
+            self.by_kind = {"pdf": OpenParse(), "docx": ParseUnstructured(mode="elements")}
+            self.seen: dict = {}
+            self.secs = {"pdf": 0.0, "docx": 0.0}
+            self.calls = {"pdf": 0, "docx": 0}
+            self._lock = threading.Lock()
+
+        @staticmethod
+        def kind(contents: bytes) -> str:
+            return "pdf" if contents.lstrip()[:4] == b"%PDF" else "docx"
+
+        def __wrapped__(self, contents, **kwargs):
+            kind = self.kind(contents)
+            t0 = time.perf_counter()
+            out = self.by_kind[kind].__wrapped__(contents)
+            secs = time.perf_counter() - t0
+            with self._lock:
+                self.secs[kind] += secs
+                self.calls[kind] += 1
+                self.seen[hashlib.sha256(contents).hexdigest()] = out
+            return out
+
+    return Parser()
+
+
+def documents_served(torch, dev, np, smi: str) -> dict:
+    """Phase 21 (a): DOCS_FILES files generated from ``synthetic_docs``
+    (half PDFs by ``make_pdf``, every other one flate-compressed; half DOCX
+    by ``make_docx``), read by ``pw.io.fs.read(format="binary",
+    mode="streaming", with_metadata=True)`` into ``VectorStoreServer``
+    (``document_parser``: ``OpenParse`` for the PDFs,
+    ``ParseUnstructured(mode="elements")`` for the DOCX files; phase 15's
+    splitter; BGE-base as ``TorchEncoderEmbedder``; a CAPACITY-slot
+    ``BruteForceKnnFactory`` whose delta segment holds at most
+    DOCS_DELTA_CAP rows), served over REST by ``run_server``.
+    Checks: every parser output in the run equals the same parser's on the
+    same bytes in-process; DOCS_QUESTIONS one-question ``/v1/retrieve``
+    replies at k=K against the direct path (the in-process chunks, the
+    embedder's own batches through ``TorchEncoder.encode`` into a
+    ``ShardedKnnIndex`` of CAPACITY slots, one question a K3 search):
+    scores within DOCS_REPLY_ATOL, ids equal but for near-ties (phase 20's
+    rule); DOCS_CONCURRENT of them sent at once from SERVER_CLIENTS
+    threads, against the one-at-a-time replies at EMBED_ATOL; a PDF
+    rewritten and a DOCX deleted in place, each visible within
+    DOCS_DEADLINE_S; K1, K4-K7, K2 and K3 launched."""
+    import hashlib
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import BGE_BASE, ShardedKnnIndex, TorchEncoderEmbedder, kernels
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
+    from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreClient, VectorStoreServer
+
+    res: dict = {"card": smi}
+    t_phase = time.perf_counter()
+    texts = synthetic_docs(np, DOCS_FILES, SEED + 26)
+    n_pdf = DOCS_FILES // 2
+    root = tempfile.mkdtemp(prefix="documents_")
+    blobs: dict = {}  # digest -> bytes, every version written
+
+    def path_of(i: int) -> str:
+        return os.path.join(root, f"doc{i:05d}.pdf" if i < n_pdf else f"doc{i:05d}.docx")
+
+    def make(i: int, text: str) -> bytes:
+        return make_pdf(text, f"Report {i}", compress=bool(i % 2)) if i < n_pdf else make_docx(text, f"Memo {i}")
+
+    def write(i: int, data: bytes) -> None:
+        blobs[hashlib.sha256(data).hexdigest()] = data
+        with open(path_of(i), "wb") as f:
+            f.write(data)
+
+    t0 = time.perf_counter()
+    files0 = [make(i, t) for i, t in enumerate(texts)]
+    res["generate_s"] = time.perf_counter() - t0
+    for i, data in enumerate(files0):
+        write(i, data)
+    res["bytes"] = {"pdf": sum(len(b) for b in files0[:n_pdf]), "docx": sum(len(b) for b in files0[n_pdf:])}
+
+    # ---- the direct path's parse, timed by parser
+    direct_parser = document_parser()
+    splitter = TokenCountSplitter(min_tokens=SERVER_SPLIT[0], max_tokens=SERVER_SPLIT[1])
+    parse_s = {"pdf": 0.0, "docx": 0.0}
+
+    def chunks_of(data: bytes) -> list:
+        kind = direct_parser.kind(data)
+        t1 = time.perf_counter()
+        parsed = direct_parser.by_kind[kind].__wrapped__(data)
+        parse_s[kind] += time.perf_counter() - t1
+        return [c for text, _meta in parsed for c, _ in splitter.__wrapped__(text)]
+
+    file_chunks = [chunks_of(data) for data in files0]
+    res["parse_in_process_s"] = dict(parse_s)
+    key_info = [(path_of(i), c) for i, cs in enumerate(file_chunks) for c in cs]
+    key_of = {info: g for g, info in enumerate(key_info)}
+    if len(key_of) != len(key_info):
+        fail(f"documents: {len(key_info) - len(key_of)} chunks repeat a (path, text) of the same file")
+    res["chunks"] = {"pdf": sum(len(cs) for cs in file_chunks[:n_pdf]),
+                     "docx": sum(len(cs) for cs in file_chunks[n_pdf:])}
+
+    embedder = recording_embedder(TorchEncoderEmbedder)(model="bge-base", config=BGE_BASE,
+                                                     max_batch_size=ENGINE_UDF_BATCH, seed=SEED, device=dev)
+    parser = document_parser()
+    port = free_port()
+    pw.G.clear()
+    files = pw.io.fs.read(root, format="binary", mode="streaming", with_metadata=True)
+    server = VectorStoreServer(
+        files,
+        index_factory=pw.indexing.BruteForceKnnFactory(embedder=embedder, reserved_space=CAPACITY,
+                                                       delta_cap=DOCS_DELTA_CAP, device=dev),
+        parser=parser, splitter=splitter,
+    )
+    client = VectorStoreClient(port=port, timeout=DOCS_DEADLINE_S)
+
+    def stats_count():
+        try:
+            return client.get_vectorstore_statistics()["file_count"]
+        except OSError:
+            return None
+
+    def timed(fn, *args, **kwargs):
+        t1 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        return out, (time.perf_counter() - t1) * 1e3
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t_start = time.perf_counter()
+    thread = server.run_server("127.0.0.1", port, threaded=True, with_cache=False)
+    try:
+        deadline = t_start + DOCS_DEADLINE_S
+        while stats_count() != DOCS_FILES:
+            if time.perf_counter() > deadline or not thread.is_alive():
+                fail(f"documents: the statistics did not reach {DOCS_FILES} files in {DOCS_DEADLINE_S} s")
+            time.sleep(0.02)
+        res["ingest_s"] = time.perf_counter() - t_start
+        res["files_searchable_per_s"] = DOCS_FILES / res["ingest_s"]
+        ingest_batches = len(embedder.batches)
+
+        # ---- questions, one at a time, then DOCS_CONCURRENT at once
+        questions = synthetic_questions(np, texts, DOCS_QUESTIONS, SEED + 26)
+        start = len(embedder.batches)
+        single = [timed(client.query, q, k=K) for q in questions]
+        single_batches = (start, len(embedder.batches))
+        conc = questions[:DOCS_CONCURRENT]
+        with ThreadPoolExecutor(max_workers=SERVER_CLIENTS) as pool:
+            conc_out = list(pool.map(lambda q: timed(client.query, q, k=K), conc))
+        res["served_profile"] = profile_call(torch, lambda: client.query(questions[0], k=K), 1)
+
+        # ---- the live change: a PDF rewritten, a DOCX deleted, in place
+        rewritten, deleted = 1, n_pdf + 1
+        new_data = make(rewritten, synthetic_docs(np, 1, SEED + 27)[0])
+        new_first = chunks_of(new_data)[0]
+        old_first = {i: file_chunks[i][0] for i in (rewritten, deleted)}
+        t_change = time.perf_counter()
+        write(rewritten, new_data)
+        os.remove(path_of(deleted))
+
+        def returned(query: str) -> set:
+            return {(d["metadata"]["path"], d["text"]) for d in client.query(query, k=K)}
+
+        visible: dict = {}
+        old_rewritten = {(path_of(rewritten), c) for c in file_chunks[rewritten]}
+        while len(visible) < 2:
+            now = time.perf_counter() - t_change
+            if now > DOCS_DEADLINE_S:
+                fail(f"documents: the live change was not visible in {DOCS_DEADLINE_S} s ({visible})")
+            hits = client.query(new_first, k=K)
+            if ("rewritten_pdf_s" not in visible
+                    and (hits[0]["metadata"]["path"], hits[0]["text"]) == (path_of(rewritten), new_first)
+                    and not returned(old_first[rewritten]) & old_rewritten):
+                visible["rewritten_pdf_s"] = now
+            if ("deleted_docx_s" not in visible and stats_count() == DOCS_FILES - 1
+                    and not any(p == path_of(deleted) for p, _ in returned(old_first[deleted]))):
+                visible["deleted_docx_s"] = now
+            time.sleep(0.05)
+        res["live_change"] = visible
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+    finally:
+        sched = getattr(pw.G, "active_scheduler", None)
+        if sched is not None:
+            sched.stop()
+        if thread is not None:
+            thread.join(timeout=DOCS_DEADLINE_S)
+        pw.G.clear()
+        shutil.rmtree(root, ignore_errors=True)
+    if thread is not None and thread.is_alive():
+        fail("documents: the server's thread did not join after stop()")
+    res["launches"] = launches
+    missing = [n for n in ("attention", "bias_act", "add_layer_norm", "embed_ln", "pool_normalize", "slab_scatter",
+                           "knn_topk") if launches.get(n, 0) == 0]
+    if missing:
+        fail(f"kernels not launched by the document server: {missing}")
+
+    # ---- chunks: every parser output of the run against the same parser in-process
+    differ = [d for d, out in parser.seen.items() if out != direct_parser.by_kind[
+        direct_parser.kind(blobs[d])].__wrapped__(blobs[d])]
+    if differ or set(parser.seen) != set(blobs):
+        fail(f"documents: {len(differ)} parser outputs differ from the in-process parse; the run parsed "
+             f"{len(parser.seen)} distinct files of the {len(blobs)} written")
+    res["parse_in_run_s"], res["parse_calls"] = dict(parser.secs), dict(parser.calls)
+
+    # ---- the direct path
+    emb = direct_embeddings(np, embedder, "documents")
+    embedded = {t for batch, _ in embedder.batches[:ingest_batches] for t in batch}
+    if not {c for _, c in key_info} <= embedded:
+        fail("documents: chunks of the in-process parse missing from the run's ingest batches")
+    direct = ShardedKnnIndex(HIDDEN, metric="cos", capacity=CAPACITY, device=dev)
+    direct.add_batch(list(range(len(key_info))), np.stack([emb[c] for _, c in key_info]))
+    want = [direct.search(emb[q][None], K)[0] for q in questions]
+    got = [[(key_of[(d["metadata"]["path"], d["text"])], d["score"]) for d in hits] for hits, _ in single]
+    worst = compare_rows(got, want, K, DOCS_REPLY_ATOL, "documents: /v1/retrieve against the direct path")
+    ids_equal, near_ties = 0, []
+
+    def cos(q: str, key: int) -> float:
+        a, b = np.asarray(emb[q], np.float64), np.asarray(emb[key_info[key][1]], np.float64)
+        return float(a @ b / np.linalg.norm(a) / np.linalg.norm(b))
+
+    for q, g, w in zip(questions, got, want):
+        swapped = [(a, b) for (a, _), (b, _) in zip(g, w) if a != b]
+        ids_equal += not swapped
+        near_ties += [abs(cos(q, a) - cos(q, b)) for a, b in swapped]
+    if near_ties and max(near_ties) > TOPK_ATOL:
+        fail(f"documents: {DOCS_QUESTIONS - ids_equal} replies differ from the direct path's ids, by up to "
+             f"{max(near_ties):.2e} of cosine: beyond a near-tie")
+    conc_err = compare_rows([[(key_of[(d["metadata"]["path"], d["text"])], d["score"]) for d in hits]
+                             for hits, _ in conc_out], got[:DOCS_CONCURRENT], K, EMBED_ATOL,
+                            "documents: concurrent against one at a time")
+    del direct
+    torch.cuda.empty_cache()
+
+    # ---- one ingest epoch: DOCS_EPOCH_FILES files parsed, split, embedded and indexed
+    epoch_files = files0[:DOCS_EPOCH_FILES // 2] + files0[n_pdf:n_pdf + DOCS_EPOCH_FILES // 2]
+    scratch = ShardedKnnIndex(HIDDEN, metric="cos", capacity=1 << 16, device=dev)
+
+    def ingest_epoch() -> None:
+        chunks = [c for data in epoch_files for c in chunks_of(data)]
+        rows = []
+        for lo in range(0, len(chunks), ENGINE_UDF_BATCH):
+            rows += TorchEncoderEmbedder.__batch__(embedder, chunks[lo:lo + ENGINE_UDF_BATCH])
+        scratch.add_batch(list(range(len(rows))), np.stack(rows))
+
+    ingest_epoch()
+    res["ingest_epoch_profile"] = profile_call(torch, ingest_epoch, len(epoch_files))
+    del scratch
+
+    ms = [m for _, m in single]
+    conc_ms = [m for _, m in conc_out]
+    res.update({
+        "files": DOCS_FILES, "questions": DOCS_QUESTIONS, "k": K,
+        "http_single_p50_ms": float(np.percentile(ms, 50)), "http_single_p99_ms": float(np.percentile(ms, 99)),
+        "http_concurrent_p50_ms": float(np.percentile(conc_ms, 50)),
+        "http_concurrent_p99_ms": float(np.percentile(conc_ms, 99)),
+        "ids_equal": ids_equal, "near_tie_swaps": len(near_ties), "max_abs_err_vs_direct": worst,
+        "concurrent_vs_alone_max_abs_err": conc_err,
+        "udf_batches": len(embedder.batches), "question_batches": single_batches,
+    })
+    res["wall_s"] = time.perf_counter() - t_phase
+    prof, iprof = res["served_profile"], res["ingest_epoch_profile"]
+    log(f"documents on {smi}: {DOCS_FILES} files ({n_pdf} PDFs, {DOCS_FILES - n_pdf} DOCX) searchable "
+        f"{res['ingest_s']:.2f} s after the server's start, {res['files_searchable_per_s']:.1f} files/s; chunks "
+        f"{json.dumps(res['chunks'])}; parse s in the run {json.dumps(res['parse_in_run_s'])}, in-process "
+        f"{json.dumps(res['parse_in_process_s'])}")
+    log(f"documents on {smi}: HTTP one question p50 {res['http_single_p50_ms']:.2f} ms, p99 "
+        f"{res['http_single_p99_ms']:.2f}; {DOCS_CONCURRENT} at once p50 {res['http_concurrent_p50_ms']:.2f}, p99 "
+        f"{res['http_concurrent_p99_ms']:.2f}; ids equal {ids_equal}/{DOCS_QUESTIONS} (near-tie swaps "
+        f"{len(near_ties)}), scores within {worst:.2e} of the direct path; live change {json.dumps(visible)}")
+    log(f"documents on {smi}: one served question {prof['wall_ms']:.2f} ms, idle {prof['device_idle_share']:.3f}; "
+        f"one ingest epoch ({DOCS_EPOCH_FILES} files) {iprof['wall_ms']:.1f} ms, idle "
+        f"{iprof['device_idle_share']:.3f}; launches {json.dumps(launches)}; part (a) {res['wall_s']:.1f} s")
+    return res
+
+
+def direct_embeddings(np, embedder, what: str) -> dict:
+    """{text: row} from ``TorchEncoder.encode`` of each batch the embedder
+    UDF was handed (a text keeps its first batch's row); fails if the UDF's
+    rows are further than EMBED_ATOL from them."""
+    emb: dict = {}
+    err = 0.0
+    for batch, rows in embedder.batches:
+        enc = embedder.encoder.encode(batch)
+        err = max(err, float(np.abs(enc - np.stack(rows)).max()))
+        for t, row in zip(batch, enc):
+            emb.setdefault(t, row)
+    if not err <= EMBED_ATOL:
+        fail(f"{what}: the UDF's rows differ from TorchEncoder.encode of the same batches by {err}")
+    return emb
+
+
+def documents_stream(torch, dev, np, smi: str) -> dict:
+    """Phase 21 (b): phase 19's STDLIB_DOCS documents as JSON messages on a
+    ``MockBroker`` topic through ``pw.io.kafka.read`` into a ``DataIndex``
+    (BGE-base as ``TorchEncoderEmbedder``, a CAPACITY-slot cosine slab);
+    on the same broker a Debezium topic of DOCS_CDC[0] creates, then
+    DOCS_CDC[1] updates and DOCS_CDC[2] deletes of those keys, through
+    ``pw.io.debezium.read`` into a second ``DataIndex`` (its own embedder,
+    same weights).  Once both indexes hold their final sets,
+    DOCS_STREAM_QUESTIONS questions arrive on a third topic and each index
+    answers them at k=K; the replies go to ``pw.io.postgres.write`` over a
+    ``sqlite3`` file, to ``pw.io.null.write`` and to ``pw.io.subscribe``,
+    and after the run ``pw.io.sqlite.read`` reads them back.
+    Checks: each index's replies against the direct path over its final
+    set (its embedder's own batches through ``TorchEncoder.encode`` into a
+    ``ShardedKnnIndex``, searched in the engine's question batches): scores
+    within TOPK_ATOL, ids equal but for near-ties; no deleted key in a
+    reply; every updated key's stored row within DOCS_REPLY_ATOL of its
+    new text's encoding; the rows read back equal the rows written; K1 and
+    K3 launched."""
+    import sqlite3
+    import tempfile
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch import TorchEncoderEmbedder, kernels
+    from pathway_tpu_torch.internals import tracing
+    from pathway_tpu_torch.parallel import ShardedKnnIndex
+    from pathway_tpu_torch.stdlib.indexing.data_index import REPLY_DATA, REPLY_SCORE
+
+    res: dict = {"card": smi}
+    t_phase = time.perf_counter()
+    texts = stdlib_data(np, STDLIB_DOCS, STDLIB_LABELLED, STDLIB_QUESTIONS, SEED)["texts"]
+    questions = synthetic_questions(np, texts, DOCS_STREAM_QUESTIONS, SEED + 28)
+    n_create, n_update, n_delete = DOCS_CDC
+    rng = np.random.default_rng(SEED + 28)
+    order = [int(i) for i in rng.permutation(n_create)]
+    updated = {i: texts[n_create + j] for j, i in enumerate(order[:n_update])}
+    deleted = set(order[n_update:n_update + n_delete])
+    finals = {"kafka": dict(enumerate(texts)),
+              "debezium": {i: updated.get(i, texts[i]) for i in range(n_create) if i not in deleted}}
+
+    url = f"mock://documents-{os.getpid()}-{time.monotonic_ns()}"
+    broker = pw.io.kafka.MockBroker.get(url)
+    for i, text in enumerate(texts):
+        broker.produce("docs", json.dumps({"doc_id": i, "text": text}).encode())
+    broker.close_topic("docs")
+
+    def envelope(op: str, before, after) -> bytes:
+        return json.dumps({"schema": {}, "payload": {"op": op, "before": before, "after": after}}).encode()
+
+    for i in range(n_create):
+        broker.produce("cdc", envelope("c", None, {"doc_id": i, "text": texts[i]}))
+    for i, text in updated.items():
+        broker.produce("cdc", envelope("u", {"doc_id": i, "text": texts[i]}, {"doc_id": i, "text": text}))
+    for i in sorted(deleted):
+        broker.produce("cdc", envelope("d", {"doc_id": i, "text": texts[i]}, None))
+    broker.close_topic("cdc")
+
+    class Doc(pw.Schema):
+        doc_id: int = pw.column_definition(primary_key=True)
+        text: str
+
+    class Question(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        text: str
+
+    pw.G.clear()
+    settings = {"bootstrap.servers": url}
+    tables = {"kafka": pw.io.kafka.read(settings, topic="docs", schema=Doc, format="json"),
+              "debezium": pw.io.debezium.read(settings, topic_name="cdc", schema=Doc)}
+    qs = pw.io.kafka.read(settings, topic="questions", schema=Question, format="json")
+    embedders, adapters, replies = {}, {}, []
+    for name, table in tables.items():
+        embedders[name] = recording_embedder(TorchEncoderEmbedder)("bge-base", max_batch_size=STDLIB_BATCH, seed=SEED,
+                                                               device=dev)
+        factory = pw.indexing.BruteForceKnnFactory(reserved_space=CAPACITY, metric="cos", embedder=embedders[name],
+                                                   delta_cap=DOCS_DELTA_CAP, device=dev)
+        inner = factory.build_index(table.text, table)
+        make = inner.make_adapter
+
+        def keep(make=make, name=name):
+            adapters[name] = make()
+            return adapters[name]
+
+        inner.make_adapter = keep
+        out = pw.indexing.DataIndex(table, inner).query_as_of_now(qs.text, number_of_matches=K)
+        replies.append(out.select(
+            qid=out.qid, source=name,
+            reply=pw.apply(lambda data, scores: json.dumps([[d["doc_id"], float(s)] for d, s in zip(data, scores)]),
+                           out[REPLY_DATA], out[REPLY_SCORE])))
+    replied = replies[0].concat_reindex(replies[1])
+    db_dir = tempfile.mkdtemp(prefix="documents_db_")
+    db = os.path.join(db_dir, "replies.db")
+    conn = sqlite3.connect(db)
+    conn.execute("CREATE TABLE replies (qid INTEGER, source TEXT, reply TEXT, time INTEGER, diff INTEGER)")
+    conn.commit()
+    conn.close()
+    pw.io.postgres.write(replied, None, "replies", connection=lambda: sqlite3.connect(db, check_same_thread=False))
+    pw.io.null.write(replied)
+    sink = FinalRows()
+    pw.io.subscribe(replied, on_change=sink)
+
+    ready: dict = {}
+
+    def feed_questions() -> None:
+        """The questions, once both indexes hold their final sets."""
+        deadline = time.perf_counter() + DOCS_STREAM_DEADLINE_S
+        while len(ready) < 2 and time.perf_counter() < deadline:
+            for name, adapter in list(adapters.items()):
+                if name not in ready and len(adapter.index) == len(finals[name]):
+                    ready[name] = time.perf_counter() - t_run
+            time.sleep(0.01)
+        for j, q in enumerate(questions):
+            broker.produce("questions", json.dumps({"qid": j, "text": q}).encode())
+        broker.close_topic("questions")
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    since = tracing.now_ns()
+    t_run = time.perf_counter()
+    feeder = threading.Thread(target=feed_questions, daemon=True, name="documents_questions")
+    feeder.start()
+    pw.run(monitoring_level=pw.MonitoringLevel.NONE)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    feeder.join(timeout=DOCS_STREAM_DEADLINE_S)
+    launches = kernels.launch_counts()
+    spans = epoch_spans(tracing, since)
+    if len(ready) < 2:
+        fail(f"documents stream: the indexes did not reach their final sets in {DOCS_STREAM_DEADLINE_S} s "
+             f"({json.dumps(ready)})")
+    written = sorted((r["qid"], r["source"], r["reply"]) for r in sink.rows())
+    pw.G.clear()
+
+    # ---- the rows read back from sqlite3 against the rows written
+    class Back(pw.Schema):
+        qid: int
+        source: str
+        reply: str
+        diff: int
+
+    keys, cols = pw.debug.table_to_dicts(pw.io.sqlite.read(db, "replies", Back, mode="static"))
+    back = sorted((cols["qid"][k], cols["source"][k], cols["reply"][k]) for k in keys)
+    if back != written or len(written) != 2 * DOCS_STREAM_QUESTIONS or any(cols["diff"][k] != 1 for k in keys):
+        fail(f"documents stream: {len(back)} rows read back from sqlite3, {len(written)} written; equal "
+             f"{back == written}")
+    pw.G.clear()
+
+    # ---- each index against the direct path over its final set
+    got = {name: {} for name in tables}
+    for qid, name, reply in written:
+        got[name][questions[qid]] = [(int(d), float(s)) for d, s in json.loads(reply)]
+    checked, emb_b = {}, None
+    for name, final in finals.items():
+        emb = direct_embeddings(np, embedders[name], f"documents stream ({name})")
+        ids = sorted(final)
+        direct = ShardedKnnIndex(HIDDEN, metric="cos", capacity=CAPACITY, device=dev)
+        direct.add_batch(ids, np.stack([emb[final[i]] for i in ids]))
+        want = {}
+        asked = set(questions)
+        for batch, _ in embedders[name].batches:
+            batch = [q for q in batch if q in asked]
+            if batch:
+                want.update(zip(batch, direct.search(np.stack([emb[q] for q in batch]), K)))
+        worst = compare_rows([got[name][q] for q in questions], [want[q] for q in questions], K, TOPK_ATOL,
+                             f"documents stream: the {name} index against the direct path")
+        ids_equal, near = 0, []
+        for q in questions:
+            swapped = [(a, b) for (a, _), (b, _) in zip(got[name][q], want[q]) if a != b]
+            ids_equal += not swapped
+            qa = np.asarray(emb[q], np.float64)
+            for a, b in swapped:
+                ea, eb = (np.asarray(emb[final[x]], np.float64) for x in (a, b))
+                near.append(abs(qa @ ea / np.linalg.norm(ea) - qa @ eb / np.linalg.norm(eb)) / np.linalg.norm(qa))
+        if near and max(near) > TOPK_ATOL:
+            fail(f"documents stream: the {name} index's ids differ from the direct path's beyond a near-tie "
+                 f"({max(near):.2e})")
+        checked[name] = {"ids_equal": ids_equal, "near_tie_swaps": len(near), "max_abs_err_vs_direct": worst}
+        emb_b = emb
+        del direct
+    torch.cuda.empty_cache()
+    if any(d in deleted for r in got["debezium"].values() for d, _ in r):
+        fail("documents stream: a deleted key came back in a reply")
+    cdc = adapters["debezium"]
+    cdc.index.merge(wait=True)
+    stored = np.stack(index_vectors(np, cdc))
+    new_rows = np.stack([emb_b[t] for t in updated.values()]).astype(np.float32)
+    new_rows /= np.linalg.norm(new_rows, axis=1, keepdims=True)
+    nearest = np.argmax(new_rows @ stored.T, axis=1)
+    upd_err = float(np.abs(stored[nearest] - new_rows).max())
+    if not upd_err <= DOCS_REPLY_ATOL:
+        fail(f"documents stream: an updated key's stored row is {upd_err:.2e} from its new text's encoding")
+    if launches.get("attention", 0) == 0 or launches.get("knn_topk", 0) == 0:
+        fail(f"documents stream: K1 or K3 not launched: {json.dumps(launches)}")
+
+    # ---- one epoch: a commit of documents embedded and added, a commit of questions searched
+    epoch_texts, epoch_q = texts[:STDLIB_COMMIT], questions[:STDLIB_COMMIT]
+    scratch = ShardedKnnIndex(HIDDEN, metric="cos", capacity=1 << 16, device=dev)
+    kafka_index, embedder = adapters["kafka"].index, embedders["kafka"]
+
+    def epoch() -> None:
+        vecs = np.stack(TorchEncoderEmbedder.__batch__(embedder, epoch_texts))
+        scratch.add_batch(list(range(len(vecs))), vecs)
+        kafka_index.search(np.stack(TorchEncoderEmbedder.__batch__(embedder, epoch_q)), K)
+
+    epoch()
+    res["epoch_profile"] = profile_call(torch, epoch, len(epoch_texts))
+    del scratch
+    udf_docs = sum(e.docs for e in embedders.values())
+    udf_s = sum(e.secs for e in embedders.values())
+    res.update({
+        "docs": STDLIB_DOCS, "cdc": {"creates": n_create, "updates": n_update, "deletes": n_delete,
+                                     "live": len(finals["debezium"])},
+        "questions": DOCS_STREAM_QUESTIONS, "run_s": run_s, "indexes_ready_s": ready,
+        "kafka_docs_per_s": STDLIB_DOCS / ready["kafka"],
+        "udf_docs_per_s": udf_docs / udf_s, "udf_docs": udf_docs,
+        "epochs": len(spans), "checked": checked, "update_row_max_abs_err": upd_err,
+        "rows_written": len(written), "rows_read_back": len(back), "launches": launches,
+    })
+    res["wall_s"] = time.perf_counter() - t_phase
+    prof = res["epoch_profile"]
+    log(f"documents stream on {smi}: {STDLIB_DOCS} Kafka documents indexed {ready['kafka']:.2f} s after the run's "
+        f"start ({res['kafka_docs_per_s']:.1f} docs/s through Kafka into the UDF), {n_create}+{n_update}+{n_delete} "
+        f"CDC events {ready['debezium']:.2f} s; the UDFs {res['udf_docs_per_s']:.1f} docs/s; {len(spans)} epochs, "
+        f"pw.run {run_s:.2f} s; replies {json.dumps(checked)}; updated rows within {upd_err:.2e}; "
+        f"{len(back)} rows read back equal to the {len(written)} written")
+    log(f"documents stream on {smi}: one epoch ({STDLIB_COMMIT} documents embedded and added, {STDLIB_COMMIT} "
+        f"questions searched) {prof['wall_ms']:.1f} ms, idle {prof['device_idle_share']:.3f}; launches "
+        f"{json.dumps(launches)}; part (b) {res['wall_s']:.1f} s")
+    return res
+
+
+def phase_documents(torch, dev, smi: str) -> dict:
+    """Phase 21: the document parsers and the connectors of slice 16f on
+    the card: (a) ``documents_served``, (b) ``documents_stream``."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    served = documents_served(torch, dev, np, smi)
+    torch.cuda.empty_cache()
+    stream = documents_stream(torch, dev, np, smi)
+    torch.cuda.empty_cache()
+    launches = {name: served["launches"].get(name, 0) + stream["launches"].get(name, 0)
+                for name in set(served["launches"]) | set(stream["launches"])}
+    wall = time.perf_counter() - t_phase
+    log(f"documents: phase {wall:.1f} s")
+    if wall > DOCS_PHASE_S:
+        log(f"documents: the phase took {wall:.1f} s, above its {DOCS_PHASE_S} s")
+    return {"served": served, "stream": stream, "launches": launches, "wall_s": wall}
+
+
+def _pdf_str(text: str) -> bytes:
+    """``text`` as the body of a PDF literal string."""
+    return text.replace("\\", "\\\\").replace("(", "\\(").replace(")", "\\)").encode("latin-1")
+
+
+def make_pdf(text: str, title: str, compress: bool, pages: int = DOCS_PDF_PAGES) -> bytes:
+    """A PDF of ``pages`` pages showing ``text`` (built as
+    ``tests/test_parsers.py``'s ``_minimal_pdf`` builds one, a content
+    stream a page, each flate-compressed when ``compress``): each page a
+    heading at 18 pt (``title``, then ``title`` with its part), body lines
+    of DOCS_LINE_WORDS words at 10 pt, and on the first page a table of
+    three x-aligned columns under its header row."""
+    words = text.split()
+    lines = [" ".join(words[i:i + DOCS_LINE_WORDS]) for i in range(0, len(words), DOCS_LINE_WORDS)]
+    per = -(-len(lines) // pages)
+    streams = []
+    for p in range(pages):
+        ops = [b"BT /F1 18 Tf 72 760 Td (" + _pdf_str(title if p == 0 else f"{title}, part {p + 1}") + b") Tj ET"]
+        y = 730
+        for line in lines[p * per:(p + 1) * per]:
+            ops.append(b"BT /F1 10 Tf 72 %d Td (" % y + _pdf_str(line) + b") Tj ET")
+            y -= 12
+        if p == 0:
+            y -= 16
+            table = [("Term", "Count", "Rank")] + [(words[j], str(7 * len(words[j]) + j), str(j + 1))
+                                                   for j in range(min(3, len(words)))]
+            for row in table:
+                ops.append(b"BT /F1 10 Tf " + b" ".join(b"1 0 0 1 %d %d Tm (" % (x, y) + _pdf_str(cell) + b") Tj"
+                                                          for x, cell in zip((72, 200, 320), row)) + b" ET")
+                y -= 14
+        streams.append(b"\n".join(ops))
+    objs = [b"<< /Type /Catalog /Pages 2 0 R >>",
+            b"<< /Type /Pages /Kids [" + b" ".join(b"%d 0 R" % (3 + p) for p in range(pages))
+            + b"] /Count %d >>" % pages]
+    objs += [b"<< /Type /Page /Parent 2 0 R /Contents %d 0 R >>" % (3 + pages + p) for p in range(pages)]
+    for content in streams:
+        data = zlib.compress(content) if compress else content
+        filt = b"/Filter /FlateDecode " if compress else b""
+        objs.append(b"<< " + filt + b"/Length %d >>\nstream\n" % len(data) + data + b"\nendstream")
+    return (b"%PDF-1.4\n" + b"".join(b"%d 0 obj\n" % (i + 1) + o + b"\nendobj\n" for i, o in enumerate(objs))
+            + b"trailer\n<< /Root 1 0 R >>\n%%EOF\n")
+
+
+def make_docx(text: str, title: str) -> bytes:
+    """A DOCX (a zip of WordprocessingML, as ``tests/test_parsers.py``'s
+    ``_minimal_docx``) of ``text``: a Heading1 ``title``, paragraphs of
+    3 x DOCS_LINE_WORDS words in two runs each, three list items of
+    three words, then a table of two columns, and a Heading2 before the
+    last paragraphs."""
+    import io
+    import zipfile
+    from xml.sax.saxutils import escape
+
+    w_ns = "http://schemas.openxmlformats.org/wordprocessingml/2006/main"
+    words = text.split()
+    step = 3 * DOCS_LINE_WORDS
+    paras = [words[i:i + step] for i in range(0, len(words), step)]
+
+    def p(body: str, style: str | None = None, numbered: bool = False) -> str:
+        ppr = ""
+        if style:
+            ppr = f'<w:pPr><w:pStyle w:val="{style}"/></w:pPr>'
+        elif numbered:
+            ppr = '<w:pPr><w:numPr><w:ilvl w:val="0"/></w:numPr></w:pPr>'
+        return f"<w:p>{ppr}{body}</w:p>"
+
+    def runs(ws: list) -> str:
+        half = len(ws) // 2
+        return "".join(f'<w:r><w:t xml:space="preserve">{escape(part)}</w:t></w:r>'
+                       for part in (" ".join(ws[:half]) + " ", " ".join(ws[half:])) if part.strip())
+
+    body = [p(runs([title]), "Heading1")]
+    for i, ws in enumerate(paras):
+        if i == max(1, len(paras) - 1):
+            body.append(p(runs([f"{title} notes"]), "Heading2"))
+        body.append(p(runs(ws)))
+        if i == 0:
+            body += [p(runs(words[3 * j:3 * j + 3]), numbered=True) for j in range(3)]
+            cells = [("Term", "Count")] + [(words[j], str(7 * len(words[j]) + j)) for j in range(min(2, len(words)))]
+            body.append("<w:tbl>" + "".join(
+                "<w:tr>" + "".join(f"<w:tc>{p(runs([c]))}</w:tc>" for c in row) + "</w:tr>" for row in cells)
+                + "</w:tbl>")
+    document = (f'<?xml version="1.0" encoding="UTF-8" standalone="yes"?>\n<w:document xmlns:w="{w_ns}"><w:body>'
+                + "".join(body) + "</w:body></w:document>")
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w") as zf:
+        zf.writestr("[Content_Types].xml", '<?xml version="1.0"?><Types xmlns="http://schemas.openxmlformats.org/'
+                    'package/2006/content-types"/>')
+        zf.writestr("word/document.xml", document)
+    return buf.getvalue()
+
+
 def main() -> int:
     import torch
 
@@ -8989,14 +9908,15 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    _build.build_all(("knn_topk", "topk_select") if "--k3-edge" in sys.argv[1:] else _build.NAMES)
+    _build.build_all(EDGE_KERNELS if "--k3-edge" in sys.argv[1:] else _build.NAMES)
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     check_stream_handles(torch)
     for name in _build.NAMES:
         for line in _build.ptxas_report(name).splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line or "smem" in line:
                 print(f"ptxas {name}: {line.strip()}", file=sys.stderr)
-                if name in ("attention", "ring_block", "knn_topk"):  # K1, K3 and K14 on stdout too
+                if name in ("attention", "ring_block", "knn_topk", "ivf_assign", "ivf_scan", "dual_logits"):
+                    # K1, K3, K10-K12 and K14 on stdout too
                     log(f"ptxas {name}: {line.strip()}")
     dev = torch.device("cuda:0")
     if "--k3-edge" in sys.argv[1:]:
@@ -9056,6 +9976,16 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         }}))
         return 0
+    if "--documents" in sys.argv[1:]:
+        dc = phase_documents(torch, dev, smi)
+        log("documents only: " + json.dumps({part: {key: val for key, val in dc[part].items()
+                                                    if key not in ("launches", "served_profile",
+                                                                   "ingest_epoch_profile", "epoch_profile")}
+                                             for part in ("served", "stream")}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}))
+        return 0
     if "--distinct-cards" in sys.argv[1:]:
         if torch.cuda.device_count() < 4:
             fail(f"--distinct-cards needs four cards, found {torch.cuda.device_count()}")
@@ -9072,6 +10002,7 @@ def main() -> int:
     k128 = k_out.pop("_knn_k128")
     k256 = k_out.pop("_knn_k256")
     knn_edge = k_out.pop("_knn_edge")
+    c15_edge = k_out.pop("_c15_edge")
     select_rows = k_out.pop("_topk_select_rows")
     attn_l512 = k_out.pop("_attention_b32_l512")
     attn_rerank = k_out.pop("_attention_rerank")
@@ -9132,6 +10063,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     ap_out = phase_apps(torch, dev, smi)
     wall["apps_s"] = ap_out["wall_s"]
+    torch.cuda.empty_cache()
+    dc_out = phase_documents(torch, dev, smi)
+    wall["documents_s"] = dc_out["wall_s"]
     torch.cuda.empty_cache()
     sh_out = phase_sharded(torch, dev, ctx)
     wall["sharded_s"] = sh_out["wall_s"]
@@ -9205,6 +10139,7 @@ def main() -> int:
                    "persistence": ps_out["launches"].get(name, 0),
                    "stdlib": st_out["launches"].get(name, 0),
                    "apps": ap_out["launches"].get(name, 0),
+                   "documents": dc_out["launches"].get(name, 0),
                    "f32_vision": fv_out["launches"][name],
                    **{path: counts[name] for path, counts in p10_out["launches"].items()},
                    "train": tr_out["launches"][name], "dryrun": tr_out["dryrun_launches"][name]}
@@ -9230,6 +10165,7 @@ def main() -> int:
         "knn_topk_k128_ms": k128,
         "knn_topk_k256": k256,
         "knn_topk_edge": knn_edge,
+        "c15_edge": c15_edge,
         "topk_select_shapes": select_rows,
         "attention_b32_l512": attn_l512,
         "attention_rerank_b256_l512": attn_rerank,
@@ -9257,6 +10193,8 @@ def main() -> int:
         "stdlib": {key: val for key, val in st_out.items() if key != "launches"},
         "apps": {part: {key: val for key, val in ap_out[part].items() if key not in ("launches", "import_launches")}
                  for part in ("yaml_app", "stream")},
+        "documents": {part: {key: val for key, val in dc_out[part].items() if key != "launches"}
+                      for part in ("served", "stream")},
         "f32_vision": {key: val for key, val in fv_out.items() if key != "launches"},
         "train": {key: val for key, val in tr_out.items() if key not in ("launches", "dryrun_launches")},
         "phase_wall_s": wall,

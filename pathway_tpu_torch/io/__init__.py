@@ -4,9 +4,14 @@
 
 The port has the file connectors (fs, csv, jsonlines, plaintext), the
 Python connector, the REST connector (http, on the standard library's
-asyncio server) and subscribe.  The other connectors of the JAX package
-(kafka, postgres, s3, sqlite, null, ...) come with ROADMAP item 16; until
-then their names raise an ``AttributeError`` that says so.
+asyncio server), subscribe, and (slice 16f) null, sqlite, pyfilesystem,
+the object stores (s3, s3_csv, minio), the Kafka family (kafka,
+redpanda, debezium) and postgres.  A connector whose client library is
+absent raises ``MissingDependency`` when it is called (``io/_gated.py``);
+the Kafka family also runs over the in-process ``MockBroker``.  The
+other connectors of the JAX package (nats, deltalake, airbyte, ...) come
+with ROADMAP slice 16g; until then their names raise an
+``AttributeError`` that says so.
 """
 
 from __future__ import annotations
@@ -17,30 +22,37 @@ from typing import Any
 from pathway_tpu_torch.io._subscribe import OnChangeCallback, OnFinishCallback, subscribe
 
 #: connector submodules of the port
-_SUBMODULES = ["csv", "fs", "http", "jsonlines", "plaintext", "python"]
+_SUBMODULES = [
+    "csv",
+    "debezium",
+    "fs",
+    "http",
+    "jsonlines",
+    "kafka",
+    "minio",
+    "null",
+    "plaintext",
+    "postgres",
+    "pyfilesystem",
+    "python",
+    "redpanda",
+    "s3",
+    "s3_csv",
+    "sqlite",
+]
 
 #: connector submodules of ``pathway_tpu.io`` that a later slice brings
 _LATER = [
     "airbyte",
     "bigquery",
-    "debezium",
     "deltalake",
     "elasticsearch",
     "gdrive",
-    "kafka",
     "logstash",
-    "minio",
     "mongodb",
     "nats",
-    "null",
-    "postgres",
     "pubsub",
-    "pyfilesystem",
-    "redpanda",
-    "s3",
-    "s3_csv",
     "slack",
-    "sqlite",
 ]
 
 
@@ -50,7 +62,7 @@ def __getattr__(name: str) -> Any:
     if name in _LATER:
         raise AttributeError(
             f"module {__name__!r} has no attribute {name!r} yet: the port brings it with "
-            "ROADMAP item 16 (slice 16f: the other connectors)"
+            "ROADMAP item 16 (slice 16g: the last connectors)"
         )
     raise AttributeError(f"module {__name__} has no attribute {name!r}")
 

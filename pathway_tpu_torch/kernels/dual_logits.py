@@ -9,8 +9,10 @@ logit_bias`` in f32, in that order.
 parameters, which stay on the device.  For CUDA tensors it launches the
 kernel (a width divisible by 4) and raises on anything else; for CPU tensors it runs
 :func:`dual_logits_plain`.  The kernel takes the product on the tensor
-cores in three TF32 passes (f32 accuracy, ``csrc/tf32x3.cuh``), d split
-over the 8 blocks of a cluster and summed in a fixed order.
+cores in three TF32 passes (f32 accuracy, ``csrc/tf32x3.cuh``), each
+16-value stage summed apart and added in f32 (the tensor cores' own
+accumulation truncates), d split over the 8 blocks of a cluster and
+summed in a fixed order.
 """
 
 from __future__ import annotations

@@ -551,13 +551,15 @@ def test_run_raises_for_what_item_16_brings(monkeypatch, tmp_path, kwargs, env, 
 
 
 def test_io_names():
-    """The ported connectors resolve lazily, the others name item 16."""
+    """The ported connectors resolve lazily, the others name item 16 and
+    slice 16g."""
     import pathway_tpu_torch.io as tio
 
-    for name in ("csv", "fs", "http", "jsonlines", "plaintext", "python"):
+    for name in tio._SUBMODULES:
         assert getattr(tio, name).__name__ == f"pathway_tpu_torch.io.{name}"
     assert set(tio._SUBMODULES) | set(tio._LATER) == set(jpw.io._SUBMODULES)
+    assert not set(tio._SUBMODULES) & set(tio._LATER)
     for name in tio._LATER:
-        with pytest.raises(AttributeError, match="item 16"):
+        with pytest.raises(AttributeError, match="item 16 \\(slice 16g"):
             getattr(tio, name)
     assert tpw.io.subscribe is tio.subscribe

@@ -177,7 +177,12 @@ def test_import_pulls_in_no_jax():
         " pathway_tpu_torch.stdlib.ml.hmm, pathway_tpu_torch.stdlib.ml.smart_table_ops,"
         " pathway_tpu_torch.internals.sql, pathway_tpu_torch.internals.interactive,"
         " pathway_tpu_torch.internals.yaml_loader, pathway_tpu_torch.demo, pathway_tpu_torch.stdlib.viz,"
-        " pathway_tpu_torch.xpacks.llm.rag_eval, pathway_tpu_torch.cli;"
+        " pathway_tpu_torch.xpacks.llm.rag_eval, pathway_tpu_torch.cli,"
+        " pathway_tpu_torch.xpacks.llm.parsers, pathway_tpu_torch.xpacks.llm._layout,"
+        " pathway_tpu_torch.xpacks.llm._doc, pathway_tpu_torch.io.null, pathway_tpu_torch.io.sqlite,"
+        " pathway_tpu_torch.io.pyfilesystem, pathway_tpu_torch.io.s3, pathway_tpu_torch.io.s3_csv,"
+        " pathway_tpu_torch.io.minio, pathway_tpu_torch.io.kafka, pathway_tpu_torch.io.redpanda,"
+        " pathway_tpu_torch.io.debezium, pathway_tpu_torch.io.postgres;"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'pathway_tpu'));"
         "print(bad); sys.exit(1 if bad else 0)"
     )

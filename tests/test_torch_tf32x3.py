@@ -9,8 +9,10 @@ and the TF32 rounding of the rest, ``lo = rna(x - hi)``, and take a.b as
 into one f32 accumulator.  The emulation repeats that with f32 sums (each
 product of two TF32 values is exact in f32; the tensor cores' own order
 inside an 8-deep step is not modelled).  K10 also splits d over the 8
-blocks of a cluster (96 values each at d = 768) and sums the 8 partial
-tiles in block order before the rounded multiply by e^s and add of b.
+blocks of a cluster (96 values each at d = 768), sums each 16-value stage
+of a block apart and adds it to the block's partial tile (C15), and sums
+the 8 partial tiles in block order before the rounded multiply by e^s and
+add of b.
 
 Held against, on the same seeded numpy inputs:
   - ``pathway_tpu.parallel.ivf_knn._assign_ip`` and the Lloyd score of
@@ -98,15 +100,19 @@ def ivf_scores(x: torch.Tensor, c: torch.Tensor, half_norm: bool, passes: int) -
 
 
 def dual_logits_tf32(img, txt, scale, bias, passes: int = 3) -> torch.Tensor:
-    """K10: d split over SPLIT blocks in whole stages, the partial products
+    """K10: d split over SPLIT blocks in whole stages, each stage's
+    products summed apart and added to its block's partial, the partials
     summed in block order, then ``* e^s`` and ``+ b``, each rounded."""
     d = img.shape[1]
     steps = -(-d // STEP)
     per = -(-steps // SPLIT)
     total = torch.zeros((img.shape[0], txt.shape[0]))
     for rank in range(SPLIT):
-        lo, hi = min(d, rank * per * STEP), min(d, (rank + 1) * per * STEP)
-        total = total + mm_tf32(img[:, lo:hi], txt[:, lo:hi], passes)
+        part = torch.zeros_like(total)
+        for st in range(min(steps, rank * per), min(steps, (rank + 1) * per)):
+            lo, hi = st * STEP, min(d, (st + 1) * STEP)
+            part = part + mm_tf32(img[:, lo:hi], txt[:, lo:hi], passes)
+        total = total + part
     return total * torch.exp(scale) + bias
 
 
